@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 All ``csrc/*.cu`` sources are compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, loaded
-with ctypes. The build runs at first use into ``orphics_tpu_torch/_build/``
+(``sm_90a``), one ``nvcc`` process per source, all started together, and
+linked into one shared library with a plain C interface, loaded with
+ctypes. The build runs at first use into ``orphics_tpu_torch/_build/``
 (listed in ``.gitignore``), keyed by a hash of the sources, so a fresh
 checkout builds its kernels from the sources it holds. Nothing is
 compiled at import; a failed build raises.
@@ -23,11 +24,13 @@ __all__ = ["library", "build_log", "NVCC_FLAGS"]
 _PKG = Path(__file__).resolve().parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
+_I64 = ctypes.c_longlong
 _F32 = ctypes.c_float
 # name -> (argtypes, restype) of every exported C function
 _SIGNATURES = {
@@ -37,6 +40,11 @@ _SIGNATURES = {
     "bin_reduce_max_nseg": ([], _INT),
     "lens_spline_launch": ([_VP, _VP, _VP, _INT, _INT, _INT, _INT, _F32,
                             _F32, _INT, _INT, _VP], _INT),
+    "dft_launch": ([_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
+                    _INT, _VP], _INT),
+    "dft_max_n": ([], _INT),
+    "noise_planes_launch": ([_VP, _VP, _VP, _VP, _INT, _I64, _VP], _INT),
+    "mirror_launch": ([_VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP], _INT),
 }
 
 
@@ -82,23 +90,53 @@ def library() -> ctypes.CDLL:
     path = _lib_path()
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        cu = [str(p) for p in sorted(SRC_DIR.glob("*.cu"))]
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
-                               + res.stdout + res.stderr)
-        path.with_suffix(".log").write_text(res.stdout + res.stderr)
-        os.replace(tmp, path)
+        _compile_and_link(path)
     lib = ctypes.CDLL(str(path))
     for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = restype
     return lib
+
+
+def _compile_and_link(path: Path) -> None:
+    """One nvcc per source, all running at once, then one link; the
+    compiler output goes to the ``.log`` beside the library."""
+    nvcc = _nvcc()
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        jobs = []
+        for src in sorted(SRC_DIR.glob("*.cu")):
+            obj = work / (src.stem + ".o")
+            log = open(work / (src.stem + ".log"), "w")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            try:
+                proc = subprocess.Popen(cmd, stdout=log,
+                                        stderr=subprocess.STDOUT)
+            finally:
+                log.close()
+            jobs.append((src, obj, cmd, proc))
+        logs, failed = [], []
+        for src, obj, cmd, proc in jobs:
+            proc.wait()
+            out = (work / (src.stem + ".log")).read_text()
+            logs.append(f"== {src.name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(" ".join(cmd) + "\n" + out)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = work / path.name
+        cmd = [nvcc, *_ARCH, "-shared", "-o", str(tmp),
+               *(str(obj) for _, obj, _, _ in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + " ".join(cmd) + "\n"
+                               + res.stdout + res.stderr)
+        path.with_suffix(".log").write_text("".join(logs) + res.stdout
+                                            + res.stderr)
+        os.replace(tmp, path)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def check(err: int, what: str) -> None:

@@ -9,7 +9,11 @@ module needs neither jax nor ``orphics_tpu``:
   * :func:`load_pipeline_planes` overwrites a port
     :class:`~orphics_tpu_torch.models.lenspipe.LensedQEPipeline`'s planes
     with those of a JAX pipeline, so ``core`` can be held to the JAX step
-    separately from the planes' own construction.
+    separately from the planes' own construction;
+  * :func:`load_pipeline_pp_planes` does the same for the full-plane
+    path's doubly-permuted planes, bin tables and ``_tt_pp`` plans
+    (``_pp_core``). Both packages use the same layout, so the arrays
+    cross unchanged.
 """
 from __future__ import annotations
 
@@ -18,13 +22,16 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .models.lenspipe import PLANE_NAMES
+from .models.lenspipe import PLANE_NAMES, PP_PLANE_NAMES
 from .models.theory import TheorySpectra
 
-__all__ = ["theory_from_numpy", "load_pipeline_planes", "TT_HALF_NAMES"]
+__all__ = ["theory_from_numpy", "load_pipeline_planes",
+           "load_pipeline_pp_planes", "TT_HALF_NAMES", "TT_PP_NAMES"]
 
 # the arrays of QE._tt_half_plans(), in its tuple order (sym excluded)
 TT_HALF_NAMES = ("wa0", "wag", "wb0", "wbg", "post", "Lh")
+# the arrays of QE._tt_pp_plans(), in its tuple order
+TT_PP_NAMES = ("wA", "wX", "Ly", "Lx", "post")
 
 
 def theory_from_numpy(tables: Dict[str, np.ndarray], lpad: int = 9000,
@@ -57,3 +64,30 @@ def load_pipeline_planes(pipe, planes: Dict[str, np.ndarray]) -> None:
             np.array(arr), device=dev).to(pipe.dtype).contiguous())
     sym = plans[2] is None
     pipe.qe._cache["_tt_half"] = tuple(plans) + (sym,)
+
+
+def load_pipeline_pp_planes(pipe, planes: Dict[str, np.ndarray]) -> None:
+    """Overwrite a full-plane (``impl == "pallas"``) ``pipe``'s planes in
+    place.
+
+    ``planes`` holds every name of ``PP_PLANE_NAMES``, the bin tables
+    ``idc`` (flat segment ids), ``icnt`` (inverse counts) and ``nseg``,
+    the scalar ``norm``, and the ``qe._tt_pp_plans()`` arrays under
+    ``"tt_pp.<name>"`` for ``<name>`` in ``TT_PP_NAMES``, all in the
+    doubly-permuted layout.
+    """
+    if pipe.impl != "pallas":
+        raise ValueError("load_pipeline_pp_planes needs a full-plane "
+                         "pipeline (impl 'pallas')")
+    dev = pipe.device
+    as_f32 = lambda a: torch.as_tensor(np.array(a, dtype=np.float32),
+                                       device=dev).contiguous()
+    for name in PP_PLANE_NAMES:
+        setattr(pipe, name, as_f32(planes[name]))
+    pipe._idc = torch.as_tensor(np.array(planes["idc"], dtype=np.int32)
+                                .ravel(), device=dev)
+    pipe._icnt = as_f32(planes["icnt"])
+    pipe._nseg = int(planes["nseg"])
+    pipe.norm = float(planes["norm"])
+    pipe.qe._cache["_tt_pp"] = tuple(as_f32(planes["tt_pp." + name])
+                                     for name in TT_PP_NAMES)

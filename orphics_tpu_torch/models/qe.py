@@ -1,8 +1,10 @@
 """Flat-sky quadratic lensing estimators (port of ``orphics_tpu.models.qe``):
 the ``QE`` engine with its separable-term algebra, the normalization
 ``A_L``, the Gaussian noise ``N_L_kk``/``N_L_kk_cross``, the generic
-reconstruction ``kappa_from_map`` and the fused rfft half-plane TT path
-``kappa_tt_rfft``; plus ``lensing_noise_2d``.
+reconstruction ``kappa_from_map``, the fused rfft half-plane TT path
+``kappa_tt_rfft`` and the full-plane doubly-permuted TT path
+``kappa_tt_pallas`` (on the port's DFT and mirror kernels, B3/B4/B7);
+plus ``lensing_noise_2d``.
 
 Conventions are the JAX package's (Hu & Okamoto 2002 couplings, "phys"
 Fourier units ``T_phys = fft_raw * sqrt(area)/npix``, the mode-coupling
@@ -10,8 +12,7 @@ integral ``(npix/area) * fft[ifft(A) ifft(B)]``); see that module's
 docstring. Every plane lives on the engine's ``device``; the cached
 normalizations are computed eagerly there on first request.
 
-``NlGenerator``, ``rdn0``, ``mcn0``, ``n1_tt``, ``kappa_tt_pallas`` and
-``_tt_pp_plans`` are not ported yet.
+``NlGenerator``, ``rdn0``, ``mcn0`` and ``n1_tt`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -21,7 +22,9 @@ import numpy as np
 import torch
 
 from ..geometry import Geometry, arcmin
+from ..ops import dft as D
 from ..ops import fourier as F
+from ..ops.mirror import mirror_pp
 
 __all__ = ["QE", "lensing_noise_2d"]
 
@@ -427,6 +430,104 @@ class QE:
         Sk = F.rfft2(S, geom)
         uphi = 1j * (Lh[0] * Sk[..., 0, :, :] + Lh[1] * Sk[..., 1, :, :])
         return post * uphi
+
+    # -- full-plane doubly-permuted TT path -------------------------------
+    def _tt_pp_plans(self):
+        """The doubly-permuted full-plane filter planes of
+        :meth:`kappa_tt_pallas` (cached): ``(wA, wX, Ly, Lx, post)``.
+
+        The spectrum of the packed ``(a + i alpha_y)`` leg pair is
+        ``(wa0 + i wag_y)(-i fold) Z = (wa0 + wag_y) Z``: the ``-1j``
+        Hermitian fold and the ``i`` of the packing cancel, so one real
+        plane ``wA`` filters both legs. The gradient leg is zeroed on the
+        Nyquist row and column (see :meth:`_tt_half_plans`).
+        """
+        if "_tt_pp" in self._cache:
+            return self._cache["_tt_pp"]
+        n = self.geom.nx
+        if not (self.geom.ny == n and n % 128 == 0 and n >= 256):
+            raise ValueError("the full-plane TT path requires a square "
+                             f"128*B grid (B >= 2); got {self.geom.shape}")
+        if self.field_masks is not None:
+            m1 = m2 = self.field_masks["T"]
+        else:
+            m1, m2 = self.gmask, self.ymask
+        if not torch.equal(m1, m2):
+            raise ValueError("the full-plane TT path implements the "
+                             "symmetric-mask estimator")
+        C = self.cl2d["TT"]
+        ct = self.ctot["TT"]
+        phys = self._phys
+        zero = torch.zeros((), dtype=self.dtype, device=self.device)
+        w1 = torch.where(ct > 0, m1 / (2.0 * torch.where(ct > 0, ct, 1.0)),
+                         zero)
+        host = lambda A: A.to(torch.float64).cpu().numpy()
+        wa0 = host(w1 * phys)
+        wagy = host(self.ly * C * w1 * phys)
+        wagx = host(self.lx * C * w1 * phys)
+        for w in (wagy, wagx):
+            w[n // 2, :] = 0.0
+            w[:, n // 2] = 0.0
+        postf = host(self.A_L("TT") * self.kmask * 0.5 * self.modlmap ** 2
+                     * (float(self.geom.area) ** 0.5 / self._phys)
+                     * self._conv_fac)
+        perm, _ = D.row_perm(n)
+        pp = lambda A: torch.as_tensor(np.ascontiguousarray(
+            np.asarray(A)[perm][:, perm], np.float32), device=self.device)
+        plans = (pp(wa0 + wagy), pp(wagx), pp(host(self.ly)),
+                 pp(host(self.lx)), pp(postf))
+        self._cache["_tt_pp"] = plans
+        return plans
+
+    def kappa_tt_pallas(self, zr, zi):
+        """Fused TT reconstruction in the doubly-permuted layout, on the
+        port's DFT (B3/B4) and mirror (B7) kernels.
+
+        ``zr, zi``: ``(B, n, n)`` float32 re/im planes of the raw
+        full-plane fft2 of real beam-deconvolved observed maps in the
+        ``fft2pp`` layout, Hermitian per map, ``B`` even. Returns the
+        kappa planes ``(B, n, n)`` re/im in the same layout:
+        ``natural(out) == kappa_from_map("TT", fft2(map))`` to fp32
+        accuracy. Per map: 1.5 inverse and 1 forward complex 2D
+        transforms and one mirror:
+
+        * one ``ifft2pp`` gives the ``a`` and ``alpha_y`` legs as Re/Im
+          of one complex map (filter ``wa0 + wag_y``);
+        * the ``alpha_x`` legs of consecutive maps pack pairwise into one
+          ``ifft2pp`` (spectrum ``wag_x (-i Z1 + Z2)``);
+        * the source planes ``S_y, S_x`` go through one ``fft2pp`` as
+          Re/Im and are split with ``mirror_pp``.
+        """
+        wA, wX, Ly, Lx, post = self._tt_pp_plans()
+        B = zr.shape[0]
+        if B % 2:
+            raise ValueError("kappa_tt_pallas packs maps in pairs: the batch "
+                             f"must be even, got {B}")
+        # (a + i alpha_y) per map: one real filter, one inverse
+        m_r, m_i = D.ifft2pp(wA * zr, wA * zi)
+        # alpha_x legs packed across consecutive maps
+        xr = wX * zr
+        xi = wX * zi
+        pr = xi[0::2] + xr[1::2]
+        pi = xi[1::2] - xr[0::2]
+        del xr, xi
+        ax_r, ax_i = D.ifft2pp(pr, pi)
+        del pr, pi
+        ax = torch.stack([ax_r, ax_i], dim=1).reshape(zr.shape)
+        del ax_r, ax_i
+        Sy = 4.0 * m_r * m_i
+        Sx = 4.0 * m_r * ax
+        del m_r, m_i, ax
+        Nr, Ni = D.fft2pp(Sy, Sx)
+        del Sy, Sx
+        Nmr, Nmi = mirror_pp(Nr, Ni)
+        g1r = 0.5 * (Nr + Nmr)
+        g1i = 0.5 * (Ni - Nmi)
+        g2r = 0.5 * (Ni + Nmi)
+        g2i = 0.5 * (Nmr - Nr)
+        ur = -(Ly * g1i + Lx * g2i)
+        ui = Ly * g1r + Lx * g2r
+        return post * ur, post * ui
 
 
 def lensing_noise_2d(geom: Geometry, theory, beam_arcmin, noise_t_uk_arcmin,

@@ -214,6 +214,8 @@ def test_port_imports_no_jax():
     """The port runs without jax: importing its modules loads none."""
     code = ("import sys\n"
             "import orphics_tpu_torch, orphics_tpu_torch.models.lenspipe, "
+            "orphics_tpu_torch.models.qe, orphics_tpu_torch.ops.dft, "
+            "orphics_tpu_torch.ops.mirror, orphics_tpu_torch.ops.noise_planes, "
             "orphics_tpu_torch.entry, orphics_tpu_torch.convert\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'orphics_tpu.')) or "

@@ -123,3 +123,81 @@ def test_kappa_tt_rfft(engines):
             continue
         b = np.asarray(b)
         assert np.abs(a.numpy() - b).max() <= RTOL_QE * np.abs(b).max()
+
+
+# ---- the full-plane doubly-permuted TT path (kappa_tt_pallas) ----------
+
+# 2e-4 of max: the bound tests/test_qe_pallas.py holds the JAX Pallas path
+# to against the full-plane XLA reconstruction.
+TOL_PP = 2e-4
+
+
+@pytest.fixture(scope="module")
+def engines256():
+    """The setup of tests/test_qe_pallas.py (256^2, 2', 1.4', 6 uK'), both
+    packages, plus two observed maps and their pp-permuted spectra."""
+    from orphics_tpu.ops import pallas_fft as pf
+    n = 256
+    jg = jgeo.rect_geometry(width_arcmin=n * 2.0, px_res_arcmin=2.0)
+    tg = tp.rect_geometry(width_arcmin=n * 2.0, px_res_arcmin=2.0)
+    jth, tth = jtheory.default_theory(), ttheory.default_theory()
+    jct = jqe.lensing_noise_2d(jg, jth, 1.4, 6.0, dtype=jnp.float32)
+    tct = tqe.lensing_noise_2d(tg, tth, 1.4, 6.0)
+    lmax_grid = jg.ellmax_safe()
+    kw = dict(lmin=100, lmax=min(3000, lmax_grid - 1))
+    kk = dict(lmin=40, lmax=min(3000, lmax_grid * 0.8))
+    jq = jqe.QE(jg, jth, jct, xmask=JF.mask_kspace(jg, **kw),
+                kmask=JF.mask_kspace(jg, **kk), dtype=jnp.float32)
+    tq = tqe.QE(tg, tth, tct, xmask=TF.mask_kspace(tg, **kw),
+                kmask=TF.mask_kspace(tg, **kk))
+    maps = np.random.default_rng(0).standard_normal((2, n, n)).astype(
+        np.float32)
+    perm, inv = pf.row_perm(n)
+    Z = np.fft.fft2(maps)
+    zr = Z.real[:, perm][:, :, perm].astype(np.float32)
+    zi = Z.imag[:, perm][:, :, perm].astype(np.float32)
+    jr, ji = jq.kappa_tt_pallas(jnp.asarray(zr), jnp.asarray(zi),
+                                interpret=True)
+    return dict(jq=jq, tq=tq, maps=maps, zr=zr, zi=zi, inv=inv,
+                ref=np.asarray(jr) + 1j * np.asarray(ji))
+
+
+def test_tt_pp_plans_match_jax(engines256):
+    jq, tq = engines256["jq"], engines256["tq"]
+    names = ("wA", "wX", "Ly", "Lx", "post")
+    for name, a, b in zip(names, tq._tt_pp_plans(), jq._tt_pp_plans()):
+        b = np.asarray(b)
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        # post carries A_L, whose fp32 convolution sums round differently
+        # on the two sides (1.3e-4 of max at the high-L edge at 256^2):
+        # held to the bound of the kappa it scales; the rest are the same
+        # fp32 products
+        tol = TOL_PP if name == "post" else 1e-6
+        assert np.abs(a.numpy() - b).max() <= tol * np.abs(b).max(), name
+
+
+def test_kappa_tt_pallas_matches_jax(engines256):
+    e = engines256
+    tr, ti = e["tq"].kappa_tt_pallas(torch.as_tensor(e["zr"]),
+                                     torch.as_tensor(e["zi"]))
+    got = tr.numpy() + 1j * ti.numpy()
+    ref = e["ref"]
+    assert got.shape == ref.shape == (2, 256, 256)
+    assert np.abs(got - ref).max() <= TOL_PP * np.abs(ref).max()
+    # and the port's own generic reconstruction, in natural order
+    inv = e["inv"]
+    full = np.stack([e["tq"].kappa_from_map(
+        "TT", torch.fft.fft2(torch.as_tensor(m))).numpy()
+        for m in e["maps"]])
+    nat = got[:, inv][:, :, inv]
+    assert np.abs(nat - full).max() <= TOL_PP * np.abs(full).max()
+
+
+def test_kappa_tt_pallas_rejects(engines, engines256):
+    tq = engines256["tq"]
+    z = torch.zeros((3, 256, 256))
+    with pytest.raises(ValueError, match="even"):
+        tq.kappa_tt_pallas(z, z)
+    # a 64^2 grid has no full-plane path
+    with pytest.raises(ValueError, match="square 128"):
+        engines[3]._tt_pp_plans()
