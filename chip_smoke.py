@@ -10,12 +10,14 @@ and nvcc:
 
 Phases: 0 card, 1 build, 2 kernels vs plain versions, 3 flagship step,
 4 half-plane pipeline, 5 full-plane pipeline (the path ``impl="auto"``
-takes at 512^2). Phases 3-5 each set the launch counts to 0 before they
-drive their path and check them after; 4 and 5 print throughput, peak
-memory, device time by kernel, the lensing-reconstruction check and the
-card-vs-CPU agreement.
+takes at 512^2), 6 FastCl at the JAX package's bench config 1 (2048^2,
+0.5', batch 192, nseg 100). Phases 3-6 each set the launch counts to 0
+before they drive their path and check them after; 4-6 print throughput,
+peak memory, device time by kernel, a statistical check of the output and
+the card-vs-CPU agreement.
 The JSON object on a line before the last holds each kernel's launches
-(on the full-plane path), error and times; the last line is
+(on the full-plane lensing path for the kernels it runs, on the FastCl
+path for the rest), error and times; the last line is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failed check
 raises, so the exit code is non-zero and no result line is printed. It
 imports nothing of JAX.
@@ -65,24 +67,30 @@ def profile_steps(step, nsteps, step_ms, tag):
               f"{e.count // nsteps:4d}x  {e.key[:90]}")
 
 
-def pipeline_rate(pipe, batch, gen, nsteps, card, tag):
-    """Throughput of ``pipe.step`` after two warm-up steps (host clock
-    around steps ending in a synchronize), with the peak memory."""
+def throughput(step, batch, nsteps, label, unit, card, tag):
+    """Rate of ``step()`` after two warm-up steps (host clock around steps
+    ending in a synchronize), with the peak memory; returns ms per step."""
     for _ in range(2):
-        pipe.step(batch, gen)
+        step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(nsteps):
-        pipe.step(batch, gen)
+        step()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"[{tag}] pipeline impl={pipe.impl} 512^2 2' beam 1.4' 6 uK' "
-          f"order 5 batch {batch}: {nsteps * batch / dt:.2f} sims/s "
+    print(f"[{tag}] {label}: {nsteps * batch / dt:.2f} {unit} "
           f"({dt / nsteps * 1e3:.3f} ms/step over {nsteps} steps, peak "
           f"{peak:.3f} GiB) on {card}")
     return dt / nsteps * 1e3
+
+
+def pipeline_rate(pipe, batch, gen, nsteps, card, tag):
+    """Throughput of ``pipe.step``."""
+    return throughput(lambda: pipe.step(batch, gen), batch, nsteps,
+                      f"pipeline impl={pipe.impl} 512^2 2' beam 1.4' 6 uK' "
+                      f"order 5 batch {batch}", "sims/s", card, tag)
 
 
 def ratio_gate(pipe, batch, gen, tag):
@@ -139,14 +147,19 @@ def main():
     from orphics_tpu_torch.models import grf, lensing
     from orphics_tpu_torch.models.lenspipe import LensedQEPipeline
     from orphics_tpu_torch.models.theory import default_theory
+    from orphics_tpu_torch.models.fastcl import FastCl
     from orphics_tpu_torch.ops import dft
-    from orphics_tpu_torch.ops.bin_reduce import bin_reduce, bin_reduce_ref
+    from orphics_tpu_torch.ops.bin_reduce import (bin2_reduce,
+                                                  bin2_reduce_ref,
+                                                  bin_reduce, bin_reduce_ref)
     from orphics_tpu_torch.ops.binning import Bin2D, RfftBin2D
     from orphics_tpu_torch.ops.lens import (lens_map_kernel, lens_map_ref,
                                             spline_coeffs)
     from orphics_tpu_torch.ops.mirror import mirror_pp, mirror_pp_ref
     from orphics_tpu_torch.ops.noise_planes import (noise_planes,
                                                     noise_planes_ref)
+    from orphics_tpu_torch.ops.rowpower import (rowqc_half, rowqc_pp,
+                                                rowqc_pp_ref)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -385,12 +398,186 @@ def main():
     del zr, zi, zr2, zi2, zr3, er, ei, e
     torch.cuda.empty_cache()
 
+    # FastCl's kernels at bench config 1's shapes: 2048^2 at 0.5', edges
+    # arange(80, 8000, 80) (nseg 100), 96 packed pairs
+    geom1 = rect_geometry(width_arcmin=2048 * 0.5, px_res_arcmin=0.5)
+    ells_th = np.arange(th.lpad + 1)
+    cltt = np.asarray(th.lCl("TT", ells_th))
+    edges1 = np.arange(80, 8000, 80.0)
+    fc1 = FastCl(geom1, ells_th, cltt, bin_edges=edges1, device=dev)
+    P1, n1 = 96, 2048
+
+    # B1 at the half plane's (96, 2097152) with FastCl's ids (nseg 100) and
+    # with dl = 20 edges out to l = 8000 (nseg 400, two segment tiles)
+    perm1, _ = dft.row_perm(n1)
+    ml_half = geom1.modlmap_np()[perm1][:, perm1][dft.half_rows(n1)[0]]
+    ids400 = torch.as_tensor(np.digitize(
+        ml_half.ravel(), np.arange(20, 8000, 20.0), right=True)
+        .astype(np.int32), device=dev)
+    del ml_half
+    data = torch.randn((P1, n1 * n1 // 2), generator=gen, device=dev) ** 2 \
+        - 0.5
+    data2 = torch.randn((P1, n1 * n1 // 2), generator=gen, device=dev) ** 2 \
+        - 0.5
+    for nseg, ids in ((fc1._nsg, fc1._idc), (400, ids400)):
+        out = bin_reduce(data, ids, nseg)
+        again = bin_reduce(data, ids, nseg)
+        ref = bin_reduce_ref(data, ids, nseg)
+        absref = bin_reduce_ref(data.abs(), ids, nseg)
+        torch.cuda.synchronize()
+        err = (out - ref).abs()
+        rel = (err / absref.clamp_min(1e-30)).max().item()
+        check(rel <= 1e-6, f"B1 nseg {nseg}: error {rel:.3e} of binned "
+                           "|data| > 1e-6")
+        check(torch.equal(out, again), f"B1 nseg {nseg}: two runs differ")
+        b1_err = max(b1_err, err.max().item())
+        ms = cuda_ms(lambda: bin_reduce(data, ids, nseg), 10)
+        plain = cuda_ms(lambda: bin_reduce_ref(data, ids, nseg), 3, warmup=1)
+        print(f"[2] B1 bin_reduce ({P1}, {n1 * n1 // 2}) nseg={nseg}: max rel "
+              f"err {rel:.3e} of binned |data|, reproducible; kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms")
+    results["bin_reduce"]["max_abs_err"] = b1_err
+
+    # B2: the two half-plane fields of 96 pairs over FastCl's ids
+    out = bin2_reduce(data, data2, fc1._idc, fc1._nsg)
+    again = bin2_reduce(data, data2, fc1._idc, fc1._nsg)
+    ref = bin2_reduce_ref(data, data2, fc1._idc, fc1._nsg)
+    b2_err = 0.0
+    for k, (o, a, r, x) in enumerate(zip(out, again, ref, (data, data2))):
+        absref = bin_reduce_ref(x.abs(), fc1._idc, fc1._nsg)
+        err = (o - r).abs()
+        rel = (err / absref.clamp_min(1e-30)).max().item()
+        check(rel <= 1e-6, f"B2 output {k}: error {rel:.3e} of binned "
+                           "|data| > 1e-6")
+        check(torch.equal(o, a), f"B2 output {k}: two runs differ")
+        b2_err = max(b2_err, err.max().item())
+    ms = cuda_ms(lambda: bin2_reduce(data, data2, fc1._idc, fc1._nsg), 10)
+    plain = cuda_ms(lambda: bin2_reduce_ref(data, data2, fc1._idc,
+                                            fc1._nsg), 3, warmup=1)
+    print(f"[2] B2 bin2_reduce ({P1}, {n1 * n1 // 2}) x 2 nseg={fc1._nsg}: "
+          f"each output within 1e-6 of binned |data| (max abs err "
+          f"{b2_err:.3e}), reproducible; kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms")
+    results["bin2_reduce"] = dict(
+        name="bin2_reduce", route="cuda",
+        source="orphics_tpu_torch/csrc/bin_reduce.cu",
+        replaces="orphics_tpu/ops/pallas_kernels.py:163",
+        max_abs_err=b2_err, ms=ms, plain_ms=plain)
+    del data, data2, out, again, ref, absref, err, ids, ids400, o, a, r, x
+    torch.cuda.empty_cache()
+
+    # B4b and B6 on a (96, 2048, 2048) column intermediate, and at n = 384
+    y = planes((P1, n1, n1))
+    blk_err = 0.0
+    for yy, tag in ((y, f"({P1}, {n1}, {n1})"), (planes((4, 384, 384)),
+                                                 "(4, 384, 384)")):
+        err, rel = rel_err(dft.rowfft_blk0(*yy), dft.rowfft_blk0_ref(*yy))
+        torch.cuda.synchronize()
+        check(rel <= 1.5e-5, f"B4b rowfft_blk0 {tag}: error {rel:.3e} of "
+                             "max|ref| > 1.5e-5")
+        blk_err = max(blk_err, err)
+        print(f"[2] B4b rowfft_blk0 {tag}: max abs err {err:.3e} = "
+              f"{rel:.3e} of max|ref| (<= 1.5e-5)")
+    ms = cuda_ms(lambda: dft.rowfft_blk0(*y), 10)
+    plain = cuda_ms(lambda: dft.rowfft_blk0_ref(*y), 3, warmup=1)
+    print(f"[2] B4b rowfft_blk0 ({P1}, {n1}, {n1}): kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms")
+    results["rowfft_blk0"] = dict(
+        name="rowfft_blk0", route="cuda",
+        source="orphics_tpu_torch/csrc/rowpower.cu",
+        replaces="orphics_tpu/ops/pallas_fft.py:1301",
+        max_abs_err=blk_err, ms=ms, plain_ms=plain)
+    qc_err = 0.0
+    for yy, tag in ((y, f"({P1}, {n1}, {n1})"), (planes((4, 384, 384)),
+                                                 "(4, 384, 384)")):
+        got = rowqc_pp(*yy)
+        ref = rowqc_pp_ref(*yy)
+        torch.cuda.synchronize()
+        line = f"[2] B6 rowqc_pp {tag}:"
+        for name, g, r, tol in zip(("qs", "c", "zrow_r", "zrow_i"), got, ref,
+                                   (3e-5, 3e-5, 1.5e-5, 1.5e-5)):
+            check(g.shape == r.shape, f"B6 {name} {tag}: shape "
+                                      f"{tuple(g.shape)}")
+            err, rel = rel_err((g,), (r,))
+            check(rel <= tol, f"B6 {name} {tag}: error {rel:.3e} of "
+                              f"max|ref| > {tol}")
+            if name in ("qs", "c"):
+                qc_err = max(qc_err, err)
+            line += f" {name} {rel:.3e} (<= {tol})"
+        print(line + " of max|ref|")
+        del got, ref, g, r
+    del yy
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: rowqc_half(*y), 10)
+    ms_pp = cuda_ms(lambda: rowqc_pp(*y), 10)
+    plain = cuda_ms(lambda: rowqc_pp_ref(*y), 3, warmup=1)
+    print(f"[2] B6 ({P1}, {n1}, {n1}): kernel rowqc_half {ms:.4f} ms; "
+          f"rowqc_pp (B6 + B4 zrow + B4b + strip patches) {ms_pp:.4f} ms; "
+          f"plain rowqc_pp_ref {plain:.4f} ms")
+    results["rowqc_half"] = dict(
+        name="rowqc_half", route="cuda",
+        source="orphics_tpu_torch/csrc/rowpower.cu",
+        replaces="orphics_tpu/ops/pallas_fft.py:1344",
+        max_abs_err=qc_err, ms=ms, plain_ms=plain)
+    del y
+    torch.cuda.empty_cache()
+
+    # B5: the config-1 covsqrt scale, 96 pairs; B5n's stream through B4's
+    # inverse on the same words, the law under a unit scale, the seeds
+    sc1 = fc1._covsqrt_pp
+    w = torch.tensor([20260512, -77], dtype=torch.int32, device=dev)
+    got = dft.rowifft_noise_y(sc1, w, P1)
+    ref = dft.rowifft(*noise_planes(sc1, w, P1))
+    torch.cuda.synchronize()
+    b5_err, rel = rel_err(got, ref)
+    exact = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    check(rel <= 1.5e-5, f"B5 vs rowifft(noise_planes): error {rel:.3e} of "
+                         "max|ref| > 1.5e-5")
+    del ref
+    again = dft.rowifft_noise_y(sc1, w, P1)
+    check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+          "B5: the same words do not reproduce")
+    del again
+    other = dft.rowifft_noise_y(sc1, w + 1, P1)
+    check(not torch.equal(got[0], other[0]), "B5: other words, same stream")
+    del got, other
+    ur, ui = dft.rowifft_noise_y(torch.ones_like(sc1), w, P1)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(ur).all() and torch.isfinite(ui).all()),
+          "B5: non-finite Y'")
+    var_r = ur.double().var().item() * n1
+    var_i = ui.double().var().item() * n1
+    corr = (ur.double() * ui.double()).mean().item() * n1
+    check(abs(var_r - 1.0) < 2e-3 and abs(var_i - 1.0) < 2e-3,
+          f"B5: n var(Y') = {var_r:.6f}, {var_i:.6f}")
+    check(abs(corr) < 1e-3, f"B5: n E[re im] = {corr:.3e}")
+    del ur, ui
+    ms = cuda_ms(lambda: dft.rowifft_noise_y(sc1, w, P1), 10)
+    plain = cuda_ms(lambda: dft.rowifft_noise_y_ref(sc1, w, P1), 3, warmup=1)
+    print(f"[2] B5 rowifft_noise_y ({P1}, {n1}, {n1}) x 2: vs "
+          f"rowifft(noise_planes) on the same words {rel:.3e} of max|ref| "
+          f"(<= 1.5e-5; bit-equal: {exact}); unit scale: n var(Y') "
+          f"{var_r:.6f} (re), {var_i:.6f} (im) (within 2e-3 of 1), "
+          f"n E[re im] {corr:.3e}; reproducible; kernel {ms:.4f} ms, plain "
+          f"(torch.randn, then torch.fft.ifft) {plain:.4f} ms")
+    results["rowifft_noise_y"] = dict(
+        name="rowifft_noise_y", route="cuda",
+        source="orphics_tpu_torch/csrc/dft.cu",
+        replaces="orphics_tpu/ops/pallas_fft.py:658",
+        max_abs_err=b5_err, ms=ms, plain_ms=plain)
+    del fc1, sc1
+    torch.cuda.empty_cache()
+
     counters = {"bin_reduce": (bin_reduce,),
                 "lens_map_kernel": (lens_map_kernel,),
                 "colfft": (dft.colfft, dft.colifft),
                 "rowfft": (dft.rowfft, dft.rowifft, dft.rowifft_scaled_y),
                 "noise_planes": (noise_planes,),
-                "mirror_pp": (mirror_pp,)}
+                "mirror_pp": (mirror_pp,),
+                "bin2_reduce": (bin2_reduce,),
+                "rowfft_blk0": (dft.rowfft_blk0,),
+                "rowifft_noise_y": (dft.rowifft_noise_y,),
+                "rowqc_half": (rowqc_half,)}
 
     def reset_counts():
         for fns in counters.values():
@@ -452,9 +639,11 @@ def main():
                                  "path at 512^2")
     step_ms = pipeline_rate(pipe, batch, gen, 10, card, "5")
     ratio_gate(pipe, batch, gen, "5")
-    counts = read_counts(tuple(counters), "5")
-    for name, c in counts.items():
-        results[name]["launches"] = c
+    lens_path = ("bin_reduce", "lens_map_kernel", "colfft", "rowfft",
+                 "noise_planes", "mirror_pp")
+    counts = read_counts(lens_path, "5")
+    for name in lens_path:
+        results[name]["launches"] = counts[name]
     # card (kernels) vs CPU (plain versions) on the same injected planes
     mid = rect_geometry(width_arcmin=256 * 2.0, px_res_arcmin=2.0)
     p_gpu = LensedQEPipeline(mid, th, lens_order=5, device=dev)
@@ -471,6 +660,116 @@ def main():
     print(f"[5] 256^2 _pp_core card (kernels) vs CPU (plain versions), same "
           f"planes: {mid_err:.3e} of each spectrum's max (<= 2e-4)")
     profile_steps(lambda: pipe.step(batch, gen), 3, step_ms, "5")
+    del pipe, p_gpu, p_cpu, planes_cpu
+    torch.cuda.empty_cache()
+
+    # ---- 6. FastCl at bench config 1's settings: 2048^2 0.5', lensed TT,
+    # edges arange(80, 8000, 80), batch 192 (96 packed pairs)
+    reset_counts()
+    fc = FastCl(geom1, ells_th, cltt, bin_edges=edges1, device=dev)
+    nb = len(edges1) - 1
+    batch6 = 192
+    out = fc.sim_bandpowers(0, batch6)
+    torch.cuda.synchronize()
+    check(tuple(out.shape) == (batch6, nb), f"sim_bandpowers shape "
+                                       f"{tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), "sim_bandpowers not finite")
+    gen6 = torch.Generator(device=dev).manual_seed(6)
+    cell = f"2048^2 0.5' nseg {fc._nsg} batch {batch6}"
+    sim_ms = throughput(lambda: fc.sim_bandpowers(gen6, batch6), batch6, 10,
+                        f"FastCl.sim_bandpowers(generator, 192) {cell}",
+                        "sims/s", card, "6")
+
+    def config1_step(seed):
+        """bench.py config 1's step body: synthesis with the maps
+        materialized, then the fused analysis of the pre-column Y'."""
+        m1, m2, yr, yi = dft.ifft2pp_noise_y(fc._covsqrt_pp, seed,
+                                             batch6 // 2)
+        b1, b2 = fc._pair_bandpowers_y(yr, yi)
+        return torch.cat([b1, b2]), m1, m2
+
+    step1_ms = throughput(
+        lambda: config1_step(1), batch6, 10, "config-1 step body (port's "
+        f"grf_fft_bin_pipelines_per_sec_2048x2048_fp32) {cell}",
+        "pipelines/s", card, "6")
+    # map_bandpowers on the step's own maps gives the step's bandpowers:
+    # colfft(colifft(Y')) = Y' up to rounding
+    bp, m1, m2 = config1_step(123)
+    maps = torch.stack([m1, m2], dim=1).reshape(batch6, n1, n1)
+    del m1, m2
+    mbp = fc.map_bandpowers(maps)
+    torch.cuda.synchronize()
+    del maps
+    ordered = torch.stack([bp[:batch6 // 2], bp[batch6 // 2:]], dim=1) \
+        .reshape(batch6, nb)
+    check(tuple(mbp.shape) == (batch6, nb)
+          and bool(torch.isfinite(mbp).all()), "map_bandpowers: bad output")
+    mrel = ((mbp - ordered).abs() / ordered.abs()).max().item()
+    check(mrel <= 1e-3, f"map_bandpowers vs the sims' own bandpowers: "
+                        f"{mrel:.3e} relative")
+    print(f"[6] map_bandpowers of the step's {batch6} maps ({batch6}, {nb}) "
+          f"vs the step's bandpowers: max {mrel:.3e} relative per bin "
+          "(<= 1e-3)")
+    counts6 = read_counts(("bin_reduce", "bin2_reduce", "colfft", "rowfft",
+                           "rowfft_blk0", "rowifft_noise_y", "rowqc_half"),
+                          "6")
+    for name in ("bin2_reduce", "rowfft_blk0", "rowifft_noise_y",
+                 "rowqc_half"):
+        results[name]["launches"] = counts6[name]
+    profile_steps(lambda: fc.sim_bandpowers(gen6, batch6), 3, sim_ms, "6")
+    profile_steps(lambda: config1_step(7), 3, step1_ms, "6 config-1")
+    del fc, bp, mbp, ordered, out
+    torch.cuda.empty_cache()
+
+    # spectral recovery: 512 sims at 512^2 recover the input spectrum
+    # (tests/test_tpu_chip.py's gate)
+    g512 = rect_geometry(width_arcmin=512 * 2.0, px_res_arcmin=2.0)
+    e512 = np.arange(200, 4000, 200.0)
+    fc512 = FastCl(g512, ells_th, cltt, bin_edges=e512, device=dev)
+    sims = torch.cat([fc512.sim_bandpowers(s, 128) for s in (11, 22, 33, 44)])
+    mean = sims.double().mean(0).cpu().numpy()
+    # the expectation is the annulus mean of the 2D theory
+    ml = g512.modlmap_np().ravel()
+    dig = np.digitize(ml, e512, right=True)
+    cl_sum = np.bincount(dig, np.interp(ml, ells_th, cltt), len(e512) + 1)
+    count = np.bincount(dig, minlength=len(e512) + 1)
+    ratio = mean / (cl_sum / np.maximum(count, 1))[1:-1]
+    check(bool(np.all(np.isfinite(ratio))), "recovery: non-finite ratio")
+    check(bool(np.all(np.abs(ratio - 1.0) < 0.03)), f"recovery: per-bin "
+          f"|ratio - 1| up to {np.abs(ratio - 1.0).max():.4f} >= 0.03")
+    check(abs(ratio.mean() - 1.0) < 0.005, f"recovery: mean ratio "
+                                           f"{ratio.mean():.5f}")
+    print(f"[6] 512 sims at 512^2 2' ({len(ratio)} bins): max per-bin "
+          f"|ratio - 1| {np.abs(ratio - 1.0).max():.4f} (< 0.03), mean ratio "
+          f"{ratio.mean():.5f} (within 0.005 of 1)")
+    del fc512, sims
+
+    # card (kernels) vs CPU (plain versions) at 256^2 on the same noise
+    # and the same maps
+    g256 = rect_geometry(width_arcmin=256 * 2.0, px_res_arcmin=2.0)
+    e256 = np.arange(80, 4000, 160.0)
+    f_gpu = FastCl(g256, ells_th, cltt, bin_edges=e256, device=dev)
+    f_cpu = FastCl(g256, ells_th, cltt, bin_edges=e256)
+    rng = np.random.default_rng(256)
+    er, ei = (torch.as_tensor(rng.standard_normal((2, 256, 256))
+                              .astype(np.float32)) for _ in range(2))
+    mp = torch.as_tensor(rng.standard_normal((3, 256, 256))
+                         .astype(np.float32))
+    worst = 0.0
+    for tag, got, ref in (
+            ("sim_bandpowers_from_noise",
+             f_gpu.sim_bandpowers_from_noise(er.to(dev), ei.to(dev)),
+             f_cpu.sim_bandpowers_from_noise(er, ei)),
+            ("map_bandpowers", f_gpu.map_bandpowers(mp.to(dev)),
+             f_cpu.map_bandpowers(mp))):
+        got = got.cpu().numpy()
+        ref = ref.numpy()
+        rel = float(np.max(np.abs(got - ref) / np.abs(ref)))
+        check(bool(np.isfinite(got).all()) and rel <= 5e-5,
+              f"card vs CPU {tag} at 256^2: {rel:.3e} relative per bin")
+        worst = max(worst, rel)
+    print(f"[6] 256^2 card (kernels) vs CPU (plain versions), same noise and "
+          f"same maps: max {worst:.3e} relative per bin (<= 5e-5)")
 
     print(json.dumps({"kernels": [results[k] for k in counters]}))
     print(f"card: {card}")

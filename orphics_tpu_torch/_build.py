@@ -34,15 +34,21 @@ _I64 = ctypes.c_longlong
 _F32 = ctypes.c_float
 # name -> (argtypes, restype) of every exported C function
 _SIGNATURES = {
-    "bin_reduce_launch": ([_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
-                          _INT),
-    "bin_reduce_chunk": ([], _INT),
-    "bin_reduce_max_nseg": ([], _INT),
+    "bin_reduce_launch": ([_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
+                           _INT, _VP], _INT),
+    "bin2_reduce_launch": ([_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
+                            _INT, _VP], _INT),
+    "bin_reduce_span": ([], _INT),
+    "bin_reduce_seg_cap": ([], _INT),
     "lens_spline_launch": ([_VP, _VP, _VP, _INT, _INT, _INT, _INT, _F32,
                             _F32, _INT, _INT, _VP], _INT),
     "dft_launch": ([_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
                     _INT, _VP], _INT),
+    "dft_noise_launch": ([_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
+                         _INT),
     "dft_max_n": ([], _INT),
+    "rowqc_half_launch": ([_VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP], _INT),
+    "rowfft_blk0_launch": ([_VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP], _INT),
     "noise_planes_launch": ([_VP, _VP, _VP, _VP, _INT, _I64, _VP], _INT),
     "mirror_launch": ([_VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP], _INT),
 }

@@ -13,7 +13,9 @@ module needs neither jax nor ``orphics_tpu``:
   * :func:`load_pipeline_pp_planes` does the same for the full-plane
     path's doubly-permuted planes, bin tables and ``_tt_pp`` plans
     (``_pp_core``). Both packages use the same layout, so the arrays
-    cross unchanged.
+    cross unchanged;
+  * :func:`load_fastcl_tables` does the same for a
+    :class:`~orphics_tpu_torch.models.fastcl.FastCl`.
 """
 from __future__ import annotations
 
@@ -26,12 +28,16 @@ from .models.lenspipe import PLANE_NAMES, PP_PLANE_NAMES
 from .models.theory import TheorySpectra
 
 __all__ = ["theory_from_numpy", "load_pipeline_planes",
-           "load_pipeline_pp_planes", "TT_HALF_NAMES", "TT_PP_NAMES"]
+           "load_pipeline_pp_planes", "load_fastcl_tables", "TT_HALF_NAMES",
+           "TT_PP_NAMES", "FASTCL_TABLE_NAMES"]
 
 # the arrays of QE._tt_half_plans(), in its tuple order (sym excluded)
 TT_HALF_NAMES = ("wa0", "wag", "wb0", "wbg", "post", "Lh")
 # the arrays of QE._tt_pp_plans(), in its tuple order
 TT_PP_NAMES = ("wA", "wX", "Ly", "Lx", "post")
+# the attributes of the JAX FastCl that load_fastcl_tables takes
+FASTCL_TABLE_NAMES = ("_covsqrt_pp", "_idc", "_icnt", "_nsg", "_mrow",
+                      "_oh0", "_ohn", "centers")
 
 
 def theory_from_numpy(tables: Dict[str, np.ndarray], lpad: int = 9000,
@@ -91,3 +97,29 @@ def load_pipeline_pp_planes(pipe, planes: Dict[str, np.ndarray]) -> None:
     pipe.norm = float(planes["norm"])
     pipe.qe._cache["_tt_pp"] = tuple(as_f32(planes["tt_pp." + name])
                                      for name in TT_PP_NAMES)
+
+
+def load_fastcl_tables(fc, tables: Dict[str, np.ndarray]) -> None:
+    """Overwrite a port ``FastCl``'s tables in place with those of a JAX
+    ``FastCl``.
+
+    ``tables`` holds every name of ``FASTCL_TABLE_NAMES`` as numpy arrays
+    (``_covsqrt_pp`` may be None); the boundary-row one-hots ``_oh0``
+    and ``_ohn`` ``(n, nseg)`` become the row ids that the port bins with
+    (their ``argmax`` over axis 1).
+    """
+    dev = fc.device
+    ids = lambda a: torch.as_tensor(np.array(a, dtype=np.int32),
+                                    device=dev)
+    cs = tables["_covsqrt_pp"]
+    fc._covsqrt_pp = None if cs is None else torch.as_tensor(
+        np.array(cs, dtype=np.float32), device=dev).contiguous()
+    fc._idc = ids(np.asarray(tables["_idc"]).ravel())
+    fc._icnt = torch.as_tensor(np.array(tables["_icnt"], dtype=np.float32),
+                               device=dev)
+    fc._nsg = int(tables["_nsg"])
+    fc._mrow = torch.as_tensor(np.array(tables["_mrow"], dtype=np.int64),
+                               device=dev)
+    fc._ids0 = ids(np.argmax(np.asarray(tables["_oh0"]), axis=1))
+    fc._idsn = ids(np.argmax(np.asarray(tables["_ohn"]), axis=1))
+    fc.centers = np.array(tables["centers"], dtype=np.float64)

@@ -1,15 +1,20 @@
-"""Weighted segment sum, the reduction under every radial binner (kernel B1).
+"""Weighted segment sums, the reduction under every radial binner
+(kernels B1 and B2).
 
 ``bin_reduce`` is the port of ``orphics_tpu/ops/pallas_kernels.py:bin_matmul``
-with the same contract and no ``block`` or tail special case:
+and ``bin2_reduce`` that of ``bin2_matmul``, with the same contracts and no
+``block`` or tail special case:
 
-    out[b, s] = sum_n data[b, n] * weights[n] * [ids[n] == s]
+    bin_reduce:  out[b, s] = sum_n data[b, n] * weights[n] * [ids[n] == s]
+    bin2_reduce: the same without weights for two inputs over one id table
 
-For a CUDA tensor it launches the hand-written kernel in
-``csrc/bin_reduce.cu`` (shared-memory fp64 partials per chunk, then a
-fixed-order sum over chunks: deterministic, no atomics). For a CPU tensor
-it runs the plain version :func:`bin_reduce_ref`. There is no fallback
-from one to the other.
+For a CUDA tensor each launches the hand-written kernel in
+``csrc/bin_reduce.cu``: fp64 partials per warp in shared memory, then
+fixed-order sums over warps and element spans, so the result is
+deterministic with no atomics. Any segment count: segments beyond the
+kernel's per-block cap are split into tiles (:func:`_seg_tiles`), each
+reading the data once. For a CPU tensor each runs its plain version. There
+is no fallback from one to the other.
 """
 from __future__ import annotations
 
@@ -17,7 +22,7 @@ import torch
 
 from .. import _build
 
-__all__ = ["bin_reduce", "bin_reduce_ref"]
+__all__ = ["bin_reduce", "bin_reduce_ref", "bin2_reduce", "bin2_reduce_ref"]
 
 
 def bin_reduce_ref(data, ids, nseg: int, weights=None):
@@ -32,9 +37,22 @@ def bin_reduce_ref(data, ids, nseg: int, weights=None):
     return out.to(torch.float32)
 
 
-def _check(data, ids, weights, nseg):
+def bin2_reduce_ref(d1, d2, ids, nseg: int):
+    """Plain version of :func:`bin2_reduce`: two :func:`bin_reduce_ref`."""
+    return bin_reduce_ref(d1, ids, nseg), bin_reduce_ref(d2, ids, nseg)
+
+
+def _seg_tiles(nseg: int, cap: int):
+    """``(tile, ntiles)``: the fewest tiles of at most ``cap`` segments, of
+    equal size but the last; tile ``z`` covers
+    ``[z * tile, min(nseg, (z + 1) * tile))``."""
+    ntiles = -(-nseg // cap)
+    return -(-nseg // ntiles), ntiles
+
+
+def _check(data, ids, weights, nseg, what="data"):
     if data.dtype != torch.float32 or data.ndim != 2:
-        raise ValueError(f"data must be (B, N) float32, got {data.dtype} "
+        raise ValueError(f"{what} must be (B, N) float32, got {data.dtype} "
                          f"{tuple(data.shape)}")
     n = data.shape[1]
     if ids.dtype != torch.int32 or tuple(ids.shape) != (n,):
@@ -45,44 +63,68 @@ def _check(data, ids, weights, nseg):
         raise ValueError(f"weights must be ({n},) float32")
     for t in (data, ids) + (() if weights is None else (weights,)):
         if t.device != data.device:
-            raise ValueError("data, ids and weights must share one device")
+            raise ValueError(f"{what}, ids and weights must share one device")
     if nseg < 1:
         raise ValueError("nseg must be positive")
+    if data.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {data.device}")
 
 
-def _launch(data, ids, nseg, weights):
+def _launch(inputs, ids, nseg, weights, what):
+    if not all(t.is_contiguous() for t in inputs + (ids,)) or not (
+            weights is None or weights.is_contiguous()):
+        raise ValueError(f"{what} needs contiguous tensors")
     lib = _build.library()
-    if nseg > lib.bin_reduce_max_nseg():
-        raise ValueError(f"nseg={nseg} exceeds the shared memory of one block "
-                         f"(max {lib.bin_reduce_max_nseg()})")
-    if not (data.is_contiguous() and ids.is_contiguous()
-            and (weights is None or weights.is_contiguous())):
-        raise ValueError("bin_reduce needs contiguous tensors")
-    B, N = data.shape
-    chunk = lib.bin_reduce_chunk()
-    nchunks = -(-N // chunk)
-    scratch = torch.empty((nchunks, B, nseg), dtype=torch.float64,
-                          device=data.device)
-    out = torch.empty((B, nseg), dtype=torch.float32, device=data.device)
-    stream = torch.cuda.current_stream(data.device).cuda_stream
-    err = lib.bin_reduce_launch(
-        data.data_ptr(), ids.data_ptr(),
-        None if weights is None else weights.data_ptr(),
-        scratch.data_ptr(), out.data_ptr(), B, N, nseg, stream)
-    _build.check(err, "bin_reduce")
-    bin_reduce.launches += 1
+    B, N = inputs[0].shape
+    nd = len(inputs)
+    tile, ntiles = _seg_tiles(nseg, lib.bin_reduce_seg_cap())
+    nspan = -(-N // lib.bin_reduce_span())
+    dev = inputs[0].device
+    scratch = torch.empty((nd, nspan, B, nseg), dtype=torch.float64,
+                          device=dev)
+    out = torch.empty((nd, B, nseg), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if nd == 1:
+        err = lib.bin_reduce_launch(
+            inputs[0].data_ptr(), ids.data_ptr(),
+            None if weights is None else weights.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), B, N, nseg, tile, ntiles,
+            stream)
+    else:
+        err = lib.bin2_reduce_launch(
+            inputs[0].data_ptr(), inputs[1].data_ptr(), ids.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), B, N, nseg, tile, ntiles,
+            stream)
+    _build.check(err, what)
     return out
 
 
 def bin_reduce(data, ids, nseg: int, weights=None):
     """``(B, N)`` float32 data, ``(N,)`` int32 ids in ``[0, nseg)``,
-    optional ``(N,)`` float32 weights -> ``(B, nseg)`` float32 sums."""
+    optional ``(N,)`` float32 weights -> ``(B, nseg)`` float32 sums (B1)."""
     _check(data, ids, weights, nseg)
     if data.is_cuda:
-        return _launch(data, ids, nseg, weights)
-    if data.device.type == "cpu":
-        return bin_reduce_ref(data, ids, nseg, weights)
-    raise ValueError(f"bin_reduce: unsupported device {data.device}")
+        out = _launch((data,), ids, nseg, weights, "bin_reduce")[0]
+        bin_reduce.launches += 1
+        return out
+    return bin_reduce_ref(data, ids, nseg, weights)
+
+
+def bin2_reduce(d1, d2, ids, nseg: int):
+    """``(bin(d1), bin(d2))``: two ``(B, N)`` float32 inputs over one
+    ``(N,)`` int32 id table -> two ``(B, nseg)`` float32 sums (B2; the
+    port of ``bin2_matmul``)."""
+    _check(d1, ids, None, nseg, "d1")
+    _check(d2, ids, None, nseg, "d2")
+    if d1.shape != d2.shape:
+        raise ValueError(f"d1 and d2 must match: {tuple(d1.shape)} vs "
+                         f"{tuple(d2.shape)}")
+    if d1.is_cuda:
+        out = _launch((d1, d2), ids, nseg, None, "bin2_reduce")
+        bin2_reduce.launches += 1
+        return out[0], out[1]
+    return bin2_reduce_ref(d1, d2, ids, nseg)
 
 
 bin_reduce.launches = 0
+bin2_reduce.launches = 0

@@ -14,8 +14,14 @@ bit-identical to the JAX package's.
 * B4 :func:`rowfft` / :func:`rowifft` / :func:`rowifft_scaled_y`: axis
   -1 of ``(batch, R, n)`` planes (``pallas_fft.rowfft`` / ``rowifft`` /
   ``rowifft_scaled_y``);
-* the compositions :func:`fft2pp`, :func:`ifft2pp`, :func:`ifft2pp_scaled`
-  (both axes permuted) and :func:`pfft2`, :func:`pifft2` (natural order).
+* B4b :func:`rowfft_blk0`: the permuted columns ``[0, 128)`` of
+  :func:`rowfft` (``pallas_fft.rowfft_blk0``; kernel in
+  ``csrc/rowpower.cu``);
+* B5 :func:`rowifft_noise_y`: :func:`rowifft` of ``scale * eta`` with the
+  white noise drawn in the kernel (``pallas_fft.rowifft_noise_y``);
+* the compositions :func:`fft2pp`, :func:`ifft2pp`, :func:`ifft2pp_scaled`,
+  :func:`ifft2pp_noise`, :func:`ifft2pp_noise_y` (both axes permuted) and
+  :func:`pfft2`, :func:`pifft2` (natural order).
 
 For CUDA tensors the wrappers launch ``csrc/dft.cu``; for CPU tensors
 they run the plain versions (``torch.fft`` plus an ``index_select``).
@@ -31,13 +37,17 @@ import numpy as np
 import torch
 
 from .. import _build
+from .noise_planes import noise_planes_ref, seed_words
 
 __all__ = [
-    "row_perm", "natural_rows", "full_perm", "permuted_bin_tables",
+    "row_perm", "natural_rows", "full_perm", "half_rows",
+    "permuted_bin_tables",
     "colfft", "colifft", "rowfft", "rowifft", "rowifft_scaled_y",
+    "rowfft_blk0", "rowifft_noise_y",
     "colfft_ref", "colifft_ref", "rowfft_ref", "rowifft_ref",
-    "rowifft_scaled_y_ref",
-    "fft2pp", "ifft2pp", "ifft2pp_scaled", "pfft2", "pifft2",
+    "rowifft_scaled_y_ref", "rowfft_blk0_ref", "rowifft_noise_y_ref",
+    "fft2pp", "ifft2pp", "ifft2pp_scaled", "ifft2pp_noise",
+    "ifft2pp_noise_y", "pfft2", "pifft2",
 ]
 
 _A = 128
@@ -80,6 +90,17 @@ def full_perm(n: int):
     """``(perm, inv)`` of the doubly-permuted layout (rows and columns
     both in :func:`row_perm` order)."""
     return row_perm(n)
+
+
+def half_rows(n: int):
+    """Static tables of the Hermitian half plane in :func:`row_perm` order:
+    the rows with natural ky in ``[0, n/2)`` are those with
+    ``a = p mod 128 < 64`` (``ky = B a + b``). Returns ``p_of_h`` (compact
+    index h -> permuted row p, h in ``[0, n//2)``) and ``p_nyq`` (the
+    ky = n/2 row, p = 64), as ``pallas_fft.half_rows``."""
+    h = np.arange(n // 2)
+    p_of_h = (128 * (h // 64) + h % 64).astype(np.int32)
+    return p_of_h, 64
 
 
 def natural_rows(x, n=None):
@@ -163,6 +184,21 @@ def rowifft_ref(xre, xim):
 def rowifft_scaled_y_ref(kre, kim, scale):
     """Plain version of :func:`rowifft_scaled_y`."""
     return rowifft_ref(kre * scale, kim * scale)
+
+
+def rowfft_blk0_ref(yre, yim):
+    """Plain version of :func:`rowfft_blk0`: :func:`rowfft_ref`'s first
+    128 columns."""
+    zr, zi = rowfft_ref(yre, yim)
+    return zr[..., :_A].contiguous(), zi[..., :_A].contiguous()
+
+
+def rowifft_noise_y_ref(scale, seed, batch: int):
+    """Plain version of :func:`rowifft_noise_y`: :func:`rowifft_ref` of
+    :func:`~orphics_tpu_torch.ops.noise_planes.noise_planes_ref`, the JAX
+    interpret fallback's design (another stream than the kernel's, with
+    the same law)."""
+    return rowifft_ref(*noise_planes_ref(scale, seed, batch))
 
 
 # ---- kernel wrappers ----------------------------------------------------
@@ -265,11 +301,71 @@ def rowifft_scaled_y(kre, kim, scale):
     return rowifft_scaled_y_ref(kre, kim, scale)
 
 
+def rowfft_blk0(yre, yim):
+    """Lane chunk 0 (permuted columns ``[0, 128)``, k2 = 0) of the forward
+    row DFT of every row: ``(b, rows, n)`` -> ``(b, rows, 128)`` re/im
+    (B4b)."""
+    _check(yre, yim, -1, "rowfft_blk0")
+    if not yre.is_cuda:
+        return rowfft_blk0_ref(yre, yim)
+    if not (yre.is_contiguous() and yim.is_contiguous()):
+        raise ValueError("rowfft_blk0 needs contiguous tensors")
+    b, rows, n = yre.shape
+    ore = torch.empty((b, rows, _A), dtype=torch.float32, device=yre.device)
+    oim = torch.empty_like(ore)
+    err = _build.library().rowfft_blk0_launch(
+        yre.data_ptr(), yim.data_ptr(), _tables(n, False, yre.device)
+        .data_ptr(), ore.data_ptr(), oim.data_ptr(), b * rows, n,
+        torch.cuda.current_stream(yre.device).cuda_stream)
+    _build.check(err, "rowfft_blk0")
+    rowfft_blk0.launches += 1
+    return ore, oim
+
+
+def rowifft_noise_y(scale, seed, batch: int):
+    """``Y' = rowifft(scale * eta)``, ``(batch,) + scale.shape`` re/im,
+    with eta standard complex white noise drawn in the kernel: the
+    pre-column synthesis intermediate of a GRF (B5). ``scale``: ``(R, n)``
+    float32 in the planes' (doubly-permuted) layout; ``seed``: a scalar
+    stream id or ``(2,)`` int32 words, a Python value or a device tensor
+    (:func:`~orphics_tpu_torch.ops.noise_planes.seed_words`). The kernel
+    draws element ``e`` of the planes as B5n's ``noise_planes`` does, so
+    ``rowifft_noise_y(s, w, b)`` equals ``rowifft(*noise_planes(s, w, b))``
+    on the card."""
+    if scale.dtype != torch.float32 or scale.ndim != 2:
+        raise ValueError("scale must be a 2D float32 plane")
+    if batch < 1:
+        raise ValueError("batch must be positive")
+    _check(scale[None], scale[None], -1, "rowifft_noise_y")
+    if not scale.is_cuda:
+        return rowifft_noise_y_ref(scale, seed, batch)
+    if not scale.is_contiguous():
+        raise ValueError("rowifft_noise_y needs a contiguous scale")
+    lib = _build.library()
+    rows, n = scale.shape
+    if n > lib.dft_max_n():
+        raise ValueError(f"rowifft_noise_y: n={n} exceeds the kernel's "
+                         f"{lib.dft_max_n()}")
+    words = seed_words(seed, scale.device)
+    ore = torch.empty((batch, rows, n), dtype=torch.float32,
+                      device=scale.device)
+    oim = torch.empty_like(ore)
+    err = lib.dft_noise_launch(
+        scale.data_ptr(), words.data_ptr(), ore.data_ptr(), oim.data_ptr(),
+        _tables(n, True, scale.device).data_ptr(), batch, n, rows,
+        torch.cuda.current_stream(scale.device).cuda_stream)
+    _build.check(err, "rowifft_noise_y")
+    rowifft_noise_y.launches += 1
+    return ore, oim
+
+
 colfft.launches = 0
 colifft.launches = 0
 rowfft.launches = 0
 rowifft.launches = 0
 rowifft_scaled_y.launches = 0
+rowfft_blk0.launches = 0
+rowifft_noise_y.launches = 0
 
 
 # ---- compositions -------------------------------------------------------
@@ -288,6 +384,22 @@ def ifft2pp_scaled(kre, kim, scale):
     """``ifft2pp(scale * kre, scale * kim)``, the product on the first
     (row) pass's load; ``scale`` ``(n, n)`` doubly-permuted."""
     return colifft(*rowifft_scaled_y(kre, kim, scale))
+
+
+def ifft2pp_noise(scale, seed, batch: int):
+    """GRF synthesis with the white noise drawn in the kernel: the two real
+    maps ``(batch, n, n)`` of ``ifft2pp(scale * eta)`` (B5, then B3)."""
+    return colifft(*rowifft_noise_y(scale, seed, batch))
+
+
+def ifft2pp_noise_y(scale, seed, batch: int):
+    """:func:`ifft2pp_noise` that also returns the pre-column intermediate
+    ``Y'``: since ``colfft(colifft(Y')) == Y'``, an analysis
+    (``rowpower.rowqc_pp``) can take ``Y'`` directly. Returns
+    ``(m1, m2, yre, yim)``."""
+    yre, yim = rowifft_noise_y(scale, seed, batch)
+    m1, m2 = colifft(yre, yim)
+    return m1, m2, yre, yim
 
 
 def pfft2(z):

@@ -38,13 +38,24 @@ def seed_words(seed, device=None):
     return w.contiguous()
 
 
+def _mix64(x: int) -> int:
+    """splitmix64's finalizer: a bijection of 64-bit integers whose low 32
+    bits depend on every input bit."""
+    m = (1 << 64) - 1
+    x = (x + 0x9E3779B97F4A7C15) & m
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & m
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & m
+    return x ^ (x >> 31)
+
+
 def noise_planes_ref(scale, seed, batch: int):
     """Plain version: two ``torch.randn`` planes from a generator on
-    ``scale``'s device seeded by the 64 bits of the two words, times
-    ``scale``. Reads the words on the host."""
+    ``scale``'s device, times ``scale``. The generator's seed is the two
+    words' 64 bits through :func:`_mix64`, since the CPU generator keeps
+    only the low 32 bits of its seed. Reads the words on the host."""
     w0, w1 = (int(v) & 0xFFFFFFFF for v in seed_words(seed).tolist())
     gen = torch.Generator(device=scale.device)
-    gen.manual_seed((w0 << 32) | w1)
+    gen.manual_seed(_mix64((w0 << 32) | w1))
     shape = (batch,) + tuple(scale.shape)
     er = torch.randn(shape, generator=gen, dtype=torch.float32,
                      device=scale.device)

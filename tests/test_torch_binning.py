@@ -1,8 +1,9 @@
-"""Parity of the port's binning (kernel B1's plain version and the
-binners built on it) with the JAX package: ``bin_reduce_ref`` against
-``bin_matmul`` in Pallas interpret mode, and ``Bin2D``/``RfftBin2D``
-against the JAX binners (rowcum and Pallas-interpret). The CUDA kernel is
-held to its plain version in test_torch_cuda.py."""
+"""Parity of the port's binning (kernels B1 and B2's plain versions and the
+binners built on them) with the JAX package: ``bin_reduce_ref`` against
+``bin_matmul`` and ``bin2_reduce`` against ``bin2_matmul`` in Pallas
+interpret mode, and ``Bin2D``/``RfftBin2D`` against the JAX binners
+(rowcum and Pallas-interpret). The CUDA kernels are held to their plain
+versions in test_torch_cuda.py."""
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -10,11 +11,14 @@ import torch
 
 from orphics_tpu import geometry as jgeo
 from orphics_tpu.ops import binning as jbin
-from orphics_tpu.ops.pallas_kernels import bin_matmul
+from orphics_tpu.ops import pallas_fft as pf
+from orphics_tpu.ops.pallas_kernels import bin2_matmul, bin_matmul
 
 import orphics_tpu_torch as tp
 from orphics_tpu_torch.ops import binning as tbin
-from orphics_tpu_torch.ops.bin_reduce import bin_reduce, bin_reduce_ref
+from orphics_tpu_torch.ops.bin_reduce import (_seg_tiles, bin2_reduce,
+                                               bin2_reduce_ref, bin_reduce,
+                                               bin_reduce_ref)
 
 torch.set_num_threads(1)
 
@@ -60,6 +64,64 @@ def test_bin_reduce_ref_matches_bin_matmul(n, weighted):
     oracle = np.stack([np.bincount(ids, weights=data[b] * wn, minlength=nseg)
                        for b in range(B)])
     assert _bin_err(out, oracle, absref) <= 1e-7
+
+
+def test_bin2_reduce_matches_bin2_matmul():
+    """tests/test_core.py's half-plane case: the mirror-even fields of a
+    (3, 256, 256) plane binned over mirror-symmetric ids, nseg 24; and the
+    2 bin(half) - bin(row 0) + bin(row n/2) identity against the
+    full-plane sums."""
+    rng = np.random.default_rng(13)
+    n, B = 256, 3
+    zr = rng.standard_normal((B, n, n)).astype(np.float32)
+    zi = rng.standard_normal((B, n, n)).astype(np.float32)
+    perm, inv = pf.row_perm(n)
+    mrow = inv[(n - perm) % n]
+    p_of_h, pnyq = pf.half_rows(n)
+    zm_r, zm_i = zr[:, mrow][:, :, mrow], zi[:, mrow][:, :, mrow]
+    qs_full = 0.5 * (zr ** 2 + zi ** 2 + zm_r ** 2 + zm_i ** 2)
+    c_full = zr * zm_r - zi * zm_i
+    ids = rng.integers(0, 20, size=(n, n)).astype(np.int32)
+    ids = np.minimum(ids, ids[mrow][:, mrow])
+    nsg = 24
+    qs = qs_full[:, p_of_h].reshape(B, -1)
+    c = c_full[:, p_of_h].reshape(B, -1)
+    idh = ids[p_of_h].reshape(-1)
+    want = bin2_matmul(jnp.asarray(qs), jnp.asarray(c), jnp.asarray(idh),
+                       nsg, block=4096, interpret=True)
+    tq, tc = torch.as_tensor(qs), torch.as_tensor(c)
+    tid = torch.as_tensor(idh)
+    got = bin2_reduce(tq, tc, tid, nsg)
+    for g, w, x in zip(got, want, (tq, tc)):
+        assert g.shape == (B, nsg) and g.dtype == torch.float32
+        absref = bin_reduce_ref(x.abs(), tid, nsg).double()
+        assert _bin_err(g, w, absref) <= TOL_BIN     # empty bins: 0 == 0
+        np.testing.assert_array_equal(g.numpy(),
+                                      bin_reduce_ref(x, tid, nsg).numpy())
+    for x, bh in ((qs_full, got[0].numpy()), (c_full, got[1].numpy())):
+        seg = lambda v, i: np.stack([np.bincount(i.ravel(), v[b].ravel(),
+                                                 minlength=nsg)
+                                     for b in range(B)])
+        recon = 2 * bh - seg(x[:, 0], ids[0]) + seg(x[:, pnyq], ids[pnyq])
+        full = seg(x.astype(np.float64), ids)
+        assert np.abs(recon - full).max() <= 1e-5 * np.abs(full).max()
+    with pytest.raises(ValueError, match="must match"):
+        bin2_reduce(tq, tc[:2], tid, nsg)
+
+
+def test_seg_tiles_cover_every_segment_once():
+    """The kernel's segment tiling: tiles of at most ``cap`` segments, none
+    empty, covering [0, nseg) exactly once."""
+    for cap in (1, 7, 100, 256):
+        for nseg in range(1, 1001):
+            tile, ntiles = _seg_tiles(nseg, cap)
+            assert 1 <= tile <= cap
+            hits = np.zeros(nseg, np.int64)
+            for z in range(ntiles):
+                lo, hi = z * tile, min(nseg, (z + 1) * tile)
+                assert lo < hi
+                hits[lo:hi] += 1
+            assert (hits == 1).all(), (nseg, cap)
 
 
 def test_bin_reduce_rejects_bad_inputs():

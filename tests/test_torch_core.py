@@ -216,6 +216,7 @@ def test_port_imports_no_jax():
             "import orphics_tpu_torch, orphics_tpu_torch.models.lenspipe, "
             "orphics_tpu_torch.models.qe, orphics_tpu_torch.ops.dft, "
             "orphics_tpu_torch.ops.mirror, orphics_tpu_torch.ops.noise_planes, "
+            "orphics_tpu_torch.ops.rowpower, orphics_tpu_torch.models.fastcl, "
             "orphics_tpu_torch.entry, orphics_tpu_torch.convert\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'orphics_tpu.')) or "

@@ -1,13 +1,16 @@
-"""Parity of the port's doubly-permuted DFT, mirror and noise-plane modules
-(``orphics_tpu_torch.ops.dft``, ``.mirror``, ``.noise_planes``; kernels
-B3, B4, B7 and B5n) with ``orphics_tpu.ops.pallas_fft``.
+"""Parity of the port's doubly-permuted DFT, mirror, noise-plane and
+row-power modules (``orphics_tpu_torch.ops.dft``, ``.mirror``,
+``.noise_planes``, ``.rowpower``; kernels B3, B4, B4b, B5, B5n, B6 and B7)
+with ``orphics_tpu.ops.pallas_fft``.
 
 The JAX side runs its Pallas kernels with ``interpret=True``, as the JAX
 package's own tests do; the port runs its plain versions (CPU tensors).
 Inputs come from a numpy seed. Bounds: the layout tables and the mirror
 are array-equal; the transforms agree to 2e-5 of max|ref|, inside the
 JAX tests' own 1e-5 to 3e-5 against numpy (tests/test_core.py), since
-both sides are fp32 transforms by different factorizations.
+both sides are fp32 transforms by different factorizations. The lane
+chunk 0 and the fused half-plane fields agree to 1e-5 of max|ref| (~4e-7
+seen).
 """
 import numpy as np
 import pytest
@@ -20,11 +23,13 @@ from orphics_tpu.ops import pallas_fft as pf
 import orphics_tpu_torch as tp
 from orphics_tpu_torch.ops import dft as D
 from orphics_tpu_torch.ops import mirror as M
+from orphics_tpu_torch.ops import rowpower as RP
 from orphics_tpu_torch.ops.noise_planes import noise_planes, seed_words
 
 torch.set_num_threads(1)
 
 TOL = 2e-5
+TOL_QC = 1e-5
 
 # port function name -> (JAX function, takes a scale plane)
 _FUNCS = {
@@ -54,6 +59,9 @@ def case(request):
         ref[name] = tuple(np.array(a) for a in fn(*args, interpret=True))
     ref["mirror_pp"] = tuple(np.array(a) for a in
                              pf.mirror_pp(*jx, interpret=True))
+    for name in ("rowfft_blk0", "rowqc_pp", "fft2pp_qc"):
+        ref[name] = tuple(np.array(a) for a in
+                          getattr(pf, name)(*jx, interpret=True))
     return n, (xr, xi, sc), ref
 
 
@@ -107,6 +115,62 @@ def test_dft_matches_jax(case, name):
     for g, r in zip(got, ref[name]):
         assert g.shape == r.shape and g.dtype == torch.float32
         assert np.abs(g.numpy() - r).max() <= TOL * scale, name
+
+
+def test_half_rows_match_jax():
+    for n in (256, 384, 2048):
+        p_of_h, pnyq = D.half_rows(n)
+        want, wnyq = pf.half_rows(n)
+        assert p_of_h.dtype == want.dtype and pnyq == wnyq == 64
+        np.testing.assert_array_equal(p_of_h, want)
+
+
+@pytest.mark.parametrize("name,mod", [("rowfft_blk0", D),
+                                      ("rowqc_pp", RP), ("fft2pp_qc", RP)])
+def test_row_power_matches_jax(case, name, mod):
+    """B4b and the fused half-plane fields (B6 with its strip patches;
+    plain versions here) against the JAX functions."""
+    n, (xr, xi, _), ref = case
+    got = getattr(mod, name)(torch.as_tensor(xr), torch.as_tensor(xi))
+    assert len(got) == len(ref[name])
+    for g, r in zip(got, ref[name]):
+        assert g.shape == r.shape and g.dtype == torch.float32
+        assert np.abs(g.numpy() - r).max() <= TOL_QC * np.abs(r).max(), name
+    if name == "rowqc_pp":
+        plain = RP.rowqc_pp_ref(torch.as_tensor(xr), torch.as_tensor(xi))
+        for g, r in zip(plain, ref[name]):
+            assert np.abs(g.numpy() - r).max() <= TOL_QC * np.abs(r).max()
+        # the kernel's own plain version covers the whole half plane
+        qs, c = RP.rowqc_half(torch.as_tensor(xr), torch.as_tensor(xi))
+        np.testing.assert_array_equal(qs.numpy(), plain[0].numpy())
+        np.testing.assert_array_equal(c.numpy(), plain[1].numpy())
+
+
+def test_rowifft_noise_y_law():
+    """As tests/test_core.py holds the JAX interpret fallback: Y' of unit
+    white noise has variance 1/n per part, the maps 1/n^2; the plain
+    version is rowifft_ref of noise_planes_ref."""
+    n = 256
+    sc = torch.ones((n, n))
+    yr, yi = D.rowifft_noise_y(sc, 11, 2)
+    assert yr.shape == yi.shape == (2, n, n) and yr.dtype == torch.float32
+    assert torch.isfinite(yr).all() and torch.isfinite(yi).all()
+    for y in (yr, yi):
+        np.testing.assert_allclose(y.double().var().item() * n, 1.0,
+                                   rtol=0.02)
+    pr, pi = D.rowifft_ref(*noise_planes(sc, 11, 2))
+    assert torch.equal(yr, pr) and torch.equal(yi, pi)
+    m1, m2 = D.ifft2pp_noise(sc, 11, 2)
+    np.testing.assert_allclose(m1.double().var().item() * n * n, 1.0,
+                               rtol=0.05)
+    b1, b2, y1, y2 = D.ifft2pp_noise_y(sc, 11, 2)
+    assert torch.equal(b1, m1) and torch.equal(b2, m2)
+    assert torch.equal(y1, yr) and torch.equal(y2, yi)
+    # the analysis column pass inverts the synthesis one
+    cr, ci = D.colfft(m1, m2)
+    assert (cr - yr).abs().max().item() <= 1e-5 * yr.abs().max().item()
+    with pytest.raises(ValueError, match="2D float32"):
+        D.rowifft_noise_y(sc[None], 11, 2)
 
 
 def test_mirror_matches_jax(case):
@@ -206,6 +270,11 @@ def test_noise_planes_seeds():
     assert torch.isfinite(r1).all() and torch.isfinite(i1).all()
     assert torch.equal(r1, r1b) and torch.equal(r3, r3b)
     assert not torch.equal(r1, r2) and not torch.equal(r1, r3)
+    # scalar seeds fill the first word: the CPU generator, which keeps
+    # only 32 bits of its seed, still gives each its own stream
+    r4, _ = noise_planes(scale, 6, 1)
+    r5, _ = noise_planes(scale, [5, 1], 1)
+    assert not torch.equal(r3, r4) and not torch.equal(r3, r5)
     assert not torch.equal(r1, i1)
     assert seed_words(5).tolist() == [5, 0]
     assert seed_words([-1, 3]).tolist() == [-1, 3]
