@@ -11,19 +11,23 @@ and nvcc:
 Phases: 0 card, 1 build, 2 kernels vs plain versions, 3 flagship step,
 4 half-plane pipeline, 5 full-plane pipeline (the path ``impl="auto"``
 takes at 512^2), 6 FastCl at the JAX package's bench config 1 (2048^2,
-0.5', batch 192, nseg 100). Phases 3-6 each set the launch counts to 0
-before they drive their path and check them after; 4-6 print throughput,
-peak memory, device time by kernel, a statistical check of the output and
-the card-vs-CPU agreement.
+0.5', batch 192, nseg 100), 7 ``FastCl.cross_bandpowers`` at bench config
+2 (2048^2, batch 128, the 12 % taper), 8 the fused ILC coadd at bench
+config 4 (512^2, six bands, tSZ deprojected, 32 coadds). Phases 3-8 each
+set the launch counts to 0 before they drive their path and check them
+after; 4-8 print throughput, peak memory, device time by kernel, a check
+of the output and the card-vs-CPU agreement.
 The JSON object on a line before the last holds each kernel's launches
 (on the full-plane lensing path for the kernels it runs, on the FastCl
-path for the rest), error and times; the last line is
+path for B2/B4b/B5/B6, on config 2's for B3s/B6s, on config 4's for B9),
+error, times and bound; the last line is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failed check
 raises, so the exit code is non-zero and no result line is printed. It
 imports nothing of JAX.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import subprocess
@@ -32,6 +36,42 @@ import time
 
 import numpy as np
 import torch
+
+
+# NVIDIA's H100 SXM data sheet: HBM rate and fp32 rate outside the tensor
+# cores (the kernels here are fp32 FFTs and sums)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+
+def bound(nbytes, flops):
+    """``(ms, "bytes" or "operations")``: the least time the card could take
+    for work that moves ``nbytes`` (each input read once, each output
+    written once) and does ``flops`` fp32 operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def fft_flops(n, count):
+    """Operations of ``count`` complex ``n``-point transforms (5 n log2 n
+    each)."""
+    return 5.0 * n * math.log2(n) * count
+
+
+def kernel_entry(name, source, replaces, err, times, work):
+    """One kernel's record: ``times`` = (kernel, plain, library or None) ms,
+    ``work`` = (bytes, fp32 operations) of the timed call."""
+    bound_ms, bound_by = bound(*work)
+    return dict(name=name, route="cuda",
+                source="orphics_tpu_torch/csrc/" + source,
+                replaces="orphics_tpu/ops/" + replaces, max_abs_err=err,
+                ms=times[0], plain_ms=times[1], bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=times[2])
 
 
 def check(cond, msg):
@@ -144,7 +184,10 @@ def main():
         return 1
     from orphics_tpu_torch import _build, rect_geometry
     from orphics_tpu_torch.entry import entry
-    from orphics_tpu_torch.models import grf, lensing
+    from orphics_tpu_torch.geometry import arcmin
+    from orphics_tpu_torch.models import foregrounds as fg
+    from orphics_tpu_torch.models import grf, ilc, lensing
+    from orphics_tpu_torch.ops.fourier import gauss_beam
     from orphics_tpu_torch.models.lenspipe import LensedQEPipeline
     from orphics_tpu_torch.models.theory import default_theory
     from orphics_tpu_torch.models.fastcl import FastCl
@@ -158,8 +201,12 @@ def main():
     from orphics_tpu_torch.ops.mirror import mirror_pp, mirror_pp_ref
     from orphics_tpu_torch.ops.noise_planes import (noise_planes,
                                                     noise_planes_ref)
+    from orphics_tpu_torch.ops.rowcombine import (rowcombine_pp,
+                                                  rowcombine_pp_ref)
     from orphics_tpu_torch.ops.rowpower import (rowqc_half, rowqc_pp,
-                                                rowqc_pp_ref)
+                                                rowqc_pp_ref, rows_half,
+                                                rows_pp, rows_pp_ref)
+    from orphics_tpu_torch.ops.windows import get_taper
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -218,12 +265,16 @@ def main():
               f"{rel:.3e} of binned |data|, reproducible; kernel {ms:.4f} ms,"
               f" plain {plain:.4f} ms")
         if b1_times is None:
-            b1_times = (ms, plain)
-    results["bin_reduce"] = dict(
-        name="bin_reduce", route="cuda",
-        source="orphics_tpu_torch/csrc/bin_reduce.cu",
-        replaces="orphics_tpu/ops/pallas_kernels.py:94",
-        max_abs_err=b1_err, ms=b1_times[0], plain_ms=b1_times[1])
+            # library: one index_add_ of the pre-weighted data
+            ids64, dw = ids.long(), data * w
+            acc = torch.zeros((B, nseg), device=dev)
+            lib = cuda_ms(lambda: acc.index_add_(1, ids64, dw), 50)
+            b1_times = (ms, plain, lib)
+            b1_work = (nbytes(data, ids, w, out), 2.0 * data.numel())
+            del ids64, dw, acc
+    results["bin_reduce"] = kernel_entry(
+        "bin_reduce", "bin_reduce.cu", "pallas_kernels.py:94", b1_err,
+        b1_times, b1_work)
 
     # B8: the pipeline's displacement, (64, 1, 512, 512), alpha from a
     # kappa GRF, D = 8
@@ -260,13 +311,15 @@ def main():
               f"(max|ref| {scale:.3e}); kernel {ms:.4f} ms, plain "
               f"{plain:.4f} ms")
         if b8_times is None:
-            b8_times = (ms, plain)
+            # no PyTorch call evaluates a quintic spline; operations: the
+            # (order + 1)^2 taps' multiply-adds and ~8 per weight
+            b8_times = (ms, plain, None)
+            b8_work = (nbytes(coeffs, alpha, out), out.numel()
+                       * (2.0 * (order + 1) ** 2 + 16.0 * (order + 1)))
         del coeffs, out, ref
-    results["lens_map_kernel"] = dict(
-        name="lens_map_kernel", route="cuda",
-        source="orphics_tpu_torch/csrc/lens_spline.cu",
-        replaces="orphics_tpu/ops/pallas_lens.py:263",
-        max_abs_err=b8_err, ms=b8_times[0], plain_ms=b8_times[1])
+    results["lens_map_kernel"] = kernel_entry(
+        "lens_map_kernel", "lens_spline.cu", "pallas_lens.py:263", b8_err,
+        b8_times, b8_work)
     del kappa, alpha, cmb
     torch.cuda.empty_cache()
 
@@ -283,6 +336,10 @@ def main():
                  ("B4", "rowifft", dft.rowifft, dft.rowifft_ref))
     dft_err = {"B3": 0.0, "B4": 0.0}
     dft_times = {}
+    torch_fft = {"colfft": lambda z: torch.fft.fft(z, dim=-2),
+                 "colifft": lambda z: torch.fft.ifft(z, dim=-2),
+                 "rowfft": lambda z: torch.fft.fft(z, dim=-1),
+                 "rowifft": lambda z: torch.fft.ifft(z, dim=-1)}
     for shape, tol, timed in (((64, 512, 512), 2e-5, True),
                               ((32, 512, 512), 2e-5, False),
                               ((64, 384, 384), 2e-5, False),
@@ -299,8 +356,14 @@ def main():
             if timed:
                 ms = cuda_ms(lambda: fn(*x), 20)
                 plain = cuda_ms(lambda: ref_fn(*x), 20)
-                dft_times[name] = (ms, plain)
-                line += f"; kernel {ms:.4f} ms, plain {plain:.4f} ms"
+                xc = torch.complex(*x)
+                lib = cuda_ms(lambda: torch_fft[name](xc), 20)
+                del xc
+                dft_times[name] = (ms, plain, lib)
+                dft_work = (2 * nbytes(*x), fft_flops(shape[-1],
+                                                      shape[0] * shape[-1]))
+                line += (f"; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                         f"torch.fft {lib:.4f} ms")
             print(line)
         del x
     x = planes((64, 512, 512))
@@ -319,16 +382,12 @@ def main():
     plain = cuda_ms(lambda: torch.fft.fft2(torch.complex(*x)), 20)
     print(f"[2] fft2pp (64, 512, 512) on B3+B4: {ms:.4f} ms; torch.fft.fft2 "
           f"(cuFFT, natural order, no split planes): {plain:.4f} ms")
-    results["colfft"] = dict(
-        name="colfft", route="cuda", source="orphics_tpu_torch/csrc/dft.cu",
-        replaces="orphics_tpu/ops/pallas_fft.py:288",
-        max_abs_err=dft_err["B3"], ms=dft_times["colfft"][0],
-        plain_ms=dft_times["colfft"][1])
-    results["rowfft"] = dict(
-        name="rowfft", route="cuda", source="orphics_tpu_torch/csrc/dft.cu",
-        replaces="orphics_tpu/ops/pallas_fft.py:791",
-        max_abs_err=dft_err["B4"], ms=dft_times["rowfft"][0],
-        plain_ms=dft_times["rowfft"][1])
+    results["colfft"] = kernel_entry(
+        "colfft", "dft.cu", "pallas_fft.py:288", dft_err["B3"],
+        dft_times["colfft"], dft_work)
+    results["rowfft"] = kernel_entry(
+        "rowfft", "dft.cu", "pallas_fft.py:791", dft_err["B4"],
+        dft_times["rowfft"], dft_work)
 
     # B7: bit-exact against two index_select gathers
     for shape in ((32, 512, 512), (64, 512, 512), (4, 384, 384)):
@@ -344,11 +403,10 @@ def main():
     print(f"[2] B7 mirror_pp (32, 512, 512), (64, 512, 512), (4, 384, 384): "
           f"bit-exact; (32, 512, 512) kernel {ms:.4f} ms, plain "
           f"{plain:.4f} ms")
-    results["mirror_pp"] = dict(
-        name="mirror_pp", route="cuda",
-        source="orphics_tpu_torch/csrc/mirror.cu",
-        replaces="orphics_tpu/ops/pallas_fft.py:1078", max_abs_err=0.0,
-        ms=ms, plain_ms=plain)
+    # no single PyTorch call gathers Z(-k) in the permuted layout
+    results["mirror_pp"] = kernel_entry(
+        "mirror_pp", "mirror.cu", "pallas_fft.py:1078", 0.0,
+        (ms, plain, None), (2 * nbytes(*z), 0.0))
     del x, z, got, ref
     torch.cuda.empty_cache()
 
@@ -390,11 +448,13 @@ def main():
           f"{abs(std - 1.0):.3e} (< 2e-3), share beyond 4 sigma {tail:.4e} vs "
           f"{p4:.4e}, corr(re, im) {corr:.3e}, reproducible; kernel "
           f"{ms:.4f} ms, plain (torch.randn x scale) {plain:.4f} ms")
-    results["noise_planes"] = dict(
-        name="noise_planes", route="cuda",
-        source="orphics_tpu_torch/csrc/noise.cu",
-        replaces="orphics_tpu/ops/pallas_fft.py:737",
-        max_abs_err=abs(std - 1.0), ms=ms, plain_ms=plain)
+    # operations: ~25 fp32 per value (erfinvf, the uniform, the scale;
+    # Philox's integer work is not counted); no PyTorch call draws this
+    # law scaled in one pass
+    results["noise_planes"] = kernel_entry(
+        "noise_planes", "noise.cu", "pallas_fft.py:737", abs(std - 1.0),
+        (ms, plain, None), (nbytes(scale, words, zr, zi),
+                            25.0 * 2 * zr.numel()))
     del zr, zi, zr2, zi2, zr3, er, ei, e
     torch.cuda.empty_cache()
 
@@ -454,15 +514,19 @@ def main():
     ms = cuda_ms(lambda: bin2_reduce(data, data2, fc1._idc, fc1._nsg), 10)
     plain = cuda_ms(lambda: bin2_reduce_ref(data, data2, fc1._idc,
                                             fc1._nsg), 3, warmup=1)
+    # library: one index_add_ over both inputs stacked
+    ids64, both = fc1._idc.long(), torch.cat([data, data2])
+    acc = torch.zeros((2 * P1, fc1._nsg), device=dev)
+    lib = cuda_ms(lambda: acc.index_add_(1, ids64, both), 5)
+    del ids64, both, acc
     print(f"[2] B2 bin2_reduce ({P1}, {n1 * n1 // 2}) x 2 nseg={fc1._nsg}: "
           f"each output within 1e-6 of binned |data| (max abs err "
           f"{b2_err:.3e}), reproducible; kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms")
-    results["bin2_reduce"] = dict(
-        name="bin2_reduce", route="cuda",
-        source="orphics_tpu_torch/csrc/bin_reduce.cu",
-        replaces="orphics_tpu/ops/pallas_kernels.py:163",
-        max_abs_err=b2_err, ms=ms, plain_ms=plain)
+          f"{plain:.4f} ms, index_add_ {lib:.4f} ms")
+    results["bin2_reduce"] = kernel_entry(
+        "bin2_reduce", "bin_reduce.cu", "pallas_kernels.py:163", b2_err,
+        (ms, plain, lib), (nbytes(data, data2, fc1._idc, *out),
+                           2.0 * data.numel()))
     del data, data2, out, again, ref, absref, err, ids, ids400, o, a, r, x
     torch.cuda.empty_cache()
 
@@ -480,13 +544,21 @@ def main():
               f"{rel:.3e} of max|ref| (<= 1.5e-5)")
     ms = cuda_ms(lambda: dft.rowfft_blk0(*y), 10)
     plain = cuda_ms(lambda: dft.rowfft_blk0_ref(*y), 3, warmup=1)
+    # library for the 2048-point row passes (B4b, B6, B5): one torch.fft
+    # call along the rows of the same planes, natural order
+    yc = torch.complex(*y)
+    row_fft_lib = cuda_ms(lambda: torch.fft.fft(yc, dim=-1), 5)
+    row_ifft_lib = cuda_ms(lambda: torch.fft.ifft(yc, dim=-1), 5)
+    del yc
     print(f"[2] B4b rowfft_blk0 ({P1}, {n1}, {n1}): kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms")
-    results["rowfft_blk0"] = dict(
-        name="rowfft_blk0", route="cuda",
-        source="orphics_tpu_torch/csrc/rowpower.cu",
-        replaces="orphics_tpu/ops/pallas_fft.py:1301",
-        max_abs_err=blk_err, ms=ms, plain_ms=plain)
+          f"{plain:.4f} ms; torch.fft.fft / ifft along the rows "
+          f"{row_fft_lib:.4f} / {row_ifft_lib:.4f} ms")
+    rows1 = P1 * n1
+    results["rowfft_blk0"] = kernel_entry(
+        "rowfft_blk0", "rowpower.cu", "pallas_fft.py:1301", blk_err,
+        (ms, plain, row_fft_lib),
+        (nbytes(*y) + 2 * 4 * rows1 * 128,
+         rows1 * (2.0 * (n1 - 128) + fft_flops(128, 1))))
     qc_err = 0.0
     for yy, tag in ((y, f"({P1}, {n1}, {n1})"), (planes((4, 384, 384)),
                                                  "(4, 384, 384)")):
@@ -514,11 +586,11 @@ def main():
     print(f"[2] B6 ({P1}, {n1}, {n1}): kernel rowqc_half {ms:.4f} ms; "
           f"rowqc_pp (B6 + B4 zrow + B4b + strip patches) {ms_pp:.4f} ms; "
           f"plain rowqc_pp_ref {plain:.4f} ms")
-    results["rowqc_half"] = dict(
-        name="rowqc_half", route="cuda",
-        source="orphics_tpu_torch/csrc/rowpower.cu",
-        replaces="orphics_tpu/ops/pallas_fft.py:1344",
-        max_abs_err=qc_err, ms=ms, plain_ms=plain)
+    results["rowqc_half"] = kernel_entry(
+        "rowqc_half", "rowpower.cu", "pallas_fft.py:1344", qc_err,
+        (ms, plain, row_fft_lib),
+        (nbytes(*y) + 2 * 4 * rows1 * n1 // 2,
+         fft_flops(n1, rows1) + 8.0 * rows1 * n1 // 2))
     del y
     torch.cuda.empty_cache()
 
@@ -560,13 +632,121 @@ def main():
           f"{var_r:.6f} (re), {var_i:.6f} (im) (within 2e-3 of 1), "
           f"n E[re im] {corr:.3e}; reproducible; kernel {ms:.4f} ms, plain "
           f"(torch.randn, then torch.fft.ifft) {plain:.4f} ms")
-    results["rowifft_noise_y"] = dict(
-        name="rowifft_noise_y", route="cuda",
-        source="orphics_tpu_torch/csrc/dft.cu",
-        replaces="orphics_tpu/ops/pallas_fft.py:658",
-        max_abs_err=b5_err, ms=ms, plain_ms=plain)
+    results["rowifft_noise_y"] = kernel_entry(
+        "rowifft_noise_y", "dft.cu", "pallas_fft.py:658", b5_err,
+        (ms, plain, row_ifft_lib),
+        (nbytes(sc1, w) + 2 * 4 * rows1 * n1,
+         fft_flops(n1, rows1) + 25.0 * 2 * rows1 * n1))
     del fc1, sc1
     torch.cuda.empty_cache()
+
+    # B3s and B6s at bench config 2's shapes: 64 packed pairs at 2048^2,
+    # the 12 % taper on the column pass's load; and at n = 384
+    P2 = 64
+    taper1, _ = get_taper(geom1, taper_percent=12.0, device=dev)
+    x = planes((P2, n1, n1))
+    x384 = planes((4, 384, 384))
+    t384 = torch.rand((384, 384), generator=gen, device=dev)
+    b3s_err = 0.0
+    for xx, tt, tag in ((x, taper1, f"({P2}, {n1}, {n1})"),
+                        (x384, t384, "(4, 384, 384)")):
+        err, rel = rel_err(dft.colfft_scaled(*xx, tt),
+                           dft.colfft_scaled_ref(*xx, tt))
+        torch.cuda.synchronize()
+        check(rel <= 1.5e-5, f"B3s colfft_scaled {tag}: error {rel:.3e} of "
+                             "max|ref| > 1.5e-5")
+        b3s_err = max(b3s_err, err)
+        print(f"[2] B3s colfft_scaled {tag}: max abs err {err:.3e} = "
+              f"{rel:.3e} of max|ref| (<= 1.5e-5)")
+    ms = cuda_ms(lambda: dft.colfft_scaled(*x, taper1), 10)
+    ms_b3 = cuda_ms(lambda: dft.colfft(*x), 10)
+    plain = cuda_ms(lambda: dft.colfft_scaled_ref(*x, taper1), 3, warmup=1)
+    xc = torch.complex(*x)
+    lib = cuda_ms(lambda: torch.fft.fft(xc, dim=-2), 5)
+    del xc
+    print(f"[2] B3s ({P2}, {n1}, {n1}) with the 12 % taper: kernel {ms:.4f} "
+          f"ms (B3 colfft unscaled {ms_b3:.4f} ms), plain {plain:.4f} ms, "
+          f"torch.fft.fft along the columns {lib:.4f} ms")
+    rows2 = P2 * n1
+    results["colfft_scaled"] = kernel_entry(
+        "colfft_scaled", "dft.cu", "pallas_fft.py:325", b3s_err,
+        (ms, plain, lib), (2 * nbytes(*x) + nbytes(taper1),
+                           fft_flops(n1, rows2) + 2.0 * 2 * rows2 * n1))
+    s_err = 0.0
+    for yy, tag in ((x, f"({P2}, {n1}, {n1})"), (x384, "(4, 384, 384)")):
+        got = rows_pp(*yy)
+        ref = rows_pp_ref(*yy)
+        torch.cuda.synchronize()
+        line = f"[2] B6s rows_pp {tag}:"
+        for name, g, r, tol in zip(("s", "zrow_r", "zrow_i"), got, ref,
+                                   (3e-5, 1.5e-5, 1.5e-5)):
+            check(g.shape == r.shape, f"B6s {name} {tag}: shape "
+                                      f"{tuple(g.shape)}")
+            err, rel = rel_err((g,), (r,))
+            check(rel <= tol, f"B6s {name} {tag}: error {rel:.3e} of "
+                              f"max|ref| > {tol}")
+            if name == "s":
+                s_err = max(s_err, err)
+            line += f" {name} {rel:.3e} (<= {tol})"
+        print(line + " of max|ref|")
+        del got, ref, g, r
+    del yy
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: rows_half(*x), 10)
+    ms_pp = cuda_ms(lambda: rows_pp(*x), 10)
+    plain = cuda_ms(lambda: rows_pp_ref(*x), 3, warmup=1)
+    xc = torch.complex(*x)
+    lib = cuda_ms(lambda: torch.fft.fft(xc, dim=-1), 5)
+    del xc
+    print(f"[2] B6s ({P2}, {n1}, {n1}): kernel rows_half {ms:.4f} ms; rows_pp "
+          f"(B6s + B4 zrow + B4b + strip patches) {ms_pp:.4f} ms; plain "
+          f"rows_pp_ref {plain:.4f} ms; torch.fft.fft along the rows "
+          f"{lib:.4f} ms")
+    results["rows_half"] = kernel_entry(
+        "rows_half", "rowpower.cu", "pallas_fft.py:1456", s_err,
+        (ms, plain, lib), (nbytes(*x) + 4 * rows2 * n1 // 2,
+                           fft_flops(n1, rows2) + 3.0 * rows2 * n1 // 2))
+    del x, x384, taper1, t384
+    torch.cuda.empty_cache()
+
+    # B9 at bench config 4's shape: 32 coadds of 3 band pairs at 512^2
+    # (96 pairs), and at n = 384 (nq 3, two coadds); 1e-5 of max|ref|
+    # (tests/test_core.py's bound for the JAX kernel)
+    b9_err = 0.0
+    for npt, nq, n9 in ((96, 3, 512), (6, 3, 384)):
+        y9 = planes((npt, n9, n9))
+        w9 = tuple(torch.randn((nq, n9, n9), generator=gen, device=dev)
+                   for _ in range(4))
+        err, rel = rel_err(rowcombine_pp(*y9, *w9, nq),
+                           rowcombine_pp_ref(*y9, *w9, nq))
+        torch.cuda.synchronize()
+        check(rel <= 1e-5, f"B9 rowcombine_pp ({npt}, {n9}, {n9}) nq {nq}: "
+                           f"error {rel:.3e} of max|ref| > 1e-5")
+        b9_err = max(b9_err, err)
+        print(f"[2] B9 rowcombine_pp ({npt}, {n9}, {n9}) nq {nq}, "
+              f"{npt // nq} coadds: max abs err {err:.3e} = {rel:.3e} of "
+              "max|ref| (<= 1e-5)")
+        if n9 == 512:
+            ms = cuda_ms(lambda: rowcombine_pp(*y9, *w9, nq), 20)
+            plain = cuda_ms(lambda: rowcombine_pp_ref(*y9, *w9, nq), 5)
+            print(f"[2] B9 ({npt}, {n9}, {n9}) nq {nq}: kernel {ms:.4f} ms, "
+                  f"plain {plain:.4f} ms (no single PyTorch call computes "
+                  "it)")
+            b9_work = (nbytes(*y9, *w9) + 2 * 4 * (npt // nq) * n9 * n9,
+                       fft_flops(n9, npt * n9) + 16.0 * npt * n9 * n9)
+            b9_times = (ms, plain, None)
+    results["rowcombine_pp"] = kernel_entry(
+        "rowcombine_pp", "rowcombine.cu", "pallas_fft.py:1603", b9_err,
+        b9_times, b9_work)
+    del y9, w9
+    torch.cuda.empty_cache()
+    for r in results.values():
+        print(f"[2] {r['name']}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library "
+              + ("none" if r["library_ms"] is None
+                 else f"{r['library_ms']:.4f} ms")
+              + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}) on "
+              f"{card}")
 
     counters = {"bin_reduce": (bin_reduce,),
                 "lens_map_kernel": (lens_map_kernel,),
@@ -577,7 +757,10 @@ def main():
                 "bin2_reduce": (bin2_reduce,),
                 "rowfft_blk0": (dft.rowfft_blk0,),
                 "rowifft_noise_y": (dft.rowifft_noise_y,),
-                "rowqc_half": (rowqc_half,)}
+                "rowqc_half": (rowqc_half,),
+                "colfft_scaled": (dft.colfft_scaled,),
+                "rows_half": (rows_half,),
+                "rowcombine_pp": (rowcombine_pp,)}
 
     def reset_counts():
         for fns in counters.values():
@@ -749,7 +932,7 @@ def main():
     g256 = rect_geometry(width_arcmin=256 * 2.0, px_res_arcmin=2.0)
     e256 = np.arange(80, 4000, 160.0)
     f_gpu = FastCl(g256, ells_th, cltt, bin_edges=e256, device=dev)
-    f_cpu = FastCl(g256, ells_th, cltt, bin_edges=e256)
+    f_cpu = FastCl(g256, ells_th, cltt, bin_edges=e256, device="cpu")
     rng = np.random.default_rng(256)
     er, ei = (torch.as_tensor(rng.standard_normal((2, 256, 256))
                               .astype(np.float32)) for _ in range(2))
@@ -770,7 +953,258 @@ def main():
         worst = max(worst, rel)
     print(f"[6] 256^2 card (kernels) vs CPU (plain versions), same noise and "
           f"same maps: max {worst:.3e} relative per bin (<= 5e-5)")
+    torch.cuda.empty_cache()
 
+    # ---- 7. FastCl.cross_bandpowers at bench config 2's settings: 2048^2
+    # 0.5', lensed TT, edges arange(80, 8000, 80), batch 128 (64 pairs of
+    # independent sims), the 12 % taper on the analysis transform's load,
+    # debiased by w2, Knox errors (bench.py:239-298)
+    reset_counts()
+    fc = FastCl(geom1, ells_th, cltt, bin_edges=edges1)
+    check(fc.device == torch.device("cuda"), f"FastCl built with no device "
+                                             f"lives on {fc.device}")
+    taper, w2 = get_taper(geom1, taper_percent=12.0)
+    check(taper.is_cuda, "get_taper with no device is not on the card")
+    fsky = geom1.area / (4 * np.pi) * w2
+    knox = torch.as_tensor(np.sqrt(2.0 / np.maximum(
+        (2 * fc.centers + 1) * (edges1[1] - edges1[0]) * fsky, 1e-30)),
+        dtype=torch.float32, device=dev)
+    pairs7 = 128 // 2
+
+    def config2_step(seed):
+        """bench.py config 2's step: fresh sim pairs, the taper fused on
+        the load, cross spectra debiased by w2, Knox errors."""
+        m1, m2 = dft.ifft2pp_noise(fc._covsqrt_pp, seed, pairs7)
+        bs = fc.cross_bandpowers(m1, m2, window=taper) / w2
+        return bs, bs * knox
+
+    bs, errs = config2_step(0)
+    torch.cuda.synchronize()
+    check(tuple(bs.shape) == tuple(errs.shape) == (pairs7, nb),
+          f"config 2 output shape {tuple(bs.shape)}")
+    check(bool(torch.isfinite(bs).all() and torch.isfinite(errs).all()),
+          "config 2 output not finite")
+    seeds = itertools.count(1)
+    cell7 = f"2048^2 0.5' nseg {fc._nsg} batch 128 taper 12 %"
+    step7_ms = throughput(
+        lambda: config2_step(next(seeds)), pairs7, 10, "config-2 step "
+        f"(port's masked_cross_spectra_per_sec_2048x2048_fp32) {cell7}",
+        "cross-spectra/s", card, "7")
+    counts7 = read_counts(("bin_reduce", "colfft", "colfft_scaled",
+                           "rowfft", "rowfft_blk0", "rowifft_noise_y",
+                           "rows_half"), "7")
+    print(f"[7] 13 steps (1 check, 2 warm-up, 10 timed): "
+          f"{counts7['rows_half'] / 13:.0f} B6s, "
+          f"{counts7['colfft_scaled'] / 13:.0f} B3s, "
+          f"{counts7['bin_reduce'] / 13:.0f} B1 launches per step")
+    for name in ("colfft_scaled", "rows_half"):
+        results[name]["launches"] = counts7[name]
+    profile_steps(lambda: config2_step(next(seeds)), 3, step7_ms, "7")
+    # the timed step's own output at its own shape (64 pairs at 2048^2):
+    # card (kernels) vs a CPU FastCl (plain versions) on the same maps.
+    # The cross spectrum of independent maps sums terms of scale
+    # sqrt(P11 P22) that cancel to ~1/sqrt(modes) of it, so its error is
+    # read against sqrt(P11 P22), the two tapered auto spectra, as the auto
+    # gate below reads its own; against the bin's largest |cross| over the
+    # pairs it is printed, not gated
+    bs, errs = config2_step(0)
+    m1, m2 = dft.ifft2pp_noise(fc._covsqrt_pp, 0, pairs7)
+    fc_cpu = FastCl(geom1, ells_th, cltt, bin_edges=edges1, device="cpu")
+    taper_cpu, _ = get_taper(geom1, taper_percent=12.0, device="cpu")
+    bs_cpu = fc_cpu.cross_bandpowers(m1.cpu(), m2.cpu(),
+                                     window=taper_cpu) / w2
+    p12 = (fc.map_bandpowers(m1 * taper) * fc.map_bandpowers(m2 * taper)
+           ).sqrt().cpu() / w2
+    srel, xrel = 0.0, 0.0
+    for got, ref, scale in ((bs, bs_cpu, p12),
+                            (errs, bs_cpu * knox.cpu(), p12 * knox.cpu())):
+        diff = (got.cpu() - ref).abs()
+        srel = max(srel, (diff / scale).max().item())
+        xrel = max(xrel, (diff.amax(0) / ref.abs().amax(0)).max().item())
+    check(bool(torch.isfinite(bs).all()) and srel <= 5e-5,
+          f"config-2 step, card vs CPU: {srel:.3e} of sqrt(P11 P22)")
+    print(f"[7] the config-2 step's output ({pairs7} pairs at 2048^2, "
+          f"bandpowers and Knox errors), card (kernels) vs CPU (plain "
+          f"versions) on the same maps: {srel:.3e} of sqrt(P11 P22) per bin "
+          f"(<= 5e-5); {xrel:.3e} of the bin's max |cross| over the pairs")
+    del fc_cpu, taper_cpu, bs_cpu, p12
+    # gates on the step's own maps (8 of each): cross(m, m) is the auto
+    # spectrum; the fused taper equals pre-multiplied maps (a correlated
+    # pair, so that no bin is near 0)
+    m1, m2 = dft.ifft2pp_noise(fc._covsqrt_pp, 77, 8)
+    m2 = m1 + m2
+    auto = fc.map_bandpowers(m1)
+    rel = ((fc.cross_bandpowers(m1, m1) - auto).abs() / auto.abs()).max()
+    check(rel.item() <= 5e-5, f"cross_bandpowers(m, m) vs map_bandpowers(m):"
+                              f" {rel.item():.3e} relative per bin")
+    fused = fc.cross_bandpowers(m1, m2, window=taper)
+    premul = fc.cross_bandpowers(m1 * taper, m2 * taper)
+    frel = ((fused - premul).abs() / premul.abs()).max().item()
+    check(frel <= 2e-5, f"fused taper vs pre-multiplied maps: {frel:.3e} "
+                        "relative per bin")
+    print(f"[7] 8 maps at 2048^2: cross_bandpowers(m, m) vs map_bandpowers(m)"
+          f" {rel.item():.3e} relative per bin (<= 5e-5); fused taper vs "
+          f"pre-multiplied maps {frel:.3e} (<= 2e-5)")
+    del fc, m1, m2, auto, fused, premul, bs, errs
+    torch.cuda.empty_cache()
+    # card (kernels) vs CPU (plain versions) at 256^2, same maps, with and
+    # without the taper
+    mp2 = mp + 0.5 * torch.as_tensor(rng.standard_normal((3, 256, 256))
+                                     .astype(np.float32))
+    t_gpu, _ = get_taper(g256, taper_percent=12.0, device=dev)
+    t_cpu, _ = get_taper(g256, taper_percent=12.0, device="cpu")
+    worst = 0.0
+    for tg, tc in ((None, None), (t_gpu, t_cpu)):
+        got = f_gpu.cross_bandpowers(mp.to(dev), mp2.to(dev),
+                                     window=tg).cpu().numpy()
+        ref = f_cpu.cross_bandpowers(mp, mp2, window=tc).numpy()
+        rel = float(np.max(np.abs(got - ref) / np.abs(ref)))
+        check(bool(np.isfinite(got).all()) and rel <= 5e-5,
+              f"card vs CPU cross_bandpowers at 256^2: {rel:.3e} relative")
+        worst = max(worst, rel)
+    print(f"[7] 256^2 cross_bandpowers card (kernels) vs CPU (plain "
+          f"versions), with and without the taper: max {worst:.3e} relative "
+          "per bin (<= 5e-5)")
+    del f_gpu, f_cpu
+
+    # ---- 8. the fused ILC coadd at bench config 4's settings: 512^2 2',
+    # six bands 39-350 GHz, ilc_cinv with tSZ, CIB-C and kSZ, cilc_weights
+    # deprojecting tSZ, 32 coadds per step (bench.py:461-578)
+    reset_counts()
+    freqs = np.array([39.0, 93.0, 145.0, 225.0, 280.0, 350.0])
+    beams = np.array([5.1, 2.2, 1.4, 1.0, 0.9, 0.8])
+    noises = np.array([36.0, 8.0, 10.0, 22.0, 54.0, 100.0])
+    nf = len(freqs)
+    ells4 = np.arange(2, int(geom.ellmax_safe()))
+    cinv1d, _ = ilc.ilc_cinv(
+        ells4, np.asarray(th.lCl("TT", ells4)),
+        [gauss_beam(ells4, b) for b in beams], freqs,
+        (noises * arcmin) ** 2, components=("tsz", "cibc", "ksz"),
+        fdict=fg.fg_dict(10.0 + 0 * freqs, freqs), device="cpu")
+    cinv1d = cinv1d.numpy()
+
+    def cinv_2d(g, device):
+        """The (nf, nf, n, n) Cinv painted on ``g``'s |l| grid, in float64:
+        the tSZ constraint cancels bands of opposite sign, so weights
+        solved from bench.py's float32 cinv2d leave more tSZ in the coadd
+        than weights solved in float64 and rounded to float32 planes. The
+        phase prints the residual of both."""
+        ml = g.modlmap_np()
+        return torch.as_tensor(np.stack([
+            [np.interp(ml, ells4, cinv1d[i, j], left=0, right=0)
+             for j in range(nf)] for i in range(nf)]), device=device)
+
+    a_cmb = np.ones(nf, np.float32)
+    a_tsz = np.asarray(fg.g_tsz(freqs), np.float32)
+    w2d = ilc.cilc_weights(cinv_2d(geom, dev), a_cmb, a_tsz)
+    weights = ilc.coadd_weights_pp(w2d)
+    perm4, _ = dft.row_perm(geom.ny)
+    cs = grf.spec2flat(geom, cltt[None, None], exp=0.5,
+                       device="cpu")[0, 0].numpy()
+    covsqrt4 = torch.as_tensor(np.ascontiguousarray(
+        cs[perm4][:, perm4] * np.sqrt(geom.npix).astype(np.float32)),
+        device=dev)
+    batch8 = 32
+    pairs8 = batch8 * nf // 2
+
+    def config4_step(seed):
+        """bench.py config 4's step: B5 draws the bands' pre-column
+        intermediates, B9 combines the bands of each coadd, B3/B4 invert
+        the coadds in packed pairs."""
+        yr, yi = dft.rowifft_noise_y(covsqrt4, seed, pairs8)
+        return ilc.coadd_from_y(yr, yi, weights)
+
+    out8 = config4_step(0)
+    torch.cuda.synchronize()
+    check(tuple(out8.shape) == (batch8, geom.ny, geom.nx)
+          and bool(torch.isfinite(out8).all()), "config 4 output: shape "
+          f"{tuple(out8.shape)} or not finite")
+    seeds = itertools.count(1)
+    step8_ms = throughput(
+        lambda: config4_step(next(seeds)), batch8, 50, "config-4 step "
+        "(port's ilc_6band_deproj_coadds_per_sec_512x512_fp32) 512^2 2' "
+        f"{nf} bands tSZ deprojected batch {batch8}", "coadds/s", card, "8")
+    counts8 = read_counts(("colfft", "rowfft", "rowifft_noise_y",
+                           "rowcombine_pp"), "8")
+    print(f"[8] 53 steps (1 check, 2 warm-up, 50 timed): "
+          f"{counts8['rowcombine_pp'] / 53:.0f} B9, "
+          f"{counts8['rowifft_noise_y'] / 53:.0f} B5, "
+          f"{counts8['colfft'] / 53:.0f} B3, {counts8['rowfft'] / 53:.0f} B4 "
+          "launches per step")
+    results["rowcombine_pp"]["launches"] = counts8["rowcombine_pp"]
+    profile_steps(lambda: config4_step(next(seeds)), 10, step8_ms, "8")
+    # the timed step's own output at its own shape (32 coadds, 96 pairs at
+    # 512^2): card (B5 -> B9 -> packed ifft2pp) vs the CPU's plain versions
+    # on the same noise, which B5n draws as B5 does (phase 2)
+    out8 = config4_step(5)
+    nr, ni = noise_planes(covsqrt4, 5, pairs8)
+    ref8 = ilc.coadd_from_y(*dft.rowifft(nr.cpu(), ni.cpu()),
+                            [x.cpu() for x in weights])
+    _, srel = rel_err((out8.cpu(),), (ref8,))
+    check(bool(torch.isfinite(out8).all()) and srel <= 1e-5,
+          f"config-4 step, card vs CPU: {srel:.3e} of max")
+    print(f"[8] the config-4 step's output ({batch8} coadds, {pairs8} band "
+          f"pairs at 512^2), card (kernels) vs CPU (plain versions) on the "
+          f"same noise: {srel:.3e} of max (<= 1e-5)")
+    del out8, nr, ni, ref8
+    # the constraint at 512^2 on the config's weights: bands that carry
+    # only a tSZ-SED map coadd to ~0; bands that carry one CMB map coadd
+    # to that map, kept where the weights are defined
+    tmap = torch.as_tensor(np.random.default_rng(8).standard_normal(
+        (4, 1, geom.ny, geom.nx)).astype(np.float32), device=dev)
+    g_t = torch.as_tensor(a_tsz, device=dev)[None, :, None, None]
+    tsz_in = tmap * g_t
+    tsz_out = ilc.linear_coadd_fused(tsz_in, w2d)
+    tsz_rel = (tsz_out.abs().max() / tsz_in.abs().max()).item()
+    check(tsz_rel <= 1e-4, f"tSZ-only bands coadd to {tsz_rel:.3e} of the "
+                           "input's max")
+    # the same weights solved as bench.py's config 4 does, from a float32
+    # Cinv: read, not gated (cinv_2d's docstring)
+    w2d_32 = ilc.cilc_weights(cinv_2d(geom, dev).to(torch.float32), a_cmb,
+                              a_tsz)
+    for tag, w in (("float64", w2d), ("float32", w2d_32)):
+        resp = (w.to(torch.float32).double() * g_t[0].double()).sum(0)
+        res = ilc.linear_coadd_fused(tsz_in, w).abs().max() / tsz_in.abs().max()
+        print(f"[8] weights solved from a {tag} Cinv: max|sum_b w_b g_b| "
+              f"{resp.abs().max().item():.3e}; tSZ-only bands coadd to "
+              f"{res.item():.3e} of the input's max")
+    del w2d_32
+    cmb_out = ilc.linear_coadd_fused(tmap.expand(-1, nf, -1, -1), w2d)
+    kept = (w2d.abs().sum(0) > 0).to(torch.float32)
+    cmb_ref = torch.fft.ifft2(torch.fft.fft2(tmap[:, 0]) * kept).real
+    cmb_err, cmb_rel = rel_err((cmb_out,), (cmb_ref,))
+    check(cmb_rel <= 1e-4, f"CMB-only bands coadd: {cmb_rel:.3e} of max")
+    print(f"[8] 512^2, 4 coadds on the config's weights: tSZ-only bands "
+          f"{tsz_rel:.3e} of the input's max (<= 1e-4); CMB-only bands vs "
+          f"the map kept where the weights are defined {cmb_rel:.3e} of max "
+          "(<= 1e-4)")
+    # cilc_coadd_fused vs ifft2(cilc(fft2(maps))).real on the card, and
+    # card vs CPU, at 256^2 on the config's Cinv
+    maps = np.random.default_rng(44).standard_normal(
+        (4, nf, 256, 256)).astype(np.float32)
+    ci_gpu = cinv_2d(g256, dev)
+    fused = ilc.cilc_coadd_fused(torch.as_tensor(maps, device=dev), ci_gpu,
+                                 a_cmb, a_tsz)
+    direct = torch.stack([torch.fft.ifft2(ilc.cilc(
+        torch.fft.fft2(torch.as_tensor(m, device=dev)), ci_gpu, a_cmb,
+        a_tsz)).real for m in maps])
+    _, drel = rel_err((fused,), (direct,))
+    check(drel <= 1e-5, f"cilc_coadd_fused vs ifft2(cilc(fft2)) at 256^2: "
+                        f"{drel:.3e} of max")
+    cpu = ilc.cilc_coadd_fused(torch.as_tensor(maps), cinv_2d(g256, "cpu"),
+                               a_cmb, a_tsz)
+    _, crel = rel_err((fused.cpu(),), (cpu,))
+    check(bool(torch.isfinite(fused).all()) and crel <= 1e-5,
+          f"card vs CPU cilc_coadd_fused at 256^2: {crel:.3e} of max")
+    print(f"[8] 256^2, 4 coadds: cilc_coadd_fused vs ifft2(cilc(fft2(maps)))"
+          f" on the card {drel:.3e} of max (<= 1e-5); card (kernels) vs CPU "
+          f"(plain versions) {crel:.3e} of max (<= 1e-5)")
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for r in results.values():
+        check(all(k in r for k in keys), f"{r['name']}: record lacks "
+              f"{[k for k in keys if k not in r]}")
     print(json.dumps({"kernels": [results[k] for k in counters]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

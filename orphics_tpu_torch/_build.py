@@ -48,6 +48,8 @@ _SIGNATURES = {
                          _INT),
     "dft_max_n": ([], _INT),
     "rowqc_half_launch": ([_VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP], _INT),
+    "rows_half_launch": ([_VP, _VP, _VP, _VP, _INT, _INT, _VP], _INT),
+    "rowcombine_launch": ([_VP] * 9 + [_INT, _INT, _INT, _VP], _INT),
     "rowfft_blk0_launch": ([_VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP], _INT),
     "noise_planes_launch": ([_VP, _VP, _VP, _VP, _INT, _I64, _VP], _INT),
     "mirror_launch": ([_VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP], _INT),

@@ -15,7 +15,11 @@ module needs neither jax nor ``orphics_tpu``:
     (``_pp_core``). Both packages use the same layout, so the arrays
     cross unchanged;
   * :func:`load_fastcl_tables` does the same for a
-    :class:`~orphics_tpu_torch.models.fastcl.FastCl`.
+    :class:`~orphics_tpu_torch.models.fastcl.FastCl`;
+  * :func:`load_ilc_weights` takes the per-band weight planes of an ILC
+    (``orphics_tpu.models.ilc.cilc_weights`` / ``silc_weights``) as the
+    tensor that :func:`~orphics_tpu_torch.models.ilc.linear_coadd_fused`
+    coadds with.
 """
 from __future__ import annotations
 
@@ -24,11 +28,13 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ._device import resolve
 from .models.lenspipe import PLANE_NAMES, PP_PLANE_NAMES
 from .models.theory import TheorySpectra
 
 __all__ = ["theory_from_numpy", "load_pipeline_planes",
-           "load_pipeline_pp_planes", "load_fastcl_tables", "TT_HALF_NAMES",
+           "load_pipeline_pp_planes", "load_fastcl_tables",
+           "load_ilc_weights", "TT_HALF_NAMES",
            "TT_PP_NAMES", "FASTCL_TABLE_NAMES"]
 
 # the arrays of QE._tt_half_plans(), in its tuple order (sym excluded)
@@ -123,3 +129,14 @@ def load_fastcl_tables(fc, tables: Dict[str, np.ndarray]) -> None:
     fc._ids0 = ids(np.argmax(np.asarray(tables["_oh0"]), axis=1))
     fc._idsn = ids(np.argmax(np.asarray(tables["_ohn"]), axis=1))
     fc.centers = np.array(tables["centers"], dtype=np.float64)
+
+
+def load_ilc_weights(w2d: np.ndarray, device=None) -> torch.Tensor:
+    """The JAX package's ``(nfreq, n, n)`` per-band ILC weight planes
+    (natural layout, as numpy) as a contiguous float32 tensor on
+    ``device`` (the card unless it names another), ready for
+    ``models.ilc.linear_coadd_fused``."""
+    w = np.array(w2d, dtype=np.float32)
+    if w.ndim != 3 or w.shape[1] != w.shape[2]:
+        raise ValueError(f"ILC weights must be (nfreq, n, n), got {w.shape}")
+    return torch.as_tensor(w, device=resolve(device)).contiguous()

@@ -1,5 +1,5 @@
 // Column and row DFTs of re/im fp32 planes in the doubly-permuted ("pp")
-// layout (kernels B3, B4 and B5 of the port).
+// layout (kernels B3, B3s, B4 and B5 of the port).
 //
 //   forward:  X[k] = sum_n x[n] w_N^(n k),  w_N = exp(-2 pi i / N)
 //             stored at p = 128 k2 + k1 for k = k2 + Bk k1 (row_perm order)
@@ -7,14 +7,17 @@
 //
 // along axis -2 of (batch, N, C) planes (B3, "COL") or axis -1 of
 // (batch, R, N) planes (B4, "ROW"); N = 128 Bk with 2 <= Bk <= 32. A row
-// transform may multiply its input by a (R, N) plane on load. B5 is the
+// transform may multiply its input by a (R, N) plane on load, and a column
+// transform by an (N, C) plane shared by every batch entry (B3s, the
+// apodization window of a masked cross spectrum). B5 is the
 // inverse row transform whose input is scale * eta, eta drawn on the load
 // with philox.cuh's counters: B5(scale, w, batch) equals
 // rowifft(noise_planes(scale, w, batch)) bit for bit.
 //
 // Replaces orphics_tpu/ops/pallas_fft.py:_call (colfft/colifft; kernels
-// _fwd_kernel, _inv_kernel), :_row_call (rowfft/rowifft/rowifft_scaled_y;
-// _rowfft_kernel, _rowifft_scaled_kernel) and :rowifft_noise_y
+// _fwd_kernel, _inv_kernel), :colfft_scaled (_fwd_scaled_kernel),
+// :_row_call (rowfft/rowifft/rowifft_scaled_y; _rowfft_kernel,
+// _rowifft_scaled_kernel) and :rowifft_noise_y
 // (_rowifft_noise_kernel). The TPU evaluates the 128-point stage as
 // bf16-split matmuls on its MXU.
 //
@@ -24,7 +27,11 @@
 // each transform's whole working set in shared memory and touches device
 // memory once in and once out. B5 reads no input plane at all: 8 B per
 // element written, plus Philox (~70 integer operations per pair) and two
-// erfinvf per element, which keep it compute-heavier than B4.
+// erfinvf per element, which keep it compute-heavier than B4. B3s reads
+// the window once more per element, 4 B on 16; at N = 2048 the window is
+// 16 MB and stays in the 50 MB L2 while the batch entries that share it
+// stream past (the TPU grid keeps it resident by running the batch
+// innermost).
 //
 // Design: dft_core.cuh's two stages on T whole transforms per block (T
 // columns of one batch entry, or T rows). Stage 1 runs one thread per
@@ -101,9 +108,13 @@ dft_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
       if (r < nr) {
         const int64_t g = base + t * tstride + r * rstride;
         v = make_float2(xre[g], xim[g]);
-        if (ROW && scale) {
+        if (scale) {
+          // ROW: row (r0 + r) mod R of the (R, N) plane; COL: element
+          // (t, c0 + r) of the (N, C) plane, the batch offset left out
           const float sc =
-              scale[(static_cast<int64_t>(blockIdx.x * T + r) % R) * N + t];
+              ROW ? scale[(static_cast<int64_t>(blockIdx.x * T + r) % R) * N
+                          + t]
+                  : scale[static_cast<int64_t>(t) * C + blockIdx.x * T + r];
           v.x *= sc;
           v.y *= sc;
         }
@@ -219,13 +230,13 @@ int dft_max_n() { return 32 * A; }
 
 // row = 1: planes (batch, other, n), transform along the last axis; scale
 // (other, n) or null. row = 0: planes (batch, n, other), transform along
-// axis -2; scale must be null. tab: the tables of dft.py:_tables.
+// axis -2; scale (n, other), shared by the batch, or null. tab: the tables
+// of dft.py:_tables.
 int dft_launch(const float* xre, const float* xim, float* ore, float* oim,
                const void* tab, const float* scale, int row, int inverse,
                int batch, int n, int other, void* stream) {
   const int Bk = n / A;
-  if (Bk * A != n || Bk < 2 || Bk > 32 || batch < 1 || other < 1
-      || (!row && scale))
+  if (Bk * A != n || Bk < 2 || Bk > 32 || batch < 1 || other < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int T = tile(n, row);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -241,9 +252,9 @@ int dft_launch(const float* xre, const float* xim, float* ore, float* oim,
   }
   const dim3 grid((other + T - 1) / T, batch);
   return inverse
-      ? launch_bk<false, true>(xre, xim, ore, oim, tb, nullptr, nullptr, n,
+      ? launch_bk<false, true>(xre, xim, ore, oim, tb, scale, nullptr, n,
                                Bk, T, 0, other, 0, grid, st)
-      : launch_bk<false, false>(xre, xim, ore, oim, tb, nullptr, nullptr, n,
+      : launch_bk<false, false>(xre, xim, ore, oim, tb, scale, nullptr, n,
                                 Bk, T, 0, other, 0, grid, st);
 }
 

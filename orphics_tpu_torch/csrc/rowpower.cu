@@ -1,5 +1,5 @@
-// Fused row passes of the half-plane power pipeline (kernels B6 and B4b of
-// the port).
+// Fused row passes of the half-plane power pipeline (kernels B6, B6s and
+// B4b of the port).
 //
 // For Y, (batch, N, N) re/im fp32 planes with rows in row_perm order (the
 // column-DFT intermediate), let Z = rowfft(Y) in the doubly-permuted
@@ -9,23 +9,28 @@
 //      h % 64 for h < N / 2 (dft.py:half_rows),
 //        qs[b, h, q] = (|Z[p, q]|^2 + |Zm[p, q]|^2) / 2
 //        c[b, h, q]  = Re(Z[p, q] Zm[p, q])
+//   B6s (rows_half): the same pass with the one cross field
+//        s[b, h, q]  = Im(Z[p, q] Zm[p, q]) = zr zmi + zi zmr
+//      (for Z = fft2(x + i y), s / 2 is Re(X conj(Y)), the cross power)
 //   B4b (rowfft_blk0): the permuted columns [0, 128) (k2 = 0) of rowfft(Y):
 //        out[r, k1] = sum_a (sum_b y[r, a + 128 b]) w_128^(a k1)
 //
-// Replaces orphics_tpu/ops/pallas_fft.py:rowqc_pp (_row_qc_kernel) and
-// :rowfft_blk0 (_rowfft_blk0_kernel).
+// Replaces orphics_tpu/ops/pallas_fft.py:rowqc_pp (_row_qc_kernel),
+// :rows_pp (_row_s_kernel) and :rowfft_blk0 (_rowfft_blk0_kernel).
 //
 // Bound: device memory. B6 reads each row of Y about once (a half row and
 // its mirror row are transformed by the same block; the ky = N/2 row by
 // none) and writes two half planes: 16 B in and 8 B out per element of Y,
 // against ~10 log2 N flops; the full Fourier plane never reaches device
-// memory. B4b reads all of Y (8 B per element) and writes 1/Bk of it.
+// memory. B6s writes one half plane: 16 B in and 4 B out per element. B4b
+// reads all of Y (8 B per element) and writes 1/Bk of it.
 //
 // Design: B6 runs one block per (batch entry, half row h). The block loads
 // row p and its mirror row mrow[p] into shared memory (2 N complex values,
 // 32 KB at N = 2048), runs dft_core.cuh's forward transform on both, and
-// writes qs and c for every column q, pairing Z[p, q] with the mirror
-// row's value at mrow[q]. mrow is the exact Z(-k) map (dft_core.cuh:
+// writes qs and c (B6) or s (B6s, the same kernel templated on its field)
+// for every column q, pairing Z[p, q] with the mirror row's value at
+// mrow[q]. mrow is the exact Z(-k) map (dft_core.cuh:
 // mirror_pos), so no row or column needs the TPU kernel's wrap-strip
 // special case; rowpower.py still patches the two strips from B4 and B4b,
 // as the JAX function does. B4b sums the Bk blocks of each row (stage 1 at
@@ -40,11 +45,12 @@ namespace {
 
 constexpr int T0 = 16;  // rows per B4b block
 
-template <int MAXBK>
+// S = false: qs -> out0, c -> out1 (B6); S = true: s -> out0 (B6s)
+template <int MAXBK, bool S>
 __global__ void __launch_bounds__(THREADS)
 row_qc_kernel(const float* __restrict__ yre, const float* __restrict__ yim,
-              const float2* __restrict__ tab, float* __restrict__ qs,
-              float* __restrict__ cc, int N, int Bk) {
+              const float2* __restrict__ tab, float* __restrict__ out0,
+              float* __restrict__ out1, int N, int Bk) {
   extern __shared__ float2 s[];  // [2][N]: row p, then its mirror row
   const Tables tb = tables(tab, Bk);
   const int h = blockIdx.x;
@@ -65,8 +71,12 @@ row_qc_kernel(const float* __restrict__ yre, const float* __restrict__ yim,
   for (int q = threadIdx.x; q < N; q += THREADS) {
     const float2 z = s[out_slot<true>(q, 0, N, 2)];
     const float2 m = s[out_slot<true>(mirror_pos(q, Bk), 1, N, 2)];
-    qs[o + q] = 0.5f * (z.x * z.x + z.y * z.y + m.x * m.x + m.y * m.y);
-    cc[o + q] = z.x * m.x - z.y * m.y;
+    if (S) {
+      out0[o + q] = z.x * m.y + z.y * m.x;
+    } else {
+      out0[o + q] = 0.5f * (z.x * z.x + z.y * z.y + m.x * m.x + m.y * m.y);
+      out1[o + q] = z.x * m.x - z.y * m.y;
+    }
   }
 }
 
@@ -103,18 +113,35 @@ rowfft_blk0_kernel(const float* __restrict__ yre,
   }
 }
 
-template <int MAXBK>
+template <int MAXBK, bool S>
 int launch_qc(const float* yre, const float* yim, const float2* tab,
-              float* qs, float* cc, int batch, int N, int Bk,
+              float* out0, float* out1, int batch, int N, int Bk,
               cudaStream_t stream) {
   const int smem = 2 * N * static_cast<int>(sizeof(float2));
   cudaError_t err = cudaFuncSetAttribute(
-      row_qc_kernel<MAXBK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      row_qc_kernel<MAXBK, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  row_qc_kernel<MAXBK><<<dim3(N / 2, batch), THREADS, smem, stream>>>(
-      yre, yim, tab, qs, cc, N, Bk);
+  row_qc_kernel<MAXBK, S><<<dim3(N / 2, batch), THREADS, smem, stream>>>(
+      yre, yim, tab, out0, out1, N, Bk);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool S>
+int launch_fields(const float* yre, const float* yim, const void* tab,
+                  float* out0, float* out1, int batch, int n, void* stream) {
+  const int Bk = n / A;
+  if (Bk * A != n || Bk < 2 || Bk > 32 || batch < 1 || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float2* tb = static_cast<const float2*>(tab);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Bk <= 4)
+    return launch_qc<4, S>(yre, yim, tb, out0, out1, batch, n, Bk, st);
+  if (Bk <= 8)
+    return launch_qc<8, S>(yre, yim, tb, out0, out1, batch, n, Bk, st);
+  if (Bk <= 16)
+    return launch_qc<16, S>(yre, yim, tb, out0, out1, batch, n, Bk, st);
+  return launch_qc<32, S>(yre, yim, tb, out0, out1, batch, n, Bk, st);
 }
 
 }  // namespace
@@ -125,15 +152,13 @@ extern "C" {
 // dft.py:_tables(n, forward).
 int rowqc_half_launch(const float* yre, const float* yim, const void* tab,
                       float* qs, float* cc, int batch, int n, void* stream) {
-  const int Bk = n / A;
-  if (Bk * A != n || Bk < 2 || Bk > 32 || batch < 1 || batch > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const float2* tb = static_cast<const float2*>(tab);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Bk <= 4) return launch_qc<4>(yre, yim, tb, qs, cc, batch, n, Bk, st);
-  if (Bk <= 8) return launch_qc<8>(yre, yim, tb, qs, cc, batch, n, Bk, st);
-  if (Bk <= 16) return launch_qc<16>(yre, yim, tb, qs, cc, batch, n, Bk, st);
-  return launch_qc<32>(yre, yim, tb, qs, cc, batch, n, Bk, st);
+  return launch_fields<false>(yre, yim, tab, qs, cc, batch, n, stream);
+}
+
+// B6s: yre, yim (batch, n, n) f32; s (batch, n/2, n) f32; tab as B6's.
+int rows_half_launch(const float* yre, const float* yim, const void* tab,
+                     float* s, int batch, int n, void* stream) {
+  return launch_fields<true>(yre, yim, tab, s, nullptr, batch, n, stream);
 }
 
 // B4b: yre, yim (rows, n) f32 (any leading shape flattened); ore, oim

@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ._device import resolve
 from .geometry import Geometry, rect_geometry
 from .models import lensing, qe
 from .models.theory import default_theory
@@ -27,6 +28,7 @@ class QEPipelineStep:
 
     def __init__(self, geom: Geometry, th, beam=1.5, noise=7.0,
                  dtype=torch.float32, device=None):
+        device = resolve(device)
         self.geom = geom
         self.fls = lensing.FlatLensingSims(geom, th, beam_arcmin=beam,
                                            noise_uk_arcmin=noise, lens_order=3,
@@ -64,20 +66,21 @@ class QEPipelineStep:
 
 def build_qe_pipeline(geom: Geometry, th, beam=1.5, noise=7.0, device=None,
                       dtype=torch.float32) -> QEPipelineStep:
-    """Build the flagship step for a geometry and theory."""
+    """Build the flagship step for a geometry and theory (on the card
+    unless ``device`` names another)."""
     return QEPipelineStep(geom, th, beam=beam, noise=noise, dtype=dtype,
-                          device=device)
+                          device=resolve(device))
 
 
 def entry(device=None):
     """``(fn, example_args)``: one flagship step at 512^2 and 2' on
-    ``device`` (the card when there is one), with a seeded generator."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+    ``device`` (the card unless it names another), with a seeded
+    generator."""
+    device = resolve(device)
     # nothing in the slice is worth TF32's three digits: keep fp32 products
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    geom =rect_geometry(width_arcmin=512 * 2.0, px_res_arcmin=2.0)
+    geom = rect_geometry(width_arcmin=512 * 2.0, px_res_arcmin=2.0)
     pipe = build_qe_pipeline(geom, default_theory(), device=device)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)

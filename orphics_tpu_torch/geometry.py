@@ -2,8 +2,8 @@
 
 A :class:`Geometry` is a small immutable record of integers and floats.
 Derived Fourier grids are built on request, on the device the caller
-names; the host-float64 ``*_np`` twins stay in numpy for the binners and
-other host-side precomputes.
+names (the card when it names none); the host-float64 ``*_np`` twins
+stay in numpy for the binners and other host-side precomputes.
 
 Conventions (same as the JAX package):
   * maps are ``(..., ny, nx)`` row-major, y = declination-like axis;
@@ -17,6 +17,8 @@ import math
 
 import numpy as np
 import torch
+
+from ._device import resolve
 
 arcmin = np.pi / (180.0 * 60.0)
 degree = np.pi / 180.0
@@ -82,6 +84,7 @@ class Geometry:
     def laxes(self, dtype=torch.float32, device=None):
         """1D angular wavenumbers along y and x: ``2*pi*fftfreq``."""
         ly, lx = self.laxes_np()
+        device = resolve(device)
         return (torch.as_tensor(ly, dtype=dtype, device=device),
                 torch.as_tensor(lx, dtype=dtype, device=device))
 
@@ -89,6 +92,7 @@ class Geometry:
         """Wavenumbers for the rfft half-plane: full ly, half lx."""
         ly = 2 * np.pi * np.fft.fftfreq(self.ny, d=self.dy)
         lx = 2 * np.pi * np.fft.rfftfreq(self.nx, d=self.dx)
+        device = resolve(device)
         return (torch.as_tensor(ly, dtype=dtype, device=device),
                 torch.as_tensor(lx, dtype=dtype, device=device))
 

@@ -12,22 +12,28 @@ to end and packs two real maps per complex transform:
     B2 ``bin2_reduce`` of the two half-plane fields, and B1
     ``bin_reduce`` of the two boundary rows (ky = 0 and n/2), whose
     mirror lies within the row;
-  * ``map_bandpowers`` adds B3 ``colfft`` of the given maps in front.
+  * ``map_bandpowers`` adds B3 ``colfft`` of the given maps in front;
+  * ``cross_bandpowers`` packs the two map sets as ``x + i y``: B3s
+    ``colfft_scaled`` (the window on the load) or B3 ``colfft``, then B6s
+    ``rowpower.rows_pp`` (the cross field ``s = Im(Z Zm)`` over the half
+    plane), B1 of ``s`` and of the boundary rows' ``s``.
 
-It is the engine of the JAX package's ``bench.py`` config 1. Grids must be
-``n = 128 B`` with ``B >= 2``. The tables live on ``device``; CPU tensors
-run every kernel's plain version.
+It is the engine of the JAX package's ``bench.py`` configs 1 and 2. Grids
+must be ``n = 128 B`` with ``B >= 2``. The tables live on ``device`` (the
+card unless it names another); CPU tensors run every kernel's plain
+version.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .._device import resolve
 from ..geometry import Geometry
 from ..ops import dft as D
 from ..ops.bin_reduce import bin2_reduce, bin_reduce
 from ..ops.mirror import _mirror_tables
-from ..ops.rowpower import qc_fields, rowqc_pp
+from ..ops.rowpower import qc_fields, rows_pp, rowqc_pp, s_field
 from .grf import spec2flat
 
 __all__ = ["FastCl"]
@@ -54,8 +60,7 @@ class FastCl:
             raise ValueError("FastCl needs a square n = 128*B grid, B>=2")
         if bin_edges is None:
             raise ValueError("FastCl requires bin_edges")
-        dev = torch.device(device) if device is not None else \
-            torch.device("cpu")
+        dev = resolve(device)
         self.geom = geom
         self.n = n
         self.device = dev
@@ -95,20 +100,21 @@ class FastCl:
                     dense = np.arange(int(ells[-1]) + 1)
                     cl = np.interp(dense, ells, cl, left=0.0, right=0.0)
             cs = spec2flat(geom, cl[None, None], exp=0.5,
-                           dtype=torch.float32)[0, 0].numpy()
+                           dtype=torch.float32, device="cpu")[0, 0].numpy()
             self._covsqrt_pp = torch.as_tensor(
                 np.ascontiguousarray(cs[perm][:, perm]
                                      * np.sqrt(geom.npix).astype(np.float32)),
                 device=dev)
 
-    def _row_bins(self, zrow_r, zrow_i, p, ids):
-        """Bins of the fields on boundary row ``p`` of ``zrow``: its mirror
-        is a permutation of the same row (B1, both fields in one call)."""
+    def _row_bins(self, zrow_r, zrow_i, p, ids, field=qc_fields):
+        """Bins of ``field`` (:func:`qc_fields` or :func:`s_field`) on
+        boundary row ``p`` of ``zrow``: its mirror is a permutation of the
+        same row (B1, every field in one call)."""
         zr, zi = zrow_r[:, p], zrow_i[:, p]
-        fields = qc_fields(zr, zi, zr.index_select(1, self._mrow),
-                           zi.index_select(1, self._mrow))
+        fields = field(zr, zi, zr.index_select(1, self._mrow),
+                       zi.index_select(1, self._mrow))
         out = bin_reduce(torch.cat(fields), ids, self._nsg)
-        return out[:zr.shape[0]], out[zr.shape[0]:]
+        return out.split(zr.shape[0])
 
     def _pair_bandpowers(self, m1, m2):
         """Binned ``|F1|^2``, ``|F2|^2`` of packed real-map pairs: B3
@@ -162,9 +168,37 @@ class FastCl:
         return torch.cat(self._pair_bandpowers_y(yr, yi))
 
     def cross_bandpowers(self, maps1, maps2, window=None):
-        raise NotImplementedError(
-            "cross_bandpowers needs kernels B3s (colfft_scaled) and B6s "
-            "(rows_pp), which are not ported yet (ROADMAP queue B)")
+        """``(B, nbins)`` binned cross spectra ``Re(x_hat conj(y_hat))`` of
+        two real map sets ``(B, n, n)``, one packed transform per pair: for
+        ``Z = fft2(x + i y)`` the cross power is ``Im(Z(k) Z(-k)) / 2``, a
+        mirror-even field binned on the half plane. An optional ``(n, n)``
+        ``window`` is applied on the first transform's load (B3s; the
+        windowed maps never reach device memory); debias the result by the
+        window's ``w2`` yourself."""
+        m1 = torch.as_tensor(maps1, dtype=torch.float32, device=self.device)
+        m2 = torch.as_tensor(maps2, dtype=torch.float32, device=self.device)
+        if m1.ndim == 2:
+            m1, m2 = m1[None], m2[None]
+        if m1.shape != m2.shape:
+            raise ValueError(f"map sets must match: {tuple(m1.shape)} vs "
+                             f"{tuple(m2.shape)}")
+        m1, m2 = m1.contiguous(), m2.contiguous()
+        if window is not None:
+            w = torch.as_tensor(window, dtype=torch.float32,
+                                device=self.device).contiguous()
+            yr, yi = D.colfft_scaled(m1, m2, w)
+        else:
+            yr, yi = D.colfft(m1, m2)
+        s, zrow_r, zrow_i = rows_pp(yr, yi)
+        del yr, yi
+        bsh = bin_reduce(s.reshape(s.shape[0], -1), self._idc, self._nsg)
+        del s
+        (s0,) = self._row_bins(zrow_r, zrow_i, 0, self._ids0, s_field)
+        (sn,) = self._row_bins(zrow_r, zrow_i, self._pnyq, self._idsn,
+                               s_field)
+        bs = (2.0 * bsh - s0 + sn)[:, 1:-1]
+        hn = float(np.float32(0.5) * np.float32(self._norm))
+        return bs * hn * self._icnt
 
     def map_bandpowers(self, maps):
         """``(B, nbins)`` binned auto power spectra of real maps

@@ -7,7 +7,8 @@ Conventions, as in the JAX package:
     of the unitary inverse FFT of ``covsqrt * eta`` is the map.
 
 Every draw comes in two forms: one takes an explicit ``torch.Generator``
-(on the device of the output), and a ``*_from_noise`` twin takes the
+(on the device of the output; the factories' ``device=None`` is the
+card), and a ``*_from_noise`` twin takes the
 white noise itself, so that tests can feed both packages the same draws.
 """
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._device import resolve
 from ..geometry import Geometry
 from ..ops import fourier as F
 
@@ -51,7 +53,7 @@ def spec2flat(geom: Geometry, ps, exp: float = 1.0, dtype=torch.float32,
     else:
         ps_p = ps
     ells = np.arange(L, dtype=np.float64)
-    modlmap = geom.modlmap(dtype, device)
+    modlmap = geom.modlmap(dtype, resolve(device))
     flat = torch.stack([
         torch.stack([F.interp1d_to_2d(ells, ps_p[i, j], modlmap=modlmap)
                      for j in range(ncomp)])
@@ -65,6 +67,7 @@ def rand_kmap(geom: Geometry, generator: torch.Generator, ncomp: int = None,
     real and imaginary parts, shape ``batch + ([ncomp,] ny, nx)``."""
     shape = tuple(batch) + ((geom.ny, geom.nx) if ncomp is None
                             else (ncomp, geom.ny, geom.nx))
+    device = resolve(device)
     re = torch.randn(shape, generator=generator, dtype=dtype, device=device)
     im = torch.randn(shape, generator=generator, dtype=dtype, device=device)
     return torch.complex(re, im)
@@ -97,7 +100,7 @@ def rand_map(geom: Geometry, covsqrt, generator: torch.Generator, batch=()):
 def covsqrt_half(geom: Geometry, ells, cls, dtype=torch.float32, device=None):
     """``sqrt(C) * npix / sqrt(area)`` painted on the rfft half-plane: the
     synthesis filter for :func:`rand_map_r`."""
-    modl = geom.modlmap_r(dtype, device)
+    modl = geom.modlmap_r(dtype, resolve(device))
     c2d = F.interp1d_to_2d(ells, cls, modlmap=modl)
     return torch.sqrt(torch.clamp(c2d, min=0.0)) * (geom.npix / geom.area ** 0.5)
 
@@ -124,6 +127,7 @@ def rand_hermitian_half(geom: Geometry, generator: torch.Generator, batch=(),
                         dtype=torch.float32, device=None):
     """Hermitian half-plane white noise, shape ``batch + (ny, nx//2+1)``."""
     shape = tuple(batch) + (geom.ny, geom.nx // 2 + 1)
+    device = resolve(device)
     zr = torch.randn(shape, generator=generator, dtype=dtype, device=device)
     zi = torch.randn(shape, generator=generator, dtype=dtype, device=device)
     return hermitian_half_from_noise(zr, zi, geom)
@@ -152,6 +156,7 @@ class MapGen:
                  dtype=torch.float32, device=None):
         self.geom = geom
         self.dtype = dtype
+        device = resolve(device)
         if covsqrt is not None:
             self.covsqrt = torch.as_tensor(covsqrt, dtype=dtype, device=device)
         else:

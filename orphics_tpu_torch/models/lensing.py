@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._device import resolve
 from ..geometry import Geometry, arcmin
 from ..ops import fourier as F
 from ..ops.lens import spline_coeffs, spline_taps
@@ -96,6 +97,7 @@ class FlatLensingSims:
                                       "ported yet (spline only)")
         self.geom = geom
         self.lens_order = lens_order
+        device = resolve(device)
         lmax = int(geom.lmax()) + 1
         ells = np.arange(lmax)
         ps_cmb = np.asarray(theory.uCl("TT", ells))[None, None]

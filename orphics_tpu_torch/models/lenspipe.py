@@ -30,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._device import resolve
 from ..geometry import Geometry, arcmin
 from ..ops import dft as D
 from ..ops import fourier as F
@@ -82,8 +83,7 @@ class LensedQEPipeline:
         if impl not in ("auto", "xla", "pallas"):
             raise ValueError(f"unknown impl {impl!r}")
         self.geom = geom
-        self.device = torch.device(device) if device is not None \
-            else torch.device("cpu")
+        self.device = resolve(device)
         self.dtype = dtype
         self.lens_order = lens_order
         self.maxdisp_px = maxdisp_px
@@ -107,8 +107,9 @@ class LensedQEPipeline:
         self.csq_coeff = csq_tt / resp
 
         # kappa -> deflection multipliers i l_i 2/(l(l+1)), host float64
-        modl_h = geom.modlmap_r(torch.float32).to(torch.float64).numpy()
-        lmap = geom.lmap(torch.float32).to(torch.float64).numpy()
+        host = lambda t: t.to(torch.float64).numpy()
+        modl_h = host(geom.modlmap_r(torch.float32, "cpu"))
+        lmap = host(geom.lmap(torch.float32, "cpu"))
         ly_h = lmap[0][:, :nxr]
         lx_h = lmap[1][:, :nxr]
         fphi = _fphi(modl_h)
@@ -167,7 +168,7 @@ class LensedQEPipeline:
         pp = lambda A: torch.as_tensor(np.ascontiguousarray(
             np.asarray(A, np.float64)[perm][:, perm], np.float32),
             device=dev)
-        ml = geom.modlmap(torch.float32).to(torch.float64).numpy()
+        ml = geom.modlmap(torch.float32, "cpu").to(torch.float64).numpy()
         ells_f = np.arange(theory.lpad + 1)
         # full-plane synthesis scales, the normalization of covsqrt_half:
         # sqrt(C) npix / sqrt(area)
@@ -180,7 +181,7 @@ class LensedQEPipeline:
         self.csq_coeff_pp = pp(np.sqrt(np.maximum(ctt2d, 0.0)) * sig / resp)
         self.csq_kk_pp = pp(np.sqrt(np.maximum(ckk2d, 0.0)) * sig)
         # kappa -> deflection multipliers c_i = l_i 2/(l(l+1))
-        lmap = geom.lmap(torch.float32).to(torch.float64).numpy()
+        lmap = geom.lmap(torch.float32, "cpu").to(torch.float64).numpy()
         fphi = _fphi(ml)
         self.cy_pp = pp(lmap[0] * fphi)
         self.cx_pp = pp(lmap[1] * fphi)

@@ -21,6 +21,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .._device import resolve
 from ..geometry import Geometry, arcmin
 from ..ops import dft as D
 from ..ops import fourier as F
@@ -56,8 +57,7 @@ class QE:
                  field_masks=None):
         self.geom = geom
         self.dtype = dtype
-        self.device = torch.device(device) if device is not None \
-            else torch.device("cpu")
+        self.device = resolve(device)
         self.te_filter = te_filter
         self.te_series_order = int(te_series_order)
         if field_masks is not None and (
@@ -545,5 +545,6 @@ def lensing_noise_2d(geom: Geometry, theory, beam_arcmin, noise_t_uk_arcmin,
         cl = np.interp(modlmap, ells, np.asarray(theory.lCl(spec, ells)),
                        left=0, right=0)
         n2d = (noise * arcmin) ** 2 / np.maximum(b2, 1e-30)
-        out[spec] = torch.as_tensor(cl + n2d, dtype=dtype, device=device)
+        out[spec] = torch.as_tensor(cl + n2d, dtype=dtype,
+                                    device=resolve(device))
     return out

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._device import resolve
 from .bin_reduce import bin_reduce
 
 __all__ = ["Bin2D", "RfftBin2D"]
@@ -24,6 +25,7 @@ class Bin2D:
     the edges are dropped. Tables live on ``device``."""
 
     def __init__(self, modmap, bin_edges, device=None):
+        device = resolve(device)
         modmap = np.asarray(modmap, dtype=np.float64)
         bin_edges = np.asarray(bin_edges, dtype=np.float64)
         self.bin_edges = bin_edges
@@ -75,6 +77,7 @@ class RfftBin2D:
     """
 
     def __init__(self, geom, bin_edges, device=None):
+        device = resolve(device)
         full = geom.modlmap_np()
         half = full[:, :geom.nx // 2 + 1]
         bin_edges = np.asarray(bin_edges, dtype=np.float64)

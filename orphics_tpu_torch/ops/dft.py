@@ -11,6 +11,9 @@ bit-identical to the JAX package's.
 
 * B3 :func:`colfft` / :func:`colifft`: axis -2 of ``(batch, n, C)``
   re/im fp32 planes (``pallas_fft.colfft`` / ``colifft``);
+* B3s :func:`colfft_scaled`: :func:`colfft` of ``scale * x`` with an
+  ``(n, C)`` window shared by the batch, the product taken on the load
+  (``pallas_fft.colfft_scaled``);
 * B4 :func:`rowfft` / :func:`rowifft` / :func:`rowifft_scaled_y`: axis
   -1 of ``(batch, R, n)`` planes (``pallas_fft.rowfft`` / ``rowifft`` /
   ``rowifft_scaled_y``);
@@ -37,14 +40,16 @@ import numpy as np
 import torch
 
 from .. import _build
+from .._device import resolve
 from .noise_planes import noise_planes_ref, seed_words
 
 __all__ = [
     "row_perm", "natural_rows", "full_perm", "half_rows",
     "permuted_bin_tables",
-    "colfft", "colifft", "rowfft", "rowifft", "rowifft_scaled_y",
-    "rowfft_blk0", "rowifft_noise_y",
-    "colfft_ref", "colifft_ref", "rowfft_ref", "rowifft_ref",
+    "colfft", "colfft_scaled", "colifft", "rowfft", "rowifft",
+    "rowifft_scaled_y", "rowfft_blk0", "rowifft_noise_y",
+    "colfft_ref", "colfft_scaled_ref", "colifft_ref", "rowfft_ref",
+    "rowifft_ref",
     "rowifft_scaled_y_ref", "rowfft_blk0_ref", "rowifft_noise_y_ref",
     "fft2pp", "ifft2pp", "ifft2pp_scaled", "ifft2pp_noise",
     "ifft2pp_noise_y", "pfft2", "pifft2",
@@ -122,6 +127,7 @@ def permuted_bin_tables(modlmap, perm, edges, device=None):
                       np.asarray(edges), right=True).astype(np.int32)
     dig[dig == len(edges)] = 0
     nseg = len(edges)
+    device = resolve(device)
     idc = torch.as_tensor(dig.ravel(), device=device)
     icnt = torch.as_tensor(
         (1.0 / np.maximum(np.bincount(dig.ravel(), minlength=nseg),
@@ -155,6 +161,11 @@ def colfft_ref(xre, xim):
     z = torch.fft.fft(torch.complex(xre, xim), dim=-2)
     z = z.index_select(-2, _perm_index(xre.shape[-2], xre.device, False))
     return z.real.contiguous(), z.imag.contiguous()
+
+
+def colfft_scaled_ref(xre, xim, scale):
+    """Plain version of :func:`colfft_scaled`."""
+    return colfft_ref(xre * scale, xim * scale)
 
 
 def colifft_ref(xre, xim):
@@ -250,6 +261,23 @@ def colfft(xre, xim):
         colfft.launches += 1
         return out
     return colfft_ref(xre, xim)
+
+
+def colfft_scaled(xre, xim, scale):
+    """``colfft(scale * xre, scale * xim)`` with the product taken on the
+    kernel's load, so the scaled maps never reach device memory; ``scale``:
+    ``(n, C)`` float32 in natural map layout, shared by every batch entry
+    (B3s)."""
+    _check(xre, xim, -2, "colfft_scaled")
+    if scale.dtype != torch.float32 or tuple(scale.shape) != tuple(
+            xre.shape[1:]) or scale.device != xre.device:
+        raise ValueError(f"scale must be {tuple(xre.shape[1:])} float32 on "
+                         f"{xre.device}")
+    if xre.is_cuda:
+        out = _launch(xre, xim, False, False, scale, "colfft_scaled")
+        colfft_scaled.launches += 1
+        return out
+    return colfft_scaled_ref(xre, xim, scale)
 
 
 def colifft(xre, xim):
@@ -360,6 +388,7 @@ def rowifft_noise_y(scale, seed, batch: int):
 
 
 colfft.launches = 0
+colfft_scaled.launches = 0
 colifft.launches = 0
 rowfft.launches = 0
 rowifft.launches = 0

@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._device import resolve
 from ..geometry import Geometry, arcmin
 from .interp import interp
 
@@ -68,6 +69,7 @@ def mask_kspace(geom: Geometry, lxcut=None, lycut=None, lmin=None, lmax=None,
                 dtype=torch.float32, device=None):
     """Binary Fourier-space mask: zero ``modlmap <= lmin`` and
     ``>= lmax`` (strict keep), and ``|lx| < lxcut``, ``|ly| < lycut``."""
+    device = resolve(device)
     ly, lx = geom.laxes(dtype, device)
     mask = torch.ones(geom.shape, dtype=dtype, device=device)
     if lmin is not None or lmax is not None:
@@ -101,5 +103,5 @@ def interp1d_to_2d(ells, cls, geom: Geometry = None, modlmap=None,
     """Evaluate a 1D ell function on the 2D |l| grid by linear
     interpolation, in the dtype of ``modlmap``."""
     if modlmap is None:
-        modlmap = geom.modlmap(dtype, device)
+        modlmap = geom.modlmap(dtype, resolve(device))
     return interp(modlmap, ells, cls, left=fill_value, right=fill_value)

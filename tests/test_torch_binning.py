@@ -149,7 +149,7 @@ def test_bin2d_matches_jax(geoms):
     rng = np.random.default_rng(4)
     data = (rng.standard_normal((2,) + jg.shape) ** 2).astype(np.float32)
     jb = jbin.Bin2D(jg.modlmap_np(), edges, strategy="rowcum")
-    tb = tbin.Bin2D(tg.modlmap_np(), edges)
+    tb = tbin.Bin2D(tg.modlmap_np(), edges, device="cpu")
     np.testing.assert_array_equal(tb.counts, jb.counts)
     np.testing.assert_array_equal(tb.centers, jb.centers)
     c, m_t = tb.bin(torch.as_tensor(data))
@@ -182,12 +182,12 @@ def test_rfft_bin2d_matches_jax_and_full_plane(geoms):
     p_full = np.abs(np.fft.fft2(m)) ** 2
     p_half = p_full[..., :jg.nx // 2 + 1].astype(np.float32)
     jb = jbin.RfftBin2D(jg, edges, strategy="rowcum")
-    tb = tbin.RfftBin2D(tg, edges)
+    tb = tbin.RfftBin2D(tg, edges, device="cpu")
     np.testing.assert_array_equal(tb.counts, jb.counts)
     _, m_t = tb.bin(torch.as_tensor(p_half))
     _, m_j = jb.bin(jnp.asarray(p_half))
     np.testing.assert_allclose(m_t.numpy(), np.asarray(m_j), rtol=RTOL_ROWCUM)
     # half-plane binning with the 2/1 weights == full-plane binning
-    full = tbin.Bin2D(tg.modlmap_np(), edges)
+    full = tbin.Bin2D(tg.modlmap_np(), edges, device="cpu")
     _, m_f = full.bin(torch.as_tensor(p_full.astype(np.float32)))
     np.testing.assert_allclose(m_t.numpy(), m_f.numpy(), rtol=1e-5)

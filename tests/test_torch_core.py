@@ -23,7 +23,11 @@ import orphics_tpu_torch as tp
 from orphics_tpu_torch import convert
 from orphics_tpu_torch.ops import fourier as TF
 from orphics_tpu_torch.ops.interp import interp
+from orphics_tpu_torch import entry as tentry
+from orphics_tpu_torch._device import resolve
 from orphics_tpu_torch.models import grf as tgrf, theory as ttheory
+from orphics_tpu_torch.models import fastcl as tfastcl, lenspipe as tpipe
+from orphics_tpu_torch.ops import binning as tbinning, windows as twindows
 
 torch.set_num_threads(1)
 
@@ -71,7 +75,7 @@ def test_geometry_scalars_and_grids(geoms):
         for a, b in zip(tg.laxes_np(), jg.laxes_np()):
             np.testing.assert_array_equal(a, b)
         for name in ("modlmap", "modlmap_r", "lmap"):
-            t = getattr(tg, name)(torch.float32).numpy()
+            t = getattr(tg, name)(torch.float32, "cpu").numpy()
             j = np.asarray(getattr(jg, name)(jnp.float32))
             assert t.shape == j.shape and t.dtype == j.dtype
             assert _rel(t, j) <= RTOL_F32, name
@@ -140,9 +144,9 @@ def test_masks_filters_beams(geoms):
         for kw in (dict(lmin=100, lmax=3000), dict(lmin=0),
                    dict(lxcut=200, lycut=150, lmax=5000)):
             np.testing.assert_array_equal(
-                TF.mask_kspace(tg, **kw).numpy(),
+                TF.mask_kspace(tg, **kw, device="cpu").numpy(),
                 np.asarray(JF.mask_kspace(jg, **kw)))
-        ml_t = tg.modlmap(torch.float32)
+        ml_t = tg.modlmap(torch.float32, "cpu")
         ml_j = jg.modlmap(jnp.float32)
         assert _rel(TF.gauss_beam(ml_t, 1.4).numpy(),
                     JF.gauss_beam(ml_j, 1.4)) <= RTOL_F32
@@ -154,7 +158,7 @@ def test_masks_filters_beams(geoms):
             <= 1e-5                          # two fp32 FFTs: 1e-5 of the max
         ells = np.arange(6000.0)
         cls = 1.0 / (1.0 + ells) ** 2
-        assert _rel(TF.interp1d_to_2d(ells, cls, tg).numpy(),
+        assert _rel(TF.interp1d_to_2d(ells, cls, tg, device="cpu").numpy(),
                     JF.interp1d_to_2d(ells, cls, jg)) <= RTOL_F32
 
 
@@ -164,7 +168,7 @@ def test_grf_synthesis(geoms, theories):
     ells = np.arange(int(jg.lmax()) + 2)
     ps = np.array(jth.uCl("TT", ells))
     # covsqrt in map_mul units, through eig_pow (1e-6 of the max)
-    cs_t = tgrf.spec2flat(tg, ps, exp=0.5)
+    cs_t = tgrf.spec2flat(tg, ps, exp=0.5, device="cpu")
     cs_j = jgrf.spec2flat(jg, ps, exp=0.5)
     assert cs_t.shape == tuple(cs_j.shape)
     assert _rel(cs_t.numpy(), cs_j) <= RTOL_F32
@@ -180,7 +184,7 @@ def test_grf_synthesis(geoms, theories):
     m_t = tgrf.rand_map_from_noise(torch.as_tensor(eta), tg, cs_t)
     assert m_t.shape == tuple(m_j.shape)
     assert _rel(m_t.numpy(), m_j) <= 1e-5        # fp32 FFT of a GRF
-    mg = tgrf.MapGen(tg, ps[None, None])
+    mg = tgrf.MapGen(tg, ps[None, None], device="cpu")
     assert _rel(mg.get_map_from_noise(torch.as_tensor(eta)).numpy(),
                 m_j) <= 1e-5
     # half-plane route: Hermitian noise from the same normals
@@ -192,14 +196,14 @@ def test_grf_synthesis(geoms, theories):
                                          torch.as_tensor(zi), tg)
     h_j = np.asarray(jgrf.rand_hermitian_half(key, jg))
     np.testing.assert_allclose(h_t.numpy(), h_j, rtol=0, atol=1e-6)
-    ch_t = tgrf.covsqrt_half(tg, ells, ps)
+    ch_t = tgrf.covsqrt_half(tg, ells, ps, device="cpu")
     ch_j = jgrf.covsqrt_half(jg, ells, ps)
     assert _rel(ch_t.numpy(), ch_j) <= RTOL_F32
     assert _rel(tgrf.rand_map_r_from_noise(h_t, tg, ch_t).numpy(),
                 jgrf.rand_map_r(key, jg, ch_j)) <= 1e-5
     # generator draws: right shapes, Hermitian columns, unit variance
     gen = torch.Generator().manual_seed(0)
-    h = tgrf.rand_hermitian_half(tg, gen, batch=(4,))
+    h = tgrf.rand_hermitian_half(tg, gen, batch=(4,), device="cpu")
     assert h.shape == (4,) + shape and h.dtype == torch.complex64
     col = h[..., 0]
     np.testing.assert_allclose(col.numpy(),
@@ -217,6 +221,9 @@ def test_port_imports_no_jax():
             "orphics_tpu_torch.models.qe, orphics_tpu_torch.ops.dft, "
             "orphics_tpu_torch.ops.mirror, orphics_tpu_torch.ops.noise_planes, "
             "orphics_tpu_torch.ops.rowpower, orphics_tpu_torch.models.fastcl, "
+            "orphics_tpu_torch.ops.rowcombine, orphics_tpu_torch.ops.windows, "
+            "orphics_tpu_torch.models.ilc, "
+            "orphics_tpu_torch.models.foregrounds, "
             "orphics_tpu_torch.entry, orphics_tpu_torch.convert\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'orphics_tpu.')) or "
@@ -226,3 +233,34 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+_EDGES = np.arange(100, 2000, 200.0)
+_NO_DEVICE = {
+    "FastCl": lambda g, th: tfastcl.FastCl(g, bin_edges=_EDGES),
+    "LensedQEPipeline": lambda g, th: tpipe.LensedQEPipeline(g, th),
+    "QEPipelineStep": lambda g, th: tentry.build_qe_pipeline(g, th),
+    "entry": lambda g, th: tentry.entry(),
+    "MapGen": lambda g, th: tgrf.MapGen(g, np.ones(100)[None, None]),
+    "Bin2D": lambda g, th: tbinning.Bin2D(g.modlmap_np(), _EDGES),
+    "spec2flat": lambda g, th: tgrf.spec2flat(g, np.ones(100)),
+    "mask_kspace": lambda g, th: TF.mask_kspace(g, lmin=100),
+    "get_taper": lambda g, th: twindows.get_taper(g),
+    "modlmap": lambda g, th: g.modlmap(),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_NO_DEVICE))
+def test_entry_points_default_to_the_card(name, theories):
+    """Called with no ``device``, a constructor or factory puts its tensors
+    on the card; where CUDA is not available it raises and names
+    ``device="cpu"`` instead of running on the CPU."""
+    g = tp.rect_geometry(width_arcmin=256 * 2.0, px_res_arcmin=2.0)
+    assert resolve("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert resolve(None) == torch.device("cuda")
+        return
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        _NO_DEVICE[name](g, theories[1])
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        resolve("cuda:0")

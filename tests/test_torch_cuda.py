@@ -21,7 +21,12 @@ from orphics_tpu_torch.ops.bin_reduce import (bin2_reduce, bin2_reduce_ref,
 from orphics_tpu_torch.ops.lens import lens_map_kernel, lens_map_ref, spline_coeffs
 from orphics_tpu_torch.ops.mirror import mirror_pp, mirror_pp_ref
 from orphics_tpu_torch.ops.noise_planes import noise_planes
-from orphics_tpu_torch.ops.rowpower import rowqc_half, rowqc_pp, rowqc_pp_ref
+from orphics_tpu_torch.models.fastcl import FastCl
+from orphics_tpu_torch.ops.rowcombine import rowcombine_pp, rowcombine_pp_ref
+from orphics_tpu_torch.ops.rowpower import (rowqc_half, rowqc_pp,
+                                            rowqc_pp_ref, rows_half, rows_pp,
+                                            rows_pp_ref)
+from orphics_tpu_torch.ops.windows import get_taper
 
 torch.set_num_threads(1)
 
@@ -301,3 +306,94 @@ def test_rowqc_kernel_matches_ref(cuda_device, n):
     qs, c = rowqc_half(yr, yi)
     for g, r in zip((qs, c), ref[:2]):
         assert (g - r).abs().max().item() <= TOL_QC * r.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 256, 256), (3, 384, 384),
+                                   (2, 512, 256)])
+def test_colfft_scaled_kernel_matches_ref(cuda_device, shape):
+    """B3s: the window on the column kernel's load, shared by the batch."""
+    rng = np.random.default_rng(sum(shape) + 3)
+    xr, xi = (torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                              device=cuda_device) for _ in range(2))
+    sc = torch.as_tensor(rng.uniform(0.0, 1.0, shape[1:]).astype(np.float32),
+                         device=cuda_device)
+    before = dft.colfft_scaled.launches
+    gr, gi = dft.colfft_scaled(xr, xi, sc)
+    torch.cuda.synchronize()
+    assert dft.colfft_scaled.launches == before + 1
+    rr, ri = dft.colfft_scaled_ref(xr, xi, sc)
+    scale = max(rr.abs().max().item(), ri.abs().max().item())
+    assert max((gr - rr).abs().max().item(),
+               (gi - ri).abs().max().item()) <= TOL_DFT * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [256, 384, 512])
+def test_rows_kernel_matches_ref(cuda_device, n):
+    """B6s, alone and with the strip patches of rows_pp."""
+    rng = np.random.default_rng(n + 2)
+    yr, yi = (torch.as_tensor(rng.standard_normal((3, n, n))
+                              .astype(np.float32), device=cuda_device)
+              for _ in range(2))
+    before = rows_half.launches
+    got = rows_pp(yr, yi)
+    torch.cuda.synchronize()
+    assert rows_half.launches == before + 1
+    ref = rows_pp_ref(yr, yi)
+    for name, g, r, tol in zip(("s", "zrow_r", "zrow_i"), got, ref,
+                               (TOL_QC, TOL_DFT, TOL_DFT)):
+        assert g.shape == r.shape
+        err = (g - r).abs().max().item()
+        assert err <= tol * r.abs().max().item(), (name, n, err)
+    s = rows_half(yr, yi)
+    assert (s - ref[0]).abs().max().item() <= TOL_QC * ref[0].abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,nq,nco", [(256, 2, 3), (384, 3, 2), (512, 1, 2)])
+def test_rowcombine_kernel_matches_ref(cuda_device, n, nq, nco):
+    """B9 against its plain version (rowfft, mirror, weighted sum over q),
+    and bit-reproducible (fixed band order)."""
+    rng = np.random.default_rng(n + nq)
+    yr, yi = (torch.as_tensor(rng.standard_normal((nco * nq, n, n))
+                              .astype(np.float32), device=cuda_device)
+              for _ in range(2))
+    w = [torch.as_tensor(rng.standard_normal((nq, n, n)).astype(np.float32),
+                         device=cuda_device) for _ in range(4)]
+    before = rowcombine_pp.launches
+    got = rowcombine_pp(yr, yi, *w, nq)
+    again = rowcombine_pp(yr, yi, *w, nq)
+    torch.cuda.synchronize()
+    assert rowcombine_pp.launches == before + 2
+    ref = rowcombine_pp_ref(yr, yi, *w, nq)
+    scale = ref[0].abs().max().item()
+    for g, a, r in zip(got, again, ref):
+        assert g.shape == r.shape == (nco, n, n)
+        assert (g - r).abs().max().item() <= TOL_QC * scale
+        assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+def test_cross_bandpowers_on_the_card(cuda_device):
+    """cross_bandpowers(m, m) is map_bandpowers(m) on the kernels, and the
+    fused window equals pre-multiplied maps."""
+    n = 256
+    geom = tp.rect_geometry(width_arcmin=n * 2.0, px_res_arcmin=2.0)
+    fc = FastCl(geom, bin_edges=np.arange(100, 2500, 150.0))
+    assert fc.device.type == "cuda"
+    rng = np.random.default_rng(8)
+    m1, m2 = (torch.as_tensor(rng.standard_normal((4, n, n))
+                              .astype(np.float32), device=cuda_device)
+              for _ in range(2))
+    before = (dft.colfft_scaled.launches, rows_half.launches)
+    auto = fc.map_bandpowers(m1)
+    cross = fc.cross_bandpowers(m1, m1)
+    assert ((cross - auto).abs() / auto.abs()).max().item() <= 5e-5
+    taper, _ = get_taper(geom, taper_percent=12.0)
+    a = fc.cross_bandpowers(m1, m2, window=taper)
+    b = fc.cross_bandpowers(m1 * taper, m2 * taper)
+    torch.cuda.synchronize()
+    assert (dft.colfft_scaled.launches, rows_half.launches) == \
+        (before[0] + 1, before[1] + 3)
+    assert (a - b).abs().max().item() <= 2e-5 * b.abs().max().item()

@@ -1,6 +1,7 @@
 """Parity of the port's doubly-permuted DFT, mirror, noise-plane and
 row-power modules (``orphics_tpu_torch.ops.dft``, ``.mirror``,
-``.noise_planes``, ``.rowpower``; kernels B3, B4, B4b, B5, B5n, B6 and B7)
+``.noise_planes``, ``.rowpower``; kernels B3, B3s, B4, B4b, B5, B5n, B6,
+B6s and B7)
 with ``orphics_tpu.ops.pallas_fft``.
 
 The JAX side runs its Pallas kernels with ``interpret=True``, as the JAX
@@ -34,6 +35,7 @@ TOL_QC = 1e-5
 # port function name -> (JAX function, takes a scale plane)
 _FUNCS = {
     "colfft": (pf.colfft, False),
+    "colfft_scaled": (pf.colfft_scaled, True),
     "colifft": (pf.colifft, False),
     "rowfft": (pf.rowfft, False),
     "rowifft": (pf.rowifft, False),
@@ -59,7 +61,8 @@ def case(request):
         ref[name] = tuple(np.array(a) for a in fn(*args, interpret=True))
     ref["mirror_pp"] = tuple(np.array(a) for a in
                              pf.mirror_pp(*jx, interpret=True))
-    for name in ("rowfft_blk0", "rowqc_pp", "fft2pp_qc"):
+    for name in ("rowfft_blk0", "rowqc_pp", "fft2pp_qc", "rows_pp",
+                 "fft2pp_s"):
         ref[name] = tuple(np.array(a) for a in
                           getattr(pf, name)(*jx, interpret=True))
     return n, (xr, xi, sc), ref
@@ -85,7 +88,7 @@ def test_permuted_bin_tables_match_jax(n):
     tg = tp.rect_geometry(width_arcmin=n * 2.0, px_res_arcmin=2.0)
     edges = np.arange(40, 3000, 80.0)
     perm, _ = D.row_perm(n)
-    ml_t = tg.modlmap(torch.float32).double().numpy()
+    ml_t = tg.modlmap(torch.float32, "cpu").double().numpy()
     ml_j = np.asarray(jg.modlmap(jnp.float32), np.float64)
     # the fp32 |l| planes differ by an ulp here and there (XLA's sqrt)
     assert np.abs(ml_t - ml_j).max() <= 2e-7 * ml_j.max()
@@ -93,14 +96,15 @@ def test_permuted_bin_tables_match_jax(n):
     # the same input gives the same tables, and so does each side's own
     # |l| plane (no mode lies within an ulp of an edge)
     for ml in (ml_j, ml_t):
-        idc, icnt, nseg = D.permuted_bin_tables(ml, perm, edges)
+        idc, icnt, nseg = D.permuted_bin_tables(ml, perm, edges,
+                                                device="cpu")
         assert nseg == jnseg and idc.dtype == torch.int32
         np.testing.assert_array_equal(idc.numpy(), np.asarray(jidc))
         np.testing.assert_array_equal(icnt.numpy(), np.asarray(jicnt))
     # digitize(right=True): a mode on an edge bins as Bin2D does; the
     # overflow folds into segment 0 (tests/test_qe_pallas.py's case)
     idc, _, _ = D.permuted_bin_tables(np.array([[40.0, 80.0], [120.0, 200.0]]),
-                                      np.arange(2), [40.0, 120.0])
+                                      np.arange(2), [40.0, 120.0], "cpu")
     assert idc.tolist() == [0, 1, 1, 0]
 
 
@@ -126,10 +130,11 @@ def test_half_rows_match_jax():
 
 
 @pytest.mark.parametrize("name,mod", [("rowfft_blk0", D),
-                                      ("rowqc_pp", RP), ("fft2pp_qc", RP)])
+                                      ("rowqc_pp", RP), ("fft2pp_qc", RP),
+                                      ("rows_pp", RP), ("fft2pp_s", RP)])
 def test_row_power_matches_jax(case, name, mod):
-    """B4b and the fused half-plane fields (B6 with its strip patches;
-    plain versions here) against the JAX functions."""
+    """B4b and the fused half-plane fields (B6 and B6s with their strip
+    patches; plain versions here) against the JAX functions."""
     n, (xr, xi, _), ref = case
     got = getattr(mod, name)(torch.as_tensor(xr), torch.as_tensor(xi))
     assert len(got) == len(ref[name])
@@ -144,6 +149,12 @@ def test_row_power_matches_jax(case, name, mod):
         qs, c = RP.rowqc_half(torch.as_tensor(xr), torch.as_tensor(xi))
         np.testing.assert_array_equal(qs.numpy(), plain[0].numpy())
         np.testing.assert_array_equal(c.numpy(), plain[1].numpy())
+    if name == "rows_pp":
+        plain = RP.rows_pp_ref(torch.as_tensor(xr), torch.as_tensor(xi))
+        for g, r in zip(plain, ref[name]):
+            assert np.abs(g.numpy() - r).max() <= TOL_QC * np.abs(r).max()
+        s = RP.rows_half(torch.as_tensor(xr), torch.as_tensor(xi))
+        np.testing.assert_array_equal(s.numpy(), plain[0].numpy())
 
 
 def test_rowifft_noise_y_law():

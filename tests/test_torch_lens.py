@@ -146,7 +146,7 @@ def test_flat_lensing_sims_same_draws():
     jf = jlens.FlatLensingSims(jg, jth, beam_arcmin=8.0, noise_uk_arcmin=10.0,
                                lens_order=3, dtype=jnp.float32)
     tf = tlens.FlatLensingSims(tg, tth, beam_arcmin=8.0, noise_uk_arcmin=10.0,
-                               lens_order=3)
+                               lens_order=3, device="cpu")
     key = jax.random.PRNGKey(3)
     obs_j, ex_j = jf.get_sim(key, return_intermediate=True)
     etas = [np.asarray(jgrf.rand_kmap(k, jg, 1, dtype=jnp.float32))

@@ -82,7 +82,7 @@ def test_pipeline_core_matches_jax_step(geoms, theories, order):
     jp = jpipe.LensedQEPipeline(jg, jth, lens_order=order, impl="xla",
                                 interpret=True, **PIPE_KW)
     tpp = tpipe.LensedQEPipeline(tg, tth, lens_order=order, impl="xla",
-                                 **PIPE_KW)
+                                 device="cpu", **PIPE_KW)
     batch = 2
     key = jax.random.PRNGKey(21 + order)
     ref = np.asarray(jp.step(key, batch))
@@ -112,7 +112,8 @@ def test_pipeline_planes_and_api(geoms, theories):
     jth, tth = theories
     jp = jpipe.LensedQEPipeline(jg, jth, lens_order=5, impl="xla",
                                 interpret=True, **PIPE_KW)
-    tpp = tpipe.LensedQEPipeline(tg, tth, lens_order=5, **PIPE_KW)
+    tpp = tpipe.LensedQEPipeline(tg, tth, lens_order=5, device="cpu",
+                                 **PIPE_KW)
     # fp32 planes from the same float64 tables: 1e-5 of each plane's max
     for name in ("csq_coeff", "csq_kk", "alpha_filt", "kbeam_h",
                  "inv_beam_h"):
@@ -125,7 +126,8 @@ def test_pipeline_planes_and_api(geoms, theories):
     np.testing.assert_array_equal(tpp.centers(), jp.centers())
     # 64^2 has no full-plane path: the JAX package's ValueError
     with pytest.raises(ValueError, match="requires a square grid"):
-        tpipe.LensedQEPipeline(tg, tth, impl="pallas", **PIPE_KW)
+        tpipe.LensedQEPipeline(tg, tth, impl="pallas", device="cpu",
+                               **PIPE_KW)
     gen = torch.Generator().manual_seed(0)
     out = tpp.step(3, gen)
     assert out.shape == (3, 3, tpp.binner.nbins)
@@ -138,7 +140,8 @@ def test_flagship_step_matches_graft_entry(theories):
     jg = jgeo.rect_geometry(width_arcmin=64 * 8.0, px_res_arcmin=8.0)
     tg = tp.rect_geometry(width_arcmin=64 * 8.0, px_res_arcmin=8.0)
     jstep = graft._build_qe_pipeline(jg, jth, beam=8.0, noise=10.0)
-    tstep = entry.build_qe_pipeline(tg, tth, beam=8.0, noise=10.0)
+    tstep = entry.build_qe_pipeline(tg, tth, beam=8.0, noise=10.0,
+                                    device="cpu")
     key = jax.random.PRNGKey(4)
     ref = np.asarray(jax.jit(jstep)(key))
     etas = [torch.as_tensor(np.array(jgrf.rand_kmap(k, jg, 1,
@@ -168,7 +171,8 @@ def pp_pipes(theories):
     tg = tp.rect_geometry(width_arcmin=n * 2.0, px_res_arcmin=2.0)
     jp = jpipe.LensedQEPipeline(jg, jth, lens_order=3, impl="pallas",
                                 interpret=True)
-    tpp = tpipe.LensedQEPipeline(tg, tth, lens_order=3, impl="pallas")
+    tpp = tpipe.LensedQEPipeline(tg, tth, lens_order=3, impl="pallas",
+                                 device="cpu")
     assert jp.impl == tpp.impl == "pallas"
     rng = np.random.default_rng(0)
     P = 1
@@ -247,13 +251,15 @@ def test_pp_core_matches_jax_own_planes(pp_pipes):
 def test_pp_core_matches_jax_planes_via_convert(pp_pipes, theories):
     jp, _, planes, ref = pp_pipes
     tg = tp.rect_geometry(width_arcmin=256 * 2.0, px_res_arcmin=2.0)
-    tpp = tpipe.LensedQEPipeline(tg, theories[1], lens_order=3)
+    tpp = tpipe.LensedQEPipeline(tg, theories[1], lens_order=3,
+                                 device="cpu")
     convert.load_pipeline_pp_planes(tpp, _jax_pp_planes(jp))
     got = tpp._pp_core(*_torch_planes(planes), 2).numpy()
     _assert_spectra_close(got, ref)
     with pytest.raises(ValueError, match="full-plane"):
         convert.load_pipeline_pp_planes(
-            tpipe.LensedQEPipeline(tg, theories[1], impl="xla"),
+            tpipe.LensedQEPipeline(tg, theories[1], impl="xla",
+                                   device="cpu"),
             _jax_pp_planes(jp))
 
 
@@ -288,12 +294,14 @@ def test_impl_selection_matches_jax(theories, shape, impl, want):
               px_res_arcmin=3.0)
     jg, tg = jgeo.rect_geometry(**kw), tp.rect_geometry(**kw)
     if want is ValueError:
-        for make, g, th in ((jpipe.LensedQEPipeline, jg, jth),
-                            (tpipe.LensedQEPipeline, tg, tth)):
+        for make, g, th, dev in ((jpipe.LensedQEPipeline, jg, jth, {}),
+                                 (tpipe.LensedQEPipeline, tg, tth,
+                                  dict(device="cpu"))):
             with pytest.raises(ValueError, match="requires a square grid"):
-                make(g, th, impl=impl, **PIPE_KW)
+                make(g, th, impl=impl, **dev, **PIPE_KW)
         return
-    tpp = tpipe.LensedQEPipeline(tg, tth, impl=impl, **PIPE_KW)
+    tpp = tpipe.LensedQEPipeline(tg, tth, impl=impl, device="cpu",
+                                 **PIPE_KW)
     assert tpp.impl == want
     assert jpipe.LensedQEPipeline(jg, jth, impl=impl, interpret=True,
                                   **PIPE_KW).impl == want

@@ -30,7 +30,7 @@ def engines():
     jth, tth = jtheory.default_theory(), ttheory.default_theory()
     beam, noise = 1.5, 6.0
     jct = jqe.lensing_noise_2d(jg, jth, beam, noise, dtype=jnp.float32)
-    tct = tqe.lensing_noise_2d(tg, tth, beam, noise)
+    tct = tqe.lensing_noise_2d(tg, tth, beam, noise, device="cpu")
     for k in jct:
         np.testing.assert_allclose(tct[k].numpy(), np.asarray(jct[k]),
                                    rtol=1e-6)
@@ -38,8 +38,8 @@ def engines():
     kk = dict(lmin=40, lmax=2500)
     jq = jqe.QE(jg, jth, jct, xmask=JF.mask_kspace(jg, **kw),
                 kmask=JF.mask_kspace(jg, **kk), dtype=jnp.float32)
-    tq = tqe.QE(tg, tth, tct, xmask=TF.mask_kspace(tg, **kw),
-                kmask=TF.mask_kspace(tg, **kk))
+    tq = tqe.QE(tg, tth, tct, xmask=TF.mask_kspace(tg, **kw, device="cpu"),
+                kmask=TF.mask_kspace(tg, **kk, device="cpu"), device="cpu")
     return jg, tg, jq, tq
 
 
@@ -142,14 +142,14 @@ def engines256():
     tg = tp.rect_geometry(width_arcmin=n * 2.0, px_res_arcmin=2.0)
     jth, tth = jtheory.default_theory(), ttheory.default_theory()
     jct = jqe.lensing_noise_2d(jg, jth, 1.4, 6.0, dtype=jnp.float32)
-    tct = tqe.lensing_noise_2d(tg, tth, 1.4, 6.0)
+    tct = tqe.lensing_noise_2d(tg, tth, 1.4, 6.0, device="cpu")
     lmax_grid = jg.ellmax_safe()
     kw = dict(lmin=100, lmax=min(3000, lmax_grid - 1))
     kk = dict(lmin=40, lmax=min(3000, lmax_grid * 0.8))
     jq = jqe.QE(jg, jth, jct, xmask=JF.mask_kspace(jg, **kw),
                 kmask=JF.mask_kspace(jg, **kk), dtype=jnp.float32)
-    tq = tqe.QE(tg, tth, tct, xmask=TF.mask_kspace(tg, **kw),
-                kmask=TF.mask_kspace(tg, **kk))
+    tq = tqe.QE(tg, tth, tct, xmask=TF.mask_kspace(tg, **kw, device="cpu"),
+                kmask=TF.mask_kspace(tg, **kk, device="cpu"), device="cpu")
     maps = np.random.default_rng(0).standard_normal((2, n, n)).astype(
         np.float32)
     perm, inv = pf.row_perm(n)
