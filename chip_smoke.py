@@ -1,7 +1,7 @@
 """Card check of the PyTorch / CUDA port: build its kernels, hold each to
 its plain PyTorch version at the main path's shapes, drive the flagship
-step and both paths of the lensing pipeline on the card, and check what
-comes out.
+step, both paths of the lensing pipeline, FastCl, the ILC coadd and the
+curved-sky SHT on the card, and check what comes out.
 
 Run from the repository root on a machine with one NVIDIA Hopper GPU
 and nvcc:
@@ -13,17 +13,20 @@ Phases: 0 card, 1 build, 2 kernels vs plain versions, 3 flagship step,
 takes at 512^2), 6 FastCl at the JAX package's bench config 1 (2048^2,
 0.5', batch 192, nseg 100), 7 ``FastCl.cross_bandpowers`` at bench config
 2 (2048^2, batch 128, the 12 % taper), 8 the fused ILC coadd at bench
-config 4 (512^2, six bands, tSZ deprojected, 32 coadds). Phases 3-8 each
-set the launch counts to 0 before they drive their path and check them
-after; 4-8 print throughput, peak memory, device time by kernel, a check
-of the output and the card-vs-CPU agreement.
+config 4 (512^2, six bands, tSZ deprojected, 32 coadds), 9 SHT roundtrips
+at bench config 7 (lmax 2047, dd and fast), 10 the curved-sky masked
+spectra at bench config 8 (lmax 1023, batch 8, dd and fast), 11 its spin-2
+leg, bench config 8p. Phases 3-11 each set the launch counts to 0 before
+they drive their path and check them after; 4-11 print throughput, peak
+memory, device time by kernel and a check of the output against the plain
+versions.
 The JSON object on a line before the last holds each kernel's launches
 (on the full-plane lensing path for the kernels it runs, on the FastCl
-path for B2/B4b/B5/B6, on config 2's for B3s/B6s, on config 4's for B9),
-error, times and bound; the last line is
-``{"ok": true, "device": {"platform": "gpu", ...}}``. Any failed check
-raises, so the exit code is non-zero and no result line is printed. It
-imports nothing of JAX.
+path for B2/B4b/B5/B6, on config 2's for B3s/B6s, on config 4's for B9, on
+configs 7, 8 and 8p together for B10a/B10s), error, times and bound; the
+last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any
+failed check raises, so the exit code is non-zero and no result line is
+printed. It imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -38,18 +41,21 @@ import numpy as np
 import torch
 
 
-# NVIDIA's H100 SXM data sheet: HBM rate and fp32 rate outside the tensor
-# cores (the kernels here are fp32 FFTs and sums)
+# NVIDIA's H100 SXM data sheet: HBM rate, and the fp32 and fp64 rates
+# outside the tensor cores (the kernels here are fp32 FFTs and sums, and
+# the fp64 Legendre recurrence)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+FP64_FLOP_PER_S = 34e12
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, flops64=0.0):
     """``(ms, "bytes" or "operations")``: the least time the card could take
     for work that moves ``nbytes`` (each input read once, each output
-    written once) and does ``flops`` fp32 operations."""
+    written once) and does ``flops`` fp32 and ``flops64`` fp64
+    operations."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = (flops / FP32_FLOP_PER_S + flops64 / FP64_FLOP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -65,7 +71,8 @@ def fft_flops(n, count):
 
 def kernel_entry(name, source, replaces, err, times, work):
     """One kernel's record: ``times`` = (kernel, plain, library or None) ms,
-    ``work`` = (bytes, fp32 operations) of the timed call."""
+    ``work`` = (bytes, fp32 operations[, fp64 operations]) of the timed
+    call."""
     bound_ms, bound_by = bound(*work)
     return dict(name=name, route="cuda",
                 source="orphics_tpu_torch/csrc/" + source,
@@ -105,6 +112,7 @@ def profile_steps(step, nsteps, step_ms, tag):
     for e in kern[:12]:
         print(f"[{tag}]   {e.self_device_time_total / (nsteps * 1e3):9.4f}  "
               f"{e.count // nsteps:4d}x  {e.key[:90]}")
+    return kern
 
 
 def throughput(step, batch, nsteps, label, unit, card, tag):
@@ -207,6 +215,10 @@ def main():
                                                 rowqc_pp_ref, rows_half,
                                                 rows_pp, rows_pp_ref)
     from orphics_tpu_torch.ops.windows import get_taper
+    from orphics_tpu_torch.models import curved
+    from orphics_tpu_torch.ops import alm as almops
+    from orphics_tpu_torch.ops import legendre as leg
+    from orphics_tpu_torch.ops import sht
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -740,6 +752,88 @@ def main():
         b9_times, b9_work)
     del y9, w9
     torch.cuda.empty_cache()
+    # B10a/B10s against their plain fp64 loops (no captured seeds, no tile
+    # bounds) at the path's shapes: config 8's (lmax 1023, 8 maps, folded;
+    # dd and fast), config 8p's (lmax 1023, the spin-2 columns n = -2 and
+    # +2 on the northern rings, 16 maps: two launches of 8; dd) and config
+    # 7's (lmax 2047, one map, folded, dd)
+    b10 = {}
+    for lmax, nm, ns, layout, modes in (
+            (1023, 8, (0,), "fold", ("dd", "fast")),
+            (1023, 16, (-2, 2), "half", ("dd",)),
+            (2047, 1, (0,), "fold", ("dd",))):
+        rings = sht.gauss_legendre_rings(lmax)
+        M1 = lmax + 1
+        for ni in range(len(ns)):
+            shape = f"lmax {lmax} x{nm} {layout} n={ns[ni]}"
+            t0 = time.perf_counter()
+            tab = leg.tables(lmax, rings, ns, ni, layout, dev)
+            ktab = leg.kernel_tables(tab)
+            torch.cuda.synchronize()
+            ls = ktab["ls"]
+            steps = float(((M1 - ls) * (ls >= 0)).sum().item())
+            dead = int((ktab["bounds"][M1:2 * M1] == 0).sum().item())
+            print(f"[2] B10 tables {shape}: capture pass and bounds "
+                  f"{time.perf_counter() - t0:.3f} s; {ktab['Tk']} kernel "
+                  f"rings, {steps:.6e} live (ring, m, l) steps, {dead} dead "
+                  "(m, ring tile) pairs")
+            G = torch.complex(*(torch.randn((nm, tab["Tr"], M1),
+                                            generator=gen, device=dev)
+                                for _ in range(2)))
+            a = torch.complex(*(torch.randn((nm, M1, M1), generator=gen,
+                                            device=dev) for _ in range(2)))
+            for name, fn, ref_fn, x, out_b in (
+                    ("legendre_ana", leg.legendre_ana, leg.legendre_ana_ref,
+                     G, 8 * nm * M1 * M1),
+                    ("legendre_syn", leg.legendre_syn, leg.legendre_syn_ref,
+                     a, 8 * nm * tab["Tr"] * M1)):
+                ref = ref_fn(x, tab)
+                for mode in modes:
+                    fast = mode == "fast"
+                    got = fn(x, tab, fast)
+                    again = fn(x, tab, fast)
+                    torch.cuda.synchronize()
+                    err, rel = rel_err((got,), (ref,))
+                    tol = 5e-3 if fast else 1e-6
+                    check(rel <= tol, f"{name} {shape} {mode}: error "
+                                      f"{rel:.3e} of max|ref| > {tol}")
+                    check(torch.equal(got, again),
+                          f"{name} {shape} {mode}: two runs differ")
+                    ms = cuda_ms(lambda: fn(x, tab, fast), 5, warmup=1)
+                    plain = cuda_ms(lambda: ref_fn(x, tab), 1, warmup=0)
+                    # bytes: x in, the output, the tables once. Operations
+                    # per live step: the recurrence's two FMAs and a
+                    # multiply (5, in fp64; fp32 in fast), and per map the
+                    # complex contraction's two FMAs (4), counted at the
+                    # fp32 rate: the inputs and outputs are fp32, so that
+                    # is the least it could cost (B10a contracts in fp64,
+                    # B10s in its recurrence's precision)
+                    rec = 5.0 * steps
+                    work = (nbytes(x, tab["A"], tab["B"], tab["C"],
+                                   ktab["s1"], ktab["s0"], ktab["ls"])
+                            + out_b,
+                            (rec if fast else 0.0) + 4.0 * nm * steps,
+                            0.0 if fast else rec)
+                    bms, bby = bound(*work)
+                    print(f"[2] {name} {shape} {mode}: max abs err "
+                          f"{err:.3e} = {rel:.3e} of max|ref| (<= {tol}), "
+                          f"reproducible; kernel {ms:.4f} ms, plain "
+                          f"{plain:.4f} ms, bound {bms:.4f} ms ({bby})")
+                    b10[(name, lmax, ns[ni], mode)] = (err, (ms, plain, None),
+                                                      work)
+            del G, a, got, again, ref
+    # phases 9-11 build their own tables: these would count in the peak
+    # memory of phases 3-8
+    del tab, ktab
+    leg.clear_tables()
+    torch.cuda.empty_cache()
+    # each record's error, times and bound from config 7's shape
+    for name, sites in (("legendre_ana", "pallas_sht.py:1216,1230,1310,1325"),
+                        ("legendre_syn",
+                         "pallas_sht.py:1260,1273,1364,1379")):
+        results[name] = kernel_entry(name, "legendre.cu", sites,
+                                     *b10[(name, 2047, 0, "dd")])
+
     for r in results.values():
         print(f"[2] {r['name']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library "
@@ -760,7 +854,9 @@ def main():
                 "rowqc_half": (rowqc_half,),
                 "colfft_scaled": (dft.colfft_scaled,),
                 "rows_half": (rows_half,),
-                "rowcombine_pp": (rowcombine_pp,)}
+                "rowcombine_pp": (rowcombine_pp,),
+                "legendre_ana": (leg.legendre_ana,),
+                "legendre_syn": (leg.legendre_syn,)}
 
     def reset_counts():
         for fns in counters.values():
@@ -1199,6 +1295,166 @@ def main():
     print(f"[8] 256^2, 4 coadds: cilc_coadd_fused vs ifft2(cilc(fft2(maps)))"
           f" on the card {drel:.3e} of max (<= 1e-5); card (kernels) vs CPU "
           f"(plain versions) {crel:.3e} of max (<= 1e-5)")
+
+    # ---- 9. bench config 7: SHT roundtrips map2alm(alm2map(a)) at lmax
+    # 2047 on Gauss-Legendre rings, one unit-variance complex64 alm
+    # (bench.py:659-721), in dd and in fast
+    b10_launches = {"legendre_ana": 0, "legendre_syn": 0}
+
+    def add_b10(counts):
+        for name in b10_launches:
+            b10_launches[name] += counts[name]
+
+    reset_counts()
+    lmax7 = 2047
+    rings7 = sht.gauss_legendre_rings(lmax7)
+    n7 = almops.nalm(lmax7)
+    g7 = torch.Generator(device=dev).manual_seed(7)
+    a0 = torch.complex(torch.randn(n7, generator=g7, device=dev),
+                       torch.randn(n7, generator=g7, device=dev))
+    a0[: lmax7 + 1] = a0[: lmax7 + 1].real.to(a0.dtype)    # m = 0 real
+    for fast, tol, tag in ((False, 3.2e-6, ""), (True, 1e-2, "_fast")):
+        def roundtrip(a, fast=fast):
+            return sht.map2alm(sht.alm2map(a, rings7, lmax7, fast=fast),
+                               rings7, lmax7, fast=fast)
+        err = (roundtrip(a0) - a0).abs().max().item()
+        check(err <= tol, f"config 7{tag}: roundtrip max-abs error "
+                          f"{err:.3e} > {tol}")
+        print(f"[9] config 7{tag}: roundtrip max-abs error {err:.3e} "
+              f"(<= {tol})")
+        state = {"a": a0}
+
+        def step(roundtrip=roundtrip, state=state):
+            state["a"] = roundtrip(state["a"])
+        ms9 = throughput(step, 1, 10, f"sht_roundtrips_per_sec_lmax{lmax7}"
+                         f"{tag} (GL rings, one map)", "roundtrips/s", card,
+                         "9")
+        check(bool(torch.isfinite(state["a"]).all()), "config 7: not finite")
+        if not fast:
+            kern = profile_steps(step, 1, ms9, "9")
+            share = {k: sum(e.self_device_time_total for e in kern
+                            if k in e.key.lower()) / 1e3
+                     for k in ("fft", "ana_kernel", "syn_kernel")}
+            print(f"[9] one dd roundtrip: ring FFTs (cuFFT) "
+                  f"{share['fft']:.4f} ms against B10a {share['ana_kernel']:.4f}"
+                  f" ms and B10s {share['syn_kernel']:.4f} ms")
+    counts9 = read_counts(("legendre_ana", "legendre_syn"), "9")
+    add_b10(counts9)
+    del a0, state
+    torch.cuda.empty_cache()
+
+    # ---- 10. bench config 8: curved-sky masked-spectrum Monte Carlo at
+    # lmax 1023, batch 8: synalm -> 10' beam -> alm2map -> galactic strip
+    # 76-104 deg (equatorial) -> map2alm -> alm2cl / w2 (bench.py:724-786)
+    lmax8, batch8s = 1023, 8
+    rings8 = sht.gauss_legendre_rings(lmax8)
+    ells8 = np.arange(lmax8 + 1)
+    th8 = default_theory()
+    sig8 = np.deg2rad(10.0 / 60.0) / np.sqrt(8.0 * np.log(2.0))
+    bl8 = np.exp(-0.5 * ells8 * (ells8 + 1.0) * sig8 * sig8)
+    bl8_d = torch.as_tensor(bl8, dtype=torch.float32, device=dev)
+    mask8 = curved.galactic_mask_rings(rings8, np.deg2rad(76.0),
+                                       np.deg2rad(104.0), "equ")
+    w2_8 = float(curved.wfactor(2, mask8, rings8))
+    sel8 = (ells8 > 100) & (ells8 < lmax8 // 2)
+    n8 = almops.nalm(lmax8)
+
+    def spectra_gate(cls, want, tag):
+        ratio = (cls.double().mean(0).cpu().numpy()[sel8] / want).mean()
+        check(abs(ratio - 1.0) < 0.2, f"{tag}: mean ratio {ratio:.4f}")
+        return ratio
+
+    def plain_legendre(plain):
+        """(ana, syn) for the transforms: with ``plain`` the plain Legendre
+        versions on the card's tensors (the timed steps' reference), else
+        the kernels."""
+        return ((leg.legendre_ana_ref, leg.legendre_syn_ref) if plain
+                else (None, None))
+
+    def plain_gate(step_from_noise, re, im, fast, tag):
+        got = step_from_noise(re, im, fast)
+        ref = step_from_noise(re, im, False, plain=True)
+        d = (got - ref).abs()[:, sel8]
+        rel = (d.amax(1) / ref.abs()[:, sel8].amax(1)).max().item()
+        tol = 2e-3 if fast else 1e-5
+        check(bool(torch.isfinite(got).all()) and rel <= tol,
+              f"{tag}: timed step vs plain path {rel:.3e} > {tol}")
+        return rel
+
+    for spin in (0, 2):
+        reset_counts()
+        if spin == 0:
+            cl8 = np.asarray(th8.lCl("TT", ells8))
+            want8 = (cl8 * bl8 ** 2)[sel8]
+            cl8_d = torch.as_tensor(cl8, dtype=torch.float32, device=dev)
+
+            def step_from_noise(re, im, fast, plain=False):
+                ana, syn = plain_legendre(plain)
+                alms = almops.synalm_from_noise(re, im, cl8_d, lmax8)
+                m = sht.alm2map(almops.almxfl(alms, bl8_d), rings8, lmax8,
+                                fast=fast, syn=syn)
+                a2 = sht.map2alm(m * mask8, rings8, lmax8, fast=fast,
+                                 ana=ana)
+                return almops.alm2cl(a2) / w2_8
+            shape8 = (batch8s, n8)
+            modes8 = (False, True)
+            name8, tag8 = "curved_masked_cl_sims_per_sec", "10"
+        else:
+            clee = np.asarray(th8.lCl("EE", ells8))
+            clbb = np.asarray(th8.lCl("BB", ells8))
+            want8 = ((clee + clbb) * bl8 ** 2)[sel8]
+            clee_d, clbb_d = (torch.as_tensor(c, dtype=torch.float32,
+                                              device=dev)
+                              for c in (clee, clbb))
+
+            def step_from_noise(re, im, fast, plain=False):
+                ana, syn = plain_legendre(plain)
+                ealm = almops.almxfl(almops.synalm_from_noise(
+                    re[:, 0], im[:, 0], clee_d, lmax8), bl8_d)
+                balm = almops.almxfl(almops.synalm_from_noise(
+                    re[:, 1], im[:, 1], clbb_d, lmax8), bl8_d)
+                q, u = sht.alm2map_spin(ealm, balm, rings8, lmax8, fast=fast,
+                                        syn=syn)
+                e2, b2 = sht.map2alm_spin(q * mask8, u * mask8, rings8,
+                                          lmax8, fast=fast, ana=ana)
+                return (almops.alm2cl(e2) + almops.alm2cl(b2)) / w2_8
+            shape8 = (batch8s, 2, n8)
+            modes8 = (False,)
+            name8, tag8 = "curved_masked_pol_sims_per_sec", "11"
+        g8 = torch.Generator(device=dev).manual_seed(8 + spin)
+        for fast in modes8:
+            tag = "_fast" if fast else ""
+
+            def step(fast=fast, step_from_noise=step_from_noise,
+                     shape8=shape8):
+                re = torch.randn(shape8, generator=g8, device=dev)
+                im = torch.randn(shape8, generator=g8, device=dev)
+                return step_from_noise(re, im, fast)
+            cls = step()
+            torch.cuda.synchronize()
+            check(tuple(cls.shape) == (batch8s, lmax8 + 1),
+                  f"config 8 spin {spin}: shape {tuple(cls.shape)}")
+            ratio = spectra_gate(cls, want8, f"config 8 spin {spin}{tag}")
+            ms8 = throughput(step, batch8s, 10,
+                             f"{name8}_lmax{lmax8}_batch{batch8s}{tag} "
+                             "(GL rings, 10' beam, galactic strip "
+                             "76-104 deg)", "sims/s", card, tag8)
+            re = torch.randn(shape8, generator=g8, device=dev)
+            im = torch.randn(shape8, generator=g8, device=dev)
+            rel = plain_gate(step_from_noise, re, im, fast,
+                             f"config 8 spin {spin}{tag}")
+            print(f"[{tag8}] spin {spin}{tag}: mean C_l / (C_l b_l^2) over "
+                  f"100 < l < {lmax8 // 2}: {ratio:.4f} (|ratio - 1| < 0.2); "
+                  f"the timed step's output vs the plain path on the same "
+                  f"normals: {rel:.3e} of each spectrum's max "
+                  f"(<= {2e-3 if fast else 1e-5})")
+            if not fast:
+                profile_steps(step, 2, ms8, tag8)
+        counts = read_counts(("legendre_ana", "legendre_syn"), tag8)
+        add_b10(counts)
+        torch.cuda.empty_cache()
+    for name, count in b10_launches.items():
+        results[name]["launches"] = count
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -19,7 +19,12 @@ module needs neither jax nor ``orphics_tpu``:
   * :func:`load_ilc_weights` takes the per-band weight planes of an ILC
     (``orphics_tpu.models.ilc.cilc_weights`` / ``silc_weights``) as the
     tensor that :func:`~orphics_tpu_torch.models.ilc.linear_coadd_fused`
-    coadds with.
+    coadds with;
+  * :func:`load_sht_tables` copies a port
+    :func:`~orphics_tpu_torch.ops.legendre.tables` entry with the JAX
+    Legendre kernel's prepared tables
+    (``orphics_tpu.ops.pallas_sht._prep_host``) as its kernel tables, so
+    the port's kernels can run on JAX's own captured seeds.
 """
 from __future__ import annotations
 
@@ -29,12 +34,13 @@ import numpy as np
 import torch
 
 from ._device import resolve
+from .ops import legendre
 from .models.lenspipe import PLANE_NAMES, PP_PLANE_NAMES
 from .models.theory import TheorySpectra
 
 __all__ = ["theory_from_numpy", "load_pipeline_planes",
            "load_pipeline_pp_planes", "load_fastcl_tables",
-           "load_ilc_weights", "TT_HALF_NAMES",
+           "load_ilc_weights", "load_sht_tables", "TT_HALF_NAMES",
            "TT_PP_NAMES", "FASTCL_TABLE_NAMES"]
 
 # the arrays of QE._tt_half_plans(), in its tuple order (sym excluded)
@@ -140,3 +146,38 @@ def load_ilc_weights(w2d: np.ndarray, device=None) -> torch.Tensor:
     if w.ndim != 3 or w.shape[1] != w.shape[2]:
         raise ValueError(f"ILC weights must be (nfreq, n, n), got {w.shape}")
     return torch.as_tensor(w, device=resolve(device)).contiguous()
+
+
+def load_sht_tables(tab: dict, host: Dict[str, np.ndarray]) -> dict:
+    """A copy of ``tab`` (an ``ops.legendre.tables(lmax, rings, ns, ni,
+    layout, device)`` entry) whose kernel tables come from the JAX kernel's
+    host tables ``pallas_sht._prep_host(lmax, rings, 128, 256, ns, ni,
+    fold)`` (numpy), ``fold`` True for the port's "fold" and "half"
+    layouts: the hi/lo recurrence tables ``Ah + Al``, ..., the captured
+    seeds ``(sm + sl, smP + slP, se, l0)``. JAX's ``bounds`` are for its
+    (128-m, 256-ring) tiles; they are checked against the port's copy of
+    ``_bounds_table`` on JAX's ``l0`` and the port's own tile bounds are
+    derived from the same ``l0``. Pass the copy to ``legendre_ana`` /
+    ``legendre_syn``; ``tab`` and the port's caches are left as they
+    were."""
+    lmax, Tk = tab["lmax"], tab["Tk"]
+    L1 = lmax + 1
+    dev = tab["A"].device
+    f64 = lambda *names: torch.as_tensor(
+        sum(np.asarray(host[n], np.float64) for n in names),
+        dtype=torch.float64, device=dev)
+    cut = lambda a: a[:Tk, :L1].T.contiguous()
+    l0 = np.asarray(host["l0"], np.int32)
+    Lp, Mp = np.shape(host["Ah"])
+    Tp = np.shape(host["sm"])[0]
+    want = legendre._bounds_table(l0[:Tk, :L1], lmax, tab["theta"][:Tk],
+                                  128, 256, Lp, Tp, Mp)
+    if not np.array_equal(want, np.asarray(host["bounds"])):
+        raise ValueError("host bounds do not follow from its l0 grid: the "
+                         "tables are not _prep_host's for these rings")
+    return dict(tab, kernel=legendre._kernel_tables_from(
+        lmax, tab["theta"], *(f64(h, lo)[:L1, :L1] for h, lo in
+                              (("Ah", "Al"), ("Bh", "Bl"), ("Ch", "Cl"))),
+        cut(f64("smP", "slP")), cut(f64("sm", "sl")),
+        cut(torch.as_tensor(np.asarray(host["se"], np.int32), device=dev)),
+        cut(torch.as_tensor(l0, device=dev))))

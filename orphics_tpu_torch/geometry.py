@@ -80,6 +80,17 @@ class Geometry:
         lx = 2 * np.pi * np.fft.rfftfreq(self.nx, d=self.dx)
         return np.hypot(ly[:, None], lx[None, :])
 
+    def yaxis_np(self):
+        """Pixel-centre y offsets from the patch centre (radians)."""
+        return (np.arange(self.ny) - (self.ny - 1) / 2.0) * self.dy
+
+    def pixsizemap(self, dtype=torch.float32, device=None):
+        """(ny, nx) per-pixel solid angle with the CAR cos(dec) factor
+        (reference ``orphics/maps.py:1228-1238``)."""
+        psize = abs(self.dy * self.dx) * np.cos(self.yaxis_np() + self.y0)
+        col = torch.as_tensor(psize, dtype=dtype, device=resolve(device))
+        return col[:, None].expand(self.ny, self.nx)
+
     # ----- Fourier-plane grids on a device --------------------------
     def laxes(self, dtype=torch.float32, device=None):
         """1D angular wavenumbers along y and x: ``2*pi*fftfreq``."""

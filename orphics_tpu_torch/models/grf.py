@@ -23,7 +23,7 @@ from ..ops import fourier as F
 __all__ = ["eig_pow", "spec2flat", "rand_kmap", "harm2map", "rand_map",
            "rand_map_from_noise", "covsqrt_half", "rand_hermitian_half",
            "hermitian_half_from_noise", "rand_map_r", "rand_map_r_from_noise",
-           "MapGen"]
+           "MapGen", "cmb_ps"]
 
 
 def eig_pow(mat, exp, lim=1e-30):
@@ -169,3 +169,20 @@ class MapGen:
 
     def get_map_from_noise(self, eta):
         return rand_map_from_noise(eta, self.geom, self.covsqrt)
+
+
+def cmb_ps(theory, lmax: int = None, pols=("TT", "EE", "BB", "TE"),
+           lensed: bool = True):
+    """The (3, 3, lmax + 1) T, E, B power matrix of a ``TheorySpectra`` as
+    float64 numpy (reference ``orphics/maps.py:1038``)."""
+    lmax = lmax or theory.lpad
+    ells = np.arange(lmax + 1)
+    get = theory.lCl if lensed else theory.uCl
+    ps = np.zeros((3, 3, lmax + 1))
+    ps[0, 0] = np.asarray(get("TT", ells))
+    ps[1, 1] = np.asarray(get("EE", ells))
+    ps[2, 2] = np.asarray(get("BB", ells))
+    te = np.asarray(get("TE", ells))
+    ps[0, 1] = te
+    ps[1, 0] = te
+    return ps

@@ -13,7 +13,7 @@ The fused coadds (:func:`linear_coadd_fused` and its ``cilc_`` / ``silc_``
 and B3/B4 ``ifft2pp`` of packed coadd pairs; :func:`coadd_from_y` starts
 after the column pass, from a synthesis's pre-column ``Y'`` (the JAX
 package's ``bench.py`` config 4 step). ``harmonic_coaddition`` and
-``apply_harmonic_coadd_weights`` wait for the port of ``ops/alm``.
+``apply_harmonic_coadd_weights`` weight alms per ell (``ops/alm``).
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from .._device import resolve
+from ..ops import alm as almops
 from ..ops import dft as D
 from ..ops.interp import interp
 from ..ops.rowcombine import rowcombine_pp
@@ -34,9 +35,6 @@ __all__ = ["silc", "cilc", "silc_weights", "cilc_weights",
            "silc_coadd_fused", "kspace_coadd_fused", "coadd_weights_pp",
            "coadd_from_y", "apply_harmonic_coadd_weights",
            "ilc_def_response", "ilc_index"]
-
-_ALM = ("needs the port of ops/alm (ROADMAP queue A, item 16), which is "
-        "not done yet")
 
 
 def _as(x, like):
@@ -241,13 +239,28 @@ def calculate_harmonic_coadd_weights(lmax, cl_model, resp_factors, beams):
 
 def harmonic_coaddition(alms, beams, cl_model, target_beam, resp_factors=None,
                         return_weights=True):
-    """Harmonic coaddition (reference ``orphics/maps.py:442``)."""
-    raise NotImplementedError("harmonic_coaddition " + _ALM)
+    """Harmonic coaddition without explicit deconvolution (reference
+    ``orphics/maps.py:442``): ``alm_out = sum_i almxfl(alm_i, w_li
+    B_target)`` on the alms' device; the weights are host float64."""
+    lmax = almops.getlmax(alms[0].shape[-1])
+    w = calculate_harmonic_coadd_weights(lmax, cl_model, resp_factors, beams)
+    tb = np.asarray(target_beam)[: lmax + 1]
+    out = 0.0
+    for i, alm in enumerate(alms):
+        out = out + almops.almxfl(alm, w[:, i] * tb)
+    return (out, w) if return_weights else out
 
 
 def apply_harmonic_coadd_weights(alms, weights, target_beam):
-    """Apply per-ell coadd weights to alms (reference ``maps.py:339``)."""
-    raise NotImplementedError("apply_harmonic_coadd_weights " + _ALM)
+    """Apply precomputed (lmax + 1, nfreq) per-ell coadd weights to a list
+    of alms and convolve with the target beam (reference
+    ``maps.py:339``)."""
+    lmax = almops.getlmax(alms[0].shape[-1])
+    w = np.asarray(weights)
+    out = torch.zeros_like(alms[0])
+    for k, a in enumerate(alms):
+        out = out + almops.almxfl(a, w[: lmax + 1, k])
+    return almops.almxfl(out, np.asarray(target_beam)[: lmax + 1])
 
 
 def ilc_def_response(response, cinv):

@@ -28,6 +28,8 @@ from orphics_tpu_torch._device import resolve
 from orphics_tpu_torch.models import grf as tgrf, theory as ttheory
 from orphics_tpu_torch.models import fastcl as tfastcl, lenspipe as tpipe
 from orphics_tpu_torch.ops import binning as tbinning, windows as twindows
+from orphics_tpu_torch.ops import alm as talm, sht as tsht
+from orphics_tpu_torch.models import curved as tcurved, noise as tnoise
 
 torch.set_num_threads(1)
 
@@ -224,6 +226,9 @@ def test_port_imports_no_jax():
             "orphics_tpu_torch.ops.rowcombine, orphics_tpu_torch.ops.windows, "
             "orphics_tpu_torch.models.ilc, "
             "orphics_tpu_torch.models.foregrounds, "
+            "orphics_tpu_torch.ops.alm, orphics_tpu_torch.ops.sht, "
+            "orphics_tpu_torch.ops.legendre, orphics_tpu_torch.models.noise, "
+            "orphics_tpu_torch.models.curved, "
             "orphics_tpu_torch.entry, orphics_tpu_torch.convert\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'orphics_tpu.')) or "
@@ -247,6 +252,22 @@ _NO_DEVICE = {
     "mask_kspace": lambda g, th: TF.mask_kspace(g, lmin=100),
     "get_taper": lambda g, th: twindows.get_taper(g),
     "modlmap": lambda g, th: g.modlmap(),
+    "pixsizemap": lambda g, th: g.pixsizemap(),
+    "synalm": lambda g, th: talm.synalm(torch.Generator(), np.ones(9)),
+    "curved.rand_map": lambda g, th: tcurved.rand_map(
+        torch.Generator(), tsht.gauss_legendre_rings(8), np.ones(9), 8),
+    "curved.galactic_mask_rings": lambda g, th: tcurved.galactic_mask_rings(
+        tsht.gauss_legendre_rings(8), 1.0, 2.0),
+    "noise.ivar": lambda g, th: tnoise.ivar(g, 10.0),
+    "noise.atm_factor": lambda g, th: tnoise.atm_factor(np.arange(9), 100.0,
+                                                        -3.0),
+    "noise.rednoise": lambda g, th: tnoise.rednoise(np.arange(9), 10.0),
+    "noise.noise_func": lambda g, th: tnoise.noise_func(np.arange(9), 1.4,
+                                                        10.0),
+    "noise.white_noise_with_atm_func": lambda g, th:
+        tnoise.white_noise_with_atm_func(np.arange(9), 6.0, 100.0, -3.0),
+    "curved.cosine_taper_ells": lambda g, th: tcurved.cosine_taper_ells(
+        np.arange(9), 4, 2),
 }
 
 

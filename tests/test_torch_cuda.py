@@ -16,6 +16,8 @@ import orphics_tpu_torch as tp
 from orphics_tpu_torch.models import grf, lensing
 from orphics_tpu_torch.models.theory import default_theory
 from orphics_tpu_torch.ops import dft
+from orphics_tpu_torch.ops import legendre as leg
+from orphics_tpu_torch.ops import sht
 from orphics_tpu_torch.ops.bin_reduce import (bin2_reduce, bin2_reduce_ref,
                                                bin_reduce, bin_reduce_ref)
 from orphics_tpu_torch.ops.lens import lens_map_kernel, lens_map_ref, spline_coeffs
@@ -39,6 +41,14 @@ TOL_LENS = 2e-5
 TOL_DFT = 2e-5
 # B6: products of two transforms, each within TOL_DFT: 3e-5 of max|ref|.
 TOL_QC = 3e-5
+# B10: fp64 recurrence from captured seeds vs the plain fp64 loop from the
+# l0 seeds; fp32 inputs and outputs: 1e-6 of max|ref| (the JAX kernel's own
+# bound against its scan is 2e-6), fp64: 1e-10; the fast mode's fp32
+# recurrence, whose rounding grows ~l^2 on the near-polar low-m lanes
+# (pallas_sht.py:529-541): 5e-3 at lmax 1023, where a random-G analysis
+# reads 2.5e-3 on the H100 and the JAX fast kernel's roundtrip 1.8e-3
+# (pallas_sht.py:146-147).
+TOL_LEG = {"f32": 1e-6, "f64": 1e-10, "fast": 5e-3}
 
 
 @pytest.fixture
@@ -397,3 +407,85 @@ def test_cross_bandpowers_on_the_card(cuda_device):
     assert (dft.colfft_scaled.launches, rows_half.launches) == \
         (before[0] + 1, before[1] + 3)
     assert (a - b).abs().max().item() <= 2e-5 * b.abs().max().item()
+
+
+def _asym_rings(lmax):
+    """A Gauss-Legendre grid with its first ring moved: not north-south
+    symmetric, so the transforms take the unfolded kernels."""
+    r = sht.gauss_legendre_rings(lmax)
+    th = np.asarray(r.theta_array())
+    th[0] *= 0.9
+    return sht.RingGeom(tuple(th.tolist()), r.weights, r.nphi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lmax,grid,ns,ni,B,mode", [
+    (1023, "gl", (0,), 0, 3, "f32"),       # fold, 2 ring tiles, dead tiles
+    (1023, "gl", (0,), 0, 9, "fast"),      # two launches (8 + 1 maps)
+    (300, "asym", (0,), 0, 2, "f32"),      # unfolded, 2 ring tiles
+    (300, "gl", (-2, 2), 1, 2, "f64"),     # spin column, northern rings
+    (1023, "gl", (-2, 2), 0, 16, "f32"),   # config 8p: spin, 8 + 8 maps
+    (200, "cc", (0,), 0, 1, "f64"),        # Clenshaw-Curtis, odd T
+])
+def test_legendre_kernels_match_ref(cuda_device, lmax, grid, ns, ni, B,
+                                    mode):
+    rings = {"gl": sht.gauss_legendre_rings, "asym": _asym_rings,
+             "cc": lambda L: sht.clenshaw_curtis_rings(2 * L + 1)}[grid](
+                 lmax)
+    layout = ("full" if grid == "asym" else
+              "half" if ns != (0,) else "fold")
+    tab = leg.tables(lmax, rings, ns, ni, layout, cuda_device)
+    k = leg.kernel_tables(tab)
+    if lmax == 1023:
+        M1 = lmax + 1
+        assert k["njt"] >= 2 and (k["bounds"][M1:2 * M1] == 0).any()
+    rdt = torch.float64 if mode == "f64" else torch.float32
+    rng = np.random.default_rng(lmax + B)
+    cplx = lambda *s: torch.complex(
+        *(torch.as_tensor(rng.standard_normal(s), dtype=rdt,
+                          device=cuda_device) for _ in range(2)))
+    fast = mode == "fast"
+    G = cplx(B, tab["Tr"], lmax + 1)
+    a = cplx(B, lmax + 1, lmax + 1)
+    for fn, ref_fn, x in ((leg.legendre_ana, leg.legendre_ana_ref, G),
+                          (leg.legendre_syn, leg.legendre_syn_ref, a)):
+        before = fn.launches
+        got = fn(x, tab, fast)
+        again = fn(x, tab, fast)
+        one = fn(x[-1:], tab, fast)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 2 * (-(-B // 8)) + 1
+        assert got.dtype == x.dtype
+        ref = ref_fn(x, tab)
+        err = (got - ref).abs().max().item() / ref.abs().max().item()
+        assert err <= TOL_LEG[mode], (fn.__name__, err)
+        assert torch.equal(got, again)
+        assert torch.equal(one[0], got[-1])     # a map alone = packed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lmax", [255, 256])
+def test_sht_card_vs_cpu(cuda_device, lmax):
+    """The public transforms on the card (B10a/B10s) against the CPU's
+    plain versions, spin 0 and spin 2, even and odd ring counts."""
+    rings = sht.gauss_legendre_rings(lmax)
+    rng = np.random.default_rng(lmax)
+    maps = torch.as_tensor(rng.standard_normal((3, 2) + rings.shape)
+                           .astype(np.float32))
+    cases = ((sht.map2alm, (maps[:, 0],)),
+             (sht.map2alm_spin, (maps[:, 0], maps[:, 1])))
+    for fn, args in cases:
+        got = fn(*(x.to(cuda_device) for x in args), rings, lmax)
+        ref = fn(*args, rings, lmax)
+        for g, r in zip(got if isinstance(got, tuple) else (got,),
+                        ref if isinstance(ref, tuple) else (ref,)):
+            err = (g.cpu() - r).abs().max().item() / r.abs().max().item()
+            assert err <= 1e-6, (fn.__name__, err)
+    alm = sht.map2alm(maps[:, 0], rings, lmax)
+    for fn, args in ((sht.alm2map, (alm,)), (sht.alm2map_spin, (alm, alm))):
+        got = fn(*(x.to(cuda_device) for x in args), rings, lmax)
+        ref = fn(*args, rings, lmax)
+        for g, r in zip(got if isinstance(got, tuple) else (got,),
+                        ref if isinstance(ref, tuple) else (ref,)):
+            err = (g.cpu() - r).abs().max().item() / r.abs().max().item()
+            assert err <= 1e-6, (fn.__name__, err)

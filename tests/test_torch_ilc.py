@@ -227,10 +227,20 @@ def test_coadd_helpers_match_jax():
         TI.calculate_harmonic_coadd_weights(lmax, model, None, beams),
         JI.calculate_harmonic_coadd_weights(lmax, model, None, beams),
         rtol=1e-12)
-    for fn in (lambda: TI.harmonic_coaddition([], beams, model, beams[0]),
-               lambda: TI.apply_harmonic_coadd_weights([], None, None)):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            fn()
+    # the harmonic coadd of two alm sets on those weights (ops/alm):
+    # float64 per-ell products, 1e-12 of max
+    nalm = (lmax + 1) * (lmax + 2) // 2
+    alms = rng.standard_normal((2, nalm)) + 1j * rng.standard_normal(
+        (2, nalm))
+    got, w = TI.harmonic_coaddition(list(torch.as_tensor(alms)), beams,
+                                    model, beams[0])
+    ref, wj = JI.harmonic_coaddition(list(alms), beams, model, beams[0])
+    np.testing.assert_allclose(w, wj, rtol=1e-12)
+    assert _rel(got.numpy(), ref) <= 1e-12
+    got = TI.apply_harmonic_coadd_weights(list(torch.as_tensor(alms)), w,
+                                          beams[1])
+    ref = JI.apply_harmonic_coadd_weights(list(alms), wj, beams[1])
+    assert _rel(got.numpy(), ref) <= 1e-12
 
 
 def test_rowcombine_matches_jax(combine):
