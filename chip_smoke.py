@@ -1,7 +1,8 @@
 """Card check of the PyTorch / CUDA port: build its kernels, hold each to
 its plain PyTorch version at the main path's shapes, drive the flagship
-step, both paths of the lensing pipeline, FastCl, the ILC coadd and the
-curved-sky SHT on the card, and check what comes out.
+step, both paths of the lensing pipeline, FastCl, the ILC coadd, the
+curved-sky SHT, the QE reconstruction-only step, the unfused pair spectra
+and the N0 debias on the card, and check what comes out.
 
 Run from the repository root on a machine with one NVIDIA Hopper GPU
 and nvcc:
@@ -16,14 +17,19 @@ takes at 512^2), 6 FastCl at the JAX package's bench config 1 (2048^2,
 config 4 (512^2, six bands, tSZ deprojected, 32 coadds), 9 SHT roundtrips
 at bench config 7 (lmax 2047, dd and fast), 10 the curved-sky masked
 spectra at bench config 8 (lmax 1023, batch 8, dd and fast), 11 its spin-2
-leg, bench config 8p. Phases 3-11 each set the launch counts to 0 before
-they drive their path and check them after; 4-11 print throughput, peak
-memory, device time by kernel and a check of the output against the plain
-versions.
+leg, bench config 8p, 12 the TT QE reconstruction-only step at bench
+config 3 (512^2, batch 64; its full-plane and its half-plane branch), 13
+the unfused pair spectra at config 1's shape (fft2pp, then B6h + B2 or B7 +
+B2', beside FastCl's fused analysis), 14 the N0 debias at config 3's
+settings (lensed sims, mcn0, rdn0, NlGenerator, n1_tt, a polarized sim).
+Phases 3-14 each set the launch counts to 0 before they drive their path
+and check them after; 4-14 print throughput, peak memory, device time by
+kernel and a check of the output against the plain versions.
 The JSON object on a line before the last holds each kernel's launches
 (on the full-plane lensing path for the kernels it runs, on the FastCl
 path for B2/B4b/B5/B6, on config 2's for B3s/B6s, on config 4's for B9, on
-configs 7, 8 and 8p together for B10a/B10s), error, times and bound; the
+configs 7, 8 and 8p together for B10a/B10s, on phase 13's paths for
+B6h/B6h'/B2'), error, times and bound; the
 last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any
 failed check raises, so the exit code is non-zero and no result line is
 printed. It imports nothing of JAX.
@@ -95,15 +101,20 @@ def rel_err(got, ref):
 
 def profile_steps(step, nsteps, step_ms, tag):
     """Device time by kernel over ``nsteps`` steps (torch.profiler), and
-    the busy share against the unprofiled step time."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(nsteps):
+    the busy share against the unprofiled step time. One step more runs
+    first as the profiler's warm-up and is not counted: the tracer drops
+    the first kernels after it starts (seen on 18 ms kernels)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=nsteps,
+                                   repeat=1)) as prof:
+        for _ in range(nsteps + 1):
             step()
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            prof.step()
     kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")]
     kern.sort(key=lambda e: -e.self_device_time_total)
     dev_ms = sum(e.self_device_time_total for e in kern) / (nsteps * 1e3)
     print(f"[{tag}] device time {dev_ms:.4f} ms per step = "
@@ -200,8 +211,12 @@ def main():
     from orphics_tpu_torch.models.theory import default_theory
     from orphics_tpu_torch.models.fastcl import FastCl
     from orphics_tpu_torch.ops import dft
+    from orphics_tpu_torch.models import qe as qemod
+    from orphics_tpu_torch.ops.fourier import kfilter, mask_kspace
     from orphics_tpu_torch.ops.bin_reduce import (bin2_reduce,
                                                   bin2_reduce_ref,
+                                                  bin_pair_power,
+                                                  bin_pair_power_ref,
                                                   bin_reduce, bin_reduce_ref)
     from orphics_tpu_torch.ops.binning import Bin2D, RfftBin2D
     from orphics_tpu_torch.ops.lens import (lens_map_kernel, lens_map_ref,
@@ -211,9 +226,12 @@ def main():
                                                     noise_planes_ref)
     from orphics_tpu_torch.ops.rowcombine import (rowcombine_pp,
                                                   rowcombine_pp_ref)
-    from orphics_tpu_torch.ops.rowpower import (rowqc_half, rowqc_pp,
+    from orphics_tpu_torch.ops.rowpower import (qc_pp_half, qc_pp_half_ref,
+                                                rowqc_half, rowqc_pp,
                                                 rowqc_pp_ref, rows_half,
-                                                rows_pp, rows_pp_ref)
+                                                rows_pp, rows_pp_ref,
+                                                s_field, s_pp_half,
+                                                s_pp_half_ref)
     from orphics_tpu_torch.ops.windows import get_taper
     from orphics_tpu_torch.models import curved
     from orphics_tpu_torch.ops import alm as almops
@@ -603,7 +621,147 @@ def main():
         (ms, plain, row_fft_lib),
         (nbytes(*y) + 2 * 4 * rows1 * n1 // 2,
          fft_flops(n1, rows1) + 8.0 * rows1 * n1 // 2))
+
+    # B6h (qc_pp_half) and B6h' (s_pp_half) on the stored Z = rowfft(Y): 96
+    # pairs at 2048^2 (config 1's) and 64 (config 2's), and n = 384. Each
+    # against its plain version (the same float32 products, which the
+    # compiler contracts to fused multiply-adds: 1e-6 of max|ref|), two
+    # runs bit-equal, and against B6 / B6s, which transform Y's rows
+    # themselves, on the same Y (1e-6 of max; the share of bit-equal
+    # values is printed). No one PyTorch call computes these fields.
+    P2_HALF = 64        # config 2's pairs: the batch B6h' is timed at
+    y384 = planes((4, 384, 384))
+    half_err = {"qc_pp_half": 0.0, "s_pp_half": 0.0}
+    half_rec = {}
+    for yy, timed in ((y, True), (y384, False)):
+        z = dft.rowfft(*yy)
+        for name, fn, ref_fn, fused_fn, nb_, nout, flop in (
+                ("qc_pp_half", qc_pp_half, qc_pp_half_ref, rowqc_half,
+                 yy[0].shape[0], 2, 10.0),
+                ("s_pp_half", lambda a, b: (s_pp_half(a, b),),
+                 lambda a, b: (s_pp_half_ref(a, b),),
+                 lambda a, b: (rows_half(a, b),),
+                 min(yy[0].shape[0], P2_HALF), 1, 3.0)):
+            zz = tuple(a[:nb_] for a in z)
+            tag = f"({nb_}, {zz[0].shape[1]}, {zz[0].shape[2]})"
+            got = fn(*zz)
+            again = fn(*zz)
+            ref = ref_fn(*zz)
+            torch.cuda.synchronize()
+            err, rel = rel_err(got, ref)
+            check(rel <= 1e-6, f"{name} {tag}: error {rel:.3e} of max|ref| "
+                               "> 1e-6")
+            check(all(torch.equal(g, a) for g, a in zip(got, again)),
+                  f"{name} {tag}: two runs differ")
+            check(all(tuple(g.shape) == (nb_, zz[0].shape[1] // 2,
+                                         zz[0].shape[2]) for g in got),
+                  f"{name} {tag}: output shape")
+            del again, ref
+            fused = fused_fn(*(a[:nb_] for a in yy))
+            torch.cuda.synchronize()
+            _, frel = rel_err(got, fused)
+            same = min((g == f).float().mean().item()
+                       for g, f in zip(got, fused))
+            check(frel <= 1e-6, f"{name} {tag} vs the fused kernel: "
+                                f"{frel:.3e} of max > 1e-6")
+            half_err[name] = max(half_err[name], err)
+            line = (f"[2] {name} {tag}: max abs err {err:.3e} = {rel:.3e} of "
+                    f"max|ref| (<= 1e-6), reproducible; vs the fused row "
+                    f"pass on the same Y {frel:.3e} of max (<= 1e-6), "
+                    f"{same:.6f} of the values bit-equal")
+            del fused
+            if timed:
+                ms = cuda_ms(lambda: fn(*zz), 10)
+                plain = cuda_ms(lambda: ref_fn(*zz), 3, warmup=1)
+                half_rec[name] = ((ms, plain, None),
+                                  (nbytes(*zz, *got), flop * got[0].numel()))
+                line += f"; kernel {ms:.4f} ms, plain {plain:.4f} ms"
+            print(line)
+            del got, zz
+        if timed:
+            z1 = z
+        del z
+    del y384
+    results["qc_pp_half"] = kernel_entry(
+        "qc_pp_half", "rowpower.cu", "pallas_fft.py:1006",
+        half_err["qc_pp_half"], *half_rec["qc_pp_half"])
+    results["s_pp_half"] = kernel_entry(
+        "s_pp_half", "rowpower.cu", "pallas_fft.py:934",
+        half_err["s_pp_half"], *half_rec["s_pp_half"])
     del y
+    torch.cuda.empty_cache()
+
+    # B2' (bin_pair_power) on Z and its mirror: 96 pairs at 2048^2 over
+    # config 1's full-plane ids (nseg 100), and 32 pairs at 512^2 over
+    # config 3's permuted_bin_tables ids; sym False and True. bin(q) within
+    # 1e-6 of itself, bin(c), which cancels, within 1e-6 of bin(|c|); two
+    # runs bit-equal. Library: four elementwise passes and two index_add_.
+    ids_full1 = torch.as_tensor(np.digitize(
+        geom1.modlmap_np()[perm1][:, perm1].ravel(), edges1, right=True)
+        .astype(np.int32), device=dev)
+    perm3, _ = dft.row_perm(512)
+    edges3 = np.arange(40, 2000, 80.0)
+    ids3, _, nseg3 = dft.permuted_bin_tables(geom.modlmap_np(), perm3, edges3,
+                                             device=dev)
+    z3 = planes((32, 512, 512))
+    pp_err = 0.0
+    for zz, ids, nseg, timed in ((z3, ids3, nseg3, False),
+                                 (z1, ids_full1, len(edges1) + 1, True)):
+        B = zz[0].shape[0]
+        four = tuple(a.reshape(B, -1)
+                     for a in tuple(zz) + tuple(mirror_pp(*zz)))
+        tag = f"({B}, {four[0].shape[1]}) nseg={nseg}"
+        absc = bin_reduce_ref((four[0] * four[2] - four[1] * four[3]).abs(),
+                              ids, nseg)
+        for sym in (False, True):
+            got = bin_pair_power(*four, ids, nseg, sym=sym)
+            again = bin_pair_power(*four, ids, nseg, sym=sym)
+            ref = bin_pair_power_ref(*four, ids, nseg, sym)
+            torch.cuda.synchronize()
+            rel_q = ((got[0] - ref[0]).abs()
+                     / ref[0].clamp_min(1e-30)).max().item()
+            rel_c = ((got[1] - ref[1]).abs()
+                     / absc.clamp_min(1e-30)).max().item()
+            check(rel_q <= 1e-6 and rel_c <= 1e-6,
+                  f"B2' {tag} sym={sym}: bin(q) {rel_q:.3e}, bin(c) "
+                  f"{rel_c:.3e} of binned |field| > 1e-6")
+            check(torch.equal(got[0], again[0])
+                  and torch.equal(got[1], again[1]),
+                  f"B2' {tag} sym={sym}: two runs differ")
+            pp_err = max(pp_err, rel_err(got, ref)[0])
+            line = (f"[2] B2' bin_pair_power {tag} sym={sym}: bin(q) "
+                    f"{rel_q:.3e}, bin(c) {rel_c:.3e} of binned |field| "
+                    "(<= 1e-6), reproducible")
+            del again, ref
+            ms = cuda_ms(lambda: bin_pair_power(*four, ids, nseg, sym=sym),
+                         10)
+            line += f"; kernel {ms:.4f} ms"
+            if timed and not sym:
+                plain = cuda_ms(lambda: bin_pair_power_ref(*four, ids, nseg),
+                                2, warmup=1)
+                ids64 = ids.long()
+                acc = torch.zeros((2, B, nseg), device=dev)
+
+                def lib_pair():
+                    q = four[0] * four[0]
+                    q.addcmul_(four[1], four[1])
+                    c = four[0] * four[2]
+                    c.addcmul_(four[1], four[3], value=-1.0)
+                    acc[0].index_add_(1, ids64, q)
+                    acc[1].index_add_(1, ids64, c)
+                lib = cuda_ms(lib_pair, 2, warmup=1)
+                del ids64, acc
+                pp_rec = ((ms, plain, lib),
+                          (nbytes(*four, ids, *got), 12.0 * four[0].numel()))
+                line += (f", plain {plain:.4f} ms, four elementwise passes "
+                         f"and two index_add_ {lib:.4f} ms")
+            print(line)
+            del got
+        del four, absc
+    results["bin_pair_power"] = kernel_entry(
+        "bin_pair_power", "bin_reduce.cu", "pallas_kernels.py:262", pp_err,
+        *pp_rec)
+    del z1, z3, zz, ids_full1, ids3
     torch.cuda.empty_cache()
 
     # B5: the config-1 covsqrt scale, 96 pairs; B5n's stream through B4's
@@ -856,7 +1014,10 @@ def main():
                 "rows_half": (rows_half,),
                 "rowcombine_pp": (rowcombine_pp,),
                 "legendre_ana": (leg.legendre_ana,),
-                "legendre_syn": (leg.legendre_syn,)}
+                "legendre_syn": (leg.legendre_syn,),
+                "qc_pp_half": (qc_pp_half,),
+                "s_pp_half": (s_pp_half,),
+                "bin_pair_power": (bin_pair_power,)}
 
     def reset_counts():
         for fns in counters.values():
@@ -1455,6 +1616,319 @@ def main():
         torch.cuda.empty_cache()
     for name, count in b10_launches.items():
         results[name]["launches"] = count
+
+    # ---- 12. bench config 3: the TT QE reconstruction-only rate at 512^2
+    # 2', beam 1.4', noise 6 uK', batch 64, edges arange(40, 2000, 80), both
+    # branches of bench.py:347-424. Full-plane: B5n draws 32 packed pairs,
+    # B7 mirrors them, the Hermitian split gives 64 fields, kappa_tt_pallas
+    # (B3/B4/B7) reconstructs, the N0-debiased power is binned by B1.
+    # Half-plane: rand_hermitian_half -> kappa_tt_rfft (cuFFT) -> RfftBin2D.
+    reset_counts()
+    n3, batch3 = geom.ny, 64
+    q3 = qemod.QE(
+        geom, th, qemod.lensing_noise_2d(geom, th, 1.4, 6.0),
+        xmask=mask_kspace(geom, lmin=100, lmax=min(3000, lmax_grid - 1)),
+        kmask=mask_kspace(geom, lmin=40, lmax=min(3000, lmax_grid * 0.8)))
+    check(q3.device.type == "cuda", "QE built with no device is not on the "
+                                    "card")
+    norm3 = float(np.float32(geom.area / geom.npix ** 2))
+    ml3 = geom.modlmap_np()
+    amp3 = np.sqrt(np.maximum(np.interp(ml3, ells_th, cltt, left=0, right=0),
+                              0.0)) * (geom.npix / float(geom.area) ** 0.5)
+
+    def pp_tables(device, n0):
+        """Config 3's doubly-permuted tables on ``device``: the synthesis
+        scale, the N0 plane and the bin tables."""
+        ip = torch.as_tensor(perm3, dtype=torch.long, device=device)
+        scale = torch.as_tensor(np.ascontiguousarray(
+            amp3[perm3][:, perm3].astype(np.float32)), device=device)
+        n0_pp = n0.index_select(0, ip).index_select(1, ip).contiguous()
+        return (scale, n0_pp) + dft.permuted_bin_tables(ml3, perm3, edges3,
+                                                        device=device)
+
+    def full_from_planes(engine, zr, zi, n0_pp, idc, icnt, nseg):
+        zmr, zmi = mirror_pp(zr, zi)
+        Zr = torch.stack([0.5 * (zr + zmr), 0.5 * (zi + zmi)], 1) \
+            .reshape(batch3, n3, n3)
+        Zi = torch.stack([0.5 * (zi - zmi), 0.5 * (zmr - zr)], 1) \
+            .reshape(batch3, n3, n3)
+        our, oui = engine.kappa_tt_pallas(Zr, Zi)
+        p = (our * our + oui * oui) * norm3 - n0_pp
+        return bin_reduce(p.reshape(batch3, -1), idc, nseg)[:, 1:] * icnt
+
+    scale3, *tabs3 = pp_tables(dev, q3.N_L_kk("TT"))
+
+    def full_step(seed):
+        return full_from_planes(q3, *noise_planes(scale3, seed, batch3 // 2),
+                                *tabs3)
+
+    covsqrt_h3 = grf.covsqrt_half(geom, ells_th, cltt)
+    binner3 = RfftBin2D(geom, edges3)
+    check(covsqrt_h3.is_cuda and binner3._ids.is_cuda, "covsqrt_half / "
+          "RfftBin2D built with no device are not on the card")
+    n0_h3 = q3.N_L_kk("TT")[:, :geom.nx // 2 + 1]
+    g12 = torch.Generator(device=dev).manual_seed(12)
+
+    def half_step():
+        eta = grf.rand_hermitian_half(geom, g12, batch=(batch3,))
+        fk = q3.kappa_tt_rfft(covsqrt_h3 * eta)
+        return binner3.bin((fk.conj() * fk).real * norm3 - n0_h3)[1]
+
+    nb3 = len(edges3) - 1
+    for out in (full_step(0), half_step()):
+        torch.cuda.synchronize()
+        check(tuple(out.shape) == (batch3, nb3)
+              and bool(torch.isfinite(out).all()), "config 3 output: shape "
+              f"{tuple(out.shape)} or not finite")
+    seeds = itertools.count(1)
+    cell12 = f"512^2 2' beam 1.4' 6 uK' batch {batch3} {nb3} bins"
+    full_ms = throughput(
+        lambda: full_step(next(seeds)), batch3, 20, "config-3 full-plane "
+        f"step (port's qe_tt_recon_only_per_sec_512x512_fp32) {cell12}",
+        "recons/s", card, "12")
+    counts12 = read_counts(("noise_planes", "mirror_pp", "colfft", "rowfft",
+                            "bin_reduce"), "12")
+    print("[12] 23 full-plane steps and 1 half-plane step (1 check, 2 "
+          "warm-up, 20 timed): "
+          + ", ".join(f"{counts12[k] / 23:.1f} {k}" for k in
+                      ("noise_planes", "mirror_pp", "colfft", "rowfft"))
+          + f", {(counts12['bin_reduce'] - 1) / 23:.1f} bin_reduce launches "
+          "per full-plane step")
+    half_ms = throughput(
+        half_step, batch3, 20, f"config-3 half-plane step {cell12}",
+        "recons/s", card, "12")
+    profile_steps(lambda: full_step(next(seeds)), 3, full_ms, "12 full")
+    profile_steps(half_step, 3, half_ms, "12 half")
+    # the timed full-plane step's own output at its own shape, card
+    # (kernels) vs CPU (plain versions) on B5n's identical noise
+    out12 = full_step(5)
+    q3c = qemod.QE(
+        geom, th, qemod.lensing_noise_2d(geom, th, 1.4, 6.0, device="cpu"),
+        xmask=mask_kspace(geom, lmin=100, lmax=min(3000, lmax_grid - 1),
+                          device="cpu"),
+        kmask=mask_kspace(geom, lmin=40, lmax=min(3000, lmax_grid * 0.8),
+                          device="cpu"), device="cpu")
+    _, *tabs3c = pp_tables("cpu", q3c.N_L_kk("TT"))
+    zr, zi = noise_planes(scale3, 5, batch3 // 2)
+    ref12 = full_from_planes(q3c, zr.cpu(), zi.cpu(), *tabs3c)
+    d12 = (out12.cpu() - ref12).abs().amax(1)
+    rel12 = (d12 / ref12.abs().amax(1)).max().item()
+    # the debias cancels about nine tenths of each spectrum, so what is left
+    # depends on the seed and the bin: the gate reads the error against the
+    # reconstruction's own power (N0 added back); against the debiased
+    # spectrum it is printed only
+    n0_b3 = tabs3c[0].reshape(1, -1)
+    n0_b3 = bin_reduce(n0_b3, *tabs3c[1::2])[:, 1:] * tabs3c[2]
+    raw12 = (d12 / (ref12 + n0_b3).abs().amax(1)).max().item()
+    check(raw12 <= 1e-4, f"config-3 step, card vs CPU: {raw12:.3e} of each "
+                         "spectrum's max before the debias > 1e-4")
+    print(f"[12] the full-plane step's output ({batch3} spectra), card "
+          f"(kernels) vs CPU (plain versions) on the same noise: "
+          f"{raw12:.3e} of each spectrum's max before the debias (<= 1e-4), "
+          f"{rel12:.3e} of each debiased spectrum's max (not gated)")
+    del q3c, tabs3c, zr, zi, ref12, out12
+    # the two branches draw different streams: their mean debiased spectra
+    # over 512 sims each agree within the Monte-Carlo error
+    full = torch.cat([full_step(1000 + i) for i in range(8)]).double()
+    half = torch.cat([half_step() for _ in range(8)]).double()
+    se = (full.var(0) / full.shape[0] + half.var(0) / half.shape[0]).sqrt()
+    pull = ((full.mean(0) - half.mean(0)).abs() / se).max().item()
+    n0_b = binner3.bin(n0_h3)[1]
+    bias = max((x.mean(0).abs() / n0_b.double()).max().item()
+               for x in (full, half))
+    check(pull < 5.0, f"config 3: full- and half-plane mean spectra differ "
+                      f"by {pull:.2f} sigma")
+    print(f"[12] {full.shape[0]} sims per branch: the mean debiased spectra "
+          f"differ by at most {pull:.2f} of their Monte-Carlo error per bin "
+          f"(< 5); |mean debiased| <= {bias:.4f} of the binned N0")
+    del full, half, covsqrt_h3, binner3, scale3, tabs3
+    torch.cuda.empty_cache()
+
+    # ---- 13. the unfused pair spectra at bench config 1's shape: 96 packed
+    # pairs at 2048^2 0.5', nseg 100. (a) fft2pp -> B6h qc_pp_half -> B2 on
+    # the half plane + the two boundary rows (B1); (b) fft2pp -> B7
+    # mirror_pp -> B2' bin_pair_power on the full plane. Both are held to
+    # FastCl's fused analysis of the same maps and timed beside it.
+    reset_counts()
+    fc = FastCl(geom1, ells_th, cltt, bin_edges=edges1)
+    m1, m2 = dft.ifft2pp_noise(fc._covsqrt_pp, 13, P1)
+    ids_full = torch.as_tensor(np.digitize(
+        geom1.modlmap_np()[perm1][:, perm1].ravel(), edges1, right=True)
+        .astype(np.int32), device=dev)
+    hn = float(np.float32(0.5) * np.float32(fc._norm))
+
+    def bandpowers(bq, bc):
+        return (torch.cat([bq + bc, bq - bc])[:, 1:-1]) * hn * fc._icnt
+
+    def path_a():
+        zr, zi = dft.fft2pp(m1, m2)
+        qs, cc = qc_pp_half(zr, zi)
+        bqc, bcc = bin2_reduce(qs.reshape(P1, -1), cc.reshape(P1, -1),
+                               fc._idc, fc._nsg)
+        del qs, cc
+        bq0, bc0 = fc._row_bins(zr, zi, 0, fc._ids0)
+        bqn, bcn = fc._row_bins(zr, zi, fc._pnyq, fc._idsn)
+        return bandpowers(2.0 * bqc - bq0 + bqn, 2.0 * bcc - bc0 + bcn)
+
+    def path_b():
+        zr, zi = dft.fft2pp(m1, m2)
+        zmr, zmi = mirror_pp(zr, zi)
+        return bandpowers(*bin_pair_power(
+            *(a.reshape(P1, -1) for a in (zr, zi, zmr, zmi)), ids_full,
+            fc._nsg))
+
+    def fused():
+        return torch.cat(fc._pair_bandpowers(m1, m2))
+
+    ref13 = fused()
+    cell13 = f"2048^2 0.5' nseg {fc._nsg}, {P1} pairs"
+    for tag, path in (("(a) fft2pp, B6h qc_pp_half, B2 + boundary rows",
+                       path_a),
+                      ("(b) fft2pp, B7 mirror_pp, B2' bin_pair_power",
+                       path_b)):
+        got = path()
+        torch.cuda.synchronize()
+        check(tuple(got.shape) == tuple(ref13.shape)
+              and bool(torch.isfinite(got).all()), f"13 {tag}: bad output")
+        rel = ((got - ref13).abs().amax(1) / ref13.abs().amax(1)).max().item()
+        check(rel <= 1e-5, f"13 {tag} vs FastCl's fused analysis: {rel:.3e} "
+                           "of each spectrum's max > 1e-5")
+        print(f"[13] {tag}: {2 * P1} spectra vs FastCl's fused analysis of "
+              f"the same maps: {rel:.3e} of each spectrum's max (<= 1e-5)")
+        del got
+        torch.cuda.empty_cache()
+        ms13 = throughput(path, 2 * P1, 3, f"unfused pair spectra {tag} "
+                          f"{cell13}", "spectra/s", card, "13")
+        profile_steps(path, 3, ms13, "13 " + tag[:3])
+        torch.cuda.empty_cache()
+    throughput(fused, 2 * P1, 3, "FastCl's fused analysis (B3, B6, B4, B4b, "
+               f"B2, B1) {cell13}", "spectra/s", card, "13")
+    counts13 = read_counts(("qc_pp_half", "bin_pair_power", "bin2_reduce",
+                            "mirror_pp", "colfft", "rowfft", "bin_reduce"),
+                           "13")
+    print(f"[13] 10 runs of each path (1 check, 2 warm-up, 3 timed, 4 "
+          f"profiled): {counts13['qc_pp_half'] / 10:.0f} B6h, "
+          f"{counts13['bin_pair_power'] / 10:.0f} B2', "
+          f"{counts13['mirror_pp'] / 10:.0f} B7 launches per run")
+    for name in ("qc_pp_half", "bin_pair_power"):
+        results[name]["launches"] = counts13[name]
+    # B6h' on the same planes: the cross spectrum of each pair from the
+    # stored Z, against FastCl.cross_bandpowers of the same maps, read
+    # against sqrt(P11 P22) as phase 7 reads it
+    zr, zi = dft.fft2pp(m1, m2)
+    sh = s_pp_half(zr, zi)
+    bsh = bin_reduce(sh.reshape(P1, -1), fc._idc, fc._nsg)
+    (s0,) = fc._row_bins(zr, zi, 0, fc._ids0, s_field)
+    (sn,) = fc._row_bins(zr, zi, fc._pnyq, fc._idsn, s_field)
+    cross = (2.0 * bsh - s0 + sn)[:, 1:-1] * hn * fc._icnt
+    del zr, zi, sh
+    xref = fc.cross_bandpowers(m1, m2)
+    p12 = (ref13[:P1] * ref13[P1:]).sqrt()
+    xrel = ((cross - xref).abs() / p12).max().item()
+    check(xrel <= 5e-5, f"13 s_pp_half cross spectra vs cross_bandpowers: "
+                        f"{xrel:.3e} of sqrt(P11 P22)")
+    print(f"[13] B6h' s_pp_half: {P1} cross spectra from the stored Z vs "
+          f"FastCl.cross_bandpowers of the same maps: {xrel:.3e} of "
+          "sqrt(P11 P22) per bin (<= 5e-5)")
+    results["s_pp_half"]["launches"] = read_counts(("s_pp_half",),
+                                                   "13")["s_pp_half"]
+    del fc, m1, m2, ids_full, ref13, cross, xref, p12
+    torch.cuda.empty_cache()
+
+    # ---- 14. N0 debias on the card at config 3's settings: 64 lensed sims
+    # from FlatLensingSims (B8) -> fft2 / kbeam -> mcn0 and rdn0 (sim 0 as
+    # data) beside NlGenerator's binned analytic N0; one n1_tt call; one
+    # polarized get_sim
+    reset_counts()
+    fls = lensing.FlatLensingSims(geom, th, 1.4, 6.0)
+    check(fls.kbeam.is_cuda, "FlatLensingSims built with no device is not "
+                             "on the card")
+    g14 = torch.Generator(device=dev).manual_seed(14)
+    obs = fls.get_sim(g14, batch=(64,))
+    torch.cuda.synchronize()
+    check(tuple(obs.shape) == (64, n3, n3) and bool(torch.isfinite(obs).all()),
+          f"14: sims {tuple(obs.shape)} or not finite")
+    kmaps = torch.fft.fft2(obs) / fls.kbeam
+    del obs
+    nlg = qemod.NlGenerator(geom, th, edges3).update_noise(
+        1.4, 6.0, tellmin=100, tellmax=min(3000, lmax_grid - 1), kmin=40,
+        kmax=min(3000, lmax_grid * 0.8))
+    cents14, n0_nlg = nlg.get_nl("TT")
+    n0_th = Bin2D(ml3, edges3).bin(q3.N_L_kk("TT"))[1].cpu().numpy()
+    check(np.allclose(n0_nlg, n0_th, rtol=1e-5),
+          "14: NlGenerator's N0 differs from the engine's")
+    _, n0_mc = qemod.mcn0(q3, "TT", kmaps[1:], edges3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, rd, _ = qemod.rdn0(q3, "TT", kmaps[0], kmaps[1:], edges3)
+    dt14 = time.perf_counter() - t0          # rdn0 returns host arrays
+    sel = n0_th > 0
+    r_mc, r_rd = n0_mc[sel] / n0_th[sel], rd[sel] / n0_th[sel]
+    # tests/test_qe_mv.py's tolerances at 8 sims of 128^2: per-bin 35 % and
+    # mean 10 % (MCN0), mean 20 % (RDN0); 63 sims here, so they hold easily
+    check(abs(r_mc.mean() - 1.0) < 0.1 and bool(np.all(np.abs(r_mc - 1.0)
+                                                       < 0.35)),
+          f"14: MCN0 / N0 = {r_mc}")
+    check(abs(r_rd.mean() - 1.0) < 0.2, f"14: RDN0 / N0 = {r_rd}")
+    print(f"[14] 63 lensed sims at {cell12}: MCN0 / N0 mean {r_mc.mean():.4f}"
+          f" (within 0.1 of 1), per bin within {np.abs(r_mc - 1).max():.4f} "
+          f"(< 0.35); RDN0 / N0 mean {r_rd.mean():.4f} (within 0.2 of 1), per "
+          f"bin within {np.abs(r_rd - 1).max():.4f}; NlGenerator.get_nl('TT') "
+          f"equals the engine's binned N0; rdn0: {63 / dt14:.2f} sims/s "
+          f"({dt14 * 1e3:.1f} ms for 63 sims, 4 reconstructions each) on "
+          f"{card}")
+    del kmaps
+    torch.cuda.empty_cache()
+    Ls14 = np.array([100.0, 300.0, 500.0, 700.0, 900.0])
+    clkk = np.asarray(th.gCl("kk", ells_th))
+    qemod.n1_tt(q3, Ls14[:1], clkk)                         # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, n1 = qemod.n1_tt(q3, Ls14, clkk, pad=2)
+    dt_n1 = time.perf_counter() - t0
+    n0_at = np.interp(Ls14, cents14, n0_th)
+    check(bool(np.all(n1 > 0) and np.all(n1 < n0_at)),
+          f"14: N1 {n1} not inside (0, N0 {n0_at})")
+    print(f"[14] n1_tt at L = {Ls14.tolist()}, pad 2 (a 1024^2 lattice): "
+          f"{dt_n1 / len(Ls14) * 1e3:.1f} ms per L; N1 / N0 = "
+          f"{(n1 / n0_at).tolist()} (each inside (0, 1))")
+    # one polarized get_sim at batch 16: finite (16, 3, 512, 512); its T leg
+    # is the scalar chain (B8 with one component, beam, noise) applied to
+    # the polarized sim's own unlensed T, kappa and T noise
+    flp = lensing.FlatLensingSims(geom, th, 1.4, 6.0, pol=True)
+    eta14 = flp.draw_noise(g14, batch=(16,))
+    obs_p, ex = flp.get_sim_from_noise(*eta14, return_intermediate=True)
+    torch.cuda.synchronize()
+    check(tuple(obs_p.shape) == (16, 3, n3, n3)
+          and bool(torch.isfinite(obs_p).all()),
+          f"14: polarized sims {tuple(obs_p.shape)} or not finite")
+    t_leg = (kfilter(fls.lens(ex["unlensed"][:, 0].contiguous(),
+                              ex["kappa"]), fls.kbeam, geom)
+             + fls.ngen.get_map_from_noise(eta14[2][:, :1]))
+    _, trel = rel_err((obs_p[:, 0],), (t_leg,))
+    check(trel <= 2e-5, f"14: polarized T leg vs the scalar path {trel:.3e}")
+    print(f"[14] polarized get_sim batch 16: finite (16, 3, {n3}, {n3}); T "
+          f"leg vs the scalar chain on the same unlensed T, kappa and noise: "
+          f"{trel:.3e} of max (<= 2e-5)")
+    # the NFW profiles on host angles, no device named: the 500000-sample
+    # line-of-sight quadrature of the NFW density runs on the card and
+    # agrees with the closed-form projection
+    halo = dict(M=2e14, c=3.2, R=1.5)
+    th14 = np.geomspace(1e-4, 3e-3, 16)
+    k_quad = lensing.kappa_generic(th14, 0.7, 1500.0,
+                                   lensing.rho_nfw(**halo), 0.4)
+    k_form = lensing.kappa_nfw_generic(th14, 0.7, 1500.0, win_at_lens=0.4,
+                                       **halo)
+    check(k_quad.is_cuda and k_form.is_cuda and k_quad.dtype == torch.float64,
+          "14: NFW profiles of host angles are not float64 on the card")
+    nfw_rel = ((k_quad - k_form).abs() / k_form).max().item()
+    check(nfw_rel <= 1e-4, f"14: NFW quadrature vs closed form {nfw_rel:.3e}")
+    print(f"[14] kappa_generic on {len(th14)} host angles (500000 samples "
+          f"each, on the card) vs kappa_nfw_generic: {nfw_rel:.3e} relative "
+          "(<= 1e-4: the quadrature stops at 2000 Mpc)")
+    read_counts(("lens_map_kernel", "bin_reduce"), "14")
+    del flp, fls, obs_p, ex, eta14, q3
+    torch.cuda.empty_cache()
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

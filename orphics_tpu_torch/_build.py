@@ -38,6 +38,7 @@ _SIGNATURES = {
                            _INT, _VP], _INT),
     "bin2_reduce_launch": ([_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
                             _INT, _VP], _INT),
+    "bin_pair_power_launch": ([_VP] * 7 + [_INT] * 6 + [_VP], _INT),
     "bin_reduce_span": ([], _INT),
     "bin_reduce_seg_cap": ([], _INT),
     "lens_spline_launch": ([_VP, _VP, _VP, _INT, _INT, _INT, _INT, _F32,
@@ -49,6 +50,8 @@ _SIGNATURES = {
     "dft_max_n": ([], _INT),
     "rowqc_half_launch": ([_VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP], _INT),
     "rows_half_launch": ([_VP, _VP, _VP, _VP, _INT, _INT, _VP], _INT),
+    "qc_pp_half_launch": ([_VP, _VP, _VP, _VP, _INT, _INT, _VP], _INT),
+    "s_pp_half_launch": ([_VP, _VP, _VP, _INT, _INT, _VP], _INT),
     "rowcombine_launch": ([_VP] * 9 + [_INT, _INT, _INT, _VP], _INT),
     "rowfft_blk0_launch": ([_VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP], _INT),
     "noise_planes_launch": ([_VP, _VP, _VP, _VP, _INT, _I64, _VP], _INT),

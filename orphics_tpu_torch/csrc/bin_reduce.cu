@@ -1,16 +1,20 @@
-// Segment sums for radial binning (kernels B1 and B2 of the port).
+// Segment sums for radial binning (kernels B1, B2 and B2' of the port).
 //
 //   B1: out[b, s] = sum_n data[b, n] * w[n] * [ids[n] == s]
 //   B2: o1[b, s] = sum_n d1[b, n] [ids[n] == s],  o2 likewise from d2
+//   B2': B2 of the two fields of a packed Fourier pair Z and its mirror Zm,
+//        formed in fp32 as the planes are loaded and never stored:
+//          q = |Z|^2, or (|Z|^2 + |Zm|^2) / 2 with sym;  c = Re(Z Zm)
 //   for s in [0, nseg), any nseg
 //
-// Replaces orphics_tpu/ops/pallas_kernels.py:bin_matmul (_bin_reduce_kernel)
-// and :bin2_matmul (_bin2_kernel), one-hot bf16 hi/lo MXU contractions on
-// the TPU.
+// Replaces orphics_tpu/ops/pallas_kernels.py:bin_matmul (_bin_reduce_kernel),
+// :bin2_matmul (_bin2_kernel) and :bin_pair_power (_pair_power_kernel),
+// one-hot bf16 hi/lo MXU contractions on the TPU.
 //
-// Bound: reading the data once, 4 B per element and input (ids and weights
-// are shared by every batch row and stay in L2); the arithmetic is one fp64
-// add per element and input.
+// Bound: reading the data once, 4 B per element and input plane (ids and
+// weights are shared by every batch row and stay in L2); the arithmetic is
+// one fp64 add per element and summed field (B2' adds ~10 fp32 operations
+// per element for its two fields, against 16 B read).
 //
 // Design: per-warp fp64 partials in shared memory. A block owns one batch
 // row, a span of SPAN elements and a tile of at most SEG_CAP segments
@@ -28,7 +32,8 @@
 // warp order into one fp64 partial per (span, row, segment), and a second
 // kernel sums the spans in order: bit-reproducible from run to run. The
 // shared memory per block does not grow with nseg. B2 shares each id load
-// between its two inputs.
+// between its two inputs; B2' is B2 with four planes loaded and its two
+// fields formed in registers before the same sums.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -50,12 +55,18 @@ __device__ __forceinline__ double warp_sum(double x) {
   return x;
 }
 
-template <int ND>
+// What a block sums: one weighted input (B1), two inputs (B2), or the two
+// fields of four planes (B2').
+enum Mode { ONE = 0, TWO = 1, PAIR = 2 };
+
+template <Mode MODE>
 __global__ void __launch_bounds__(THREADS)
 seg_sum_kernel(const float* __restrict__ d0, const float* __restrict__ d1,
+               const float* __restrict__ d2, const float* __restrict__ d3,
                const int* __restrict__ ids, const float* __restrict__ w,
                double* __restrict__ scratch, int B, int N, int nseg,
-               int tile) {
+               int tile, bool sym) {
+  constexpr int ND = MODE == ONE ? 1 : 2;
   __shared__ double slots[ND][WARPS][SEG_CAP];
   __shared__ double stage[ND][WARPS][32];
   const int lane = threadIdx.x & 31;
@@ -82,10 +93,24 @@ seg_sum_kernel(const float* __restrict__ d0, const float* __restrict__ d1,
       const bool in = n < end;
       const int id = in ? ids[n] - s0 : -1;
       seg[k] = (id >= 0 && id < ns) ? id : -1;
-      v[0][k] = in ? static_cast<double>(d0[row + n])
-                         * (w ? static_cast<double>(w[n]) : 1.0)
-                   : 0.0;
-      if (ND == 2) v[ND - 1][k] = in ? static_cast<double>(d1[row + n]) : 0.0;
+      if (MODE == PAIR) {
+        float q = 0.0f, c = 0.0f;
+        if (in) {
+          const float zr = d0[row + n], zi = d1[row + n];
+          const float mr = d2[row + n], mi = d3[row + n];
+          q = sym ? 0.5f * (zr * zr + zi * zi + mr * mr + mi * mi)
+                  : zr * zr + zi * zi;
+          c = zr * mr - zi * mi;
+        }
+        v[0][k] = static_cast<double>(q);
+        v[ND - 1][k] = static_cast<double>(c);
+      } else {
+        v[0][k] = in ? static_cast<double>(d0[row + n])
+                           * (w ? static_cast<double>(w[n]) : 1.0)
+                     : 0.0;
+        if (MODE == TWO)
+          v[ND - 1][k] = in ? static_cast<double>(d1[row + n]) : 0.0;
+      }
     }
 #pragma unroll
     for (int k = 0; k < UNROLL; ++k) {
@@ -149,18 +174,19 @@ __global__ void seg_finish_kernel(const double* __restrict__ scratch,
   out[i] = static_cast<float>(t);
 }
 
-template <int ND>
-int launch(const float* d0, const float* d1, const int* ids, const float* w,
-           double* scratch, float* out, int B, int N, int nseg, int tile,
-           int ntiles, void* stream) {
+template <Mode MODE>
+int launch(const float* d0, const float* d1, const float* d2, const float* d3,
+           const int* ids, const float* w, double* scratch, float* out, int B,
+           int N, int nseg, int tile, int ntiles, bool sym, void* stream) {
+  constexpr int ND = MODE == ONE ? 1 : 2;
   if (B < 1 || B > 65535 || N < 1 || nseg < 1 || tile < 1 || tile > SEG_CAP
       || ntiles < 1 || ntiles > 65535
       || static_cast<int64_t>(tile) * ntiles < nseg)
     return static_cast<int>(cudaErrorInvalidValue);
   const int nspan = (N + SPAN - 1) / SPAN;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  seg_sum_kernel<ND><<<dim3(nspan, B, ntiles), THREADS, 0, s>>>(
-      d0, d1, ids, w, scratch, B, N, nseg, tile);
+  seg_sum_kernel<MODE><<<dim3(nspan, B, ntiles), THREADS, 0, s>>>(
+      d0, d1, d2, d3, ids, w, scratch, B, N, nseg, tile, sym);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int per_d = B * nseg;
@@ -185,8 +211,8 @@ int bin_reduce_seg_cap() { return SEG_CAP; }
 int bin_reduce_launch(const float* data, const int* ids, const float* w,
                       double* scratch, float* out, int B, int N, int nseg,
                       int tile, int ntiles, void* stream) {
-  return launch<1>(data, nullptr, ids, w, scratch, out, B, N, nseg, tile,
-                   ntiles, stream);
+  return launch<ONE>(data, nullptr, nullptr, nullptr, ids, w, scratch, out, B,
+                     N, nseg, tile, ntiles, false, stream);
 }
 
 // B2. d1, d2 (B, N) f32, ids (N,) i32, scratch (2, nspan, B, nseg) f64,
@@ -194,8 +220,19 @@ int bin_reduce_launch(const float* data, const int* ids, const float* w,
 int bin2_reduce_launch(const float* d1, const float* d2, const int* ids,
                        double* scratch, float* out, int B, int N, int nseg,
                        int tile, int ntiles, void* stream) {
-  return launch<2>(d1, d2, ids, nullptr, scratch, out, B, N, nseg, tile,
-                   ntiles, stream);
+  return launch<TWO>(d1, d2, nullptr, nullptr, ids, nullptr, scratch, out, B,
+                     N, nseg, tile, ntiles, false, stream);
+}
+
+// B2'. zr, zi, zmr, zmi (B, N) f32 (Z and its mirror), ids (N,) i32,
+// scratch (2, nspan, B, nseg) f64, out (2, B, nseg) f32: bin(q), bin(c);
+// sym != 0 takes q = (|Z|^2 + |Zm|^2) / 2.
+int bin_pair_power_launch(const float* zr, const float* zi, const float* zmr,
+                          const float* zmi, const int* ids, double* scratch,
+                          float* out, int B, int N, int nseg, int tile,
+                          int ntiles, int sym, void* stream) {
+  return launch<PAIR>(zr, zi, zmr, zmi, ids, nullptr, scratch, out, B, N,
+                      nseg, tile, ntiles, sym != 0, stream);
 }
 
 }  // extern "C"

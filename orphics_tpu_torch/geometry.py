@@ -55,6 +55,11 @@ class Geometry:
         """Patch area in steradians (flat approximation)."""
         return self.npix * self.pixsize
 
+    @property
+    def extent(self):
+        """(height, width) of the patch in radians."""
+        return (self.ny * abs(self.dy), self.nx * abs(self.dx))
+
     def lmax(self) -> float:
         """Largest |l| representable on the grid (corner of the l-plane)."""
         return math.hypot(math.pi / abs(self.dy), math.pi / abs(self.dx))
@@ -62,6 +67,11 @@ class Geometry:
     def ellmax_safe(self) -> float:
         """Nyquist along the more coarsely sampled axis."""
         return math.pi / max(abs(self.dy), abs(self.dx))
+
+    def scaled(self, factor: int) -> "Geometry":
+        """Geometry downgraded by an integer factor (pixel size grows)."""
+        return Geometry(self.ny // factor, self.nx // factor,
+                        self.dy * factor, self.dx * factor, self.y0)
 
     # ----- host-precision (numpy float64) grids ---------------------
     def laxes_np(self):
@@ -83,6 +93,57 @@ class Geometry:
     def yaxis_np(self):
         """Pixel-centre y offsets from the patch centre (radians)."""
         return (np.arange(self.ny) - (self.ny - 1) / 2.0) * self.dy
+
+    def xaxis_np(self):
+        """Pixel-centre x offsets from the patch centre (radians)."""
+        return (np.arange(self.nx) - (self.nx - 1) / 2.0) * self.dx
+
+    def modrmap_np(self):
+        """(ny, nx) radius grid in numpy float64 (host; for binners)."""
+        return np.hypot(self.yaxis_np()[:, None], self.xaxis_np()[None, :])
+
+    # ----- real-space grids on a device -----------------------------
+    def yaxis(self, dtype=torch.float32, device=None):
+        return torch.as_tensor(self.yaxis_np(), dtype=dtype,
+                               device=resolve(device))
+
+    def xaxis(self, dtype=torch.float32, device=None):
+        return torch.as_tensor(self.xaxis_np(), dtype=dtype,
+                               device=resolve(device))
+
+    def posmap(self, dtype=torch.float32, device=None):
+        """(2, ny, nx) tensor of (dec, ra) sky offsets from patch centre."""
+        y = self.yaxis(dtype, device) + self.y0
+        x = self.xaxis(dtype, device)
+        return torch.stack([y[:, None].expand(self.shape),
+                            x[None, :].expand(self.shape)])
+
+    def modrmap(self, dtype=torch.float32, device=None):
+        """(ny, nx) angular distance from patch centre."""
+        y = self.yaxis(dtype, device)
+        x = self.xaxis(dtype, device)
+        return torch.sqrt(y[:, None] ** 2 + x[None, :] ** 2)
+
+    def pixmap(self, dtype=torch.float32, device=None):
+        """(2, ny, nx) pixel coordinate grids."""
+        device = resolve(device)
+        iy = torch.arange(self.ny, dtype=dtype, device=device)
+        ix = torch.arange(self.nx, dtype=dtype, device=device)
+        return torch.stack([iy[:, None].expand(self.shape),
+                            ix[None, :].expand(self.shape)])
+
+    def sky2pix(self, coords):
+        """Map (dec, ra) offsets (radians, tensor ``(2, ...)``) to
+        fractional pixels; the result follows ``coords``."""
+        py = (coords[0] - self.y0) / self.dy + (self.ny - 1) / 2.0
+        px = coords[1] / self.dx + (self.nx - 1) / 2.0
+        return torch.stack([py, px])
+
+    def pix2sky(self, pix):
+        """Inverse of :meth:`sky2pix`."""
+        y = (pix[0] - (self.ny - 1) / 2.0) * self.dy + self.y0
+        x = (pix[1] - (self.nx - 1) / 2.0) * self.dx
+        return torch.stack([y, x])
 
     def pixsizemap(self, dtype=torch.float32, device=None):
         """(ny, nx) per-pixel solid angle with the CAR cos(dec) factor

@@ -17,10 +17,11 @@ import numpy as np
 import torch
 
 from .._device import resolve
-from ..geometry import Geometry
+from ..geometry import Geometry, arcmin
 from ..ops import fourier as F
 
-__all__ = ["eig_pow", "spec2flat", "rand_kmap", "harm2map", "rand_map",
+__all__ = ["eig_pow", "spec2flat", "cl2flat", "rand_kmap", "harm2map",
+           "map2harm", "rand_map", "white_noise", "white_noise_from_noise",
            "rand_map_from_noise", "covsqrt_half", "rand_hermitian_half",
            "hermitian_half_from_noise", "rand_map_r", "rand_map_r_from_noise",
            "MapGen", "cmb_ps"]
@@ -36,6 +37,11 @@ def eig_pow(mat, exp, lim=1e-30):
     wexp = torch.where(good, w.abs() ** exp * torch.sign(w),
                        torch.zeros((), dtype=w.dtype))
     return torch.einsum("...ab,...b,...cb->...ac", v, wexp, v)
+
+
+def cl2flat(geom: Geometry, ells, cls, dtype=torch.float32, device=None):
+    """Paint a single 1D spectrum onto the 2D l-plane (no unit scaling)."""
+    return F.interp1d_to_2d(ells, cls, geom, dtype=dtype, device=device)
 
 
 def spec2flat(geom: Geometry, ps, exp: float = 1.0, dtype=torch.float32,
@@ -73,28 +79,42 @@ def rand_kmap(geom: Geometry, generator: torch.Generator, ncomp: int = None,
     return torch.complex(re, im)
 
 
-def harm2map(kmap, geom: Geometry):
-    """Unitary inverse FFT of scalar k-maps to real maps (the spin-2
-    (E,B)->(Q,U) rotation of the JAX package is not ported yet)."""
+def harm2map(kmap, geom: Geometry, iau: bool = False):
+    """Unitary inverse FFT of (T[, E, B]) k-maps to (I[, Q, U]) real maps.
+    Only full (T, E, B) stacks are rotated: two components are a correlated
+    scalar pair, not spin-2 polarization."""
     if kmap.ndim >= 3 and kmap.shape[-3] == 3:
-        raise NotImplementedError("polarized harm2map is not ported yet")
+        kmap = F.teb2iqu(kmap, geom, iau=iau)
     return F.ifft2(kmap, geom, "ortho").real
 
 
-def rand_map_from_noise(eta, geom: Geometry, covsqrt):
+def map2harm(imap, geom: Geometry, iau: bool = False):
+    """Unitary forward FFT of (I[, Q, U]) maps to (T[, E, B]) k-maps."""
+    k = F.fft2(imap, geom, "ortho")
+    if k.ndim >= 3 and k.shape[-3] == 3:
+        k = F.iqu2teb(k, geom, iau=iau)
+    return k
+
+
+def rand_map_from_noise(eta, geom: Geometry, covsqrt, iau: bool = False,
+                        harm: bool = False):
     """GRF realization from white noise ``eta`` (``(..., ncomp, ny, nx)``
     complex) and a covsqrt ``(ncomp, ncomp, ny, nx)``; a single component
-    is returned without its component axis."""
+    is returned without its component axis. ``harm`` returns the TEB
+    k-maps instead of the real maps."""
     kmap = torch.einsum("abyx,...byx->...ayx", covsqrt.to(eta.dtype), eta)
-    out = harm2map(kmap, geom)
+    if harm:
+        return kmap
+    out = harm2map(kmap, geom, iau=iau)
     return out[..., 0, :, :] if covsqrt.shape[0] == 1 else out
 
 
-def rand_map(geom: Geometry, covsqrt, generator: torch.Generator, batch=()):
+def rand_map(geom: Geometry, covsqrt, generator: torch.Generator, batch=(),
+             iau: bool = False, harm: bool = False):
     """Draw GRF realization(s) with the given covsqrt."""
     eta = rand_kmap(geom, generator, covsqrt.shape[0], batch=batch,
                     dtype=covsqrt.dtype, device=covsqrt.device)
-    return rand_map_from_noise(eta, geom, covsqrt)
+    return rand_map_from_noise(eta, geom, covsqrt, iau=iau, harm=harm)
 
 
 def covsqrt_half(geom: Geometry, ells, cls, dtype=torch.float32, device=None):
@@ -164,11 +184,14 @@ class MapGen:
                                      device=device)
         self.ncomp = self.covsqrt.shape[0]
 
-    def get_map(self, generator: torch.Generator, batch=()):
-        return rand_map(self.geom, self.covsqrt, generator, batch)
+    def get_map(self, generator: torch.Generator, batch=(),
+                iau: bool = False, harm: bool = False):
+        return rand_map(self.geom, self.covsqrt, generator, batch, iau=iau,
+                        harm=harm)
 
-    def get_map_from_noise(self, eta):
-        return rand_map_from_noise(eta, self.geom, self.covsqrt)
+    def get_map_from_noise(self, eta, iau: bool = False, harm: bool = False):
+        return rand_map_from_noise(eta, self.geom, self.covsqrt, iau=iau,
+                                   harm=harm)
 
 
 def cmb_ps(theory, lmax: int = None, pols=("TT", "EE", "BB", "TE"),
@@ -186,3 +209,25 @@ def cmb_ps(theory, lmax: int = None, pols=("TT", "EE", "BB", "TE"),
     ps[0, 1] = te
     ps[1, 0] = te
     return ps
+
+
+def white_noise_from_noise(z, geom: Geometry, noise_muK_arcmin,
+                           ipsizemap=None):
+    """White noise map of the given sensitivity (muK-arcmin) from standard
+    normals ``z`` (``(..., ny, nx)``): variance per pixel is
+    ``(noise * arcmin)^2 / pixsize``, with the per-pixel solid angle
+    (cos(dec) factor included) unless ``ipsizemap`` is given."""
+    if ipsizemap is None:
+        ipsizemap = geom.pixsizemap(z.dtype, z.device)
+    return z * ((noise_muK_arcmin * arcmin) / torch.sqrt(ipsizemap))
+
+
+def white_noise(geom: Geometry, noise_muK_arcmin,
+                generator: torch.Generator, ipsizemap=None, shape=None,
+                dtype=torch.float32, device=None):
+    """Draw :func:`white_noise_from_noise` with ``generator``; ``shape``
+    defaults to ``(ny, nx)``."""
+    shape = tuple(shape) if shape is not None else (geom.ny, geom.nx)
+    z = torch.randn(shape, generator=generator, dtype=dtype,
+                    device=resolve(device))
+    return white_noise_from_noise(z, geom, noise_muK_arcmin, ipsizemap)

@@ -4,15 +4,15 @@ the ``QE`` engine with its separable-term algebra, the normalization
 reconstruction ``kappa_from_map``, the fused rfft half-plane TT path
 ``kappa_tt_rfft`` and the full-plane doubly-permuted TT path
 ``kappa_tt_pallas`` (on the port's DFT and mirror kernels, B3/B4/B7);
-plus ``lensing_noise_2d``.
+plus ``lensing_noise_2d``, the binned N0 curves of ``NlGenerator``, the
+realization-dependent and Monte-Carlo N0 (``rdn0``, ``mcn0``) and the N1
+bias of the TT estimator (``n1_tt``).
 
 Conventions are the JAX package's (Hu & Okamoto 2002 couplings, "phys"
 Fourier units ``T_phys = fft_raw * sqrt(area)/npix``, the mode-coupling
 integral ``(npix/area) * fft[ifft(A) ifft(B)]``); see that module's
 docstring. Every plane lives on the engine's ``device``; the cached
 normalizations are computed eagerly there on first request.
-
-``NlGenerator``, ``rdn0``, ``mcn0`` and ``n1_tt`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -25,9 +25,10 @@ from .._device import resolve
 from ..geometry import Geometry, arcmin
 from ..ops import dft as D
 from ..ops import fourier as F
+from ..ops.binning import Bin2D
 from ..ops.mirror import mirror_pp
 
-__all__ = ["QE", "lensing_noise_2d"]
+__all__ = ["QE", "lensing_noise_2d", "NlGenerator", "rdn0", "mcn0", "n1_tt"]
 
 LEG_FIELDS = {"TT": ("T", "T"), "TE": ("T", "E"), "EE": ("E", "E"),
               "EB": ("E", "B"), "TB": ("T", "B")}
@@ -548,3 +549,334 @@ def lensing_noise_2d(geom: Geometry, theory, beam_arcmin, noise_t_uk_arcmin,
         out[spec] = torch.as_tensor(cl + n2d, dtype=dtype,
                                     device=resolve(device))
     return out
+
+
+def _host(t):
+    return t.detach().cpu().numpy()
+
+
+class NlGenerator:
+    """Binned N_L^0 curves for instrument configs
+    (``NlGenerator(geom, theory, bin_edges).update_noise(...).get_nl()``)."""
+
+    def __init__(self, geom: Geometry, theory, bin_edges, dtype=torch.float32,
+                 device=None):
+        self.geom = geom
+        self.theory = theory
+        self.device = resolve(device)
+        self.binner = Bin2D(geom.modlmap_np(), bin_edges, device=self.device)
+        self.dtype = dtype
+        self._qe = None
+
+    def update_noise(self, beam_arcmin, noise_t_uk_arcmin,
+                     noise_p_uk_arcmin=None, tellmin=30, tellmax=3000,
+                     pellmin=30, pellmax=5000, kmin=10, kmax=None):
+        ctot = lensing_noise_2d(self.geom, self.theory, beam_arcmin,
+                                noise_t_uk_arcmin, noise_p_uk_arcmin,
+                                self.dtype, self.device)
+        mask = lambda lo, hi: F.mask_kspace(self.geom, lmin=lo, lmax=hi,
+                                            device=self.device)
+        xt = mask(tellmin, tellmax)
+        xp = mask(pellmin, pellmax)
+        # one engine with per-field multipole masks: cross-N0 between a
+        # T-leg and a P-leg estimator then carries each field's own cuts
+        self._qe = QE(self.geom, self.theory, ctot, kmask=mask(kmin, kmax),
+                      dtype=self.dtype, device=self.device,
+                      field_masks={"T": xt, "E": xp, "B": xp})
+        return self
+
+    updateNoise = update_noise
+
+    def _engine(self):
+        if self._qe is None:
+            raise RuntimeError("call update_noise(...) before querying "
+                               "NlGenerator noise curves")
+        return self._qe
+
+    def _bin(self, n2d):
+        """Binned curve of a 2D plane as host numpy (the binner's kernel
+        takes float32 and sums in float64)."""
+        cents, n1d = self.binner.bin(n2d.to(torch.float32))
+        return cents, _host(n1d)
+
+    def get_nl(self, est="TT"):
+        return self._bin(self._engine().N_L_kk(est.upper()))
+
+    getNl = get_nl
+
+    def get_nl_cross(self, estA, estB):
+        """Binned cross-N0 between two estimators (kappa convention)."""
+        return self._bin(self._engine().N_L_kk_cross(estA.upper(),
+                                                     estB.upper()))
+
+    def get_nl_matrix(self, ests=("TT", "TE", "EE", "EB", "TB")):
+        """Binned N0 covariance matrix between estimators, shape
+        (nest, nest, nbins). Off-diagonals vanish for pairs that share
+        no total cross-spectrum (e.g. TTxEB)."""
+        ests = [e.upper() for e in ests]
+        n = len(ests)
+        mat = np.zeros((n, n, self.binner.nbins))
+        for i in range(n):
+            for j in range(i, n):
+                mat[i, j] = mat[j, i] = self.get_nl_cross(ests[i], ests[j])[1]
+        return np.asarray(self.binner.centers), mat
+
+    def get_nl_mv(self, ests=("TT", "TE", "EE", "EB", "TB"),
+                  naive=False):
+        """Minimum-variance N_L^kk over estimators: ``N_mv(L) = 1 / sum_ij
+        [N^-1(L)]_ij`` with N the per-bin estimator covariance including
+        the cross-N0 terms; ``naive=True`` keeps ``1/N = sum 1/N_i``."""
+        if naive:
+            invs = []
+            for est in ests:
+                n2d = _host(self._engine().N_L_kk(est)).astype(np.float64)
+                invs.append(1.0 / np.where(n2d > 0, n2d, np.inf))
+            tot = np.sum(invs, axis=0)
+            n_mv = 1.0 / np.where(tot > 0, tot, np.inf)
+            return self._bin(torch.as_tensor(n_mv, device=self.device))
+        cents, mat = self.get_nl_matrix(ests)
+        nb = mat.shape[-1]
+        # unusable bins are INFINITE noise (matching the naive branch);
+        # 0 would read as infinite signal-to-noise downstream
+        out = np.full(nb, np.inf)
+        for b in range(nb):
+            N = mat[:, :, b]
+            good = np.diag(N) > 0
+            if not np.any(good):
+                continue
+            Ng = N[np.ix_(good, good)]
+            try:
+                inv = np.linalg.inv(Ng)
+            except np.linalg.LinAlgError:
+                inv = np.linalg.pinv(Ng)
+            tot = inv.sum()
+            out[b] = 1.0 / tot if tot > 0 else np.inf
+        return cents, out
+
+
+# ---------------------------------------------------------------------
+# Realization-dependent N0 (RDN0) and Monte-Carlo N0 (MCN0)
+# ---------------------------------------------------------------------
+
+def _kk_cl_fn(qe: "QE", bin_edges):
+    """Binned kappa cross-power of two (batches of) raw-fft kappa maps."""
+    binner = Bin2D(qe.geom.modlmap_np(), np.asarray(bin_edges, float),
+                   device=qe.device)
+    norm = float(qe.geom.area) / float(qe.geom.npix) ** 2
+
+    def cl(A, B):
+        return binner.bin(((A.conj() * B).real * norm).to(torch.float32))[1]
+
+    return binner, cl
+
+
+def _sim_chunks(sims, shift, chunk):
+    """``(s, s')`` chunks of at most ``chunk`` sims with the cyclic pairing
+    ``s'_i = s_{i + shift}``."""
+    sims2 = torch.roll(sims, -shift, dims=0)
+    return zip(sims.split(chunk), sims2.split(chunk))
+
+
+def rdn0(qe: "QE", est: str, kdata, sim_kmaps, bin_edges,
+         pair_shift: int = 1, chunk: int = 16):
+    """Realization-dependent N0 debias for the quadratic estimator, the
+    data-anchored Gaussian-noise estimate of Planck 2015 XV eq. 16, in
+    kappa convention:
+
+      RDN0(L) = < Cl(Q[d,s], Q[d,s]) + Cl(Q[d,s], Q[s,d])
+                 + Cl(Q[s,d], Q[d,s]) + Cl(Q[s,d], Q[s,d])
+                 - Cl(Q[s,s'], Q[s,s']) - Cl(Q[s,s'], Q[s',s]) >_s
+
+    with d the (beam-deconvolved, raw-fft) data leg, s/s' independent
+    Gaussian sims of the data covariance, and Q[a,b] the normalized
+    two-leg kappa estimator. Sims are paired cyclically
+    (``s'_i = s_{i+pair_shift}``) and taken ``chunk`` at a time: each chunk
+    is four batched two-leg reconstructions.
+
+    ``kdata``: (ny, nx) complex raw-fft data leg; ``sim_kmaps``: (nsims,
+    ny, nx) complex raw-fft sim legs drawn from the data's total
+    covariance, both on the engine's device. Returns ``(centers, rdn0_kk,
+    mcn0_kk)`` as numpy; ``mcn0_kk`` is the pure sim-pair Monte-Carlo N0.
+    """
+    est = est.upper()
+    nsims = sim_kmaps.shape[0]
+    if nsims < 2:
+        raise ValueError("rdn0 needs >= 2 sims for the s-s' pairs")
+    binner, cl = _kk_cl_fn(qe, bin_edges)
+    kd = kdata[None]
+    t_data = t_mc = 0.0
+    for s, s2 in _sim_chunks(sim_kmaps, int(pair_shift) % nsims, chunk):
+        qds = qe.kappa_from_map(est, kd, s)
+        qsd = qe.kappa_from_map(est, s, kd)
+        qss = qe.kappa_from_map(est, s, s2)
+        qs2s = qe.kappa_from_map(est, s2, s)
+        t_data = t_data + (cl(qds, qds) + cl(qds, qsd) + cl(qsd, qds)
+                           + cl(qsd, qsd)).sum(0)
+        t_mc = t_mc + (cl(qss, qss) + cl(qss, qs2s)).sum(0)
+    t_data, t_mc = _host(t_data) / nsims, _host(t_mc) / nsims
+    return binner.centers, t_data - t_mc, t_mc
+
+
+def mcn0(qe: "QE", est: str, sim_kmaps, bin_edges, pair_shift: int = 1,
+         chunk: int = 16):
+    """Monte-Carlo N0 from independent sim pairs alone (the
+    ``- <Cl(Q[s,s'],...)>`` terms of :func:`rdn0` with a + sign):
+    converges to the analytic ``QE.N_L_kk`` for matched spectra."""
+    est = est.upper()
+    nsims = sim_kmaps.shape[0]
+    if nsims < 2:
+        raise ValueError("mcn0 needs >= 2 sims")
+    binner, cl = _kk_cl_fn(qe, bin_edges)
+    t_mc = 0.0
+    for s, s2 in _sim_chunks(sim_kmaps, int(pair_shift) % nsims, chunk):
+        qss = qe.kappa_from_map(est, s, s2)
+        qs2s = qe.kappa_from_map(est, s2, s)
+        t_mc = t_mc + (cl(qss, qss) + cl(qss, qs2s)).sum(0)
+    return binner.centers, _host(t_mc) / nsims
+
+
+# ---------------------------------------------------------------------
+# N1 bias of the TT estimator
+# ---------------------------------------------------------------------
+
+def _iso_profile(geom, grid2d):
+    """(l, value) samples of an isotropic 2D Fourier grid, taken along
+    its ly=0 row: exact whenever the grid is a function of modlmap
+    (interpolated 1D spectra, annulus masks). Sorted and deduped for
+    ``np.interp``."""
+    ml = geom.modlmap_np()[0]
+    vals = _host(grid2d)[0] if isinstance(grid2d, torch.Tensor) \
+        else np.asarray(grid2d)[0]
+    order = np.argsort(ml, kind="stable")
+    lu, idx = np.unique(ml[order], return_index=True)
+    return lu, vals[order][idx]
+
+
+def _embed_pad(P, pad):
+    """Zero-embed FFT-ordered l-lattice grids into a ``pad``-times finer
+    Brillouin zone (same dl, pad*Nyquist): fftshift -> symmetric zero
+    pad -> ifftshift. Every original lattice point keeps its frequency,
+    so transforms on the embedded lattice are exact continuations."""
+    if pad == 1:
+        return P
+    ny, nx = P.shape[-2:]
+    wy = (ny * (pad - 1)) // 2
+    wx = (nx * (pad - 1)) // 2
+    Pc = torch.fft.fftshift(P, dim=(-2, -1))
+    Pc = torch.nn.functional.pad(Pc, (wx, wx, wy, wy))
+    return torch.fft.ifftshift(Pc, dim=(-2, -1))
+
+
+def n1_tt(qe: "QE", Ls, clkk, ells=None, pad: int = 2):
+    """Flat-sky N1 lensing bias of the TT estimator, kappa convention: the
+    O(C^phiphi) connected-trispectrum bias of Kesden, Cooray &
+    Kamionkowski 2003 (eq. 12),
+
+      N1(L) = 2 A(L)^2 int d^2l1/(2pi)^2 d^2l3/(2pi)^2
+              F(l1,l2) F(l3,l4) C^pp(|l1+l3|) f(l1,l3) f(l2,l4)
+
+    with l2 = L - l1, l4 = -L - l3, f the TT lensing response and F the
+    estimator's own filtered weights (leg masks and total spectra taken
+    from the engine). Evaluated exactly on the estimator's Fourier
+    lattice: f(l1,l3) and f(l2,l4) split into 6 separable components
+    each, the C^pp coupling is opened with its transform C~(x), and every
+    l-integral collapses to a 2D FFT: 6 batched-(6) FFT pairs per L. The
+    x-space sum implements the lattice Kronecker delta, so ``pad=2``
+    doubles the Brillouin zone (same dl) to keep l1+l3 un-aliased; with it
+    the result equals the direct 4D lattice sum.
+
+    L is taken along the x axis and the engine's leg masks / total spectra
+    are radialized from their ly=0 row: exact for annulus masks and
+    1D-interpolated spectra. The grids are built on the host in float64;
+    the FFT pairs run on the engine's device in its dtype.
+
+    ``Ls``: output multipoles (within the lattice band); ``clkk``: C_L^kk
+    over ``ells`` (default ``arange(len(clkk))``). Returns ``(Ls, n1_kk)``
+    as numpy.
+    """
+    geom = qe.geom
+    clkk = np.asarray(clkk, np.float64)
+    ells = (np.arange(clkk.size, dtype=np.float64) if ells is None
+            else np.asarray(ells, np.float64))
+    lsafe = np.where(ells > 0, ells, 1.0)
+    clpp = np.where(ells > 0, 4.0 * clkk / lsafe ** 4, 0.0)
+
+    # 1D profiles of the engine's own weights (see the isotropy note)
+    lt_c, cltt_t = _iso_profile(geom, qe.cl2d["TT"])
+    _, ct_v = _iso_profile(geom, qe.ctot["TT"])
+    if qe.field_masks is not None:
+        m1_l, m1_v = _iso_profile(geom, qe.field_masks["T"])
+        m2_l, m2_v = m1_l, m1_v
+    else:
+        m1_l, m1_v = _iso_profile(geom, qe.gmask)
+        m2_l, m2_v = _iso_profile(geom, qe.ymask)
+    ct_safe = np.where(ct_v > 0, ct_v, 1.0)
+    w1_t = np.where(ct_v > 0, m1_v / ct_safe, 0.0)
+    w2_t = np.where(ct_v > 0, m2_v / ct_safe, 0.0)
+    _cl = lambda m: np.interp(m, lt_c, cltt_t, left=0.0, right=0.0)
+    _w1 = lambda m: np.interp(m, m1_l, w1_t, left=0.0, right=0.0)
+    _w2 = lambda m: np.interp(m, m2_l, w2_t, left=0.0, right=0.0)
+
+    ny, nx = geom.shape
+    ml_np = geom.modlmap_np()
+    dly, dlx = float(ml_np[1, 0]), float(ml_np[0, 1])
+    iy = np.fft.fftfreq(ny) * ny
+    ix = np.fft.fftfreq(nx) * nx
+    ly_np = (dly * iy)[:, None] + 0.0 * ix[None, :]
+    lx_np = 0.0 * iy[:, None] + (dlx * ix)[None, :]
+    # C^pp on the pad-times Brillouin zone (same dl): this is where
+    # |l1+l3| lands, un-aliased for pad >= 2
+    fy = np.fft.fftfreq(pad * ny) * pad * ny * dly
+    fx = np.fft.fftfreq(pad * nx) * pad * nx * dlx
+    cpp_pad = np.interp(np.hypot(fy[:, None], fx[None, :]), ells, clpp,
+                        left=0.0, right=0.0)
+    pref = 2.0 * (pad * pad * geom.npix / float(geom.area)) ** 2
+
+    # L-independent l1/l3-side factors of the separable split
+    # f(la, lb) = C(la)(|la|^2 + la.lb) + C(lb)(|lb|^2 + la.lb)
+    # = sum_a u_a(la) v_a(lb) with the component pairing below
+    C1 = _cl(ml_np)
+    W1g = _w1(ml_np)
+    one = np.ones_like(ml_np)
+    U = np.stack([C1 * ml_np ** 2, C1 * lx_np, C1 * ly_np,
+                  lx_np, ly_np, one])
+    V = np.stack([one, lx_np, ly_np, C1 * lx_np, C1 * ly_np,
+                  C1 * ml_np ** 2])
+    put = lambda x: torch.as_tensor(x, dtype=qe.dtype, device=qe.device)
+    Ug, Vg = put(U), put(V)
+    cph = torch.fft.ifft2(put(cpp_pad))
+
+    def core(grids):
+        """6 batched-(6) FFT pairs + the C~(x)-weighted x-sum."""
+        F12, F34 = grids[0], grids[1]
+        U2, V2 = grids[2:8], grids[8:14]
+        acc = 0.0
+        for a in range(6):
+            Ia = torch.fft.ifft2(_embed_pad(F12 * Ug[a] * U2, pad))
+            Ja = torch.fft.ifft2(_embed_pad(F34 * Vg[a] * V2, pad))
+            acc = acc + (cph * (Ia * Ja).sum(0)).sum().real
+        return pref * acc
+
+    Ls = np.asarray(Ls, np.float64)
+    aL = np.empty(Ls.size)
+    n1_phi = np.empty(Ls.size)
+    for i, Lx in enumerate(Ls):
+        l2x = Lx - lx_np
+        l4x = -Lx - lx_np
+        ml2 = np.hypot(l2x, ly_np)
+        ml4 = np.hypot(l4x, ly_np)
+        C2, C4 = _cl(ml2), _cl(ml4)
+        f12 = C1 * (Lx * lx_np) + C2 * (Lx * l2x)
+        F12 = 0.5 * f12 * W1g * _w2(ml2)
+        F34 = 0.5 * (C1 * (-Lx * lx_np) + C4 * (-Lx * l4x)) \
+            * W1g * _w2(ml4)
+        # A_L on the host from the same radialized tables, evaluated
+        # exactly at this L instead of a row interpolation of qe.A_L
+        invA = (f12 * F12).sum() / float(geom.area)
+        aL[i] = 1.0 / invA if invA != 0 else 0.0
+        grids = np.stack(
+            [F12, F34,
+             C2 * ml2 ** 2, C2 * l2x, C2 * (-ly_np), l2x, -ly_np, one,
+             one, l4x, -ly_np, C4 * l4x, C4 * (-ly_np), C4 * ml4 ** 2])
+        n1_phi[i] = float(core(put(grids)))
+    return Ls, (Ls ** 4 / 4.0) * aL ** 2 * n1_phi

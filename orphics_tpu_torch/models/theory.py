@@ -18,7 +18,7 @@ from typing import Dict
 import numpy as np
 
 __all__ = ["TheorySpectra", "load_theory_from_camb", "default_theory",
-           "DATA_DIR"]
+           "planck_theory", "DATA_DIR"]
 
 DATA_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -67,6 +67,12 @@ class TheorySpectra:
     def loadGenericCls(self, ells, cls, key, lpad=None, fill_zero=True):
         lpad = lpad or self.lpad
         self.tables[key] = _to_table(ells, cls, lpad, fill_zero)
+
+    def astype(self, dtype):
+        """A copy with every table cast to the numpy ``dtype``."""
+        return TheorySpectra({k: v.astype(dtype)
+                              for k, v in self.tables.items()},
+                             self.lpad, self.dimensionless)
 
 
 def _to_table(ells, cls, lpad, fill_zero=True):
@@ -127,3 +133,14 @@ def default_theory(lpad: int = 9000,
     """High-accuracy 2017 LCDM theory (the JAX package's default)."""
     return load_theory_from_camb(os.path.join(DATA_DIR, root), lpad=lpad,
                                  get_dimensionless=False)
+
+
+def planck_theory(ells, ellmax: int = 2000):
+    """Planck 2018 TT bandpowers as Cl, interpolated to ``ells`` (host
+    numpy)."""
+    fname = os.path.join(DATA_DIR, "COM_PowerSpect_CMB-TT-full_R3.01.txt")
+    ls, dells = np.loadtxt(fname, usecols=[0, 1], unpack=True)
+    cells = dells / ls / (ls + 1.0) * 2 * np.pi
+    sel = ls < ellmax
+    return np.interp(np.asarray(ells), ls[sel], cells[sel], left=0.0,
+                     right=0.0)

@@ -1,12 +1,16 @@
 """Weighted segment sums, the reduction under every radial binner
-(kernels B1 and B2).
+(kernels B1, B2 and B2').
 
-``bin_reduce`` is the port of ``orphics_tpu/ops/pallas_kernels.py:bin_matmul``
-and ``bin2_reduce`` that of ``bin2_matmul``, with the same contracts and no
-``block`` or tail special case:
+``bin_reduce`` is the port of ``orphics_tpu/ops/pallas_kernels.py:bin_matmul``,
+``bin2_reduce`` that of ``bin2_matmul`` and ``bin_pair_power`` that of
+``bin_pair_power``, with the same contracts and no ``block`` or tail special
+case:
 
     bin_reduce:  out[b, s] = sum_n data[b, n] * weights[n] * [ids[n] == s]
     bin2_reduce: the same without weights for two inputs over one id table
+    bin_pair_power: ``bin2_reduce`` of the fields ``q = |Z|^2`` (or
+        ``(|Z|^2 + |Zm|^2) / 2``) and ``c = Re(Z Zm)`` of a packed Fourier
+        pair and its mirror, formed as the planes are read
 
 For a CUDA tensor each launches the hand-written kernel in
 ``csrc/bin_reduce.cu``: fp64 partials per warp in shared memory, then
@@ -22,7 +26,8 @@ import torch
 
 from .. import _build
 
-__all__ = ["bin_reduce", "bin_reduce_ref", "bin2_reduce", "bin2_reduce_ref"]
+__all__ = ["bin_reduce", "bin_reduce_ref", "bin2_reduce", "bin2_reduce_ref",
+           "bin_pair_power", "bin_pair_power_ref"]
 
 
 def bin_reduce_ref(data, ids, nseg: int, weights=None):
@@ -40,6 +45,15 @@ def bin_reduce_ref(data, ids, nseg: int, weights=None):
 def bin2_reduce_ref(d1, d2, ids, nseg: int):
     """Plain version of :func:`bin2_reduce`: two :func:`bin_reduce_ref`."""
     return bin_reduce_ref(d1, ids, nseg), bin_reduce_ref(d2, ids, nseg)
+
+
+def bin_pair_power_ref(zr, zi, zmr, zmi, ids, nseg: int, sym: bool = False):
+    """Plain version of :func:`bin_pair_power`: the two fields in float32,
+    as the kernel forms them, then :func:`bin2_reduce_ref`."""
+    q = zr * zr + zi * zi
+    if sym:
+        q = 0.5 * (q + zmr * zmr + zmi * zmi)
+    return bin2_reduce_ref(q, zr * zmr - zi * zmi, ids, nseg)
 
 
 def _seg_tiles(nseg: int, cap: int):
@@ -70,13 +84,13 @@ def _check(data, ids, weights, nseg, what="data"):
         raise ValueError(f"unsupported device {data.device}")
 
 
-def _launch(inputs, ids, nseg, weights, what):
+def _launch(inputs, ids, nseg, weights, what, sym=False):
     if not all(t.is_contiguous() for t in inputs + (ids,)) or not (
             weights is None or weights.is_contiguous()):
         raise ValueError(f"{what} needs contiguous tensors")
     lib = _build.library()
     B, N = inputs[0].shape
-    nd = len(inputs)
+    nd = min(len(inputs), 2)
     tile, ntiles = _seg_tiles(nseg, lib.bin_reduce_seg_cap())
     nspan = -(-N // lib.bin_reduce_span())
     dev = inputs[0].device
@@ -90,6 +104,11 @@ def _launch(inputs, ids, nseg, weights, what):
             None if weights is None else weights.data_ptr(),
             scratch.data_ptr(), out.data_ptr(), B, N, nseg, tile, ntiles,
             stream)
+    elif len(inputs) == 4:
+        err = lib.bin_pair_power_launch(
+            *(t.data_ptr() for t in inputs), ids.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), B, N, nseg, tile, ntiles,
+            int(sym), stream)
     else:
         err = lib.bin2_reduce_launch(
             inputs[0].data_ptr(), inputs[1].data_ptr(), ids.data_ptr(),
@@ -126,5 +145,27 @@ def bin2_reduce(d1, d2, ids, nseg: int):
     return bin2_reduce_ref(d1, d2, ids, nseg)
 
 
+def bin_pair_power(zr, zi, zmr, zmi, ids, nseg: int, sym: bool = False):
+    """``(bin(q), bin(c))``, each ``(B, nseg)`` float32, for ``Z = F1 + i F2``
+    the transform of two packed real maps and ``Zm(k) = Z(-k)`` its mirror,
+    all four ``(B, N)`` float32 planes over one ``(N,)`` int32 id table (B2';
+    the port of ``bin_pair_power``). ``q = |Z|^2``, or with ``sym`` the
+    mirror-even ``(|Z|^2 + |Zm|^2) / 2``; ``c = Re(Z Zm)``. With mirror-
+    symmetric bins ``bin|F1|^2 = (bq + bc) / 2`` and ``bin|F2|^2 =
+    (bq - bc) / 2``."""
+    planes = (zr, zi, zmr, zmi)
+    for t, name in zip(planes, ("zr", "zi", "zmr", "zmi")):
+        _check(t, ids, None, nseg, name)
+        if t.shape != zr.shape:
+            raise ValueError(f"{name} must match zr: {tuple(t.shape)} vs "
+                             f"{tuple(zr.shape)}")
+    if zr.is_cuda:
+        out = _launch(planes, ids, nseg, None, "bin_pair_power", sym)
+        bin_pair_power.launches += 1
+        return out[0], out[1]
+    return bin_pair_power_ref(zr, zi, zmr, zmi, ids, nseg, sym)
+
+
 bin_reduce.launches = 0
 bin2_reduce.launches = 0
+bin_pair_power.launches = 0

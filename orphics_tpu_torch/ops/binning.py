@@ -15,7 +15,7 @@ import torch
 from .._device import resolve
 from .bin_reduce import bin_reduce
 
-__all__ = ["Bin2D", "RfftBin2D"]
+__all__ = ["Bin2D", "RfftBin2D", "bin1d", "bin1D", "bin_in_annuli"]
 
 
 class Bin2D:
@@ -109,3 +109,53 @@ class RfftBin2D:
                          weights=self._w)
         sums = out.reshape(lead + (self._nseg,))[..., 1:-1]
         return self.centers, sums * self._inv_counts
+
+
+def bin1d(x, y, bin_edges):
+    """Bin samples ``(x, y)`` into mean-per-bin. Host-side numpy (used for
+    theory curves)."""
+    x = np.asarray(x)
+    y = np.asarray(y)
+    cents = (np.asarray(bin_edges)[1:] + np.asarray(bin_edges)[:-1]) / 2.0
+    dig = np.digitize(x, bin_edges, right=True)
+    nb = len(bin_edges) - 1
+    sums = np.bincount(dig, weights=np.nan_to_num(y), minlength=nb + 2)[1:-1]
+    cnts = np.bincount(dig[~np.isnan(y)], minlength=nb + 2)[1:-1]
+    with np.errstate(invalid="ignore", divide="ignore"):
+        means = sums / cnts
+    return cents, means
+
+
+class bin1D:
+    """1D binner constructed with bin edges; ``bin(x, y, stat)`` returns
+    ``(centers, binned)``. Host numpy via scipy ``binned_statistic``: for
+    theory curves, not the device path (that is :class:`Bin2D`)."""
+
+    def __init__(self, bin_edges):
+        self.update_bin_edges(bin_edges)
+
+    def update_bin_edges(self, bin_edges):
+        self.bin_edges = np.asarray(bin_edges)
+        self.numbins = len(bin_edges) - 1
+        self.cents = (self.bin_edges[:-1] + self.bin_edges[1:]) / 2.0
+        self.bin_edges_min = self.bin_edges.min()
+        self.bin_edges_max = self.bin_edges.max()
+
+    def bin(self, ix, iy, stat=np.nanmean):
+        from scipy.stats import binned_statistic
+        x = np.asarray(ix).copy()
+        y = np.asarray(iy).astype(float).copy()
+        y[x < self.bin_edges_min] = 0
+        y[x > self.bin_edges_max] = 0
+        means = binned_statistic(x, y, bins=self.bin_edges,
+                                 statistic=stat)[0]
+        return self.cents, means
+
+
+def bin_in_annuli(data2d, modrmap, bin_edges):
+    """One-shot annular binning of a tensor ``data2d`` over the modulus map
+    ``modrmap`` (host array or tensor); the tables go where ``data2d`` is."""
+    if isinstance(modrmap, torch.Tensor):
+        modrmap = modrmap.detach().cpu().numpy()
+    binner = Bin2D(modrmap, bin_edges, device=data2d.device)
+    return binner.bin(data2d)

@@ -23,8 +23,10 @@ bit-identical to the JAX package's.
 * B5 :func:`rowifft_noise_y`: :func:`rowifft` of ``scale * eta`` with the
   white noise drawn in the kernel (``pallas_fft.rowifft_noise_y``);
 * the compositions :func:`fft2pp`, :func:`ifft2pp`, :func:`ifft2pp_scaled`,
-  :func:`ifft2pp_noise`, :func:`ifft2pp_noise_y` (both axes permuted) and
-  :func:`pfft2`, :func:`pifft2` (natural order).
+  :func:`ifft2pp_noise`, :func:`ifft2pp_noise_y` (both axes permuted),
+  :func:`fft2p`, :func:`ifft2p` (B3 on the columns, the library FFT on the
+  rows: only the rows' order is permuted) and :func:`pfft2`, :func:`pifft2`
+  (natural order).
 
 For CUDA tensors the wrappers launch ``csrc/dft.cu``; for CPU tensors
 they run the plain versions (``torch.fft`` plus an ``index_select``).
@@ -51,7 +53,7 @@ __all__ = [
     "colfft_ref", "colfft_scaled_ref", "colifft_ref", "rowfft_ref",
     "rowifft_ref",
     "rowifft_scaled_y_ref", "rowfft_blk0_ref", "rowifft_noise_y_ref",
-    "fft2pp", "ifft2pp", "ifft2pp_scaled", "ifft2pp_noise",
+    "fft2p", "ifft2p", "fft2pp", "ifft2pp", "ifft2pp_scaled", "ifft2pp_noise",
     "ifft2pp_noise_y", "pfft2", "pifft2",
 ]
 
@@ -398,6 +400,24 @@ rowifft_noise_y.launches = 0
 
 
 # ---- compositions -------------------------------------------------------
+
+def fft2p(zre, zim):
+    """Full 2D DFT with axis -2 by B3 :func:`colfft` (rows left in
+    :func:`row_perm` order) and axis -1 by ``torch.fft.fft`` (natural
+    column order): ``(re, im)`` of ``fft2(z)`` with permuted rows; reorder
+    with :func:`natural_rows` or use row-permuted grids downstream
+    (``pallas_fft.fft2p``)."""
+    yre, yim = colfft(zre, zim)
+    k = torch.fft.fft(torch.complex(yre, yim), dim=-1)
+    return k.real.contiguous(), k.imag.contiguous()
+
+
+def ifft2p(kre, kim):
+    """Inverse of :func:`fft2p`: rows in permuted order in, natural order
+    out (``pallas_fft.ifft2p``)."""
+    z = torch.fft.ifft(torch.complex(kre, kim), dim=-1)
+    return colifft(z.real.contiguous(), z.imag.contiguous())
+
 
 def fft2pp(zre, zim):
     """Full 2D DFT, rows AND columns left in :func:`row_perm` order."""

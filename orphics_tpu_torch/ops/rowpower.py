@@ -1,7 +1,7 @@
-"""Fused row DFT and half-plane power fields (kernels B6 and B6s;
-counterpart of the fused row passes of ``orphics_tpu/ops/pallas_fft.py``,
-its ``rowqc_pp`` / ``fft2pp_qc`` and ``rows_pp`` / ``fft2pp_s``
-sections).
+"""Half-plane power fields, fused with the row DFT or from a stored
+Fourier plane (kernels B6, B6s, B6h and B6h'; counterpart of
+``orphics_tpu/ops/pallas_fft.py``'s ``rowqc_pp`` / ``fft2pp_qc``,
+``rows_pp`` / ``fft2pp_s``, ``qc_pp_half`` and ``s_pp_half`` sections).
 
 For ``Z = fft2(m1 + i m2)`` of a packed pair of real maps in the
 doubly-permuted layout and ``Zm(k) = Z(-k)``, the mirror-even fields
@@ -33,9 +33,14 @@ power.
   :func:`rows_pp` and :func:`fft2pp_s`: the same for ``s``. ``rowqc_pp``
   and ``rows_pp`` are one composition with a field selector
   (:func:`qc_fields` or :func:`s_field`).
+* :func:`qc_pp_half` (B6h) and :func:`s_pp_half` (B6h', the same kernel
+  templated on its field): the fields over the half plane of a ``Z`` that
+  is already in device memory, each element read through the exact mirror
+  map, so there is no strip to patch.
 
-For CPU tensors the wrappers run the plain versions :func:`rowqc_pp_ref`
-and :func:`rows_pp_ref`; for CUDA tensors they launch the kernels. There
+For CPU tensors the wrappers run the plain versions :func:`rowqc_pp_ref`,
+:func:`rows_pp_ref`, :func:`qc_pp_half_ref` and :func:`s_pp_half_ref`; for
+CUDA tensors they launch the kernels. There
 is no fallback from one to the other.
 """
 from __future__ import annotations
@@ -51,7 +56,8 @@ from .dft import (_check, _tables, colfft, half_rows, rowfft, rowfft_blk0,
 from .mirror import _mirror_tables, mirror_pp_ref
 
 __all__ = ["qc_fields", "s_field", "rowqc_half", "rowqc_pp", "rowqc_pp_ref",
-           "fft2pp_qc", "rows_half", "rows_pp", "rows_pp_ref", "fft2pp_s"]
+           "fft2pp_qc", "rows_half", "rows_pp", "rows_pp_ref", "fft2pp_s",
+           "qc_pp_half", "qc_pp_half_ref", "s_pp_half", "s_pp_half_ref"]
 
 
 @functools.lru_cache(maxsize=16)
@@ -76,15 +82,30 @@ def s_field(zr, zi, mr, mi):
     return (zr * mi + zi * mr,)
 
 
-def _fields_ref(yr, yi, field):
-    """Plain half-plane ``field`` of ``Z`` = :func:`rowfft_ref` of every
-    row, with ``Zm`` = ``mirror_pp_ref(Z)``, on the rows ``half_rows(n)[0]``;
-    then ``zrow`` = ``Z``'s rows ``[0, 128)``."""
-    zr, zi = rowfft_ref(yr, yi)
+def _half_ref(zr, zi, field):
+    """Plain half-plane ``field`` of a stored ``Z``, with ``Zm`` =
+    ``mirror_pp_ref(Z)``, on the rows ``half_rows(n)[0]``."""
     mr, mi = mirror_pp_ref(zr, zi)
     p = _strip_tables(zr.shape[-1], zr.device)[3]
-    out = field(*(a.index_select(1, p) for a in (zr, zi, mr, mi)))
-    return out + (zr[:, :128].contiguous(), zi[:, :128].contiguous())
+    return field(*(a.index_select(1, p) for a in (zr, zi, mr, mi)))
+
+
+def qc_pp_half_ref(zr, zi):
+    """Plain version of :func:`qc_pp_half`: ``(qs, c)``."""
+    return _half_ref(zr, zi, qc_fields)
+
+
+def s_pp_half_ref(zr, zi):
+    """Plain version of :func:`s_pp_half`: ``s``."""
+    return _half_ref(zr, zi, s_field)[0]
+
+
+def _fields_ref(yr, yi, field):
+    """Plain half-plane ``field`` of ``Z`` = :func:`rowfft_ref` of every
+    row (:func:`_half_ref`); then ``zrow`` = ``Z``'s rows ``[0, 128)``."""
+    zr, zi = rowfft_ref(yr, yi)
+    return _half_ref(zr, zi, field) + (zr[:, :128].contiguous(),
+                                       zi[:, :128].contiguous())
 
 
 def rowqc_pp_ref(yr, yi):
@@ -97,28 +118,28 @@ def rows_pp_ref(yr, yi):
     return _fields_ref(yr, yi, s_field)
 
 
-def _half(yr, yi, s_only, what):
+def _half(yr, yi, s_only, what, fused=True):
     """Launch B6 (``(qs, c)``) or B6s (``(s,)``) on ``(b, n, n)`` CUDA
-    planes."""
+    planes ``Y``; with ``fused=False`` B6h or B6h' on planes ``Z``."""
     b, n, _ = yr.shape
     if not (yr.is_contiguous() and yi.is_contiguous()):
         raise ValueError(f"{what} needs contiguous tensors")
     lib = _build.library()
-    if n > lib.dft_max_n():
+    if fused and n > lib.dft_max_n():
         raise ValueError(f"{what}: n={n} exceeds the kernel's "
                          f"{lib.dft_max_n()}")
     outs = tuple(torch.empty((b, n // 2, n), dtype=torch.float32,
                              device=yr.device)
                  for _ in range(1 if s_only else 2))
-    tab = _tables(n, False, yr.device).data_ptr()
-    stream = torch.cuda.current_stream(yr.device).cuda_stream
-    if s_only:
-        err = lib.rows_half_launch(yr.data_ptr(), yi.data_ptr(), tab,
-                                   outs[0].data_ptr(), b, n, stream)
-    else:
-        err = lib.rowqc_half_launch(yr.data_ptr(), yi.data_ptr(), tab,
-                                    outs[0].data_ptr(), outs[1].data_ptr(),
-                                    b, n, stream)
+    # B6 and B6s transform the rows first and take the DFT tables
+    ins = (yr.data_ptr(), yi.data_ptr()) + (
+        (_tables(n, False, yr.device).data_ptr(),) if fused else ())
+    launch = {(True, True): lib.rows_half_launch,
+              (True, False): lib.rowqc_half_launch,
+              (False, True): lib.s_pp_half_launch,
+              (False, False): lib.qc_pp_half_launch}[fused, s_only]
+    err = launch(*ins, *(o.data_ptr() for o in outs), b, n,
+                 torch.cuda.current_stream(yr.device).cuda_stream)
     _build.check(err, what)
     return outs
 
@@ -153,8 +174,36 @@ def rows_half(yr, yi):
     return out
 
 
+def qc_pp_half(zr, zi):
+    """``(qs, c)``, each ``(b, n/2, n)`` float32 over the half plane (rows
+    ``half_rows(n)[0]``), of a transformed ``(b, n, n)`` float32 ``Z`` in
+    the doubly-permuted layout of ``fft2pp`` (B6h): ``qs = (|Z(k)|^2 +
+    |Z(-k)|^2) / 2``, ``c = Re(Z(k) Z(-k))``. Full-plane bin sums are
+    ``2 bin(half) - bin(row ky=0) + bin(row ky=n/2)``."""
+    _check_square(zr, zi, "qc_pp_half")
+    if not zr.is_cuda:
+        return qc_pp_half_ref(zr, zi)
+    out = _half(zr, zi, False, "qc_pp_half", fused=False)
+    qc_pp_half.launches += 1
+    return out
+
+
+def s_pp_half(zr, zi):
+    """``s = Im(Z(k) Z(-k)) = zr zmi + zi zmr``, ``(b, n/2, n)`` float32 over
+    the half plane of a transformed ``Z`` (B6h'; :func:`qc_pp_half` with the
+    cross field)."""
+    _check_square(zr, zi, "s_pp_half")
+    if not zr.is_cuda:
+        return s_pp_half_ref(zr, zi)
+    out = _half(zr, zi, True, "s_pp_half", fused=False)[0]
+    s_pp_half.launches += 1
+    return out
+
+
 rowqc_half.launches = 0
 rows_half.launches = 0
+qc_pp_half.launches = 0
+s_pp_half.launches = 0
 
 
 def _fields_pp(yr, yi, field, half):

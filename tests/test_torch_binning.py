@@ -1,7 +1,8 @@
-"""Parity of the port's binning (kernels B1 and B2's plain versions and the
-binners built on them) with the JAX package: ``bin_reduce_ref`` against
-``bin_matmul`` and ``bin2_reduce`` against ``bin2_matmul`` in Pallas
-interpret mode, and ``Bin2D``/``RfftBin2D`` against the JAX binners
+"""Parity of the port's binning (kernels B1, B2 and B2''s plain versions and
+the binners built on them) with the JAX package: ``bin_reduce_ref`` against
+``bin_matmul``, ``bin2_reduce`` against ``bin2_matmul`` and
+``bin_pair_power`` against ``bin_pair_power`` in Pallas interpret mode, the
+host binners ``bin1d`` / ``bin1D`` / ``bin_in_annuli``, and ``Bin2D``/``RfftBin2D`` against the JAX binners
 (rowcum and Pallas-interpret). The CUDA kernels are held to their plain
 versions in test_torch_cuda.py."""
 import numpy as np
@@ -13,11 +14,14 @@ from orphics_tpu import geometry as jgeo
 from orphics_tpu.ops import binning as jbin
 from orphics_tpu.ops import pallas_fft as pf
 from orphics_tpu.ops.pallas_kernels import bin2_matmul, bin_matmul
+from orphics_tpu.ops.pallas_kernels import bin_pair_power as j_bin_pair_power
 
 import orphics_tpu_torch as tp
 from orphics_tpu_torch.ops import binning as tbin
 from orphics_tpu_torch.ops.bin_reduce import (_seg_tiles, bin2_reduce,
-                                               bin2_reduce_ref, bin_reduce,
+                                               bin2_reduce_ref,
+                                               bin_pair_power,
+                                               bin_pair_power_ref, bin_reduce,
                                                bin_reduce_ref)
 
 torch.set_num_threads(1)
@@ -191,3 +195,105 @@ def test_rfft_bin2d_matches_jax_and_full_plane(geoms):
     full = tbin.Bin2D(tg.modlmap_np(), edges, device="cpu")
     _, m_f = full.bin(torch.as_tensor(p_full.astype(np.float32)))
     np.testing.assert_allclose(m_t.numpy(), m_f.numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("sym", [False, True])
+@pytest.mark.parametrize("n", [4 * 1024 + 300, 3 * 1024])
+def test_bin_pair_power_matches_jax(n, sym):
+    """B2' (plain version here) against the JAX kernel in interpret mode
+    with block 1024, so that its XLA tail runs too: bin(q) and bin(c)
+    within 1e-6 of the binned |field| (c cancels: read against bin(|c|))."""
+    rng = np.random.default_rng(n)
+    B, nseg = 3, 24
+    zr, zi, mr, mi = (rng.standard_normal((B, n)).astype(np.float32)
+                      for _ in range(4))
+    ids = rng.integers(0, nseg, n).astype(np.int32)
+    want = j_bin_pair_power(*(jnp.asarray(a) for a in (zr, zi, mr, mi)),
+                            jnp.asarray(ids), nseg, block=1024, sym=sym,
+                            interpret=True)
+    t = [torch.as_tensor(a) for a in (zr, zi, mr, mi)]
+    tid = torch.as_tensor(ids)
+    got = bin_pair_power(*t, tid, nseg, sym=sym)
+    q = 0.5 * (zr ** 2 + zi ** 2 + mr ** 2 + mi ** 2) if sym \
+        else zr ** 2 + zi ** 2
+    c = zr * mr - zi * mi
+    for g, w, field in zip(got, want, (q, c)):
+        assert g.shape == (B, nseg) and g.dtype == torch.float32
+        absref = bin_reduce_ref(torch.as_tensor(np.abs(field)), tid, nseg)
+        assert _bin_err(g, w, absref) <= TOL_BIN
+        oracle = np.stack([np.bincount(ids, field[b].astype(np.float64),
+                                       minlength=nseg) for b in range(B)])
+        assert _bin_err(g, oracle, absref) <= TOL_BIN
+    ref = bin_pair_power_ref(*t, tid, nseg, sym)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def test_bin_pair_power_splits_a_packed_pair():
+    """With mirror-symmetric bins, (bq + bc) / 2 and (bq - bc) / 2 are the
+    binned powers of the two real maps packed as m1 + i m2, with and
+    without ``sym``."""
+    rng = np.random.default_rng(2)
+    n, B, nseg = 16, 2, 5
+    m1, m2 = rng.standard_normal((2, B, n, n))
+    z = np.fft.fft2(m1 + 1j * m2)
+    zm = np.roll(z[:, ::-1, ::-1], (1, 1), (1, 2))
+    ky = np.fft.fftfreq(n)[:, None]
+    kx = np.fft.fftfreq(n)[None, :]
+    ids = np.minimum((np.hypot(ky, kx) * 8).astype(np.int32), nseg - 1)
+    flat = lambda a: torch.as_tensor(a.reshape(B, -1).astype(np.float32))
+    tid = torch.as_tensor(ids.ravel())
+    seg = lambda p: np.stack([np.bincount(ids.ravel(), p[b].ravel(),
+                                          minlength=nseg) for b in range(B)])
+    p1, p2 = seg(np.abs(np.fft.fft2(m1)) ** 2), seg(np.abs(np.fft.fft2(m2)) ** 2)
+    for sym in (False, True):
+        bq, bc = bin_pair_power(flat(z.real), flat(z.imag), flat(zm.real),
+                                flat(zm.imag), tid, nseg, sym=sym)
+        np.testing.assert_allclose(((bq + bc) / 2).numpy(), p1, rtol=1e-5)
+        np.testing.assert_allclose(((bq - bc) / 2).numpy(), p2, rtol=1e-5)
+
+
+def test_bin_pair_power_rejects_bad_inputs():
+    d = torch.zeros(2, 10)
+    ids = torch.zeros(10, dtype=torch.int32)
+    with pytest.raises(ValueError, match="must match"):
+        bin_pair_power(d, d, d[:1], d, ids, 3)
+    with pytest.raises(ValueError, match="float32"):
+        bin_pair_power(d, d.double(), d, d, ids, 3)
+    with pytest.raises(ValueError, match="int32"):
+        bin_pair_power(d, d, d, d, ids.long(), 3)
+    with pytest.raises(ValueError, match="positive"):
+        bin_pair_power(d, d, d, d, ids, 0)
+
+
+def test_bin1d_and_bin1D_match_jax():
+    """Host numpy on both sides: array-equal."""
+    rng = np.random.default_rng(4)
+    x = rng.uniform(0, 3000, 500)
+    y = rng.standard_normal(500)
+    y[::17] = np.nan
+    edges = np.arange(100, 2500, 150.0)
+    for got, want in zip(tbin.bin1d(x, y, edges), jbin.bin1d(x, y, edges)):
+        np.testing.assert_array_equal(got, want)
+    yy = np.nan_to_num(y)
+    tb, jb = tbin.bin1D(edges), jbin.bin1D(edges)
+    assert tb.numbins == jb.numbins
+    for got, want in zip(tb.bin(x, yy), jb.bin(x, yy)):
+        np.testing.assert_array_equal(got, want)
+    for got, want in zip(tb.bin(x, yy, stat=np.nansum),
+                         jb.bin(x, yy, stat=np.nansum)):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_bin_in_annuli_matches_jax(geoms):
+    """A radial profile on the real-space radius grid, from a host radius
+    map and from a tensor."""
+    jg, tg = geoms
+    rng = np.random.default_rng(6)
+    data = rng.standard_normal((2,) + tg.shape).astype(np.float32) + 1.0
+    edges = np.linspace(0.0, 0.9 * tg.modrmap_np().max(), 9)
+    cj, want = jbin.bin_in_annuli(jnp.asarray(data), jg.modrmap_np(), edges)
+    for modr in (tg.modrmap_np(), tg.modrmap(torch.float64, "cpu")):
+        ct, got = tbin.bin_in_annuli(torch.as_tensor(data), modr, edges)
+        np.testing.assert_array_equal(ct, np.asarray(cj))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=RTOL_ROWCUM)

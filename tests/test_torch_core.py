@@ -30,6 +30,7 @@ from orphics_tpu_torch.models import fastcl as tfastcl, lenspipe as tpipe
 from orphics_tpu_torch.ops import binning as tbinning, windows as twindows
 from orphics_tpu_torch.ops import alm as talm, sht as tsht
 from orphics_tpu_torch.models import curved as tcurved, noise as tnoise
+from orphics_tpu_torch.models import lensing as tlensing, qe as tqe
 
 torch.set_num_threads(1)
 
@@ -268,6 +269,29 @@ _NO_DEVICE = {
         tnoise.white_noise_with_atm_func(np.arange(9), 6.0, 100.0, -3.0),
     "curved.cosine_taper_ells": lambda g, th: tcurved.cosine_taper_ells(
         np.arange(9), 4, 2),
+    "posmap": lambda g, th: g.posmap(),
+    "modrmap": lambda g, th: g.modrmap(),
+    "pixmap": lambda g, th: g.pixmap(),
+    "yaxis": lambda g, th: g.yaxis(),
+    "queb_rotmat": lambda g, th: TF.queb_rotmat(g),
+    "cl2flat": lambda g, th: tgrf.cl2flat(g, np.arange(9), np.ones(9)),
+    "white_noise": lambda g, th: tgrf.white_noise(g, 6.0, torch.Generator()),
+    "FlatLensingSims": lambda g, th: tlensing.FlatLensingSims(g, th, 1.4, 6.0,
+                                                              pol=True),
+    "FixedLens": lambda g, th: tlensing.FixedLens(g, th, np.zeros(g.shape)),
+    "NlGenerator": lambda g, th: tqe.NlGenerator(g, th, _EDGES),
+    "gnfw": lambda g, th: tlensing.gnfw(np.linspace(0.1, 3.0, 9)),
+    "proj_rho_nfw": lambda g, th: tlensing.proj_rho_nfw(
+        np.linspace(1e-4, 1e-3, 9), 1500.0, 2e14, 3.2, 1.5),
+    "projected_rho": lambda g, th: tlensing.projected_rho(
+        np.linspace(1e-4, 1e-3, 9), 1500.0, tlensing.rho_nfw(2e14, 3.2, 1.5),
+        nps=401),
+    "kappa_nfw_generic": lambda g, th: tlensing.kappa_nfw_generic(
+        np.linspace(1e-4, 1e-3, 9), 0.7, 1500.0, 2e14, 3.2, 1.5, 0.4),
+    "kappa_generic": lambda g, th: tlensing.kappa_generic(
+        1e-4, 0.7, 1500.0, tlensing.rho_nfw(2e14, 3.2, 1.5), 0.4, nps=401),
+    "nfw_kappa_profile": lambda g, th: tlensing.nfw_kappa_profile(
+        g.modrmap_np(), 2e14, 1200.0, 0.35, 0.6, rdel_mpc_overh=1.2),
 }
 
 

@@ -19,15 +19,19 @@ from orphics_tpu_torch.ops import dft
 from orphics_tpu_torch.ops import legendre as leg
 from orphics_tpu_torch.ops import sht
 from orphics_tpu_torch.ops.bin_reduce import (bin2_reduce, bin2_reduce_ref,
+                                               bin_pair_power,
+                                               bin_pair_power_ref,
                                                bin_reduce, bin_reduce_ref)
 from orphics_tpu_torch.ops.lens import lens_map_kernel, lens_map_ref, spline_coeffs
 from orphics_tpu_torch.ops.mirror import mirror_pp, mirror_pp_ref
 from orphics_tpu_torch.ops.noise_planes import noise_planes
 from orphics_tpu_torch.models.fastcl import FastCl
 from orphics_tpu_torch.ops.rowcombine import rowcombine_pp, rowcombine_pp_ref
-from orphics_tpu_torch.ops.rowpower import (rowqc_half, rowqc_pp,
+from orphics_tpu_torch.ops.rowpower import (qc_pp_half, qc_pp_half_ref,
+                                            rowqc_half, rowqc_pp,
                                             rowqc_pp_ref, rows_half, rows_pp,
-                                            rows_pp_ref)
+                                            rows_pp_ref, s_pp_half,
+                                            s_pp_half_ref)
 from orphics_tpu_torch.ops.windows import get_taper
 
 torch.set_num_threads(1)
@@ -41,6 +45,9 @@ TOL_LENS = 2e-5
 TOL_DFT = 2e-5
 # B6: products of two transforms, each within TOL_DFT: 3e-5 of max|ref|.
 TOL_QC = 3e-5
+# B6h, B6h': the plain version's own float32 products, contracted to fused
+# multiply-adds by the compiler: 1e-6 of max|ref|.
+TOL_HALF = 1e-6
 # B10: fp64 recurrence from captured seeds vs the plain fp64 loop from the
 # l0 seeds; fp32 inputs and outputs: 1e-6 of max|ref| (the JAX kernel's own
 # bound against its scan is 2e-6), fp64: 1e-10; the fast mode's fp32
@@ -489,3 +496,102 @@ def test_sht_card_vs_cpu(cuda_device, lmax):
                         ref if isinstance(ref, tuple) else (ref,)):
             err = (g.cpu() - r).abs().max().item() / r.abs().max().item()
             assert err <= 1e-6, (fn.__name__, err)
+
+
+def _randn(rng, shape, device):
+    return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                           device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(3, 256), (5, 384), (1, 2048)])
+def test_half_plane_field_kernels_match_ref(cuda_device, b, n):
+    """B6h ``qc_pp_half`` and B6h' ``s_pp_half`` on a stored plane: within
+    TOL_HALF of the plain versions, two runs bit-equal, and the full-plane
+    sums recovered from the half plane and the two boundary rows."""
+    rng = np.random.default_rng(n + b)
+    zr, zi = _randn(rng, (b, n, n), cuda_device), _randn(rng, (b, n, n),
+                                                         cuda_device)
+    before = qc_pp_half.launches, s_pp_half.launches
+    qs, c = qc_pp_half(zr, zi)
+    s = s_pp_half(zr, zi)
+    qs2, c2 = qc_pp_half(zr, zi)
+    s2 = s_pp_half(zr, zi)
+    torch.cuda.synchronize()
+    assert (qc_pp_half.launches, s_pp_half.launches) == (before[0] + 2,
+                                                         before[1] + 2)
+    rq, rc = qc_pp_half_ref(zr, zi)
+    rs = s_pp_half_ref(zr, zi)
+    for got, ref, again in ((qs, rq, qs2), (c, rc, c2), (s, rs, s2)):
+        assert got.shape == (b, n // 2, n)
+        assert (got - ref).abs().max().item() \
+            <= TOL_HALF * ref.abs().max().item()
+        assert torch.equal(got, again)
+    # 2 * half - row(ky = 0) + row(ky = n/2) is the full plane's sum
+    full = (zr.double() ** 2 + zi.double() ** 2).sum((1, 2))
+    half = 2 * qs.double().sum((1, 2)) - qs[:, 0].double().sum(1)
+    p = dft.half_rows(n)[0]
+    assert p[0] == 0
+    mr, mi = mirror_pp_ref(zr, zi)
+    nyq = 0.5 * (zr[:, 64].double() ** 2 + zi[:, 64].double() ** 2
+                 + mr[:, 64].double() ** 2 + mi[:, 64].double() ** 2).sum(1)
+    assert torch.allclose(half + nyq, full, rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_half_plane_field_kernels_match_fused(cuda_device):
+    """B6h/B6h' on ``Z = rowfft(Y)`` against B6/B6s, which transform the
+    rows themselves: each within an ulp of its terms' size (``qs`` bounds
+    ``|c|`` and ``|s|`` pointwise)."""
+    rng = np.random.default_rng(17)
+    yr, yi = _randn(rng, (2, 384, 384), cuda_device), _randn(
+        rng, (2, 384, 384), cuda_device)
+    zr, zi = dft.rowfft(yr, yi)
+    qs, c = qc_pp_half(zr, zi)
+    s = s_pp_half(zr, zi)
+    fq, fc = rowqc_half(yr, yi)
+    fs = rows_half(yr, yi)
+    ulp = 2.0 ** -23 * qs + 1e-30
+    for got, fused in ((qs, fq), (c, fc), (s, fs)):
+        assert ((got - fused).abs() <= 2 * ulp).all()
+
+
+@pytest.mark.cuda
+def test_half_plane_field_kernels_refuse_strides(cuda_device):
+    z = torch.zeros((2, 256, 512), device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        qc_pp_half(z[:, :, ::2], z[:, :, ::2])
+    with pytest.raises(ValueError, match="contiguous"):
+        s_pp_half(z[:, :, ::2], z[:, :, ::2])
+    flat = torch.zeros((2, 1000), device=cuda_device)
+    ids = torch.zeros(500, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        bin_pair_power(*(flat[:, ::2],) * 4, ids, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sym", [False, True])
+@pytest.mark.parametrize("B,n,nseg", [(3, 256 * 256, 1), (5, 384 * 384, 24),
+                                      (2, 2048 * 2048, 100),
+                                      (1, 512 * 512 + 37, 400)])
+def test_bin_pair_power_kernel_matches_ref(cuda_device, B, n, nseg, sym):
+    """B2': within TOL_BIN of the binned |field| (c cancels, so its error
+    is read against bin(|c|)), two runs bit-equal; most pixels in the last
+    segment, as radial binning leaves them."""
+    rng = np.random.default_rng(n + nseg)
+    planes = [_randn(rng, (B, n), cuda_device) for _ in range(4)]
+    ids_np = rng.integers(0, nseg, n)
+    ids_np[rng.random(n) < 0.6] = nseg - 1
+    ids = torch.as_tensor(ids_np.astype(np.int32), device=cuda_device)
+    before = bin_pair_power.launches
+    bq, bc = bin_pair_power(*planes, ids, nseg, sym=sym)
+    bq2, bc2 = bin_pair_power(*planes, ids, nseg, sym=sym)
+    torch.cuda.synchronize()
+    assert bin_pair_power.launches == before + 2
+    rq, rc = bin_pair_power_ref(*planes, ids, nseg, sym)
+    zr, zi, mr, mi = planes
+    absc = bin_reduce_ref((zr * mr - zi * mi).abs(), ids, nseg)
+    assert bq.shape == bc.shape == (B, nseg)
+    assert ((bq - rq).abs() <= TOL_BIN * rq).all()
+    assert ((bc - rc).abs() <= TOL_BIN * absc).all()
+    assert torch.equal(bq, bq2) and torch.equal(bc, bc2)

@@ -1,7 +1,7 @@
 """Parity of the port's doubly-permuted DFT, mirror, noise-plane and
 row-power modules (``orphics_tpu_torch.ops.dft``, ``.mirror``,
 ``.noise_planes``, ``.rowpower``; kernels B3, B3s, B4, B4b, B5, B5n, B6,
-B6s and B7)
+B6s, B6h, B6h' and B7)
 with ``orphics_tpu.ops.pallas_fft``.
 
 The JAX side runs its Pallas kernels with ``interpret=True``, as the JAX
@@ -11,7 +11,9 @@ are array-equal; the transforms agree to 2e-5 of max|ref|, inside the
 JAX tests' own 1e-5 to 3e-5 against numpy (tests/test_core.py), since
 both sides are fp32 transforms by different factorizations. The lane
 chunk 0 and the fused half-plane fields agree to 1e-5 of max|ref| (~4e-7
-seen).
+seen). ``qc_pp_half`` / ``s_pp_half`` on a stored plane agree with the JAX
+functions to 2e-5 absolute on unit-variance planes (tests/test_core.py's
+``atol``); ``fft2p`` / ``ifft2p`` to 1e-5 of max|ref|.
 """
 import numpy as np
 import pytest
@@ -62,9 +64,19 @@ def case(request):
     ref["mirror_pp"] = tuple(np.array(a) for a in
                              pf.mirror_pp(*jx, interpret=True))
     for name in ("rowfft_blk0", "rowqc_pp", "fft2pp_qc", "rows_pp",
-                 "fft2pp_s"):
+                 "fft2pp_s", "qc_pp_half"):
         ref[name] = tuple(np.array(a) for a in
                           getattr(pf, name)(*jx, interpret=True))
+    ref["s_pp_half"] = (np.array(pf.s_pp_half(*jx, interpret=True)),)
+    # pf.fft2p / ifft2p take no ``interpret``: their bodies, with the
+    # column kernel in interpret mode and XLA's row FFT as they have it
+    k = jnp.fft.fft(jnp.asarray(ref["colfft"][0])
+                    + 1j * jnp.asarray(ref["colfft"][1]), axis=-1)
+    ref["fft2p"] = (np.array(k.real), np.array(k.imag))
+    z = jnp.fft.ifft(jx[0] + 1j * jx[1], axis=-1)
+    ref["ifft2p"] = tuple(np.array(a) for a in pf.colifft(
+        z.real.astype(jnp.float32), z.imag.astype(jnp.float32),
+        interpret=True))
     return n, (xr, xi, sc), ref
 
 
@@ -293,3 +305,112 @@ def test_noise_planes_seeds():
         noise_planes(scale, torch.zeros(3, dtype=torch.int32), 1)
     with pytest.raises(ValueError, match="scalar or"):
         noise_planes(scale, np.zeros((2, 2), np.int32), 1)
+
+
+# qc_pp_half / s_pp_half: the same fp32 products on both sides, on
+# unit-variance planes: tests/test_core.py's atol
+ATOL_HALF = 2e-5
+# fft2p / ifft2p: an fp32 column DFT by the 128*B split and a library row
+# FFT on each side
+TOL_FFT2P = 1e-5
+
+
+@pytest.mark.parametrize("name", ["qc_pp_half", "s_pp_half"])
+def test_half_plane_fields_match_jax(case, name):
+    """B6h / B6h' (plain versions here) on a stored plane against the JAX
+    functions, strip patches and all; and against the direct mirror
+    formula on every row of the half plane."""
+    n, (xr, xi, _), ref = case
+    zr, zi = torch.as_tensor(xr), torch.as_tensor(xi)
+    got = getattr(RP, name)(zr, zi)
+    got = got if isinstance(got, tuple) else (got,)
+    assert len(got) == len(ref[name])
+    for g, r in zip(got, ref[name]):
+        assert g.shape == r.shape == (2, n // 2, n)
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), r, atol=ATOL_HALF)
+    plain = getattr(RP, name + "_ref")(zr, zi)
+    plain = plain if isinstance(plain, tuple) else (plain,)
+    for g, r in zip(got, plain):
+        assert torch.equal(g, r)
+    mrow = M._mirror_tables(n)
+    p_of_h, _ = D.half_rows(n)
+    mr, mi = xr[:, mrow][:, :, mrow], xi[:, mrow][:, :, mrow]
+    fields = ((0.5 * (xr ** 2 + xi ** 2 + mr ** 2 + mi ** 2),
+               xr * mr - xi * mi) if name == "qc_pp_half"
+              else (xr * mi + xi * mr,))
+    for g, f in zip(got, fields):
+        np.testing.assert_allclose(g.numpy(), f[:, p_of_h], atol=ATOL_HALF)
+
+
+def test_half_plane_fields_recover_full_plane_sums(case):
+    """2 * half - row(ky = 0) + row(ky = n/2) is the full plane's sum for
+    each mirror-even field, and qs sums to the plane's power."""
+    n, (xr, xi, _), _ = case
+    zr, zi = torch.as_tensor(xr), torch.as_tensor(xi)
+    qs, c = RP.qc_pp_half(zr, zi)
+    s = RP.s_pp_half(zr, zi)
+    mr, mi = M.mirror_pp_ref(zr, zi)
+    full = {"qs": RP.qc_fields(zr, zi, mr, mi)[0],
+            "c": RP.qc_fields(zr, zi, mr, mi)[1],
+            "s": RP.s_field(zr, zi, mr, mi)[0]}
+    _, pnyq = D.half_rows(n)
+    for name, half in (("qs", qs), ("c", c), ("s", s)):
+        f = full[name].double()
+        recon = (2 * half.double().sum((1, 2)) - f[:, 0].sum(1)
+                 + f[:, pnyq].sum(1))
+        want = f.sum((1, 2))
+        scale = f.abs().sum((1, 2))
+        assert ((recon - want).abs() <= 1e-6 * scale).all(), name
+    power = (zr.double() ** 2 + zi.double() ** 2).sum((1, 2))
+    np.testing.assert_allclose(full["qs"].double().sum((1, 2)).numpy(),
+                               power.numpy(), rtol=1e-6)
+
+
+def test_half_plane_fields_equal_fused_row_pass(case):
+    """tests/test_core.py's composition: the fields of ``rowfft(Y)`` are
+    the fused ``rowqc_pp`` / ``rows_pp`` of ``Y``."""
+    n, (xr, xi, _), _ = case
+    yr, yi = torch.as_tensor(xr), torch.as_tensor(xi)
+    zr, zi = D.rowfft(yr, yi)
+    qs, c = RP.qc_pp_half(zr, zi)
+    fq, fc = RP.rowqc_half(yr, yi)
+    assert torch.equal(qs, fq) and torch.equal(c, fc)
+    assert torch.equal(RP.s_pp_half(zr, zi), RP.rows_half(yr, yi))
+
+
+def test_half_plane_fields_reject_bad_planes():
+    x = torch.zeros((1, 256, 384))
+    with pytest.raises(ValueError, match="n, n"):
+        RP.qc_pp_half(x, x)
+    with pytest.raises(ValueError, match="float32"):
+        RP.s_pp_half(torch.zeros((1, 256, 256), dtype=torch.float64),
+                     torch.zeros((1, 256, 256), dtype=torch.float64))
+    with pytest.raises(ValueError, match="128"):
+        RP.qc_pp_half(torch.zeros((1, 192, 192)), torch.zeros((1, 192, 192)))
+
+
+@pytest.mark.parametrize("name", ["fft2p", "ifft2p"])
+def test_fft2p_matches_jax(case, name):
+    n, (xr, xi, _), ref = case
+    got = getattr(D, name)(torch.as_tensor(xr), torch.as_tensor(xi))
+    scale = max(np.abs(r).max() for r in ref[name])
+    for g, r in zip(got, ref[name]):
+        assert g.shape == r.shape and g.dtype == torch.float32
+        assert g.is_contiguous()
+        assert np.abs(g.numpy() - r).max() <= TOL_FFT2P * scale
+
+
+def test_fft2p_is_fft2_with_permuted_rows(case):
+    n, (xr, xi, _), _ = case
+    kr, ki = D.fft2p(torch.as_tensor(xr), torch.as_tensor(xi))
+    want = np.fft.fft2(xr.astype(np.float64) + 1j * xi)
+    perm, _ = D.row_perm(n)
+    scale = np.abs(want).max()
+    assert np.abs(kr.numpy() - want.real[:, perm]).max() <= TOL_FFT2P * scale
+    assert np.abs(ki.numpy() - want.imag[:, perm]).max() <= TOL_FFT2P * scale
+    nat = D.natural_rows(torch.complex(kr, ki)).numpy()
+    assert np.abs(nat - want).max() <= TOL_FFT2P * scale
+    br, bi = D.ifft2p(kr, ki)
+    np.testing.assert_allclose(br.numpy(), xr, atol=3e-5)
+    np.testing.assert_allclose(bi.numpy(), xi, atol=3e-5)
