@@ -27,9 +27,10 @@ and check them after; 4-14 print throughput, peak memory, device time by
 kernel and a check of the output against the plain versions.
 The JSON object on a line before the last holds each kernel's launches
 (on the full-plane lensing path for the kernels it runs, on the FastCl
-path for B2/B4b/B5/B6, on config 2's for B3s/B6s, on config 4's for B9, on
+path for B2/B5/B6, on config 2's for B3s/B6s, on config 4's for B9, on
 configs 7, 8 and 8p together for B10a/B10s, on phase 13's paths for
-B6h/B6h'/B2'), error, times and bound; the
+B6h/B6h'/B2' and for B4b, which no composition runs since B6 pairs every
+element through the exact mirror map), error, times and bound; the
 last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any
 failed check raises, so the exit code is non-zero and no result line is
 printed. It imports nothing of JAX.
@@ -53,6 +54,13 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 FP64_FLOP_PER_S = 34e12
+
+# B6 rowqc_half at (96, 2048, 2048) and B6s rows_half at (64, 2048, 2048) on
+# the shared-memory radix-2 core, alone and with the strip patches their
+# compositions then ran, in ms on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md
+# section 6): what phase 2 reads the register-resident kernel's times against
+B6_RADIX2_MS, B6_PATCHED_MS = 8.1179, 11.7650
+B6S_RADIX2_MS, B6S_PATCHED_MS = 5.4241, 7.4444
 
 
 def bound(nbytes, flops, flops64=0.0):
@@ -589,13 +597,25 @@ def main():
         (ms, plain, row_fft_lib),
         (nbytes(*y) + 2 * 4 * rows1 * 128,
          rows1 * (2.0 * (n1 - 128) + fft_flops(128, 1))))
+    # B6: the fields and Z's rows [0, 128) from one launch (no B4, no B4b,
+    # no strip patch); n = 2048 takes the register-resident kernel, n = 384
+    # (Bk = 3) the one on the radix-2 core; two runs bit-equal
     qc_err = 0.0
     for yy, tag in ((y, f"({P1}, {n1}, {n1})"), (planes((4, 384, 384)),
                                                  "(4, 384, 384)")):
+        before = (rowqc_half.launches, dft.rowfft.launches,
+                  dft.rowfft_blk0.launches)
         got = rowqc_pp(*yy)
+        check((rowqc_half.launches, dft.rowfft.launches,
+               dft.rowfft_blk0.launches) == (before[0] + 1,) + before[1:],
+              f"B6 rowqc_pp {tag}: not one B6 launch and nothing else")
+        again = rowqc_pp(*yy)
+        check(all(torch.equal(g, a) for g, a in zip(got, again)),
+              f"B6 rowqc_pp {tag}: two runs differ")
+        del again
         ref = rowqc_pp_ref(*yy)
         torch.cuda.synchronize()
-        line = f"[2] B6 rowqc_pp {tag}:"
+        line = f"[2] B6 rowqc_pp {tag}: reproducible;"
         for name, g, r, tol in zip(("qs", "c", "zrow_r", "zrow_i"), got, ref,
                                    (3e-5, 3e-5, 1.5e-5, 1.5e-5)):
             check(g.shape == r.shape, f"B6 {name} {tag}: shape "
@@ -613,9 +633,13 @@ def main():
     ms = cuda_ms(lambda: rowqc_half(*y), 10)
     ms_pp = cuda_ms(lambda: rowqc_pp(*y), 10)
     plain = cuda_ms(lambda: rowqc_pp_ref(*y), 3, warmup=1)
-    print(f"[2] B6 ({P1}, {n1}, {n1}): kernel rowqc_half {ms:.4f} ms; "
-          f"rowqc_pp (B6 + B4 zrow + B4b + strip patches) {ms_pp:.4f} ms; "
-          f"plain rowqc_pp_ref {plain:.4f} ms")
+    print(f"[2] B6 ({P1}, {n1}, {n1}): kernel rowqc_half {ms:.4f} ms "
+          f"({B6_RADIX2_MS / ms:.2f}x the radix-2 core's {B6_RADIX2_MS} ms); "
+          f"rowqc_pp (B6 writing zrow too; no B4, B4b or strip patch) "
+          f"{ms_pp:.4f} ms ({B6_PATCHED_MS / ms_pp:.2f}x the patched "
+          f"composition's {B6_PATCHED_MS} ms); plain rowqc_pp_ref "
+          f"{plain:.4f} ms; torch.fft.fft along the rows (the transform "
+          f"alone) {row_fft_lib:.4f} ms")
     results["rowqc_half"] = kernel_entry(
         "rowqc_half", "rowpower.cu", "pallas_fft.py:1344", qc_err,
         (ms, plain, row_fft_lib),
@@ -844,10 +868,19 @@ def main():
                            fft_flops(n1, rows2) + 2.0 * 2 * rows2 * n1))
     s_err = 0.0
     for yy, tag in ((x, f"({P2}, {n1}, {n1})"), (x384, "(4, 384, 384)")):
+        before = (rows_half.launches, dft.rowfft.launches,
+                  dft.rowfft_blk0.launches)
         got = rows_pp(*yy)
+        check((rows_half.launches, dft.rowfft.launches,
+               dft.rowfft_blk0.launches) == (before[0] + 1,) + before[1:],
+              f"B6s rows_pp {tag}: not one B6s launch and nothing else")
+        again = rows_pp(*yy)
+        check(all(torch.equal(g, a) for g, a in zip(got, again)),
+              f"B6s rows_pp {tag}: two runs differ")
+        del again
         ref = rows_pp_ref(*yy)
         torch.cuda.synchronize()
-        line = f"[2] B6s rows_pp {tag}:"
+        line = f"[2] B6s rows_pp {tag}: reproducible;"
         for name, g, r, tol in zip(("s", "zrow_r", "zrow_i"), got, ref,
                                    (3e-5, 1.5e-5, 1.5e-5)):
             check(g.shape == r.shape, f"B6s {name} {tag}: shape "
@@ -868,10 +901,13 @@ def main():
     xc = torch.complex(*x)
     lib = cuda_ms(lambda: torch.fft.fft(xc, dim=-1), 5)
     del xc
-    print(f"[2] B6s ({P2}, {n1}, {n1}): kernel rows_half {ms:.4f} ms; rows_pp "
-          f"(B6s + B4 zrow + B4b + strip patches) {ms_pp:.4f} ms; plain "
-          f"rows_pp_ref {plain:.4f} ms; torch.fft.fft along the rows "
-          f"{lib:.4f} ms")
+    print(f"[2] B6s ({P2}, {n1}, {n1}): kernel rows_half {ms:.4f} ms "
+          f"({B6S_RADIX2_MS / ms:.2f}x the radix-2 core's {B6S_RADIX2_MS} "
+          f"ms); rows_pp (B6s writing zrow too; no B4, B4b or strip patch) "
+          f"{ms_pp:.4f} ms ({B6S_PATCHED_MS / ms_pp:.2f}x the patched "
+          f"composition's {B6S_PATCHED_MS} ms); plain rows_pp_ref "
+          f"{plain:.4f} ms; torch.fft.fft along the rows (the transform "
+          f"alone) {lib:.4f} ms")
     results["rows_half"] = kernel_entry(
         "rows_half", "rowpower.cu", "pallas_fft.py:1456", s_err,
         (ms, plain, lib), (nbytes(*x) + 4 * rows2 * n1 // 2,
@@ -1150,11 +1186,11 @@ def main():
     print(f"[6] map_bandpowers of the step's {batch6} maps ({batch6}, {nb}) "
           f"vs the step's bandpowers: max {mrel:.3e} relative per bin "
           "(<= 1e-3)")
-    counts6 = read_counts(("bin_reduce", "bin2_reduce", "colfft", "rowfft",
-                           "rowfft_blk0", "rowifft_noise_y", "rowqc_half"),
-                          "6")
-    for name in ("bin2_reduce", "rowfft_blk0", "rowifft_noise_y",
-                 "rowqc_half"):
+    counts6 = read_counts(("bin_reduce", "bin2_reduce", "colfft",
+                           "rowifft_noise_y", "rowqc_half"), "6")
+    check(counts6["rowfft"] == counts6["rowfft_blk0"] == 0,
+          "6: FastCl's analysis launched B4 or B4b beside B6")
+    for name in ("bin2_reduce", "rowifft_noise_y", "rowqc_half"):
         results[name]["launches"] = counts6[name]
     profile_steps(lambda: fc.sim_bandpowers(gen6, batch6), 3, sim_ms, "6")
     profile_steps(lambda: config1_step(7), 3, step1_ms, "6 config-1")
@@ -1248,8 +1284,9 @@ def main():
         f"(port's masked_cross_spectra_per_sec_2048x2048_fp32) {cell7}",
         "cross-spectra/s", card, "7")
     counts7 = read_counts(("bin_reduce", "colfft", "colfft_scaled",
-                           "rowfft", "rowfft_blk0", "rowifft_noise_y",
-                           "rows_half"), "7")
+                           "rowifft_noise_y", "rows_half"), "7")
+    check(counts7["rowfft"] == counts7["rowfft_blk0"] == 0,
+          "7: cross_bandpowers launched B4 or B4b beside B6s")
     print(f"[7] 13 steps (1 check, 2 warm-up, 10 timed): "
           f"{counts7['rows_half'] / 13:.0f} B6s, "
           f"{counts7['colfft_scaled'] / 13:.0f} B3s, "
@@ -1801,8 +1838,9 @@ def main():
                           f"{cell13}", "spectra/s", card, "13")
         profile_steps(path, 3, ms13, "13 " + tag[:3])
         torch.cuda.empty_cache()
-    throughput(fused, 2 * P1, 3, "FastCl's fused analysis (B3, B6, B4, B4b, "
-               f"B2, B1) {cell13}", "spectra/s", card, "13")
+    ms13 = throughput(fused, 2 * P1, 3, "FastCl's fused analysis (B3, B6, "
+                      f"B2, B1) {cell13}", "spectra/s", card, "13")
+    profile_steps(fused, 3, ms13, "13 fused")
     counts13 = read_counts(("qc_pp_half", "bin_pair_power", "bin2_reduce",
                             "mirror_pp", "colfft", "rowfft", "bin_reduce"),
                            "13")
@@ -1832,7 +1870,23 @@ def main():
           "sqrt(P11 P22) per bin (<= 5e-5)")
     results["s_pp_half"]["launches"] = read_counts(("s_pp_half",),
                                                    "13")["s_pp_half"]
-    del fc, m1, m2, ids_full, ref13, cross, xref, p12
+    del ids_full, ref13, cross, xref, p12
+    # B4b at config 1's width: lane chunk 0 of the row pass of the same
+    # maps' column intermediate equals B4's first 128 columns bit for bit
+    # (no composition launches B4b: B6 needs no strip patch)
+    y13 = dft.colfft(m1, m2)
+    del m1, m2
+    blk = dft.rowfft_blk0(*y13)
+    z13 = dft.rowfft(*y13)
+    torch.cuda.synchronize()
+    check(all(tuple(a.shape) == (P1, n1, 128) and torch.equal(a, z[..., :128])
+              for a, z in zip(blk, z13)),
+          "13: rowfft_blk0(Y) differs from rowfft(Y)[..., :128]")
+    print(f"[13] B4b rowfft_blk0 on the ({P1}, {n1}, {n1}) column "
+          "intermediate: equal to B4 rowfft's columns [0, 128) bit for bit")
+    results["rowfft_blk0"]["launches"] = read_counts(("rowfft_blk0",),
+                                                     "13")["rowfft_blk0"]
+    del fc, y13, blk, z13
     torch.cuda.empty_cache()
 
     # ---- 14. N0 debias on the card at config 3's settings: 64 lensed sims

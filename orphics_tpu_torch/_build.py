@@ -48,8 +48,9 @@ _SIGNATURES = {
     "dft_noise_launch": ([_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
                          _INT),
     "dft_max_n": ([], _INT),
-    "rowqc_half_launch": ([_VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP], _INT),
-    "rows_half_launch": ([_VP, _VP, _VP, _VP, _INT, _INT, _VP], _INT),
+    "rowqc_half_launch": ([_VP] * 7 + [_INT, _INT, _VP], _INT),
+    "rows_half_launch": ([_VP] * 6 + [_INT, _INT, _VP], _INT),
+    "rowqc_half_occupancy": ([_INT, _INT, _VP], _INT),
     "qc_pp_half_launch": ([_VP, _VP, _VP, _VP, _INT, _INT, _VP], _INT),
     "s_pp_half_launch": ([_VP, _VP, _VP, _INT, _INT, _VP], _INT),
     "rowcombine_launch": ([_VP] * 9 + [_INT, _INT, _INT, _VP], _INT),

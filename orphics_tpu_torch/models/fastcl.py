@@ -8,10 +8,11 @@ to end and packs two real maps per complex transform:
     inverse row DFT, with the covsqrt multiply on its load; the column
     pass is skipped, since ``colfft(colifft(Y')) == Y'``;
   * analysis: B6 ``rowpower.rowqc_pp`` (row DFT, mirror, Hermitian split
-    and power in one half-plane pass, its wrap strips from B4 and B4b),
-    B2 ``bin2_reduce`` of the two half-plane fields, and B1
-    ``bin_reduce`` of the two boundary rows (ky = 0 and n/2), whose
-    mirror lies within the row;
+    and power in one half-plane pass, which also writes the rows
+    ``[0, 128)`` of the transform that hold the two boundary rows), B2
+    ``bin2_reduce`` of the two half-plane fields, and B1 ``bin_reduce`` of
+    the two boundary rows (ky = 0 and n/2), whose mirror lies within the
+    row;
   * ``map_bandpowers`` adds B3 ``colfft`` of the given maps in front;
   * ``cross_bandpowers`` packs the two map sets as ``x + i y``: B3s
     ``colfft_scaled`` (the window on the load) or B3 ``colfft``, then B6s

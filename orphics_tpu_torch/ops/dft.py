@@ -53,6 +53,7 @@ __all__ = [
     "colfft_ref", "colfft_scaled_ref", "colifft_ref", "rowfft_ref",
     "rowifft_ref",
     "rowifft_scaled_y_ref", "rowfft_blk0_ref", "rowifft_noise_y_ref",
+    "rowfft_split_emul",
     "fft2p", "ifft2p", "fft2pp", "ifft2pp", "ifft2pp_scaled", "ifft2pp_noise",
     "ifft2pp_noise_y", "pfft2", "pifft2",
 ]
@@ -212,6 +213,83 @@ def rowifft_noise_y_ref(scale, seed, batch: int):
     interpret fallback's design (another stream than the kernel's, with
     the same law)."""
     return rowifft_ref(*noise_planes_ref(scale, seed, batch))
+
+
+# ---- the register-resident core's algorithm, in plain PyTorch ------------
+
+def _roots32():
+    """``w_32^t`` for ``t < 16`` as complex64, from the kernel's nine
+    constants ``cos(2 pi t / 32)``, ``t = 0 .. 8``, rounded from float64
+    (``csrc/dft_core.cuh:cos32``, ``mul_root32``)."""
+    c = np.cos(2 * np.pi * np.arange(9) / 32).astype(np.float32)
+    c[8] = 0.0
+    re = [c[t] if t <= 8 else -c[16 - t] for t in range(16)]
+    im = [-(c[8 - t] if t <= 8 else c[t - 8]) for t in range(16)]
+    return torch.as_tensor(np.asarray(re) + 1j * np.asarray(im),
+                           dtype=torch.complex64)
+
+
+def _bitrev(m):
+    bits = m.bit_length() - 1
+    return [int(format(k, f"0{bits}b")[::-1], 2) if bits else 0
+            for k in range(m)]
+
+
+def _fft_regs_emul(v):
+    """``csrc/dft_core.cuh:fft_regs`` on the leading axis of complex64
+    ``v`` (``M = v.shape[0]``, a power of two up to 32): the radix-2
+    decimation-in-frequency butterflies in float32 with the constant
+    roots, un-bit-reversed on return (``out[k] = X[k]``)."""
+    m = v.shape[0]
+    if m < 2 or m > 32 or m & (m - 1):
+        raise ValueError(f"fft_regs takes 2, 4, 8, 16 or 32 values, got {m}")
+    roots = _roots32().to(v.device)
+    v = list(v.unbind(0))
+    span = m // 2
+    while span >= 1:
+        for i in range(m // 2):
+            pos = i & (span - 1)
+            i0 = 2 * (i - pos) + pos
+            u, w = v[i0], v[i0 + span]
+            v[i0] = u + w
+            t = pos * (16 // span)
+            v[i0 + span] = (u - w) if t == 0 else (u - w) * roots[t]
+        span //= 2
+    return torch.stack([v[k] for k in _bitrev(m)])
+
+
+def rowfft_split_emul(xre, xim):
+    """:func:`rowfft` by the register-resident kernels' decomposition
+    (``csrc/dft_core.cuh``: ``fft_regs``, ``fft128_seg``), in float32 plain
+    PyTorch with the kernels' tables and constants. ``n = a + 128 b``,
+    ``k = k2 + Bk k1``, ``Bk`` a power of two: the radix-2 ``Bk``-point FFT
+    over ``b``; the ``w_n^(a k2)`` twiddle from :func:`_plan`; the 128-point
+    stage as 16 x 8 (``a = 8 d + c``, ``k1 = e + 16 f``): the 16-point FFT
+    over ``d``, the ``w_128^(c e)`` twiddle from the table's ``w_128^j``
+    (``j < 64``, negated beyond), the 8-point FFT over ``c``; output at
+    ``p = 128 k2 + k1``. Not a kernel's plain version (that is
+    :func:`rowfft_ref`): the tests hold the decomposition, its digit orders
+    and its tables to the plain versions with it."""
+    n = xre.shape[-1]
+    _, bk, _, _, fare, faim, twre, twim = _plan(n, False)
+    lead = xre.shape[:-1]
+    x = torch.complex(xre, xim).reshape(lead + (bk, _A))
+    g = _fft_regs_emul(x.movedim(-2, 0))                 # (k2, ..., a)
+    tw = torch.as_tensor((twre + 1j * twim).astype(np.complex64),
+                         device=xre.device)               # (k2, a)
+    tw = tw.reshape((bk,) + (1,) * len(lead) + (_A,))
+    hh = torch.cat([g[:1], g[1:] * tw[1:]])
+    u = _fft_regs_emul(hh.reshape(hh.shape[:-1] + (16, 8)).movedim(-2, 0))
+    j = np.outer(np.arange(16), np.arange(8))             # (e, c) -> c e
+    w128 = (fare[1, :64] + 1j * faim[1, :64]).astype(np.complex64)
+    tws = torch.as_tensor(np.where(j < 64, w128[j & 63], -w128[j & 63]),
+                          device=xre.device)
+    u = torch.cat([u[:1], u[1:] * tws[1:].reshape(
+        (15,) + (1,) * (u.ndim - 2) + (8,))])             # (e, k2, ..., c)
+    z = _fft_regs_emul(u.movedim(-1, 0))                  # (f, e, k2, ...)
+    z = z.movedim((0, 1, 2), (-2, -1, -3))                # (..., k2, f, e)
+    z = z.reshape(lead + (n,))
+    return z.real.contiguous(), z.imag.contiguous()
 
 
 # ---- kernel wrappers ----------------------------------------------------

@@ -20,19 +20,23 @@ power.
 
 * :func:`rowqc_half` (B6, ``csrc/rowpower.cu``): the row DFT of the
   column-DFT intermediate ``Y`` and the two fields over the half plane in
-  one pass; the Fourier plane never reaches device memory.
-* :func:`rowqc_pp`: the JAX function's composition. B6 fills the half
-  plane, B4 ``rowfft`` of ``Y``'s rows ``[0, 128)`` gives ``zrow`` (the
-  boundary rows' source), B4b ``rowfft_blk0`` gives lane chunk 0, and the
-  two wrap strips are patched from those as ``pallas_fft.rowqc_pp`` does.
-  (The TPU kernel's in-register mirror is wrong on those strips; B6's is
-  exact there too, so the patch rewrites them with values equal to
-  rounding.)
+  one pass; the Fourier plane never reaches device memory. For ``n = 128
+  Bk`` with ``Bk`` in {2, 4, 8, 16, 32} the kernel is the register-resident
+  instantiation (radix-2 stage 1 in registers, the 128-point stage as
+  16 x 8, the pairing read in output order; :func:`half_fields_emul` is the
+  same algorithm in plain PyTorch); any other ``Bk`` (``n = 384``) takes the
+  instantiation on the shared-memory radix-2 core. Both are hand-written
+  kernels of one family; a shape neither takes raises.
+* :func:`rowqc_pp`: the same launch also writes ``zrow``, ``Z``'s rows
+  ``[0, 128)`` (the boundary rows' source): the blocks of the half rows
+  ``h < 64`` hold rows 0-63 and 65-127, and one block more per batch entry
+  transforms row 64. The JAX function composes B6 with B4 for ``zrow`` and
+  rewrites two wrap strips from B4 and B4b, because the TPU kernel's
+  in-register mirror is wrong there; B6 pairs every element through the
+  exact mirror map, so nothing is patched here.
 * :func:`fft2pp_qc`: ``rowqc_pp(*colfft(m1, m2))``.
 * :func:`rows_half` (B6s, the B6 kernel templated on its field),
-  :func:`rows_pp` and :func:`fft2pp_s`: the same for ``s``. ``rowqc_pp``
-  and ``rows_pp`` are one composition with a field selector
-  (:func:`qc_fields` or :func:`s_field`).
+  :func:`rows_pp` and :func:`fft2pp_s`: the same for ``s``.
 * :func:`qc_pp_half` (B6h) and :func:`s_pp_half` (B6h', the same kernel
   templated on its field): the fields over the half plane of a ``Z`` that
   is already in device memory, each element read through the exact mirror
@@ -51,25 +55,20 @@ import numpy as np
 import torch
 
 from .. import _build
-from .dft import (_check, _tables, colfft, half_rows, rowfft, rowfft_blk0,
-                  rowfft_ref)
-from .mirror import _mirror_tables, mirror_pp_ref
+from .dft import (_check, _tables, colfft, half_rows, rowfft_ref,
+                  rowfft_split_emul)
+from .mirror import mirror_pp_ref
 
 __all__ = ["qc_fields", "s_field", "rowqc_half", "rowqc_pp", "rowqc_pp_ref",
            "fft2pp_qc", "rows_half", "rows_pp", "rows_pp_ref", "fft2pp_s",
-           "qc_pp_half", "qc_pp_half_ref", "s_pp_half", "s_pp_half_ref"]
+           "qc_pp_half", "qc_pp_half_ref", "s_pp_half", "s_pp_half_ref",
+           "mirror_pos", "half_fields_emul"]
 
 
 @functools.lru_cache(maxsize=16)
-def _strip_tables(n, device):
-    """``(mrow, rsrc, csrc, p_of_h)`` as long tensors: the mirror map, the
-    mirror rows of Z rows ``[0, 64)`` inside ``zrow``, and the mirror rows
-    of the half rows ``h >= 64`` (``pallas_fft.rowqc_pp``'s patch)."""
-    mrow = _mirror_tables(n)
-    p_of_h, _ = half_rows(n)
-    as_long = lambda a: torch.as_tensor(a, dtype=torch.long, device=device)
-    return (as_long(mrow), as_long((128 - np.arange(64)) % 128),
-            as_long(mrow[p_of_h[64:]]), as_long(p_of_h))
+def _half_row_index(n, device):
+    """``half_rows(n)[0]`` as a long tensor on ``device``."""
+    return torch.as_tensor(half_rows(n)[0], dtype=torch.long, device=device)
 
 
 def qc_fields(zr, zi, mr, mi):
@@ -86,7 +85,7 @@ def _half_ref(zr, zi, field):
     """Plain half-plane ``field`` of a stored ``Z``, with ``Zm`` =
     ``mirror_pp_ref(Z)``, on the rows ``half_rows(n)[0]``."""
     mr, mi = mirror_pp_ref(zr, zi)
-    p = _strip_tables(zr.shape[-1], zr.device)[3]
+    p = _half_row_index(zr.shape[-1], zr.device)
     return field(*(a.index_select(1, p) for a in (zr, zi, mr, mi)))
 
 
@@ -118,9 +117,44 @@ def rows_pp_ref(yr, yi):
     return _fields_ref(yr, yi, s_field)
 
 
-def _half(yr, yi, s_only, what, fused=True):
+def mirror_pos(p, bk):
+    """The permuted position of frequency ``-k(p)``, as the kernels compute
+    it (``csrc/dft_core.cuh:mirror_pos``): ``k = k2 + bk k1`` sits at
+    ``p = 128 k2 + k1``, and ``-k`` at ``(0, (128 - k1) % 128)`` for
+    ``k2 = 0`` and at ``(bk - k2, 127 - k1)`` otherwise."""
+    p = np.asarray(p)
+    k2, k1 = p // 128, p % 128
+    return np.where(k2 == 0, (128 - k1) % 128,
+                    128 * (bk - k2) + 127 - k1)
+
+
+def half_fields_emul(yr, yi, field, rows=None):
+    """The register-resident B6 / B6s kernel's algorithm in plain PyTorch:
+    for each half row ``h`` (all of them, or the compact indices ``rows``)
+    row ``p`` and row ``mirror_pos(p)`` of ``Y`` go through
+    :func:`~orphics_tpu_torch.ops.dft.rowfft_split_emul`, and column ``q``
+    of the first is paired with column ``mirror_pos(q)`` of the second in
+    ``field`` (:func:`qc_fields` or :func:`s_field`), in float32. Returns
+    the field planes, ``(b, len(rows), n)`` each. ``n = 128 Bk`` with
+    ``Bk`` a power of two."""
+    n = yr.shape[-1]
+    bk = n // 128
+    p = half_rows(n)[0] if rows is None else half_rows(n)[0][np.asarray(rows)]
+    as_long = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.long,
+                                        device=yr.device)
+    pm = as_long(mirror_pos(p, bk))
+    qm = as_long(mirror_pos(np.arange(n), bk))
+    p = as_long(p)
+    zr, zi = rowfft_split_emul(yr.index_select(1, p), yi.index_select(1, p))
+    mr, mi = rowfft_split_emul(yr.index_select(1, pm), yi.index_select(1, pm))
+    return field(zr, zi, mr.index_select(2, qm), mi.index_select(2, qm))
+
+
+def _half(yr, yi, s_only, what, fused=True, zrow=False):
     """Launch B6 (``(qs, c)``) or B6s (``(s,)``) on ``(b, n, n)`` CUDA
-    planes ``Y``; with ``fused=False`` B6h or B6h' on planes ``Z``."""
+    planes ``Y``; with ``fused=False`` B6h or B6h' on planes ``Z``. With
+    ``zrow`` B6 / B6s also write ``Z``'s rows ``[0, 128)``, returned after
+    the fields as ``(b, 128, n)`` re and im."""
     b, n, _ = yr.shape
     if not (yr.is_contiguous() and yi.is_contiguous()):
         raise ValueError(f"{what} needs contiguous tensors")
@@ -128,20 +162,25 @@ def _half(yr, yi, s_only, what, fused=True):
     if fused and n > lib.dft_max_n():
         raise ValueError(f"{what}: n={n} exceeds the kernel's "
                          f"{lib.dft_max_n()}")
-    outs = tuple(torch.empty((b, n // 2, n), dtype=torch.float32,
-                             device=yr.device)
-                 for _ in range(1 if s_only else 2))
-    # B6 and B6s transform the rows first and take the DFT tables
-    ins = (yr.data_ptr(), yi.data_ptr()) + (
-        (_tables(n, False, yr.device).data_ptr(),) if fused else ())
+    new = lambda rows: torch.empty((b, rows, n), dtype=torch.float32,
+                                   device=yr.device)
+    outs = tuple(new(n // 2) for _ in range(1 if s_only else 2))
+    rows = tuple(new(128) for _ in range(2)) if zrow else ()
+    args = [yr.data_ptr(), yi.data_ptr()]
+    if fused:
+        # B6 and B6s transform the rows first and take the DFT tables
+        args.append(_tables(n, False, yr.device).data_ptr())
+    args += [o.data_ptr() for o in outs]
+    if fused:
+        args += [r.data_ptr() for r in rows] or [None, None]
+    args += [b, n]
     launch = {(True, True): lib.rows_half_launch,
               (True, False): lib.rowqc_half_launch,
               (False, True): lib.s_pp_half_launch,
               (False, False): lib.qc_pp_half_launch}[fused, s_only]
-    err = launch(*ins, *(o.data_ptr() for o in outs), b, n,
-                 torch.cuda.current_stream(yr.device).cuda_stream)
+    err = launch(*args, torch.cuda.current_stream(yr.device).cuda_stream)
     _build.check(err, what)
-    return outs
+    return outs + rows
 
 
 def _check_square(yr, yi, what):
@@ -154,7 +193,10 @@ def _check_square(yr, yi, what):
 def rowqc_half(yr, yi):
     """``(qs, c)``, each ``(b, n/2, n)`` float32 over the half plane in
     :func:`half_rows` order, of ``Z = rowfft(Y)`` for ``(b, n, n)``
-    float32 ``yr, yi`` with rows in ``row_perm`` order (B6)."""
+    float32 ``yr, yi`` with rows in ``row_perm`` order (B6). On the card
+    ``n = 128 Bk`` with ``Bk`` in {2, 4, 8, 16, 32} launches the
+    register-resident kernel, any other ``Bk`` up to 32 the one on the
+    shared-memory radix-2 core."""
     _check_square(yr, yi, "rowqc_half")
     if not yr.is_cuda:
         return rowqc_pp_ref(yr, yi)[:2]
@@ -165,7 +207,8 @@ def rowqc_half(yr, yi):
 
 def rows_half(yr, yi):
     """``s``, ``(b, n/2, n)`` float32 over the half plane, of ``Z =
-    rowfft(Y)`` (B6s; :func:`rowqc_half` with the cross field)."""
+    rowfft(Y)`` (B6s; :func:`rowqc_half` with the cross field, the same
+    instantiation by ``Bk``)."""
     _check_square(yr, yi, "rows_half")
     if not yr.is_cuda:
         return rows_pp_ref(yr, yi)[0]
@@ -206,45 +249,31 @@ qc_pp_half.launches = 0
 s_pp_half.launches = 0
 
 
-def _fields_pp(yr, yi, field, half):
-    """The half-plane ``field`` planes from the kernel ``half``, the two
-    wrap strips patched from B4 ``zrow`` and B4b as
-    ``pallas_fft.rowqc_pp`` / ``rows_pp`` do; then ``zrow_r, zrow_i``."""
-    out = half(yr, yi)
-    b, n, _ = yr.shape
-    ncc, nh = n // 128, n // 2
-    mrow, rsrc, csrc, _ = _strip_tables(n, yr.device)
-    zrow_r, zrow_i = rowfft(yr[:, :128].contiguous(),
-                            yi[:, :128].contiguous())
-    zcol_r, zcol_i = rowfft_blk0(yr, yi)
-
-    # rows h < 64 (b == 0): the mirror rows are (128 - a) % 128 of zrow
-    zm_rows = lambda z: z.index_select(1, rsrc).index_select(2, mrow)
-    for f, v in zip(out, field(zrow_r[:, :64], zrow_i[:, :64],
-                               zm_rows(zrow_r), zm_rows(zrow_i))):
-        f[:, :64] = v
-    # columns [0, 128) of rows h >= 64: lane chunk 0 mirrors into itself
-    zm_cols = lambda z: z.index_select(2, mrow[:128]).index_select(1, csrc)
-    z_strip = lambda z: z.reshape(b, ncc, 128, 128)[:, :, :64] \
-        .reshape(b, nh, 128)[:, 64:]
-    for f, v in zip(out, field(z_strip(zcol_r), z_strip(zcol_i),
-                               zm_cols(zcol_r), zm_cols(zcol_i))):
-        f[:, 64:, :128] = v
-    return tuple(out) + (zrow_r, zrow_i)
-
-
 def rowqc_pp(yr, yi):
     """``(qs, c, zrow_r, zrow_i)`` from the column-DFT intermediate ``Y``
     (``(b, n, n)`` float32): the half-plane fields of ``Z = rowfft(Y)``
     and ``Z``'s rows ``[0, 128)`` for the boundary-row bins
-    (``pallas_fft.rowqc_pp``)."""
-    return _fields_pp(yr, yi, qc_fields, rowqc_half)
+    (``pallas_fft.rowqc_pp``), all from one B6 launch: the blocks of the
+    half rows ``h < 64`` hold rows 0-63 and 65-127 of ``Z`` and write them,
+    and one block more per batch entry transforms row 64."""
+    _check_square(yr, yi, "rowqc_pp")
+    if not yr.is_cuda:
+        return rowqc_pp_ref(yr, yi)
+    out = _half(yr, yi, False, "rowqc_pp", zrow=True)
+    rowqc_half.launches += 1
+    return out
 
 
 def rows_pp(yr, yi):
     """``(s, zrow_r, zrow_i)``: the half-plane cross field of ``Z =
-    rowfft(Y)`` and ``Z``'s rows ``[0, 128)`` (``pallas_fft.rows_pp``)."""
-    return _fields_pp(yr, yi, s_field, lambda a, b: (rows_half(a, b),))
+    rowfft(Y)`` and ``Z``'s rows ``[0, 128)`` (``pallas_fft.rows_pp``), from
+    one B6s launch as :func:`rowqc_pp`'s from B6."""
+    _check_square(yr, yi, "rows_pp")
+    if not yr.is_cuda:
+        return rows_pp_ref(yr, yi)
+    out = _half(yr, yi, True, "rows_pp", zrow=True)
+    rows_half.launches += 1
+    return out
 
 
 def fft2pp_qc(m1, m2):

@@ -300,29 +300,45 @@ def test_rowifft_noise_kernel(cuda_device, n):
     assert abs(corr) < 5.0 / (ur.numel()) ** 0.5
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [256, 384, 512])
-def test_rowqc_kernel_matches_ref(cuda_device, n):
-    rng = np.random.default_rng(n + 1)
-    yr, yi = (torch.as_tensor(rng.standard_normal((3, n, n))
-                              .astype(np.float32), device=cuda_device)
+# B6 / B6s shapes: Bk = 2, 3 (the radix-2 core), 4, 8, 16 and 32 (the
+# register-resident kernel), batches odd and even
+_QC_SHAPES = [(3, 256), (3, 384), (3, 512), (5, 1024), (3, 2048), (1, 4096)]
+
+
+def _fused_case(pp, half, pp_ref, b, n, device):
+    """One B6 / B6s case: ``pp`` (fields and zrow from one launch of
+    ``half``'s kernel: no B4, no B4b) against ``pp_ref``, two runs
+    bit-equal, and ``half`` alone equal to ``pp``'s fields bit for bit."""
+    rng = np.random.default_rng(n + b)
+    yr, yi = (torch.as_tensor(rng.standard_normal((b, n, n))
+                              .astype(np.float32), device=device)
               for _ in range(2))
-    before = (rowqc_half.launches, dft.rowfft.launches,
-              dft.rowfft_blk0.launches)
-    got = rowqc_pp(yr, yi)
+    counts = lambda: (half.launches, dft.rowfft.launches,
+                      dft.rowfft_blk0.launches)
+    before = counts()
+    got = pp(yr, yi)
     torch.cuda.synchronize()
-    assert (rowqc_half.launches, dft.rowfft.launches,
-            dft.rowfft_blk0.launches) == tuple(b + 1 for b in before)
-    ref = rowqc_pp_ref(yr, yi)
-    for name, g, r, tol in zip(("qs", "c", "zrow_r", "zrow_i"), got, ref,
-                               (TOL_QC, TOL_QC, TOL_DFT, TOL_DFT)):
+    assert counts() == (before[0] + 1, before[1], before[2])
+    ref = pp_ref(yr, yi)
+    nf = len(ref) - 2
+    assert len(got) == len(ref)
+    for k, (g, r) in enumerate(zip(got, ref)):
         assert g.shape == r.shape
         err = (g - r).abs().max().item()
-        assert err <= tol * r.abs().max().item(), (name, n, err)
-    # the kernel alone, without the strip patches, holds the whole plane
-    qs, c = rowqc_half(yr, yi)
-    for g, r in zip((qs, c), ref[:2]):
-        assert (g - r).abs().max().item() <= TOL_QC * r.abs().max().item()
+        tol = TOL_QC if k < nf else TOL_DFT
+        assert err <= tol * r.abs().max().item(), (k, n, err)
+    again = pp(yr, yi)
+    alone = half(yr, yi)
+    alone = alone if isinstance(alone, tuple) else (alone,)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    assert all(torch.equal(g, a) for g, a in zip(got, alone))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", _QC_SHAPES)
+def test_rowqc_kernel_matches_ref(cuda_device, b, n):
+    _fused_case(rowqc_pp, rowqc_half, rowqc_pp_ref, b, n, cuda_device)
 
 
 @pytest.mark.cuda
@@ -346,25 +362,10 @@ def test_colfft_scaled_kernel_matches_ref(cuda_device, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [256, 384, 512])
-def test_rows_kernel_matches_ref(cuda_device, n):
-    """B6s, alone and with the strip patches of rows_pp."""
-    rng = np.random.default_rng(n + 2)
-    yr, yi = (torch.as_tensor(rng.standard_normal((3, n, n))
-                              .astype(np.float32), device=cuda_device)
-              for _ in range(2))
-    before = rows_half.launches
-    got = rows_pp(yr, yi)
-    torch.cuda.synchronize()
-    assert rows_half.launches == before + 1
-    ref = rows_pp_ref(yr, yi)
-    for name, g, r, tol in zip(("s", "zrow_r", "zrow_i"), got, ref,
-                               (TOL_QC, TOL_DFT, TOL_DFT)):
-        assert g.shape == r.shape
-        err = (g - r).abs().max().item()
-        assert err <= tol * r.abs().max().item(), (name, n, err)
-    s = rows_half(yr, yi)
-    assert (s - ref[0]).abs().max().item() <= TOL_QC * ref[0].abs().max()
+@pytest.mark.parametrize("b,n", _QC_SHAPES)
+def test_rows_kernel_matches_ref(cuda_device, b, n):
+    """B6s, alone and with the rows of zrow that rows_pp adds."""
+    _fused_case(rows_pp, rows_half, rows_pp_ref, b, n, cuda_device)
 
 
 @pytest.mark.cuda
@@ -539,13 +540,15 @@ def test_half_plane_field_kernels_match_ref(cuda_device, b, n):
 
 
 @pytest.mark.cuda
-def test_half_plane_field_kernels_match_fused(cuda_device):
+@pytest.mark.parametrize("n", [384, 512, 2048])
+def test_half_plane_field_kernels_match_fused(cuda_device, n):
     """B6h/B6h' on ``Z = rowfft(Y)`` against B6/B6s, which transform the
-    rows themselves: each within an ulp of its terms' size (``qs`` bounds
-    ``|c|`` and ``|s|`` pointwise)."""
+    rows themselves: within TOL_HALF of max, and where both transforms run
+    the same core (n = 384) within an ulp of each term's size (``qs``
+    bounds ``|c|`` and ``|s|`` pointwise)."""
     rng = np.random.default_rng(17)
-    yr, yi = _randn(rng, (2, 384, 384), cuda_device), _randn(
-        rng, (2, 384, 384), cuda_device)
+    yr, yi = _randn(rng, (2, n, n), cuda_device), _randn(
+        rng, (2, n, n), cuda_device)
     zr, zi = dft.rowfft(yr, yi)
     qs, c = qc_pp_half(zr, zi)
     s = s_pp_half(zr, zi)
@@ -553,7 +556,10 @@ def test_half_plane_field_kernels_match_fused(cuda_device):
     fs = rows_half(yr, yi)
     ulp = 2.0 ** -23 * qs + 1e-30
     for got, fused in ((qs, fq), (c, fc), (s, fs)):
-        assert ((got - fused).abs() <= 2 * ulp).all()
+        assert (got - fused).abs().max().item() \
+            <= TOL_HALF * qs.abs().max().item()
+        if n == 384:
+            assert ((got - fused).abs() <= 2 * ulp).all()
 
 
 @pytest.mark.cuda

@@ -13,7 +13,11 @@ both sides are fp32 transforms by different factorizations. The lane
 chunk 0 and the fused half-plane fields agree to 1e-5 of max|ref| (~4e-7
 seen). ``qc_pp_half`` / ``s_pp_half`` on a stored plane agree with the JAX
 functions to 2e-5 absolute on unit-variance planes (tests/test_core.py's
-``atol``); ``fft2p`` / ``ifft2p`` to 1e-5 of max|ref|.
+``atol``); ``fft2p`` / ``ifft2p`` to 1e-5 of max|ref|. The
+register-resident B6 / B6s kernel cannot run here: its algorithm, written
+out in plain PyTorch (``rowfft_split_emul``, ``half_fields_emul``), is held
+to the plain versions within 1.5e-5 of max for the transform and 3e-5 for
+the fields, and to the JAX functions within 2e-5.
 """
 import numpy as np
 import pytest
@@ -145,8 +149,8 @@ def test_half_rows_match_jax():
                                       ("rowqc_pp", RP), ("fft2pp_qc", RP),
                                       ("rows_pp", RP), ("fft2pp_s", RP)])
 def test_row_power_matches_jax(case, name, mod):
-    """B4b and the fused half-plane fields (B6 and B6s with their strip
-    patches; plain versions here) against the JAX functions."""
+    """B4b and the fused half-plane fields (B6 and B6s; plain versions
+    here, which patch no strip) against the JAX functions."""
     n, (xr, xi, _), ref = case
     got = getattr(mod, name)(torch.as_tensor(xr), torch.as_tensor(xi))
     assert len(got) == len(ref[name])
@@ -414,3 +418,119 @@ def test_fft2p_is_fft2_with_permuted_rows(case):
     br, bi = D.ifft2p(kr, ki)
     np.testing.assert_allclose(br.numpy(), xr, atol=3e-5)
     np.testing.assert_allclose(bi.numpy(), xi, atol=3e-5)
+
+
+# ---- the register-resident B6 / B6s kernel's algorithm --------------------
+
+# the transform contract, and the fields' (two transforms multiplied)
+TOL_SPLIT = 1.5e-5
+TOL_FIELDS = 3e-5
+TOL_JAX = 2e-5
+
+
+def _planes(seed, shape):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(rng.standard_normal(shape)
+                                 .astype(np.float32)) for _ in range(2))
+
+
+@pytest.mark.parametrize("m", [2, 4, 8, 16, 32])
+def test_register_fft_matches_numpy(m):
+    """``fft_regs``: the radix-2 butterflies with the nine constants, every
+    size the kernels instantiate (stage 1 at Bk = 2 .. 32, the 16- and the
+    8-point factor of the 128-point stage), in natural output order."""
+    xr, xi = _planes(m, (m, 3, 37))
+    got = D._fft_regs_emul(torch.complex(xr, xi)).numpy()
+    want = np.fft.fft(xr.numpy().astype(np.float64) + 1j * xi.numpy(), axis=0)
+    assert got.dtype == np.complex64
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+    with pytest.raises(ValueError, match="2, 4, 8, 16 or 32"):
+        D._fft_regs_emul(torch.zeros((3, 4), dtype=torch.complex64))
+
+
+def test_register_fft_roots_are_the_float64_roots():
+    w = np.exp(-2j * np.pi * np.arange(16) / 32)
+    got = D._roots32().numpy()
+    assert np.abs(got - w).max() <= 2.0 ** -24
+    assert got[0] == 1 and got[8] == -1j            # the exact quarter turns
+
+
+@pytest.mark.parametrize("n", [256, 512, 1024, 2048, 4096])
+def test_rowfft_split_emul_matches_ref(n):
+    """Stage 1 in radix 2, the twiddle, the 16 x 8 split of the 128-point
+    stage with its digit orders: the kernel's row transform."""
+    xr, xi = _planes(n, (2, 3, n))
+    got = D.rowfft_split_emul(xr, xi)
+    ref = D.rowfft_ref(xr, xi)
+    scale = max(r.abs().max().item() for r in ref)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and g.dtype == torch.float32
+        assert (g - r).abs().max().item() <= TOL_SPLIT * scale
+
+
+def test_rowfft_split_emul_matches_jax(case):
+    n, (xr, xi, _), ref = case
+    args = (torch.as_tensor(xr), torch.as_tensor(xi))
+    if n == 384:                      # Bk = 3: the radix-2 core's shape
+        with pytest.raises(ValueError, match="2, 4, 8, 16 or 32"):
+            D.rowfft_split_emul(*args)
+        return
+    scale = max(np.abs(r).max() for r in ref["rowfft"])
+    for g, r in zip(D.rowfft_split_emul(*args), ref["rowfft"]):
+        assert np.abs(g.numpy() - r).max() <= TOL_JAX * scale
+
+
+@pytest.mark.parametrize("n", [256, 384, 512, 2048, 4096])
+def test_mirror_pos_is_the_mirror_table(n):
+    np.testing.assert_array_equal(RP.mirror_pos(np.arange(n), n // 128),
+                                  M._mirror_tables(n))
+
+
+@pytest.mark.parametrize("field", ["qc", "s"])
+@pytest.mark.parametrize("n,rows", [(256, None), (512, None), (2048, [0]),
+                                    (2048, [63]), (2048, [777])])
+def test_half_fields_emul_matches_ref(n, rows, field):
+    """The kernel's pairing, Z[p, q] with the mirror row's value at
+    mirror_pos(q), on the emulated transform: every half row at 256 and
+    512, one row pair at 2048 (h = 0 pairs row 0 with itself)."""
+    yr, yi = _planes(n + 5, (2 if n < 2048 else 1, n, n))
+    if field == "qc":
+        got = RP.half_fields_emul(yr, yi, RP.qc_fields, rows)
+        ref = RP.rowqc_pp_ref(yr, yi)[:2]
+    else:
+        got = RP.half_fields_emul(yr, yi, RP.s_field, rows)
+        ref = RP.rows_pp_ref(yr, yi)[:1]
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        scale = r.abs().max().item()
+        r = r if rows is None else r[:, rows]
+        assert g.shape == r.shape and g.dtype == torch.float32
+        assert (g - r).abs().max().item() <= TOL_FIELDS * scale
+
+
+@pytest.mark.parametrize("name", ["rowqc_pp", "rows_pp"])
+def test_half_fields_emul_matches_jax(case, name):
+    n, (xr, xi, _), ref = case
+    field = RP.qc_fields if name == "rowqc_pp" else RP.s_field
+    args = (torch.as_tensor(xr), torch.as_tensor(xi), field)
+    if n == 384:                      # Bk = 3: the radix-2 core's shape
+        with pytest.raises(ValueError, match="2, 4, 8, 16 or 32"):
+            RP.half_fields_emul(*args)
+        return
+    got = RP.half_fields_emul(*args)
+    for g, r in zip(got, ref[name]):
+        assert g.shape == r.shape
+        assert np.abs(g.numpy() - r).max() <= TOL_JAX * np.abs(r).max()
+
+
+@pytest.mark.parametrize("name", ["rowqc_pp", "rows_pp"])
+def test_fused_fields_on_cpu_are_the_plain_version(case, name):
+    """No strip is patched: on the CPU ``rowqc_pp`` / ``rows_pp`` return
+    their plain versions' tuples, bit for bit."""
+    _, (xr, xi, _), _ = case
+    args = (torch.as_tensor(xr), torch.as_tensor(xi))
+    got = getattr(RP, name)(*args)
+    plain = getattr(RP, name + "_ref")(*args)
+    assert len(got) == len(plain) == (4 if name == "rowqc_pp" else 3)
+    for g, r in zip(got, plain):
+        assert torch.equal(g, r)
