@@ -27,7 +27,7 @@ and check them after; 4-14 print throughput, peak memory, device time by
 kernel and a check of the output against the plain versions.
 The JSON object on a line before the last holds each kernel's launches
 (on the full-plane lensing path for the kernels it runs, on the FastCl
-path for B2/B5/B6, on config 2's for B3s/B6s, on config 4's for B9, on
+path and the config-1 step body for B2/B3/B5/B6, on config 2's for B3s/B6s, on config 4's for B9, on
 configs 7, 8 and 8p together for B10a/B10s, on phase 13's paths for
 B6h/B6h'/B2' and for B4b, which no composition runs since B6 pairs every
 element through the exact mirror map), error, times and bound; the
@@ -61,6 +61,12 @@ FP64_FLOP_PER_S = 34e12
 # section 6): what phase 2 reads the register-resident kernel's times against
 B6_RADIX2_MS, B6_PATCHED_MS = 8.1179, 11.7650
 B6S_RADIX2_MS, B6S_PATCHED_MS = 5.4241, 7.4444
+# B3s colfft_scaled at (64, 2048, 2048) and B3 colfft / colifft at (64, 512,
+# 512) and (96, 2048, 2048) on the radix-2 core, in ms on the same card
+# (PERF.md section 6): what phase 2 reads the column kernel's times against
+B3S_RADIX2_MS = 12.3078
+B3_RADIX2_512_MS = (0.3281, 0.2857)
+B3_RADIX2_2048_MS = (17.8832, 16.2099)
 
 
 def bound(nbytes, flops, flops64=0.0):
@@ -363,7 +369,8 @@ def main():
 
     # B3 (colfft/colifft) and B4 (rowfft/rowifft/rowifft_scaled_y): the
     # path's (64, 512, 512) and (32, 512, 512) planes at 2e-5 of max|ref|;
-    # n = 384 (B = 3, mixed radix) at 2e-5; n = 2048 at the 1.5e-5 contract
+    # n = 384 (B = 3, mixed radix) at 2e-5; n = 2048 at the 1.5e-5 contract.
+    # B3's record is timed at config 1's (96, 2048, 2048) below
     def planes(shape):
         return tuple(torch.randn(shape, generator=gen, device=dev)
                      for _ in range(2))
@@ -420,12 +427,62 @@ def main():
     plain = cuda_ms(lambda: torch.fft.fft2(torch.complex(*x)), 20)
     print(f"[2] fft2pp (64, 512, 512) on B3+B4: {ms:.4f} ms; torch.fft.fft2 "
           f"(cuFFT, natural order, no split planes): {plain:.4f} ms")
-    results["colfft"] = kernel_entry(
-        "colfft", "dft.cu", "pallas_fft.py:288", dft_err["B3"],
-        dft_times["colfft"], dft_work)
+    print(f"[2] B3 (64, 512, 512): kernel colfft {dft_times['colfft'][0]:.4f}"
+          f" ms, colifft {dft_times['colifft'][0]:.4f} ms (the radix-2 "
+          f"core's {B3_RADIX2_512_MS[0]} and {B3_RADIX2_512_MS[1]} ms); "
+          f"torch.fft along the columns {dft_times['colfft'][2]:.4f} / "
+          f"{dft_times['colifft'][2]:.4f} ms; bound "
+          f"{bound(*dft_work)[0]:.4f} ms")
     results["rowfft"] = kernel_entry(
         "rowfft", "dft.cu", "pallas_fft.py:791", dft_err["B4"],
         dft_times["rowfft"], dft_work)
+
+    # B3 and B3s on the register-resident column kernel at n = 256 .. 4096
+    # and at ragged column counts, n = 384 on the radix-2 one: 1.5e-5 of
+    # max|ref|, two runs bit-equal, and the kernel each shape launched
+    # (colfft_regs_launches counts the register-resident kernel's launches).
+    # Their inputs come from a generator of their own, so that the later
+    # checks see the draws they always saw
+    klib = _build.library()
+    gen3 = torch.Generator(device=dev)
+    gen3.manual_seed(3)
+    b3s_err = 0.0
+    for shape in ((8, 256, 256), (4, 384, 384), (8, 512, 512),
+                  (4, 1024, 1024), (2, 2048, 2048), (1, 4096, 4096),
+                  (3, 2048, 1025), (2, 512, 7)):
+        xb = tuple(torch.randn(shape, generator=gen3, device=dev)
+                   for _ in range(2))
+        wb = torch.rand(shape[1:], generator=gen3, device=dev)
+        bk = shape[1] // 128
+        regs_want = 0 if bk & (bk - 1) else 2
+        line = (f"[2] B3/B3s {shape} on the "
+                f"{'radix-2' if regs_want == 0 else 'register-resident'} "
+                "kernel:")
+        for name, fn, ref_fn, args in (
+                ("colfft", dft.colfft, dft.colfft_ref, xb),
+                ("colifft", dft.colifft, dft.colifft_ref, xb),
+                ("colfft_scaled", dft.colfft_scaled, dft.colfft_scaled_ref,
+                 xb + (wb,))):
+            before = klib.colfft_regs_launches()
+            gb = fn(*args)
+            ab = fn(*args)
+            torch.cuda.synchronize()
+            regs = klib.colfft_regs_launches() - before
+            check(regs == regs_want, f"{name} {shape}: {regs} of 2 launches "
+                                     "on the register-resident kernel")
+            check(all(torch.equal(g, a) for g, a in zip(gb, ab)),
+                  f"{name} {shape}: two runs differ")
+            err, rel = rel_err(gb, ref_fn(*args))
+            check(rel <= 1.5e-5, f"{name} {shape}: error {rel:.3e} of "
+                                 "max|ref| > 1.5e-5")
+            if name == "colfft_scaled":
+                b3s_err = max(b3s_err, err)
+            else:
+                dft_err["B3"] = max(dft_err["B3"], err)
+            line += f" {name} {rel:.3e}"
+        print(line + " of max|ref| (<= 1.5e-5), two runs bit-equal")
+        del xb, wb, gb, ab
+    torch.cuda.empty_cache()
 
     # B7: bit-exact against two index_select gathers
     for shape in ((32, 512, 512), (64, 512, 512), (4, 384, 384)):
@@ -503,7 +560,7 @@ def main():
     cltt = np.asarray(th.lCl("TT", ells_th))
     edges1 = np.arange(80, 8000, 80.0)
     fc1 = FastCl(geom1, ells_th, cltt, bin_edges=edges1, device=dev)
-    P1, n1 = 96, 2048
+    P1, P2, n1 = 96, 64, 2048
 
     # B1 at the half plane's (96, 2097152) with FastCl's ids (nseg 100) and
     # with dl = 20 edges out to l = 8000 (nseg 400, two segment tiles)
@@ -597,6 +654,52 @@ def main():
         (ms, plain, row_fft_lib),
         (nbytes(*y) + 2 * 4 * rows1 * 128,
          rows1 * (2.0 * (n1 - 128) + fft_flops(128, 1))))
+    # B3 at the same shape: colfft (FastCl's map analysis, phase 13's fused
+    # analysis) and colifft (the config-1 step body), held to the plain
+    # versions at 1.5e-5 of max|ref| with two runs bit-equal on the
+    # register-resident kernel, at config 1's 96 planes and at config 2's 64
+    # (its cross spectra's colifft); then timed at 96 beside torch.fft along
+    # the columns
+    b3_times = {}
+    for name, fn, ref_fn, lib_fn, radix2 in (
+            ("colfft", dft.colfft, dft.colfft_ref, torch.fft.fft,
+             B3_RADIX2_2048_MS[0]),
+            ("colifft", dft.colifft, dft.colifft_ref, torch.fft.ifft,
+             B3_RADIX2_2048_MS[1])):
+        for planes_n in (P1, P2):
+            yy = tuple(t[:planes_n] for t in y)
+            tag = f"({planes_n}, {n1}, {n1})"
+            before = klib.colfft_regs_launches()
+            got = fn(*yy)
+            again = fn(*yy)
+            torch.cuda.synchronize()
+            regs = klib.colfft_regs_launches() - before
+            check(regs == 2, f"B3 {name} {tag}: {regs} of 2 launches on the "
+                             "register-resident kernel")
+            check(all(torch.equal(g, a) for g, a in zip(got, again)),
+                  f"B3 {name} {tag}: two runs differ")
+            del again
+            err, rel = rel_err(got, ref_fn(*yy))
+            check(rel <= 1.5e-5, f"B3 {name} {tag}: error {rel:.3e} of "
+                                 "max|ref| > 1.5e-5")
+            dft_err["B3"] = max(dft_err["B3"], err)
+            print(f"[2] B3 {name} {tag}: max abs err {err:.3e} = {rel:.3e} "
+                  "of max|ref| (<= 1.5e-5), two runs bit-equal, both on the "
+                  "register-resident kernel")
+            del got, yy
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: fn(*y), 10)
+        plain = cuda_ms(lambda: ref_fn(*y), 3, warmup=1)
+        yc = torch.complex(*y)
+        lib_ms = cuda_ms(lambda: lib_fn(yc, dim=-2), 5)
+        del yc
+        b3_times[name] = (ms, plain, lib_ms)
+        print(f"[2] B3 {name} ({P1}, {n1}, {n1}): kernel {ms:.4f} ms "
+              f"({radix2 / ms:.2f}x the radix-2 core's {radix2} ms), plain "
+              f"{plain:.4f} ms, torch.fft along the columns {lib_ms:.4f} ms")
+    results["colfft"] = kernel_entry(
+        "colfft", "colfft.cu", "pallas_fft.py:288", dft_err["B3"],
+        b3_times["colfft"], (2 * nbytes(*y), fft_flops(n1, P1 * n1)))
     # B6: the fields and Z's rows [0, 128) from one launch (no B4, no B4b,
     # no strip patch); n = 2048 takes the register-resident kernel, n = 384
     # (Bk = 3) the one on the radix-2 core; two runs bit-equal
@@ -835,23 +938,30 @@ def main():
     torch.cuda.empty_cache()
 
     # B3s and B6s at bench config 2's shapes: 64 packed pairs at 2048^2,
-    # the 12 % taper on the column pass's load; and at n = 384
-    P2 = 64
+    # the 12 % taper on the column pass's load (two runs bit-equal on the
+    # register-resident kernel); and at n = 384 (the radix-2 one)
     taper1, _ = get_taper(geom1, taper_percent=12.0, device=dev)
     x = planes((P2, n1, n1))
     x384 = planes((4, 384, 384))
     t384 = torch.rand((384, 384), generator=gen, device=dev)
-    b3s_err = 0.0
-    for xx, tt, tag in ((x, taper1, f"({P2}, {n1}, {n1})"),
-                        (x384, t384, "(4, 384, 384)")):
-        err, rel = rel_err(dft.colfft_scaled(*xx, tt),
-                           dft.colfft_scaled_ref(*xx, tt))
+    for xx, tt, tag, regs_want in ((x, taper1, f"({P2}, {n1}, {n1})", 2),
+                                   (x384, t384, "(4, 384, 384)", 0)):
+        before = klib.colfft_regs_launches()
+        got = dft.colfft_scaled(*xx, tt)
+        again = dft.colfft_scaled(*xx, tt)
         torch.cuda.synchronize()
+        regs = klib.colfft_regs_launches() - before
+        check(regs == regs_want, f"B3s colfft_scaled {tag}: {regs} of 2 "
+                                 "launches on the register-resident kernel")
+        check(all(torch.equal(g, a) for g, a in zip(got, again)),
+              f"B3s colfft_scaled {tag}: two runs differ")
+        err, rel = rel_err(got, dft.colfft_scaled_ref(*xx, tt))
         check(rel <= 1.5e-5, f"B3s colfft_scaled {tag}: error {rel:.3e} of "
                              "max|ref| > 1.5e-5")
         b3s_err = max(b3s_err, err)
         print(f"[2] B3s colfft_scaled {tag}: max abs err {err:.3e} = "
-              f"{rel:.3e} of max|ref| (<= 1.5e-5)")
+              f"{rel:.3e} of max|ref| (<= 1.5e-5), two runs bit-equal")
+        del got, again
     ms = cuda_ms(lambda: dft.colfft_scaled(*x, taper1), 10)
     ms_b3 = cuda_ms(lambda: dft.colfft(*x), 10)
     plain = cuda_ms(lambda: dft.colfft_scaled_ref(*x, taper1), 3, warmup=1)
@@ -859,11 +969,12 @@ def main():
     lib = cuda_ms(lambda: torch.fft.fft(xc, dim=-2), 5)
     del xc
     print(f"[2] B3s ({P2}, {n1}, {n1}) with the 12 % taper: kernel {ms:.4f} "
-          f"ms (B3 colfft unscaled {ms_b3:.4f} ms), plain {plain:.4f} ms, "
+          f"ms ({B3S_RADIX2_MS / ms:.2f}x the radix-2 core's {B3S_RADIX2_MS} "
+          f"ms; B3 colfft unscaled {ms_b3:.4f} ms), plain {plain:.4f} ms, "
           f"torch.fft.fft along the columns {lib:.4f} ms")
     rows2 = P2 * n1
     results["colfft_scaled"] = kernel_entry(
-        "colfft_scaled", "dft.cu", "pallas_fft.py:325", b3s_err,
+        "colfft_scaled", "colfft.cu", "pallas_fft.py:325", b3s_err,
         (ms, plain, lib), (2 * nbytes(*x) + nbytes(taper1),
                            fft_flops(n1, rows2) + 2.0 * 2 * rows2 * n1))
     s_err = 0.0
@@ -1190,7 +1301,7 @@ def main():
                            "rowifft_noise_y", "rowqc_half"), "6")
     check(counts6["rowfft"] == counts6["rowfft_blk0"] == 0,
           "6: FastCl's analysis launched B4 or B4b beside B6")
-    for name in ("bin2_reduce", "rowifft_noise_y", "rowqc_half"):
+    for name in ("bin2_reduce", "colfft", "rowifft_noise_y", "rowqc_half"):
         results[name]["launches"] = counts6[name]
     profile_steps(lambda: fc.sim_bandpowers(gen6, batch6), 3, sim_ms, "6")
     profile_steps(lambda: config1_step(7), 3, step1_ms, "6 config-1")

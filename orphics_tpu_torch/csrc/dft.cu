@@ -28,10 +28,14 @@
 // memory once in and once out. B5 reads no input plane at all: 8 B per
 // element written, plus Philox (~70 integer operations per pair) and two
 // erfinvf per element, which keep it compute-heavier than B4. B3s reads
-// the window once more per element, 4 B on 16; at N = 2048 the window is
-// 16 MB and stays in the 50 MB L2 while the batch entries that share it
-// stream past (the TPU grid keeps it resident by running the batch
-// innermost).
+// the window once more per element, 4 B on 16 (at N = 2048 colfft.cu
+// takes B3s and groups its grid so that the window's tiles stay in L2
+// while the batch entries that share them stream past, as the TPU grid
+// does by running the batch innermost).
+//
+// B3 and B3s at a power-of-two Bk run colfft.cu's kernel on the
+// register-resident core (dft_launch sends them there); the kernel here
+// takes the rows (B4, B5) and the columns at any other Bk (n = 384).
 //
 // Design: dft_core.cuh's two stages on T whole transforms per block (T
 // columns of one batch entry, or T rows). Stage 1 runs one thread per
@@ -224,6 +228,11 @@ int tile(int n, int row) {
 
 }  // namespace
 
+// colfft.cu: B3 / B3s at Bk = 2, 4, 8, 16, 32
+int col_dft_launch(const float* xre, const float* xim, float* ore,
+                   float* oim, const float2* tab, const float* scale,
+                   int inverse, int batch, int n, int C, cudaStream_t stream);
+
 extern "C" {
 
 int dft_max_n() { return 32 * A; }
@@ -231,16 +240,20 @@ int dft_max_n() { return 32 * A; }
 // row = 1: planes (batch, other, n), transform along the last axis; scale
 // (other, n) or null. row = 0: planes (batch, n, other), transform along
 // axis -2; scale (n, other), shared by the batch, or null. tab: the tables
-// of dft.py:_tables.
+// of dft.py:_tables. Columns at a power-of-two Bk go to colfft.cu's
+// register-resident kernel, everything else to dft_kernel.
 int dft_launch(const float* xre, const float* xim, float* ore, float* oim,
                const void* tab, const float* scale, int row, int inverse,
                int batch, int n, int other, void* stream) {
   const int Bk = n / A;
   if (Bk * A != n || Bk < 2 || Bk > 32 || batch < 1 || other < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int T = tile(n, row);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float2* tb = static_cast<const float2*>(tab);
+  if (!row && (Bk & (Bk - 1)) == 0)
+    return col_dft_launch(xre, xim, ore, oim, tb, scale, inverse, batch, n,
+                          other, st);
+  const int T = tile(n, row);
   if (row) {
     const int M = batch * other;
     const dim3 grid((M + T - 1) / T);

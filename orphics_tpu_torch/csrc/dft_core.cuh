@@ -1,8 +1,9 @@
 // Device code of the 128 Bk-point DFT, shared by the row and column
-// transforms (dft.cu: B3, B3s, B4, B5) and the fused row passes
-// (rowpower.cu: B6, B6s, B4b). Two cores: the radix-2 core in shared memory
-// (first half; every kernel but B6 / B6s at power-of-two Bk runs it) and
-// the register-resident core (second half; B6 / B6s at Bk = 2 .. 32).
+// transforms (dft.cu: B3, B3s, B4, B5; colfft.cu: B3, B3s) and the fused
+// row passes (rowpower.cu: B6, B6s, B4b). Two cores: the radix-2 core in
+// shared memory (first half; B4, B5, B4b, and B3 / B3s / B6 / B6s at a Bk
+// that is not a power of two) and the register-resident core (second half;
+// B3 / B3s in column form and B6 / B6s in row form at Bk = 2 .. 32).
 //
 // The split N = 128 Bk, n = a + 128 b, k = k2 + Bk k1 (the TPU's):
 //   stage 1  G[k2, a] = sum_b x[a + 128 b] w_Bk^(b k2)   (direct Bk-point DFT)
@@ -32,10 +33,13 @@
 //                     out.
 // A segment is the 128 values of one (transform, k2), padded to SEG = 136
 // slots so that the three access patterns (8 d + c, 17 c + e, e + 16 f) all
-// fall on distinct banks. Both functions work on registers and on one
-// segment pointer, so a row kernel and a column kernel differ only in how
-// stage 1 stores into the segments; INV conjugates the constants, and the
-// tables handed in are already conjugated for the inverse.
+// fall on distinct banks, and the two segments of a half-warp must start 8
+// banks apart. Both functions work on registers and on one segment
+// pointer, so a row kernel and a column kernel differ only in how stage 1
+// stores into the segments (colfft.cu's column layout re-derives the
+// padding for its stores); INV conjugates the constants, and the tables
+// handed in are already conjugated for the inverse, which runs fft128_seg
+// first (k1 in, a out) and fft_regs over k2 last.
 #pragma once
 #include <cuda_runtime.h>
 #include <cstdint>

@@ -28,8 +28,11 @@ bit-identical to the JAX package's.
   rows: only the rows' order is permuted) and :func:`pfft2`, :func:`pifft2`
   (natural order).
 
-For CUDA tensors the wrappers launch ``csrc/dft.cu``; for CPU tensors
-they run the plain versions (``torch.fft`` plus an ``index_select``).
+For CUDA tensors the wrappers launch ``csrc/dft.cu`` (B3 and B3s at
+``n = 128 * 2**k`` on ``csrc/colfft.cu``'s register-resident column kernel,
+which :func:`colfft_split_emul` / :func:`colifft_split_emul` write out in
+plain PyTorch for the CPU tests); for CPU tensors they run the plain
+versions (``torch.fft`` plus an ``index_select``).
 There is no fallback from one to the other. The JAX functions' tiling
 arguments (``ctile``, ``rtile``, ``interpret``) have no counterpart: the
 kernel picks its own tile.
@@ -53,7 +56,7 @@ __all__ = [
     "colfft_ref", "colfft_scaled_ref", "colifft_ref", "rowfft_ref",
     "rowifft_ref",
     "rowifft_scaled_y_ref", "rowfft_blk0_ref", "rowifft_noise_y_ref",
-    "rowfft_split_emul",
+    "rowfft_split_emul", "colfft_split_emul", "colifft_split_emul",
     "fft2p", "ifft2p", "fft2pp", "ifft2pp", "ifft2pp_scaled", "ifft2pp_noise",
     "ifft2pp_noise_y", "pfft2", "pifft2",
 ]
@@ -235,15 +238,18 @@ def _bitrev(m):
             for k in range(m)]
 
 
-def _fft_regs_emul(v):
+def _fft_regs_emul(v, inverse=False):
     """``csrc/dft_core.cuh:fft_regs`` on the leading axis of complex64
     ``v`` (``M = v.shape[0]``, a power of two up to 32): the radix-2
     decimation-in-frequency butterflies in float32 with the constant
-    roots, un-bit-reversed on return (``out[k] = X[k]``)."""
+    roots (conjugated for the inverse, ``fft_regs<M, true>``),
+    un-bit-reversed on return (``out[k] = X[k]``)."""
     m = v.shape[0]
     if m < 2 or m > 32 or m & (m - 1):
         raise ValueError(f"fft_regs takes 2, 4, 8, 16 or 32 values, got {m}")
     roots = _roots32().to(v.device)
+    if inverse:
+        roots = roots.conj()
     v = list(v.unbind(0))
     span = m // 2
     while span >= 1:
@@ -258,6 +264,69 @@ def _fft_regs_emul(v):
     return torch.stack([v[k] for k in _bitrev(m)])
 
 
+def _fft128_emul(h, n, inverse):
+    """``csrc/dft_core.cuh:fft128_seg`` on the last axis (128) of complex64
+    ``h``: ``j = 8 d + c`` in, ``k = e + 16 f`` out, natural order both;
+    the 16-point FFT over ``d``, the ``w_128^(c e)`` twiddle from the
+    table's ``w_128^j`` (``j < 64``, negated beyond; :func:`_plan` of
+    ``n``, conjugate for the inverse), the 8-point FFT over ``c``."""
+    _, _, _, _, fare, faim, _, _ = _plan(n, inverse)
+    u = _fft_regs_emul(h.reshape(h.shape[:-1] + (16, 8)).movedim(-2, 0),
+                       inverse)                            # (e, ..., c)
+    j = np.outer(np.arange(16), np.arange(8))             # (e, c) -> c e
+    w128 = (fare[1, :64] + 1j * faim[1, :64]).astype(np.complex64)
+    tws = torch.as_tensor(np.where(j < 64, w128[j & 63], -w128[j & 63]),
+                          device=h.device)
+    u = torch.cat([u[:1], u[1:] * tws[1:].reshape(
+        (15,) + (1,) * (u.ndim - 2) + (8,))])
+    z = _fft_regs_emul(u.movedim(-1, 0), inverse)          # (f, e, ...)
+    return z.movedim((0, 1), (-2, -1)).reshape(h.shape)
+
+
+def _twiddles(n, inverse, device):
+    """``w_n^(+-a k2)`` as complex64 ``(Bk, 128)``, from :func:`_plan`."""
+    _, _, _, _, _, _, twre, twim = _plan(n, inverse)
+    return torch.as_tensor((twre + 1j * twim).astype(np.complex64),
+                           device=device)
+
+
+def _split_fwd_emul(x):
+    """The register-resident forward transform of the last axis of complex64
+    ``x``: the ``Bk``-point FFT over ``b`` (``n = a + 128 b``), the
+    ``w_n^(a k2)`` twiddle, the 128-point stage; output at
+    ``p = 128 k2 + k1``."""
+    n = x.shape[-1]
+    bk = n // _A
+    lead = x.shape[:-1]
+    g = _fft_regs_emul(x.reshape(lead + (bk, _A)).movedim(-2, 0))  # (k2,..,a)
+    tw = _twiddles(n, False, x.device).reshape(
+        (bk,) + (1,) * len(lead) + (_A,))
+    h = torch.cat([g[:1], g[1:] * tw[1:]]).movedim(0, -2)  # (..., k2, a)
+    return _fft128_emul(h, n, False).reshape(lead + (n,))
+
+
+def _split_inv_emul(x):
+    """The register-resident inverse of the last axis of complex64 ``x`` in
+    :func:`row_perm` order: the inverse 128-point stage over ``k1`` of each
+    ``k2`` block (``fft128_seg<true>``), the conjugate twiddle
+    ``w_n^(-a k2)``, the inverse ``Bk``-point FFT over ``k2``
+    (``fft_regs<Bk, true>``), 1/n; natural order out."""
+    n = x.shape[-1]
+    bk = n // _A
+    lead = x.shape[:-1]
+    h = _fft128_emul(x.reshape(lead + (bk, _A)), n, True)  # (..., k2, a)
+    tw = _twiddles(n, True, x.device)
+    h = torch.cat([h[..., :1, :], h[..., 1:, :] * tw[1:]], dim=-2)
+    v = _fft_regs_emul(h.movedim(-2, 0), True)             # (b, ..., a)
+    v = v * torch.tensor(1.0 / n, dtype=torch.float32)
+    return v.movedim(0, -2).reshape(lead + (n,))
+
+
+def _emul_along(fn, xre, xim, axis):
+    z = fn(torch.complex(xre, xim).movedim(axis, -1)).movedim(-1, axis)
+    return z.real.contiguous(), z.imag.contiguous()
+
+
 def rowfft_split_emul(xre, xim):
     """:func:`rowfft` by the register-resident kernels' decomposition
     (``csrc/dft_core.cuh``: ``fft_regs``, ``fft128_seg``), in float32 plain
@@ -270,26 +339,24 @@ def rowfft_split_emul(xre, xim):
     ``p = 128 k2 + k1``. Not a kernel's plain version (that is
     :func:`rowfft_ref`): the tests hold the decomposition, its digit orders
     and its tables to the plain versions with it."""
-    n = xre.shape[-1]
-    _, bk, _, _, fare, faim, twre, twim = _plan(n, False)
-    lead = xre.shape[:-1]
-    x = torch.complex(xre, xim).reshape(lead + (bk, _A))
-    g = _fft_regs_emul(x.movedim(-2, 0))                 # (k2, ..., a)
-    tw = torch.as_tensor((twre + 1j * twim).astype(np.complex64),
-                         device=xre.device)               # (k2, a)
-    tw = tw.reshape((bk,) + (1,) * len(lead) + (_A,))
-    hh = torch.cat([g[:1], g[1:] * tw[1:]])
-    u = _fft_regs_emul(hh.reshape(hh.shape[:-1] + (16, 8)).movedim(-2, 0))
-    j = np.outer(np.arange(16), np.arange(8))             # (e, c) -> c e
-    w128 = (fare[1, :64] + 1j * faim[1, :64]).astype(np.complex64)
-    tws = torch.as_tensor(np.where(j < 64, w128[j & 63], -w128[j & 63]),
-                          device=xre.device)
-    u = torch.cat([u[:1], u[1:] * tws[1:].reshape(
-        (15,) + (1,) * (u.ndim - 2) + (8,))])             # (e, k2, ..., c)
-    z = _fft_regs_emul(u.movedim(-1, 0))                  # (f, e, k2, ...)
-    z = z.movedim((0, 1, 2), (-2, -1, -3))                # (..., k2, f, e)
-    z = z.reshape(lead + (n,))
-    return z.real.contiguous(), z.imag.contiguous()
+    return _emul_along(_split_fwd_emul, xre, xim, -1)
+
+
+def colfft_split_emul(xre, xim):
+    """:func:`colfft` by the column kernel's decomposition
+    (``csrc/colfft.cu``): :func:`rowfft_split_emul`'s arithmetic along
+    axis -2. Not a plain version (that is :func:`colfft_ref`)."""
+    return _emul_along(_split_fwd_emul, xre, xim, -2)
+
+
+def colifft_split_emul(xre, xim):
+    """:func:`colifft` by the column kernel's inverse decomposition
+    (``csrc/colfft.cu``): for each ``k2`` block of the permuted rows the
+    inverse 128-point stage as 16 x 8 (``k1 = 8 d + c`` in, ``a = e + 16 f``
+    out), the conjugate twiddle ``w_n^(-a k2)``, the inverse radix-2
+    ``Bk``-point FFT over ``k2`` and 1/n: rows ``a + 128 b`` in natural
+    order. Not a plain version (that is :func:`colifft_ref`)."""
+    return _emul_along(_split_inv_emul, xre, xim, -2)
 
 
 # ---- kernel wrappers ----------------------------------------------------

@@ -1,0 +1,165 @@
+"""Timing of the kernels redesigned on the register-resident FFT core: B6
+``rowqc_half`` / ``rowqc_pp`` and B6s ``rows_half`` / ``rows_pp``
+(``--kernel rowpower``), B3 ``colfft`` / ``colifft`` and B3s
+``colfft_scaled`` (``--kernel colfft``).
+
+Run from the repository root on a machine with one NVIDIA Hopper GPU and
+nvcc:
+
+    python3 scripts/bench_kernels.py --kernel {rowpower,colfft}
+        [--tree DIR] [--quick]
+
+It imports ``orphics_tpu_torch`` from ``DIR`` (default: this checkout), so
+two commits are compared on one card by unpacking the other with ``git
+archive`` into a git-ignored directory and running parent, change, change,
+parent in one job. It prints the compiler's resource report of the family's
+kernels (registers and spills, from the ``-Xptxas -v`` build log) and, at
+the main paths' shapes, each function's CUDA-event time, achieved
+device-memory rate and bound, its error against the plain version, the
+library call (``torch.fft`` along the same axis) and, for ``colfft``, the
+kernel each call took where the library counts it. ``--quick`` times one
+small shape. The correctness checks (every n, ragged shapes, two runs
+bit-equal) are ``chip_smoke.py``'s and ``tests/test_torch_cuda.py``'s.
+"""
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12
+SHAPES = ((96, 2048), (64, 2048), (64, 512), (192, 1024), (16, 4096),
+          (64, 256))
+
+
+def cuda_ms(fn, reps, warmup=2):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def rel(got, ref):
+    return max(((g - r).abs().max() / r.abs().max()).item()
+               for g, r in zip(got, ref))
+
+
+def rowpower_cases(y, gen):
+    """(name, call, plain call, bytes moved) of B6 / B6s on planes y, and
+    the library call and a streaming pass that moves B6's bytes"""
+    from orphics_tpu_torch.ops import dft
+    from orphics_tpu_torch.ops import rowpower as rp
+    b, n, _ = y[0].shape
+    field = 4 * b * n * n
+    cases = (("rowqc_half", lambda: rp.rowqc_half(*y),
+              lambda: rp.rowqc_pp_ref(*y)[:2], 3 * field),
+             ("rows_half", lambda: (rp.rows_half(*y),),
+              lambda: rp.rows_pp_ref(*y)[:1], 2.5 * field),
+             ("rowqc_pp", lambda: rp.rowqc_pp(*y), lambda: rp.rowqc_pp_ref(*y),
+              3 * field),
+             ("rows_pp", lambda: rp.rows_pp(*y), lambda: rp.rows_pp_ref(*y),
+              2.5 * field))
+    yc = torch.complex(*y)
+    z = dft.rowfft(*y)
+    refs = (("torch.fft.fft along the rows", lambda: torch.fft.fft(yc, dim=-1)),
+            ("B6h qc_pp_half of the stored transform",
+             lambda: rp.qc_pp_half(*z)))
+    return cases, refs
+
+
+def colfft_cases(x, gen):
+    """(name, call, plain call, bytes moved) of B3 / B3s on planes x, and
+    the library calls"""
+    from orphics_tpu_torch.ops import dft
+    b, n, c = x[0].shape
+    w = torch.rand((n, c), generator=gen, device=x[0].device)
+    planes = 16 * b * n * c
+    cases = (("colfft", lambda: dft.colfft(*x), lambda: dft.colfft_ref(*x),
+              planes),
+             ("colifft", lambda: dft.colifft(*x), lambda: dft.colifft_ref(*x),
+              planes),
+             ("colfft_scaled", lambda: dft.colfft_scaled(*x, w),
+              lambda: dft.colfft_scaled_ref(*x, w), planes + 4 * n * c))
+    xc = torch.complex(*x)
+    refs = (("torch.fft.fft along the columns",
+             lambda: torch.fft.fft(xc, dim=-2)),
+            ("torch.fft.ifft along the columns",
+             lambda: torch.fft.ifft(xc, dim=-2)))
+    return cases, refs
+
+
+FAMILIES = {"rowpower": (rowpower_cases, "rowpower.cu"),
+            "colfft": (colfft_cases, "colfft.cu")}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", choices=sorted(FAMILIES), required=True)
+    ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[1]))
+    ap.add_argument("--quick", action="store_true")
+    opts = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("bench_kernels: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, opts.tree)
+    from orphics_tpu_torch import _build
+
+    cases_of, source = FAMILIES[opts.kernel]
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"tree: {opts.tree}; kernel family {opts.kernel}")
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    lib = _build.library()
+    keep = False
+    for line in _build.build_log().splitlines():
+        if line.startswith("=="):
+            keep = line.startswith(f"== {source}")
+        if keep and ("entry function" in line or "registers" in line
+                     or "spill" in line):
+            print("  " + line.strip())
+    # the register-resident column kernel's launch counter (absent in trees
+    # without that kernel)
+    counter = (getattr(lib, "colfft_regs_launches", None)
+               if opts.kernel == "colfft" else None)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    reps = 3 if opts.quick else 10
+    for b, n in ((8, 2048),) if opts.quick else SHAPES:
+        x = tuple(torch.randn((b, n, n), generator=gen, device=dev)
+                  for _ in range(2))
+        tag = f"({b}, {n}, {n})"
+        cases, refs = cases_of(x, gen)
+        for name, fn in refs:
+            print(f"time {tag} {name}: {cuda_ms(fn, reps):.4f} ms")
+        for name, fn, ref_fn, nbytes in cases:
+            before = counter() if counter else 0
+            err = rel(fn(), ref_fn())
+            route = ""
+            if counter:
+                route = ("; register-resident kernel" if counter() > before
+                         else "; radix-2 kernel")
+            ms = cuda_ms(fn, reps)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            print(f"time {name} {tag}: {ms:.4f} ms; {nbytes / ms / 1e9:.3f} "
+                  f"TB/s, bound {bound:.4f} ms = {bound / ms:.3f} of the time;"
+                  f" error {err:.3e} of max|ref|{route}")
+        del x, cases, refs
+        torch.cuda.empty_cache()
+    print(f"card: {card}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

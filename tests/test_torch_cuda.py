@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import orphics_tpu_torch as tp
+from orphics_tpu_torch import _build
 from orphics_tpu_torch.models import grf, lensing
 from orphics_tpu_torch.models.theory import default_theory
 from orphics_tpu_torch.ops import dft
@@ -125,21 +126,51 @@ _DFT_CASES = {
 }
 
 
+# transform lengths 256 .. 4096 (Bk = 2 .. 32) and 384, 640 (Bk = 3, 5: the
+# radix-2 kernel); column counts square, ragged (7, 100, 200, 1025) and wide
+_DFT_SHAPES = [(2, 256, 256), (3, 384, 384), (2, 256, 200), (1, 640, 640),
+               (2, 512, 512), (2, 1024, 1024), (1, 2048, 2048),
+               (1, 4096, 4096), (2, 512, 7), (3, 2048, 100),
+               (2, 1024, 1025), (1, 4096, 129)]
+
+
+def _col_route(fn, args, n):
+    """Run a column transform twice; the outputs, and whether the
+    register-resident kernel took both launches (power-of-two Bk) or the
+    radix-2 kernel did (any other Bk)."""
+    lib = _build.library()
+    before = fn.launches, lib.colfft_regs_launches()
+    got = fn(*args)
+    again = fn(*args)
+    torch.cuda.synchronize()
+    regs = lib.colfft_regs_launches() - before[1]
+    assert fn.launches == before[0] + 2
+    bk = n // 128
+    assert regs == (0 if bk & (bk - 1) else 2), (fn.__name__, n, regs)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    return got
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(_DFT_CASES))
-@pytest.mark.parametrize("shape", [(2, 256, 256), (3, 384, 384),
-                                   (2, 256, 200), (1, 640, 640)])
+@pytest.mark.parametrize("shape", _DFT_SHAPES)
 def test_dft_kernels_match_ref(cuda_device, name, shape):
+    """B3 / B4 against their plain versions; B3's two runs bit-equal, by
+    the register-resident kernel at power-of-two Bk and by the radix-2
+    kernel otherwise."""
     fn, ref_fn = _DFT_CASES[name]
     if name.startswith("row"):
         shape = (shape[0], shape[2], shape[1])    # the transform axis is -1
     rng = np.random.default_rng(sum(shape))
     xr, xi = (torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
                               device=cuda_device) for _ in range(2))
-    before = fn.launches
-    gr, gi = fn(xr, xi)
-    torch.cuda.synchronize()
-    assert fn.launches == before + 1
+    if name.startswith("col"):
+        gr, gi = _col_route(fn, (xr, xi), shape[1])
+    else:
+        before = fn.launches
+        gr, gi = fn(xr, xi)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
     rr, ri = ref_fn(xr, xi)
     scale = max(rr.abs().max().item(), ri.abs().max().item())
     err = max((gr - rr).abs().max().item(), (gi - ri).abs().max().item())
@@ -343,18 +374,20 @@ def test_rowqc_kernel_matches_ref(cuda_device, b, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 256, 256), (3, 384, 384),
-                                   (2, 512, 256)])
+                                   (2, 512, 256), (2, 1024, 1024),
+                                   (1, 2048, 2048), (1, 4096, 4096),
+                                   (2, 512, 7), (3, 2048, 100),
+                                   (2, 1024, 1025)])
 def test_colfft_scaled_kernel_matches_ref(cuda_device, shape):
-    """B3s: the window on the column kernel's load, shared by the batch."""
+    """B3s: the window on the column kernel's load, shared by the batch;
+    two runs bit-equal, on the register-resident kernel at power-of-two
+    Bk."""
     rng = np.random.default_rng(sum(shape) + 3)
     xr, xi = (torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
                               device=cuda_device) for _ in range(2))
     sc = torch.as_tensor(rng.uniform(0.0, 1.0, shape[1:]).astype(np.float32),
                          device=cuda_device)
-    before = dft.colfft_scaled.launches
-    gr, gi = dft.colfft_scaled(xr, xi, sc)
-    torch.cuda.synchronize()
-    assert dft.colfft_scaled.launches == before + 1
+    gr, gi = _col_route(dft.colfft_scaled, (xr, xi, sc), shape[1])
     rr, ri = dft.colfft_scaled_ref(xr, xi, sc)
     scale = max(rr.abs().max().item(), ri.abs().max().item())
     assert max((gr - rr).abs().max().item(),

@@ -17,7 +17,10 @@ functions to 2e-5 absolute on unit-variance planes (tests/test_core.py's
 register-resident B6 / B6s kernel cannot run here: its algorithm, written
 out in plain PyTorch (``rowfft_split_emul``, ``half_fields_emul``), is held
 to the plain versions within 1.5e-5 of max for the transform and 3e-5 for
-the fields, and to the JAX functions within 2e-5.
+the fields, and to the JAX functions within 2e-5. So is the register-resident
+B3 / B3s column kernel's (``colfft_split_emul``, ``colifft_split_emul``):
+within 1.5e-5 of the plain versions at n = 256 .. 4096, and of the JAX
+functions within 2e-5 (1.5e-5 at n = 2048).
 """
 import numpy as np
 import pytest
@@ -438,12 +441,16 @@ def _planes(seed, shape):
 def test_register_fft_matches_numpy(m):
     """``fft_regs``: the radix-2 butterflies with the nine constants, every
     size the kernels instantiate (stage 1 at Bk = 2 .. 32, the 16- and the
-    8-point factor of the 128-point stage), in natural output order."""
+    8-point factor of the 128-point stage), in natural output order; and
+    ``fft_regs<M, true>`` (conjugate constants, no 1/M) against
+    ``numpy.fft.ifft``."""
     xr, xi = _planes(m, (m, 3, 37))
-    got = D._fft_regs_emul(torch.complex(xr, xi)).numpy()
-    want = np.fft.fft(xr.numpy().astype(np.float64) + 1j * xi.numpy(), axis=0)
-    assert got.dtype == np.complex64
-    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+    x64 = xr.numpy().astype(np.float64) + 1j * xi.numpy()
+    for inverse, want in ((False, np.fft.fft(x64, axis=0)),
+                          (True, m * np.fft.ifft(x64, axis=0))):
+        got = D._fft_regs_emul(torch.complex(xr, xi), inverse).numpy()
+        assert got.dtype == np.complex64
+        assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
     with pytest.raises(ValueError, match="2, 4, 8, 16 or 32"):
         D._fft_regs_emul(torch.zeros((3, 4), dtype=torch.complex64))
 
@@ -478,6 +485,76 @@ def test_rowfft_split_emul_matches_jax(case):
     scale = max(np.abs(r).max() for r in ref["rowfft"])
     for g, r in zip(D.rowfft_split_emul(*args), ref["rowfft"]):
         assert np.abs(g.numpy() - r).max() <= TOL_JAX * scale
+
+
+# ---- the register-resident B3 / B3s column kernel's algorithm ---------------
+
+_COL_NS = (256, 512, 1024, 2048)
+_COLS = 8
+
+
+@pytest.fixture(scope="module")
+def col_case():
+    """(1, n, 8) inputs and the JAX ``colfft`` / ``colifft`` (interpret
+    mode, one tile of 8 columns) at every n of ``_COL_NS``, once."""
+    out = {}
+    for n in _COL_NS:
+        xr, xi = (a.numpy() for a in _planes(3 * n, (1, n, _COLS)))
+        jx = (jnp.asarray(xr), jnp.asarray(xi))
+        out[n] = ((xr, xi), {
+            name: tuple(np.array(a) for a in
+                        getattr(pf, name)(*jx, ctile=_COLS, interpret=True))
+            for name in ("colfft", "colifft")})
+    return out
+
+
+_COL_EMUL = {"colfft": (D.colfft_split_emul, D.colfft_ref),
+             "colifft": (D.colifft_split_emul, D.colifft_ref)}
+
+
+@pytest.mark.parametrize("name", sorted(_COL_EMUL))
+@pytest.mark.parametrize("n,cols", [(256, 3), (512, 7), (1024, 5),
+                                    (2048, 3), (4096, 2)])
+def test_col_split_emul_matches_ref(name, n, cols):
+    """The column kernel's decomposition, forward (the row kernel's split
+    along axis -2) and inverse (``fft128_seg<true>``, the conjugate
+    twiddle, ``fft_regs<Bk, true>``, 1/n), against the plain versions."""
+    emul, ref_fn = _COL_EMUL[name]
+    xr, xi = _planes(n + cols, (2, n, cols))
+    got = emul(xr, xi)
+    ref = ref_fn(xr, xi)
+    scale = max(r.abs().max().item() for r in ref)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and g.dtype == torch.float32
+        assert g.is_contiguous()
+        assert (g - r).abs().max().item() <= TOL_SPLIT * scale
+
+
+@pytest.mark.parametrize("name", sorted(_COL_EMUL))
+@pytest.mark.parametrize("n", _COL_NS)
+def test_col_split_emul_matches_jax(col_case, name, n):
+    (xr, xi), ref = col_case[n]
+    tol = TOL_SPLIT if n == 2048 else TOL_JAX
+    args = (torch.as_tensor(xr), torch.as_tensor(xi))
+    scale = max(np.abs(r).max() for r in ref[name])
+    for g, r in zip(_COL_EMUL[name][0](*args), ref[name]):
+        assert g.shape == r.shape
+        assert np.abs(g.numpy() - r).max() <= tol * scale
+    # and the port's wrapper on the CPU is the plain version
+    for g, r in zip(getattr(D, name)(*args), _COL_EMUL[name][1](*args)):
+        assert torch.equal(g, r)
+
+
+def test_col_split_emul_roundtrip():
+    """colifft_split_emul inverts colfft_split_emul; Bk = 3 has no
+    register-resident form (the radix-2 kernel takes it)."""
+    xr, xi = _planes(5, (2, 1024, 4))
+    br, bi = D.colifft_split_emul(*D.colfft_split_emul(xr, xi))
+    assert (br - xr).abs().max().item() <= 3e-6 * xr.abs().max().item()
+    assert (bi - xi).abs().max().item() <= 3e-6 * xi.abs().max().item()
+    for emul in (D.colfft_split_emul, D.colifft_split_emul):
+        with pytest.raises(ValueError, match="2, 4, 8, 16 or 32"):
+            emul(*_planes(6, (1, 384, 2)))
 
 
 @pytest.mark.parametrize("n", [256, 384, 512, 2048, 4096])
