@@ -50,10 +50,14 @@ import torch
 
 # NVIDIA's H100 SXM data sheet: HBM rate, and the fp32 and fp64 rates
 # outside the tensor cores (the kernels here are fp32 FFTs and sums, and
-# the fp64 Legendre recurrence)
+# the fp64 Legendre recurrence); 32-bit integer instructions (B5's Philox)
+# at 64 lanes per SM and clock (CUDA C++ Programming Guide, arithmetic
+# instruction throughput, compute capability 9.0), 132 SMs, 1980 MHz (the
+# data sheet's boost clock)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 FP64_FLOP_PER_S = 34e12
+INT32_OP_PER_S = 64 * 132 * 1.98e9
 
 # B6 rowqc_half at (96, 2048, 2048) and B6s rows_half at (64, 2048, 2048) on
 # the shared-memory radix-2 core, alone and with the strip patches their
@@ -67,15 +71,28 @@ B6S_RADIX2_MS, B6S_PATCHED_MS = 5.4241, 7.4444
 B3S_RADIX2_MS = 12.3078
 B3_RADIX2_512_MS = (0.3281, 0.2857)
 B3_RADIX2_2048_MS = (17.8832, 16.2099)
+# B4 rowfft / rowifft at (64, 512, 512) and (96, 2048, 2048) and B5
+# rowifft_noise_y at (96, 2048, 2048) x 2 on the radix-2 core, in ms on the
+# same card (PERF.md section 6): what phase 2 reads the row kernels' times
+# against
+B4_RADIX2_512_MS = (0.2621, 0.2558)
+B4_RADIX2_2048_MS = (8.6547, 7.8047)
+B5_RADIX2_MS = 8.6917
+# Philox-4x32-10's integer instructions per pair of B5's draw (philox.cuh:
+# philox_pair): ten rounds of two 32 x 32 -> 64-bit multiplies, each two
+# instructions at the integer rate, and two three-way xors, plus four to
+# form the counter
+PHILOX_INT_OPS_PER_PAIR = 10 * (2 * 2 + 2) + 4
 
 
-def bound(nbytes, flops, flops64=0.0):
+def bound(nbytes, flops, flops64=0.0, intops=0.0):
     """``(ms, "bytes" or "operations")``: the least time the card could take
     for work that moves ``nbytes`` (each input read once, each output
-    written once) and does ``flops`` fp32 and ``flops64`` fp64
-    operations."""
+    written once) and does ``flops`` fp32, ``flops64`` fp64 and ``intops``
+    32-bit integer operations."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (flops / FP32_FLOP_PER_S + flops64 / FP64_FLOP_PER_S) * 1e3
+    t_ops = (flops / FP32_FLOP_PER_S + flops64 / FP64_FLOP_PER_S
+             + intops / INT32_OP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -91,8 +108,8 @@ def fft_flops(n, count):
 
 def kernel_entry(name, source, replaces, err, times, work):
     """One kernel's record: ``times`` = (kernel, plain, library or None) ms,
-    ``work`` = (bytes, fp32 operations[, fp64 operations]) of the timed
-    call."""
+    ``work`` = (bytes, fp32 operations[, fp64 operations[, integer
+    operations]]) of the timed call."""
     bound_ms, bound_by = bound(*work)
     return dict(name=name, route="cuda",
                 source="orphics_tpu_torch/csrc/" + source,
@@ -370,7 +387,7 @@ def main():
     # B3 (colfft/colifft) and B4 (rowfft/rowifft/rowifft_scaled_y): the
     # path's (64, 512, 512) and (32, 512, 512) planes at 2e-5 of max|ref|;
     # n = 384 (B = 3, mixed radix) at 2e-5; n = 2048 at the 1.5e-5 contract.
-    # B3's record is timed at config 1's (96, 2048, 2048) below
+    # B3's and B4's records are timed at config 1's (96, 2048, 2048) below
     def planes(shape):
         return tuple(torch.randn(shape, generator=gen, device=dev)
                      for _ in range(2))
@@ -427,15 +444,66 @@ def main():
     plain = cuda_ms(lambda: torch.fft.fft2(torch.complex(*x)), 20)
     print(f"[2] fft2pp (64, 512, 512) on B3+B4: {ms:.4f} ms; torch.fft.fft2 "
           f"(cuFFT, natural order, no split planes): {plain:.4f} ms")
-    print(f"[2] B3 (64, 512, 512): kernel colfft {dft_times['colfft'][0]:.4f}"
-          f" ms, colifft {dft_times['colifft'][0]:.4f} ms (the radix-2 "
-          f"core's {B3_RADIX2_512_MS[0]} and {B3_RADIX2_512_MS[1]} ms); "
-          f"torch.fft along the columns {dft_times['colfft'][2]:.4f} / "
-          f"{dft_times['colifft'][2]:.4f} ms; bound "
-          f"{bound(*dft_work)[0]:.4f} ms")
-    results["rowfft"] = kernel_entry(
-        "rowfft", "dft.cu", "pallas_fft.py:791", dft_err["B4"],
-        dft_times["rowfft"], dft_work)
+    for kid, names, radix2, axis in (
+            ("B3", ("colfft", "colifft"), B3_RADIX2_512_MS, "columns"),
+            ("B4", ("rowfft", "rowifft"), B4_RADIX2_512_MS, "rows")):
+        print(f"[2] {kid} (64, 512, 512): kernel {names[0]} "
+              f"{dft_times[names[0]][0]:.4f} ms, {names[1]} "
+              f"{dft_times[names[1]][0]:.4f} ms (the radix-2 core's "
+              f"{radix2[0]} and {radix2[1]} ms); torch.fft along the {axis} "
+              f"{dft_times[names[0]][2]:.4f} / {dft_times[names[1]][2]:.4f} "
+              f"ms; bound {bound(*dft_work)[0]:.4f} ms")
+
+    # B4 on the register-resident row kernel at n = 256 .. 4096 and at row
+    # counts that fill no block (7, 130), n = 384 and 640 on the radix-2
+    # one: each entry point against its plain version at 1.5e-5 of max|ref|
+    # at n >= 2048 (2e-5 below), two runs bit-equal, and the kernel each
+    # shape launched (rowfft_regs_launches counts the row kernels'
+    # launches). A generator of their own, as B3's checks below
+    klib = _build.library()
+    gen4 = torch.Generator(device=dev)
+    gen4.manual_seed(4)
+
+    def row_route(kid, fn, args, n, tag):
+        """Two runs of a row transform: the output, after checking both
+        launches took the kernel that n calls for and agree bit for bit"""
+        bk = n // 128
+        want = 0 if bk & (bk - 1) else 2
+        before = klib.rowfft_regs_launches()
+        got = fn(*args)
+        again = fn(*args)
+        torch.cuda.synchronize()
+        regs = klib.rowfft_regs_launches() - before
+        check(regs == want, f"{kid} {fn.__name__} {tag}: {regs} of 2 "
+                            "launches on the register-resident row kernel")
+        check(all(torch.equal(g, a) for g, a in zip(got, again)),
+              f"{kid} {fn.__name__} {tag}: two runs differ")
+        return got
+
+    for shape in ((8, 256, 256), (4, 384, 384), (2, 640, 640),
+                  (8, 512, 512), (4, 1024, 1024), (2, 2048, 2048),
+                  (1, 4096, 4096), (1, 7, 2048), (2, 130, 512)):
+        xb = tuple(torch.randn(shape, generator=gen4, device=dev)
+                   for _ in range(2))
+        wb = torch.rand(shape[1:], generator=gen4, device=dev) + 0.5
+        n, bk = shape[2], shape[2] // 128
+        tol = 1.5e-5 if n >= 2048 else 2e-5
+        line = (f"[2] B4 {shape} on the "
+                f"{'radix-2' if bk & (bk - 1) else 'register-resident'} "
+                "kernel:")
+        for fn, ref_fn, args in (
+                (dft.rowfft, dft.rowfft_ref, xb),
+                (dft.rowifft, dft.rowifft_ref, xb),
+                (dft.rowifft_scaled_y, dft.rowifft_scaled_y_ref, xb + (wb,))):
+            got = row_route("B4", fn, args, n, str(shape))
+            err, rel = rel_err(got, ref_fn(*args))
+            check(rel <= tol, f"B4 {fn.__name__} {shape}: error {rel:.3e} of "
+                              f"max|ref| > {tol}")
+            dft_err["B4"] = max(dft_err["B4"], err)
+            line += f" {fn.__name__} {rel:.3e}"
+        print(line + f" of max|ref| (<= {tol}), two runs bit-equal")
+        del xb, wb, got
+    torch.cuda.empty_cache()
 
     # B3 and B3s on the register-resident column kernel at n = 256 .. 4096
     # and at ragged column counts, n = 384 on the radix-2 one: 1.5e-5 of
@@ -443,7 +511,6 @@ def main():
     # (colfft_regs_launches counts the register-resident kernel's launches).
     # Their inputs come from a generator of their own, so that the later
     # checks see the draws they always saw
-    klib = _build.library()
     gen3 = torch.Generator(device=dev)
     gen3.manual_seed(3)
     b3s_err = 0.0
@@ -654,6 +721,45 @@ def main():
         (ms, plain, row_fft_lib),
         (nbytes(*y) + 2 * 4 * rows1 * 128,
          rows1 * (2.0 * (n1 - 128) + fft_flops(128, 1))))
+    # B4 at the same shape: rowfft (phase 13's fft2pp), rowifft and
+    # rowifft_scaled_y (an (n, n) scale from B4's generator), held to the
+    # plain versions at 1.5e-5 of max|ref| with two runs bit-equal on the
+    # register-resident row kernel, then timed beside torch.fft along the
+    # rows and the radix-2 core's times
+    w96 = torch.rand((n1, n1), generator=gen4, device=dev) + 0.5
+    b4_times = {}
+    tag = f"({P1}, {n1}, {n1})"
+    for fn, ref_fn, args, lib_ms, radix2 in (
+            (dft.rowfft, dft.rowfft_ref, y, row_fft_lib,
+             B4_RADIX2_2048_MS[0]),
+            (dft.rowifft, dft.rowifft_ref, y, row_ifft_lib,
+             B4_RADIX2_2048_MS[1]),
+            (dft.rowifft_scaled_y, dft.rowifft_scaled_y_ref, y + (w96,),
+             None, None)):
+        got = row_route("B4", fn, args, n1, tag)
+        err, rel = rel_err(got, ref_fn(*args))
+        check(rel <= 1.5e-5, f"B4 {fn.__name__} {tag}: error {rel:.3e} of "
+                             "max|ref| > 1.5e-5")
+        dft_err["B4"] = max(dft_err["B4"], err)
+        del got
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: fn(*args), 10)
+        plain = cuda_ms(lambda: ref_fn(*args), 3, warmup=1)
+        b4_times[fn.__name__] = (ms, plain, lib_ms)
+        work = (2 * nbytes(*y) + nbytes(*args[2:]), fft_flops(n1, rows1))
+        line = (f"[2] B4 {fn.__name__} {tag}: max abs err {err:.3e} = "
+                f"{rel:.3e} of max|ref| (<= 1.5e-5), two runs bit-equal on "
+                f"the register-resident row kernel; kernel {ms:.4f} ms "
+                f"({work[0] / ms / 1e9:.3f} TB/s, bound "
+                f"{bound(*work)[0]:.4f} ms)")
+        if radix2 is not None:
+            line += (f", {radix2 / ms:.2f}x the radix-2 core's {radix2} ms; "
+                     f"torch.fft along the rows {lib_ms:.4f} ms")
+        print(line + f"; plain {plain:.4f} ms")
+    del w96
+    results["rowfft"] = kernel_entry(
+        "rowfft", "rowfft.cu", "pallas_fft.py:791", dft_err["B4"],
+        b4_times["rowfft"], (2 * nbytes(*y), fft_flops(n1, rows1)))
     # B3 at the same shape: colfft (FastCl's map analysis, phase 13's fused
     # analysis) and colifft (the config-1 step body), held to the plain
     # versions at 1.5e-5 of max|ref| with two runs bit-equal on the
@@ -895,7 +1001,8 @@ def main():
     # inverse on the same words, the law under a unit scale, the seeds
     sc1 = fc1._covsqrt_pp
     w = torch.tensor([20260512, -77], dtype=torch.int32, device=dev)
-    got = dft.rowifft_noise_y(sc1, w, P1)
+    got = row_route("B5", dft.rowifft_noise_y, (sc1, w, P1), n1,
+                    f"({P1}, {n1}, {n1})")
     ref = dft.rowifft(*noise_planes(sc1, w, P1))
     torch.cuda.synchronize()
     b5_err, rel = rel_err(got, ref)
@@ -903,10 +1010,6 @@ def main():
     check(rel <= 1.5e-5, f"B5 vs rowifft(noise_planes): error {rel:.3e} of "
                          "max|ref| > 1.5e-5")
     del ref
-    again = dft.rowifft_noise_y(sc1, w, P1)
-    check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
-          "B5: the same words do not reproduce")
-    del again
     other = dft.rowifft_noise_y(sc1, w + 1, P1)
     check(not torch.equal(got[0], other[0]), "B5: other words, same stream")
     del got, other
@@ -923,17 +1026,27 @@ def main():
     del ur, ui
     ms = cuda_ms(lambda: dft.rowifft_noise_y(sc1, w, P1), 10)
     plain = cuda_ms(lambda: dft.rowifft_noise_y_ref(sc1, w, P1), 3, warmup=1)
+    # operations: the transform, ~25 fp32 per normal (erfinvf, the
+    # uniform, the scale) and Philox's integer instructions per pair
+    b5_work = (nbytes(sc1, w) + 2 * 4 * rows1 * n1,
+               fft_flops(n1, rows1) + 25.0 * 2 * rows1 * n1, 0.0,
+               PHILOX_INT_OPS_PER_PAIR * rows1 * n1 / 2)
     print(f"[2] B5 rowifft_noise_y ({P1}, {n1}, {n1}) x 2: vs "
           f"rowifft(noise_planes) on the same words {rel:.3e} of max|ref| "
-          f"(<= 1.5e-5; bit-equal: {exact}); unit scale: n var(Y') "
+          f"(<= 1.5e-5; bit-equal: {exact}); two runs bit-equal on the "
+          f"register-resident row kernel; unit scale: n var(Y') "
           f"{var_r:.6f} (re), {var_i:.6f} (im) (within 2e-3 of 1), "
-          f"n E[re im] {corr:.3e}; reproducible; kernel {ms:.4f} ms, plain "
-          f"(torch.randn, then torch.fft.ifft) {plain:.4f} ms")
+          f"n E[re im] {corr:.3e}; kernel {ms:.4f} ms "
+          f"({B5_RADIX2_MS / ms:.2f}x the radix-2 core's {B5_RADIX2_MS} ms; "
+          f"bound {bound(*b5_work)[0]:.4f} ms, of which bytes "
+          f"{bound(b5_work[0], 0.0)[0]:.4f}, fp32 "
+          f"{b5_work[1] / FP32_FLOP_PER_S * 1e3:.4f}, integer "
+          f"{b5_work[3] / INT32_OP_PER_S * 1e3:.4f}), plain "
+          f"(torch.randn, then torch.fft.ifft) {plain:.4f} ms, "
+          f"torch.fft.ifft along the rows {row_ifft_lib:.4f} ms")
     results["rowifft_noise_y"] = kernel_entry(
-        "rowifft_noise_y", "dft.cu", "pallas_fft.py:658", b5_err,
-        (ms, plain, row_ifft_lib),
-        (nbytes(sc1, w) + 2 * 4 * rows1 * n1,
-         fft_flops(n1, rows1) + 25.0 * 2 * rows1 * n1))
+        "rowifft_noise_y", "rowfft.cu", "pallas_fft.py:658", b5_err,
+        (ms, plain, row_ifft_lib), b5_work)
     del fc1, sc1
     torch.cuda.empty_cache()
 
@@ -1166,10 +1279,23 @@ def main():
                 "s_pp_half": (s_pp_half,),
                 "bin_pair_power": (bin_pair_power,)}
 
+    row_regs_at_reset = [0]
+
     def reset_counts():
         for fns in counters.values():
             for fn in fns:
                 fn.launches = 0
+        row_regs_at_reset[0] = klib.rowfft_regs_launches()
+
+    def check_row_route(counts, tag):
+        """Every B4 and B5 launch of the path since reset_counts() took the
+        register-resident row kernel (its transforms are 128 * 2^k long)"""
+        regs = klib.rowfft_regs_launches() - row_regs_at_reset[0]
+        rows = counts["rowfft"] + counts["rowifft_noise_y"]
+        check(regs == rows, f"{tag}: {regs} of {rows} B4/B5 launches on the "
+                            "register-resident row kernel")
+        print(f"[{tag}] B4/B5 launches on the register-resident row kernel: "
+              f"{regs} of {rows}")
 
     def read_counts(names, tag):
         counts = {k: sum(fn.launches for fn in counters[k]) for k in counters}
@@ -1229,6 +1355,7 @@ def main():
     lens_path = ("bin_reduce", "lens_map_kernel", "colfft", "rowfft",
                  "noise_planes", "mirror_pp")
     counts = read_counts(lens_path, "5")
+    check_row_route(counts, "5")
     for name in lens_path:
         results[name]["launches"] = counts[name]
     # card (kernels) vs CPU (plain versions) on the same injected planes
@@ -1301,6 +1428,7 @@ def main():
                            "rowifft_noise_y", "rowqc_half"), "6")
     check(counts6["rowfft"] == counts6["rowfft_blk0"] == 0,
           "6: FastCl's analysis launched B4 or B4b beside B6")
+    check_row_route(counts6, "6")
     for name in ("bin2_reduce", "colfft", "rowifft_noise_y", "rowqc_half"):
         results[name]["launches"] = counts6[name]
     profile_steps(lambda: fc.sim_bandpowers(gen6, batch6), 3, sim_ms, "6")
@@ -1531,6 +1659,7 @@ def main():
         f"{nf} bands tSZ deprojected batch {batch8}", "coadds/s", card, "8")
     counts8 = read_counts(("colfft", "rowfft", "rowifft_noise_y",
                            "rowcombine_pp"), "8")
+    check_row_route(counts8, "8")
     print(f"[8] 53 steps (1 check, 2 warm-up, 50 timed): "
           f"{counts8['rowcombine_pp'] / 53:.0f} B9, "
           f"{counts8['rowifft_noise_y'] / 53:.0f} B5, "
@@ -1836,6 +1965,7 @@ def main():
         "recons/s", card, "12")
     counts12 = read_counts(("noise_planes", "mirror_pp", "colfft", "rowfft",
                             "bin_reduce"), "12")
+    check_row_route(counts12, "12")
     print("[12] 23 full-plane steps and 1 half-plane step (1 check, 2 "
           "warm-up, 20 timed): "
           + ", ".join(f"{counts12[k] / 23:.1f} {k}" for k in
@@ -1955,6 +2085,7 @@ def main():
     counts13 = read_counts(("qc_pp_half", "bin_pair_power", "bin2_reduce",
                             "mirror_pp", "colfft", "rowfft", "bin_reduce"),
                            "13")
+    check_row_route(counts13, "13")
     print(f"[13] 10 runs of each path (1 check, 2 warm-up, 3 timed, 4 "
           f"profiled): {counts13['qc_pp_half'] / 10:.0f} B6h, "
           f"{counts13['bin_pair_power'] / 10:.0f} B2', "

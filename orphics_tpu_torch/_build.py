@@ -49,6 +49,7 @@ _SIGNATURES = {
                          _INT),
     "dft_max_n": ([], _INT),
     "colfft_regs_launches": ([], _I64),
+    "rowfft_regs_launches": ([], _I64),
     "rowqc_half_launch": ([_VP] * 7 + [_INT, _INT, _VP], _INT),
     "rows_half_launch": ([_VP] * 6 + [_INT, _INT, _VP], _INT),
     "rowqc_half_occupancy": ([_INT, _INT, _VP], _INT),

@@ -33,9 +33,11 @@
 // while the batch entries that share them stream past, as the TPU grid
 // does by running the batch innermost).
 //
-// B3 and B3s at a power-of-two Bk run colfft.cu's kernel on the
-// register-resident core (dft_launch sends them there); the kernel here
-// takes the rows (B4, B5) and the columns at any other Bk (n = 384).
+// At a power-of-two Bk, B3 and B3s run colfft.cu's kernel and B4 and B5
+// rowfft.cu's, both on the register-resident core (dft_launch and
+// dft_noise_launch send them there); the kernel here takes the rows and
+// the columns at any other Bk (n = 384, 640), and rows whose planes are not
+// 8-byte aligned.
 //
 // Design: dft_core.cuh's two stages on T whole transforms per block (T
 // columns of one batch entry, or T rows). Stage 1 runs one thread per
@@ -86,7 +88,7 @@ dft_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
   if (ROW && INV && seed) {
     // B5: scale * eta, eta of element g = (row) N + t from pair g / 2 (N
     // is even, so a pair never straddles two rows)
-    const uint2 key = seed_key(seed);
+    const PhiloxKeys keys = philox_round_keys(seed_key(seed));
     for (int e = 2 * tid; e < N * T; e += 2 * THREADS) {
       const int t = e % N;
       const int r = e / N;
@@ -94,7 +96,7 @@ dft_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
       float2 v1 = v0;
       if (r < nr) {
         const int64_t g = base + t + static_cast<int64_t>(r) * N;
-        const uint4 bits = philox_pair(g / 2, key);
+        const uint4 bits = philox_pair(g / 2, keys);
         const float* sc =
             scale + (static_cast<int64_t>(blockIdx.x * T + r) % R) * N + t;
         v0 = make_float2(sc[0] * normal23(bits.x), sc[0] * normal23(bits.z));
@@ -232,6 +234,25 @@ int tile(int n, int row) {
 int col_dft_launch(const float* xre, const float* xim, float* ore,
                    float* oim, const float2* tab, const float* scale,
                    int inverse, int batch, int n, int C, cudaStream_t stream);
+// rowfft.cu: B4 / B5 at Bk = 2, 4, 8, 16, 32
+int row_dft_launch(const float* xre, const float* xim, float* ore,
+                   float* oim, const float2* tab, const float* scale,
+                   const int* seed, int inverse, int M, int R, int n,
+                   cudaStream_t stream);
+
+namespace {
+
+// rowfft.cu's kernels take Bk a power of two and 8-byte aligned planes
+bool row_regs(int Bk, const void* a, const void* b, const void* c,
+              const void* d, const void* e) {
+  const uintptr_t bits =
+      reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+      reinterpret_cast<uintptr_t>(c) | reinterpret_cast<uintptr_t>(d) |
+      reinterpret_cast<uintptr_t>(e);
+  return (Bk & (Bk - 1)) == 0 && (bits & 7) == 0;
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -241,7 +262,8 @@ int dft_max_n() { return 32 * A; }
 // (other, n) or null. row = 0: planes (batch, n, other), transform along
 // axis -2; scale (n, other), shared by the batch, or null. tab: the tables
 // of dft.py:_tables. Columns at a power-of-two Bk go to colfft.cu's
-// register-resident kernel, everything else to dft_kernel.
+// register-resident kernel, rows at a power-of-two Bk (on 8-byte aligned
+// planes) to rowfft.cu's, everything else to dft_kernel.
 int dft_launch(const float* xre, const float* xim, float* ore, float* oim,
                const void* tab, const float* scale, int row, int inverse,
                int batch, int n, int other, void* stream) {
@@ -253,6 +275,9 @@ int dft_launch(const float* xre, const float* xim, float* ore, float* oim,
   if (!row && (Bk & (Bk - 1)) == 0)
     return col_dft_launch(xre, xim, ore, oim, tb, scale, inverse, batch, n,
                           other, st);
+  if (row && row_regs(Bk, xre, xim, ore, oim, scale))
+    return row_dft_launch(xre, xim, ore, oim, tb, scale, nullptr, inverse,
+                          batch * other, other, n, st);
   const int T = tile(n, row);
   if (row) {
     const int M = batch * other;
@@ -280,6 +305,11 @@ int dft_noise_launch(const float* scale, const int* seed, float* ore,
   if (Bk * A != n || Bk < 2 || Bk > 32 || batch < 1 || other < 1 || !scale
       || !seed)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (row_regs(Bk, scale, ore, oim, nullptr, nullptr))
+    return row_dft_launch(nullptr, nullptr, ore, oim,
+                          static_cast<const float2*>(tab), scale, seed, 1,
+                          batch * other, other, n,
+                          static_cast<cudaStream_t>(stream));
   const int T = tile(n, 1);
   const int M = batch * other;
   return launch_bk<true, true>(nullptr, nullptr, ore, oim,

@@ -1,9 +1,10 @@
 // Device code of the 128 Bk-point DFT, shared by the row and column
-// transforms (dft.cu: B3, B3s, B4, B5; colfft.cu: B3, B3s) and the fused
-// row passes (rowpower.cu: B6, B6s, B4b). Two cores: the radix-2 core in
-// shared memory (first half; B4, B5, B4b, and B3 / B3s / B6 / B6s at a Bk
-// that is not a power of two) and the register-resident core (second half;
-// B3 / B3s in column form and B6 / B6s in row form at Bk = 2 .. 32).
+// transforms (dft.cu: B3, B3s, B4, B5; colfft.cu: B3, B3s; rowfft.cu: B4,
+// B5) and the fused row passes (rowpower.cu: B6, B6s, B4b). Two cores: the
+// radix-2 core in shared memory (first half; every kernel at a Bk that is
+// not a power of two) and the register-resident core (second half; B3 /
+// B3s in column form, B4 / B5 / B6 / B6s / B4b in row form at a
+// power-of-two Bk = 2 .. 32).
 //
 // The split N = 128 Bk, n = a + 128 b, k = k2 + Bk k1 (the TPU's):
 //   stage 1  G[k2, a] = sum_b x[a + 128 b] w_Bk^(b k2)   (direct Bk-point DFT)

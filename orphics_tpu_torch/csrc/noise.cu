@@ -32,11 +32,11 @@ __global__ void __launch_bounds__(THREADS)
 noise_kernel(const float* __restrict__ scale, const int* __restrict__ seed,
              float* __restrict__ ore, float* __restrict__ oim,
              int64_t plane, int64_t total) {
-  const uint2 key = seed_key(seed);
+  const PhiloxKeys keys = philox_round_keys(seed_key(seed));
   const int64_t npairs = (total + 1) / 2;
   for (int64_t q = blockIdx.x * static_cast<int64_t>(THREADS) + threadIdx.x;
        q < npairs; q += static_cast<int64_t>(gridDim.x) * THREADS) {
-    const uint4 r = philox_pair(q, key);
+    const uint4 r = philox_pair(q, keys);
     const int64_t e = 2 * q;
     const float s0 = scale[e % plane];
     ore[e] = s0 * normal23(r.x);

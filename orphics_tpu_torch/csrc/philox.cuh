@@ -1,5 +1,6 @@
 // Counter-based Philox-4x32-10 and the 23-bit normal draw shared by the
-// kernels that draw white noise on the card (noise.cu: B5n; dft.cu: B5).
+// kernels that draw white noise on the card (noise.cu: B5n; dft.cu and
+// rowfft.cu: B5).
 //
 // Counter layout, common to both: element e of a (batch, plane) output
 // takes the pair q = e / 2 as its counter (low word, high word, 0, 0),
@@ -16,26 +17,40 @@
 
 namespace {
 
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-  constexpr uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
-  constexpr uint32_t W0 = 0x9E3779B9u, W1 = 0xBB67AE85u;
+// Philox-4x32-10's ten round keys of the key k (the key schedule, k plus
+// round times (W0, W1)), formed once by a kernel for all the pairs it draws
+struct PhiloxKeys {
+  uint32_t x[10];
+  uint32_t y[10];
+};
+
+__device__ __forceinline__ PhiloxKeys philox_round_keys(uint2 k) {
+  PhiloxKeys ks;
 #pragma unroll
   for (int round = 0; round < 10; ++round) {
-    const uint32_t hi0 = __umulhi(M0, c.x), lo0 = M0 * c.x;
-    const uint32_t hi1 = __umulhi(M1, c.z), lo1 = M1 * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-    k.x += W0;
-    k.y += W1;
+    ks.x[round] = k.x + round * 0x9E3779B9u;
+    ks.y[round] = k.y + round * 0xBB67AE85u;
   }
-  return c;
+  return ks;
 }
 
-// The four words of pair q under the key of the seed words in device
-// memory.
-__device__ __forceinline__ uint4 philox_pair(int64_t q, uint2 key) {
-  return philox4x32_10(
-      make_uint4(static_cast<uint32_t>(q), static_cast<uint32_t>(q >> 32),
-                 0u, 0u), key);
+// The four words of pair q: Philox-4x32-10 of the counter (low word of q,
+// high word, 0, 0) under the round keys ks; each round's two 32 x 32-bit
+// products, high and low words, come from one 64-bit multiply each.
+__device__ __forceinline__ uint4 philox_pair(int64_t q, const PhiloxKeys& ks) {
+  constexpr uint64_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
+  uint4 c = make_uint4(static_cast<uint32_t>(q),
+                       static_cast<uint32_t>(q >> 32), 0u, 0u);
+#pragma unroll
+  for (int round = 0; round < 10; ++round) {
+    const uint64_t p0 = M0 * c.x;
+    const uint64_t p1 = M1 * c.z;
+    c = make_uint4(static_cast<uint32_t>(p1 >> 32) ^ c.y ^ ks.x[round],
+                   static_cast<uint32_t>(p1),
+                   static_cast<uint32_t>(p0 >> 32) ^ c.w ^ ks.y[round],
+                   static_cast<uint32_t>(p0));
+  }
+  return c;
 }
 
 __device__ __forceinline__ uint2 seed_key(const int* seed) {

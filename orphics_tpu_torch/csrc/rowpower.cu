@@ -80,7 +80,12 @@
 // writes them (store_fields), and the rows ky = 0 and ky = N/2, which mirror
 // into themselves, need no special case. B4b sums the Bk blocks of each row
 // (stage 1 at k2 = 0, whose weights are all 1) and runs one 128-point FFT
-// per row, T0 rows per block; its output equals rowfft's columns [0, 128).
+// per row, in the order of the B4 kernel that takes the same n, so that its
+// output equals rowfft's columns [0, 128) bit for bit: at a power-of-two Bk
+// (rowfft_blk0_regs_kernel, 32 rows a block) the sum is fft_regs' X[0], its
+// radix-2 tree of adds, and the 128-point stage fft128_seg, as rowfft.cu's
+// forward kernel runs them; at any other Bk (rowfft_blk0_kernel, T0 rows a
+// block) the sum in order and fft128_dif, as dft.cu's radix-2 kernel.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -302,6 +307,68 @@ rowfft_blk0_kernel(const float* __restrict__ yre,
   }
 }
 
+// B4b at a power-of-two Bk: thread (m, a) sums the Bk blocks of rows
+// 2 i + m by fft_regs' tree (the compiler keeps the adds of X[0] alone),
+// one 128-point DFT per row by 8 lanes (fft128_seg), and each warp stores
+// its own four rows, two neighbouring columns a lane
+template <int BK>
+__global__ void __launch_bounds__(THREADS)
+rowfft_blk0_regs_kernel(const float* __restrict__ yre,
+                        const float* __restrict__ yim,
+                        const float2* __restrict__ tab,
+                        float* __restrict__ ore, float* __restrict__ oim,
+                        int M) {
+  constexpr int N = A * BK;
+  constexpr int ROWS = THREADS / 8;  // a segment per 8-lane group
+  __shared__ __align__(16) float2 s[ROWS * SEG + A];
+  float2* tws = s + ROWS * SEG;
+  const Tables tb = tables(tab, BK);
+  const int tid = threadIdx.x;
+  const int a = tid % A;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * ROWS;
+  stage_tw128(tws, tb);
+#pragma unroll 2
+  for (int i = tid / A; i < ROWS; i += THREADS / A) {
+    const int64_t row = r0 + i;
+    float2 v[BK];
+#pragma unroll
+    for (int b = 0; b < BK; ++b)
+      v[b] = row < M ? make_float2(yre[row * N + a + A * b],
+                                   yim[row * N + a + A * b])
+                     : make_float2(0.0f, 0.0f);
+    fft_regs<BK, false>(v);
+    s[i * SEG + a] = v[0];
+  }
+  __syncthreads();
+  fft128_seg<false>(s + (tid / 8) * SEG, tws, tid % 8);
+  __syncwarp();
+  const int lane = tid % 32;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int i = 4 * (tid / 32) + j;
+    if (r0 + i >= M) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int sp = lane + 32 * h;
+      const float4 z = *reinterpret_cast<const float4*>(s + i * SEG + 2 * sp);
+      const int64_t o = (r0 + i) * A + 2 * sp;
+      ore[o] = z.x;
+      ore[o + 1] = z.z;
+      oim[o] = z.y;
+      oim[o + 1] = z.w;
+    }
+  }
+}
+
+template <int BK>
+int launch_blk0_regs(const float* yre, const float* yim, const float2* tab,
+                     float* ore, float* oim, int rows, cudaStream_t stream) {
+  constexpr int ROWS = THREADS / 8;
+  rowfft_blk0_regs_kernel<BK><<<(rows + ROWS - 1) / ROWS, THREADS, 0,
+                                stream>>>(yre, yim, tab, ore, oim, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // What a B6 / B6s launch takes: zre, zim (batch, 128, n) planes for Z's
 // rows [0, 128), or both null
 struct QcArgs {
@@ -459,6 +526,16 @@ int rowfft_blk0_launch(const float* yre, const float* yim, const void* tab,
   const int Bk = n / A;
   if (Bk * A != n || Bk < 2 || rows < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  const float2* tb = static_cast<const float2*>(tab);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (Bk) {
+    case 2: return launch_blk0_regs<2>(yre, yim, tb, ore, oim, rows, st);
+    case 4: return launch_blk0_regs<4>(yre, yim, tb, ore, oim, rows, st);
+    case 8: return launch_blk0_regs<8>(yre, yim, tb, ore, oim, rows, st);
+    case 16: return launch_blk0_regs<16>(yre, yim, tb, ore, oim, rows, st);
+    case 32: return launch_blk0_regs<32>(yre, yim, tb, ore, oim, rows, st);
+    default: break;
+  }
   rowfft_blk0_kernel<<<(rows + T0 - 1) / T0, THREADS, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       yre, yim, static_cast<const float2*>(tab), ore, oim, rows, n, Bk);

@@ -28,11 +28,14 @@ bit-identical to the JAX package's.
   rows: only the rows' order is permuted) and :func:`pfft2`, :func:`pifft2`
   (natural order).
 
-For CUDA tensors the wrappers launch ``csrc/dft.cu`` (B3 and B3s at
-``n = 128 * 2**k`` on ``csrc/colfft.cu``'s register-resident column kernel,
-which :func:`colfft_split_emul` / :func:`colifft_split_emul` write out in
-plain PyTorch for the CPU tests); for CPU tensors they run the plain
-versions (``torch.fft`` plus an ``index_select``).
+For CUDA tensors the wrappers launch ``csrc/dft.cu``: at
+``n = 128 * 2**k`` B3 and B3s run ``csrc/colfft.cu``'s register-resident
+column kernel and B4 and B5 ``csrc/rowfft.cu``'s row kernels, whose
+arithmetic :func:`colfft_split_emul`, :func:`colifft_split_emul`,
+:func:`rowfft_split_emul` and :func:`rowifft_split_emul` write out in plain
+PyTorch for the CPU tests; other ``n`` take ``dft.cu``'s radix-2 kernel. For
+CPU tensors the wrappers run the plain versions (``torch.fft`` plus an
+``index_select``).
 There is no fallback from one to the other. The JAX functions' tiling
 arguments (``ctile``, ``rtile``, ``interpret``) have no counterpart: the
 kernel picks its own tile.
@@ -56,7 +59,8 @@ __all__ = [
     "colfft_ref", "colfft_scaled_ref", "colifft_ref", "rowfft_ref",
     "rowifft_ref",
     "rowifft_scaled_y_ref", "rowfft_blk0_ref", "rowifft_noise_y_ref",
-    "rowfft_split_emul", "colfft_split_emul", "colifft_split_emul",
+    "rowfft_split_emul", "rowifft_split_emul", "rowfft_blk0_split_emul",
+    "colfft_split_emul", "colifft_split_emul",
     "fft2p", "ifft2p", "fft2pp", "ifft2pp", "ifft2pp_scaled", "ifft2pp_noise",
     "ifft2pp_noise_y", "pfft2", "pifft2",
 ]
@@ -340,6 +344,28 @@ def rowfft_split_emul(xre, xim):
     :func:`rowfft_ref`): the tests hold the decomposition, its digit orders
     and its tables to the plain versions with it."""
     return _emul_along(_split_fwd_emul, xre, xim, -1)
+
+
+def rowifft_split_emul(xre, xim):
+    """:func:`rowifft` by the row kernels' inverse decomposition
+    (``csrc/rowfft.cu``; B5 and ``rowifft_scaled_y`` run it on their drawn
+    or scaled input): :func:`colifft_split_emul`'s arithmetic along axis
+    -1. Not a plain version (that is :func:`rowifft_ref`)."""
+    return _emul_along(_split_inv_emul, xre, xim, -1)
+
+
+def rowfft_blk0_split_emul(yre, yim):
+    """:func:`rowfft_blk0` by its register-resident kernel's decomposition
+    (``csrc/rowpower.cu``): the sum of the ``Bk`` blocks of each row as
+    ``fft_regs``' radix-2 tree gives ``X[0]``, then the 128-point stage
+    (``fft128_seg``); :func:`rowfft_split_emul`'s columns ``[0, 128)``, bit
+    for bit. Not a plain version (that is :func:`rowfft_blk0_ref`)."""
+    x = torch.complex(yre, yim)
+    lead = x.shape[:-1]
+    g = _fft_regs_emul(x.reshape(lead + (x.shape[-1] // _A, _A))
+                       .movedim(-2, 0))
+    z = _fft128_emul(g[0], x.shape[-1], False)
+    return z.real.contiguous(), z.imag.contiguous()
 
 
 def colfft_split_emul(xre, xim):

@@ -1,12 +1,14 @@
 """Timing of the kernels redesigned on the register-resident FFT core: B6
 ``rowqc_half`` / ``rowqc_pp`` and B6s ``rows_half`` / ``rows_pp``
 (``--kernel rowpower``), B3 ``colfft`` / ``colifft`` and B3s
-``colfft_scaled`` (``--kernel colfft``).
+``colfft_scaled`` (``--kernel colfft``), B4 ``rowfft`` / ``rowifft`` /
+``rowifft_scaled_y``, B5 ``rowifft_noise_y`` and B4b ``rowfft_blk0``
+(``--kernel rowfft``).
 
 Run from the repository root on a machine with one NVIDIA Hopper GPU and
 nvcc:
 
-    python3 scripts/bench_kernels.py --kernel {rowpower,colfft}
+    python3 scripts/bench_kernels.py --kernel {rowpower,colfft,rowfft}
         [--tree DIR] [--quick]
 
 It imports ``orphics_tpu_torch`` from ``DIR`` (default: this checkout), so
@@ -16,9 +18,10 @@ parent in one job. It prints the compiler's resource report of the family's
 kernels (registers and spills, from the ``-Xptxas -v`` build log) and, at
 the main paths' shapes, each function's CUDA-event time, achieved
 device-memory rate and bound, its error against the plain version, the
-library call (``torch.fft`` along the same axis) and, for ``colfft``, the
-kernel each call took where the library counts it. ``--quick`` times one
-small shape. The correctness checks (every n, ragged shapes, two runs
+library call (``torch.fft`` along the same axis) and, for ``colfft`` and
+``rowfft``, the kernel each call took where the library counts it. The bound
+printed is the bytes' alone (B5's, which its Philox and erfinvf work sets,
+is ``chip_smoke.py``'s). ``--quick`` times one small shape. The correctness checks (every n, ragged shapes, two runs
 bit-equal) are ``chip_smoke.py``'s and ``tests/test_torch_cuda.py``'s.
 """
 from __future__ import annotations
@@ -98,8 +101,41 @@ def colfft_cases(x, gen):
     return cases, refs
 
 
-FAMILIES = {"rowpower": (rowpower_cases, "rowpower.cu"),
-            "colfft": (colfft_cases, "colfft.cu")}
+def rowfft_cases(x, gen):
+    """(name, call, plain call, bytes moved) of B4 and B5 on planes x (B5
+    draws planes of x's shape), and the library calls and B4b"""
+    from orphics_tpu_torch.ops import dft
+    from orphics_tpu_torch.ops.noise_planes import noise_planes
+    b, r, n = x[0].shape
+    w = torch.rand((r, n), generator=gen, device=x[0].device) + 0.5
+    words = torch.tensor([20260512, -77], dtype=torch.int32,
+                         device=x[0].device)
+    planes = 16 * b * r * n
+    cases = (("rowfft", lambda: dft.rowfft(*x), lambda: dft.rowfft_ref(*x),
+              planes),
+             ("rowifft", lambda: dft.rowifft(*x), lambda: dft.rowifft_ref(*x),
+              planes),
+             ("rowifft_scaled_y", lambda: dft.rowifft_scaled_y(*x, w),
+              lambda: dft.rowifft_scaled_y_ref(*x, w), planes + 4 * r * n),
+             # against B4's inverse of B5n's identical draw
+             ("rowifft_noise_y", lambda: dft.rowifft_noise_y(w, words, b),
+              lambda: dft.rowifft(*noise_planes(w, words, b)),
+              planes // 2 + 4 * r * n))
+    xc = torch.complex(*x)
+    refs = (("torch.fft.fft along the rows", lambda: torch.fft.fft(xc, dim=-1)),
+            ("torch.fft.ifft along the rows",
+             lambda: torch.fft.ifft(xc, dim=-1)),
+            ("B4b rowfft_blk0", lambda: dft.rowfft_blk0(*x)))
+    return cases, refs
+
+
+# family -> (cases, sources whose resource report is printed, shapes,
+# counter of the register-resident kernel's launches or None)
+FAMILIES = {"rowpower": (rowpower_cases, ("rowpower.cu",), SHAPES, None),
+            "colfft": (colfft_cases, ("colfft.cu",), SHAPES,
+                       "colfft_regs_launches"),
+            "rowfft": (rowfft_cases, ("rowfft.cu", "rowpower.cu"),
+                       ((96, 2048), (64, 512)), "rowfft_regs_launches")}
 
 
 def main():
@@ -114,7 +150,7 @@ def main():
     sys.path.insert(0, opts.tree)
     from orphics_tpu_torch import _build
 
-    cases_of, source = FAMILIES[opts.kernel]
+    cases_of, sources, shapes, counter_name = FAMILIES[opts.kernel]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -124,19 +160,18 @@ def main():
     keep = False
     for line in _build.build_log().splitlines():
         if line.startswith("=="):
-            keep = line.startswith(f"== {source}")
+            keep = line[3:].strip() in sources
         if keep and ("entry function" in line or "registers" in line
                      or "spill" in line):
             print("  " + line.strip())
-    # the register-resident column kernel's launch counter (absent in trees
+    # the register-resident kernel's launch counter (absent in trees
     # without that kernel)
-    counter = (getattr(lib, "colfft_regs_launches", None)
-               if opts.kernel == "colfft" else None)
+    counter = getattr(lib, counter_name, None) if counter_name else None
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(8)
     reps = 3 if opts.quick else 10
-    for b, n in ((8, 2048),) if opts.quick else SHAPES:
+    for b, n in ((8, 2048),) if opts.quick else shapes:
         x = tuple(torch.randn((b, n, n), generator=gen, device=dev)
                   for _ in range(2))
         tag = f"({b}, {n}, {n})"

@@ -151,13 +151,30 @@ def _col_route(fn, args, n):
     return got
 
 
+def _row_route(fn, args, n):
+    """Run a row transform twice (B4, or B5 on its words); the outputs, and
+    whether the register-resident row kernel took both launches
+    (power-of-two Bk) or the radix-2 kernel did (any other Bk)."""
+    lib = _build.library()
+    before = fn.launches, lib.rowfft_regs_launches()
+    got = fn(*args)
+    again = fn(*args)
+    torch.cuda.synchronize()
+    regs = lib.rowfft_regs_launches() - before[1]
+    assert fn.launches == before[0] + 2
+    bk = n // 128
+    assert regs == (0 if bk & (bk - 1) else 2), (fn.__name__, n, regs)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    return got
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(_DFT_CASES))
 @pytest.mark.parametrize("shape", _DFT_SHAPES)
 def test_dft_kernels_match_ref(cuda_device, name, shape):
-    """B3 / B4 against their plain versions; B3's two runs bit-equal, by
-    the register-resident kernel at power-of-two Bk and by the radix-2
-    kernel otherwise."""
+    """B3 / B4 against their plain versions; two runs bit-equal, by the
+    register-resident column or row kernel at power-of-two Bk and by the
+    radix-2 kernel otherwise."""
     fn, ref_fn = _DFT_CASES[name]
     if name.startswith("row"):
         shape = (shape[0], shape[2], shape[1])    # the transform axis is -1
@@ -167,10 +184,7 @@ def test_dft_kernels_match_ref(cuda_device, name, shape):
     if name.startswith("col"):
         gr, gi = _col_route(fn, (xr, xi), shape[1])
     else:
-        before = fn.launches
-        gr, gi = fn(xr, xi)
-        torch.cuda.synchronize()
-        assert fn.launches == before + 1
+        gr, gi = _row_route(fn, (xr, xi), shape[2])
     rr, ri = ref_fn(xr, xi)
     scale = max(rr.abs().max().item(), ri.abs().max().item())
     err = max((gr - rr).abs().max().item(), (gi - ri).abs().max().item())
@@ -178,22 +192,30 @@ def test_dft_kernels_match_ref(cuda_device, name, shape):
 
 
 @pytest.mark.cuda
-def test_rowifft_scaled_and_roundtrip(cuda_device):
-    rng = np.random.default_rng(5)
-    n = 384
-    kr, ki = (torch.as_tensor(rng.standard_normal((2, n, n))
+@pytest.mark.parametrize("n", [256, 384, 512, 2048])
+def test_rowifft_scaled_and_roundtrip(cuda_device, n):
+    """rowifft_scaled_y on the register-resident row kernel (256, 512,
+    2048) and on the radix-2 one (384): against its plain version, two runs
+    bit-equal, rows 2 n (and 7 n, which fill no block) over an (n, n) scale
+    whose rows repeat per batch entry; then the 2D compositions' round
+    trip."""
+    rng = np.random.default_rng(5 + n)
+    b = 2 if n < 2048 else 1
+    kr, ki = (torch.as_tensor(rng.standard_normal((b, n, n))
                               .astype(np.float32), device=cuda_device)
               for _ in range(2))
     sc = torch.as_tensor(rng.uniform(0.5, 2.0, (n, n)).astype(np.float32),
                          device=cuda_device)
-    before = dft.rowifft_scaled_y.launches
-    gr, gi = dft.rowifft_scaled_y(kr, ki, sc)
-    torch.cuda.synchronize()
-    assert dft.rowifft_scaled_y.launches == before + 1
+    gr, gi = _row_route(dft.rowifft_scaled_y, (kr, ki, sc), n)
     rr, ri = dft.rowifft_scaled_y_ref(kr, ki, sc)
     scale = rr.abs().max().item()
     assert (gr - rr).abs().max().item() <= TOL_DFT * scale
     assert (gi - ri).abs().max().item() <= TOL_DFT * scale
+    k7 = tuple(a[:1, :7].contiguous() for a in (kr, ki))
+    g7 = _row_route(dft.rowifft_scaled_y, k7 + (sc[:7].contiguous(),), n)
+    r7 = dft.rowifft_scaled_y_ref(*k7, sc[:7])
+    for g, r in zip(g7, r7):
+        assert (g - r).abs().max().item() <= TOL_DFT * r.abs().max().item()
     # the 2D compositions on the kernels round-trip
     br, bi = dft.ifft2pp(*dft.fft2pp(kr, ki))
     assert (br - kr).abs().max().item() <= 3e-5 * kr.abs().max().item()
@@ -303,25 +325,28 @@ def test_rowfft_blk0_kernel_matches_ref(cuda_device, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [256, 384])
+@pytest.mark.parametrize("n", [256, 384, 512, 2048])
 def test_rowifft_noise_kernel(cuda_device, n):
     """B5 draws B5n's stream: it equals rowifft(noise_planes(...)) on the
-    same words; the law of Y' under a unit scale: var 1/n per part."""
+    same words, bit for bit where both take the same kernel template (the
+    register-resident one at 256, 512 and 2048; the radix-2 one at 384);
+    two runs bit-equal; the law of Y' under a unit scale: var 1/n per
+    part."""
     rng = np.random.default_rng(n)
+    b = 4 if n < 2048 else 2
     sc = torch.as_tensor(rng.uniform(0.5, 2.0, (n, n)).astype(np.float32),
                          device=cuda_device)
     words = torch.tensor([77, -5], dtype=torch.int32, device=cuda_device)
     before = dft.rowifft_noise_y.launches
-    yr, yi = dft.rowifft_noise_y(sc, words, 4)
-    again = dft.rowifft_noise_y(sc, words, 4)
-    other = dft.rowifft_noise_y(sc, [77, -4], 4)
+    yr, yi = _row_route(dft.rowifft_noise_y, (sc, words, b), n)
+    other = dft.rowifft_noise_y(sc, [77, -4], b)
     torch.cuda.synchronize()
     assert dft.rowifft_noise_y.launches == before + 3
-    rr, ri = dft.rowifft(*noise_planes(sc, words, 4))
+    rr, ri = dft.rowifft(*noise_planes(sc, words, b))
     scale = max(rr.abs().max().item(), ri.abs().max().item())
     assert max((yr - rr).abs().max().item(),
                (yi - ri).abs().max().item()) <= TOL_DFT * scale
-    assert torch.equal(yr, again[0]) and torch.equal(yi, again[1])
+    assert torch.equal(yr, rr) and torch.equal(yi, ri)
     assert not torch.equal(yr, other[0])
     ur, ui = dft.rowifft_noise_y(torch.ones_like(sc), 3, 8)
     z = torch.cat([ur.ravel(), ui.ravel()]).double() * n ** 0.5

@@ -20,7 +20,11 @@ to the plain versions within 1.5e-5 of max for the transform and 3e-5 for
 the fields, and to the JAX functions within 2e-5. So is the register-resident
 B3 / B3s column kernel's (``colfft_split_emul``, ``colifft_split_emul``):
 within 1.5e-5 of the plain versions at n = 256 .. 4096, and of the JAX
-functions within 2e-5 (1.5e-5 at n = 2048).
+functions within 2e-5 (1.5e-5 at n = 2048); and the B4 / B5 row kernels'
+inverse (``rowifft_split_emul``, the scaled form multiplying first): of the
+plain versions and the JAX ``rowifft`` / ``rowifft_scaled_y`` within 2e-5
+(1.5e-5 at n = 2048). B4b's order (``rowfft_blk0_split_emul``) equals the
+row kernel's columns [0, 128) bit for bit.
 """
 import numpy as np
 import pytest
@@ -462,11 +466,14 @@ def test_register_fft_roots_are_the_float64_roots():
     assert got[0] == 1 and got[8] == -1j            # the exact quarter turns
 
 
-@pytest.mark.parametrize("n", [256, 512, 1024, 2048, 4096])
-def test_rowfft_split_emul_matches_ref(n):
+@pytest.mark.parametrize("n,rows", [
+    pytest.param(n, rows, id=str(n) if rows == 3 else f"{n}-{rows}rows")
+    for rows in (3, 7, 130) for n in (256, 512, 1024, 2048, 4096)])
+def test_rowfft_split_emul_matches_ref(n, rows):
     """Stage 1 in radix 2, the twiddle, the 16 x 8 split of the 128-point
-    stage with its digit orders: the kernel's row transform."""
-    xr, xi = _planes(n, (2, 3, n))
+    stage with its digit orders: the kernel's row transform; row counts
+    that fill no block of the kernel (7, 130) included."""
+    xr, xi = _planes(n, (2, rows, n) if rows == 3 else (1, rows, n))
     got = D.rowfft_split_emul(xr, xi)
     ref = D.rowfft_ref(xr, xi)
     scale = max(r.abs().max().item() for r in ref)
@@ -485,6 +492,110 @@ def test_rowfft_split_emul_matches_jax(case):
     scale = max(np.abs(r).max() for r in ref["rowfft"])
     for g, r in zip(D.rowfft_split_emul(*args), ref["rowfft"]):
         assert np.abs(g.numpy() - r).max() <= TOL_JAX * scale
+
+
+# ---- the register-resident B4 / B5 row kernels' inverse ----------------------
+
+_ROW_NS = (256, 512, 1024, 2048)
+_ROWS = 8
+
+
+def _row_tol(n):
+    return TOL_SPLIT if n == 2048 else TOL_JAX
+
+
+@pytest.fixture(scope="module")
+def row_case():
+    """(1, 8, n) inputs, an (8, n) scale and the JAX ``rowifft`` /
+    ``rowifft_scaled_y`` (interpret mode, one tile of 8 rows) at every n of
+    ``_ROW_NS``, once."""
+    out = {}
+    for n in _ROW_NS:
+        xr, xi = (a.numpy() for a in _planes(5 * n, (1, _ROWS, n)))
+        sc = np.random.default_rng(n).uniform(0.5, 2.0, (_ROWS, n)).astype(
+            np.float32)
+        jx = (jnp.asarray(xr), jnp.asarray(xi))
+        out[n] = ((xr, xi, sc), {
+            "rowifft": tuple(np.array(a) for a in pf.rowifft(
+                *jx, rtile=_ROWS, interpret=True)),
+            "rowifft_scaled_y": tuple(np.array(a) for a in pf.rowifft_scaled_y(
+                *jx, jnp.asarray(sc), rtile=_ROWS, interpret=True))})
+    return out
+
+
+def _row_inv_emul(name, xr, xi, sc):
+    """The row kernel's inverse on the input its load forms: the scaled
+    form multiplies before the split, as the kernel's load does."""
+    if name == "rowifft_scaled_y":
+        xr, xi = xr * sc, xi * sc
+    return D.rowifft_split_emul(xr, xi)
+
+
+@pytest.mark.parametrize("name", ["rowifft", "rowifft_scaled_y"])
+@pytest.mark.parametrize("n", _ROW_NS)
+@pytest.mark.parametrize("rows", [3, 7, 130])
+def test_rowifft_split_emul_matches_ref(name, n, rows):
+    """``fft128_seg<true>``, the conjugate twiddle, ``fft_regs<Bk, true>``
+    and 1/n along the rows against the plain versions, at row counts that
+    fill the kernel's blocks or not."""
+    xr, xi = _planes(n + rows, (2, rows, n) if rows == 3 else (1, rows, n))
+    sc = torch.as_tensor(np.random.default_rng(rows).uniform(
+        0.5, 2.0, (rows, n)).astype(np.float32))
+    got = _row_inv_emul(name, xr, xi, sc)
+    ref = (D.rowifft_ref(xr, xi) if name == "rowifft"
+           else D.rowifft_scaled_y_ref(xr, xi, sc))
+    scale = max(r.abs().max().item() for r in ref)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and g.dtype == torch.float32
+        assert g.is_contiguous()
+        assert (g - r).abs().max().item() <= _row_tol(n) * scale
+
+
+@pytest.mark.parametrize("name", ["rowifft", "rowifft_scaled_y"])
+@pytest.mark.parametrize("n", _ROW_NS)
+def test_rowifft_split_emul_matches_jax(row_case, name, n):
+    (xr, xi, sc), ref = row_case[n]
+    args = (torch.as_tensor(xr), torch.as_tensor(xi), torch.as_tensor(sc))
+    scale = max(np.abs(r).max() for r in ref[name])
+    for g, r in zip(_row_inv_emul(name, *args), ref[name]):
+        assert g.shape == r.shape
+        assert np.abs(g.numpy() - r).max() <= _row_tol(n) * scale
+    # and the port's wrapper on the CPU is the plain version
+    plain = (D.rowifft_ref(*args[:2]) if name == "rowifft"
+             else D.rowifft_scaled_y_ref(*args))
+    for g, r in zip(getattr(D, name)(*args[:2 if name == "rowifft" else 3]),
+                    plain):
+        assert torch.equal(g, r)
+
+
+def test_rowifft_split_emul_roundtrip():
+    """rowifft_split_emul inverts rowfft_split_emul; Bk = 3 has no
+    register-resident form (the radix-2 kernel takes it)."""
+    xr, xi = _planes(9, (2, 5, 1024))
+    br, bi = D.rowifft_split_emul(*D.rowfft_split_emul(xr, xi))
+    assert (br - xr).abs().max().item() <= 3e-6 * xr.abs().max().item()
+    assert (bi - xi).abs().max().item() <= 3e-6 * xi.abs().max().item()
+    with pytest.raises(ValueError, match="2, 4, 8, 16 or 32"):
+        D.rowifft_split_emul(*_planes(6, (1, 2, 384)))
+
+
+@pytest.mark.parametrize("n,rows", [(256, 7), (512, 130), (1024, 33),
+                                    (2048, 5), (4096, 2)])
+def test_rowfft_blk0_split_emul_is_rowfft_columns(n, rows):
+    """B4b's register-resident order (the Bk blocks summed by fft_regs'
+    tree, then fft128_seg) gives the row kernel's columns [0, 128) bit for
+    bit, which the card checks hold B4b to; and it is B4b's plain version
+    within the transform contract."""
+    yr, yi = _planes(n + rows, (1, rows, n))
+    got = D.rowfft_blk0_split_emul(yr, yi)
+    full = D.rowfft_split_emul(yr, yi)
+    for g, f in zip(got, full):
+        assert g.shape == (1, rows, 128) and g.is_contiguous()
+        assert torch.equal(g, f[..., :128])
+    ref = D.rowfft_blk0_ref(yr, yi)
+    scale = max(r.abs().max().item() for r in ref)
+    for g, r in zip(got, ref):
+        assert (g - r).abs().max().item() <= TOL_SPLIT * scale
 
 
 # ---- the register-resident B3 / B3s column kernel's algorithm ---------------
