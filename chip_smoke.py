@@ -78,6 +78,20 @@ B3_RADIX2_2048_MS = (17.8832, 16.2099)
 B4_RADIX2_512_MS = (0.2621, 0.2558)
 B4_RADIX2_2048_MS = (8.6547, 7.8047)
 B5_RADIX2_MS = 8.6917
+# B10a / B10s fast mode (float32 recurrence). Against the fast mode's own
+# plain version (the same float32 recurrence emulated in torch, each FMA
+# rounded once: the same Lambda bit for bit): 2^-22, two float32 ulps of
+# max|ref|, since the float64 sums run in another order and an output may
+# round to the neighbouring float32 value (8 seeds read 0 to 1.0e-10).
+# Against the fp64 loop, per lmax: the float32 recurrence's own error,
+# which the plain version reads to the same digits; over 8 seeds at config
+# 8's shape 1.8e-3 to 5.4e-3, at config 8p's up to 6.2e-3, so 1e-2 at lmax
+# 1023 (5e-3 before: seed-dependent, ROADMAP C); at lmax 2047 1.3e-2
+# (B10a) and 3.8e-2 (B10s), so 8e-2 (NVIDIA H100 80GB HBM3, 700 W; PERF.md
+# section 6)
+B10_FAST_SEEDS = 8
+B10_FAST_TOL = {1023: 1e-2, 2047: 8e-2}
+B10_FAST_PLAIN_TOL = 2.0 ** -22
 # Philox-4x32-10's integer instructions per pair of B5's draw (philox.cuh:
 # philox_pair): ten rounds of two 32 x 32 -> 64-bit multiplies, each two
 # instructions at the integer rate, and two three-way xors, plus four to
@@ -1170,16 +1184,18 @@ def main():
         b9_times, b9_work)
     del y9, w9
     torch.cuda.empty_cache()
-    # B10a/B10s against their plain fp64 loops (no captured seeds, no tile
-    # bounds) at the path's shapes: config 8's (lmax 1023, 8 maps, folded;
-    # dd and fast), config 8p's (lmax 1023, the spin-2 columns n = -2 and
-    # +2 on the northern rings, 16 maps: two launches of 8; dd) and config
-    # 7's (lmax 2047, one map, folded, dd)
+    # B10a/B10s against their plain fp64 loops (no captured seeds, no group
+    # bounds) at the path's shapes: config 8's (lmax 1023, 8 maps, folded),
+    # config 8p's (lmax 1023, the spin-2 columns n = -2 and +2 on the
+    # northern rings, 16 maps in one launch) and config 7's (lmax 2047, one
+    # map, folded), dd and fast; fast also against its own plain version,
+    # the kernels' float32 recurrence emulated in torch (legendre_*_ref with
+    # fast=True)
     b10 = {}
-    for lmax, nm, ns, layout, modes in (
-            (1023, 8, (0,), "fold", ("dd", "fast")),
-            (1023, 16, (-2, 2), "half", ("dd",)),
-            (2047, 1, (0,), "fold", ("dd",))):
+    b10_gen = torch.Generator(device=dev).manual_seed(10)
+    for lmax, nm, ns, layout in ((1023, 8, (0,), "fold"),
+                                 (1023, 16, (-2, 2), "half"),
+                                 (2047, 1, (0,), "fold")):
         rings = sht.gauss_legendre_rings(lmax)
         M1 = lmax + 1
         for ni in range(len(ns)):
@@ -1194,11 +1210,11 @@ def main():
             print(f"[2] B10 tables {shape}: capture pass and bounds "
                   f"{time.perf_counter() - t0:.3f} s; {ktab['Tk']} kernel "
                   f"rings, {steps:.6e} live (ring, m, l) steps, {dead} dead "
-                  "(m, ring tile) pairs")
+                  "(m, 32-ring group) pairs")
             G = torch.complex(*(torch.randn((nm, tab["Tr"], M1),
-                                            generator=gen, device=dev)
+                                            generator=b10_gen, device=dev)
                                 for _ in range(2)))
-            a = torch.complex(*(torch.randn((nm, M1, M1), generator=gen,
+            a = torch.complex(*(torch.randn((nm, M1, M1), generator=b10_gen,
                                             device=dev) for _ in range(2)))
             for name, fn, ref_fn, x, out_b in (
                     ("legendre_ana", leg.legendre_ana, leg.legendre_ana_ref,
@@ -1206,26 +1222,37 @@ def main():
                     ("legendre_syn", leg.legendre_syn, leg.legendre_syn_ref,
                      a, 8 * nm * tab["Tr"] * M1)):
                 ref = ref_fn(x, tab)
-                for mode in modes:
+                for mode in ("dd", "fast"):
                     fast = mode == "fast"
                     got = fn(x, tab, fast)
                     again = fn(x, tab, fast)
+                    one = fn(x[-1:], tab, fast)
                     torch.cuda.synchronize()
                     err, rel = rel_err((got,), (ref,))
-                    tol = 5e-3 if fast else 1e-6
+                    tol = B10_FAST_TOL[lmax] if fast else 1e-6
                     check(rel <= tol, f"{name} {shape} {mode}: error "
                                       f"{rel:.3e} of max|ref| > {tol}")
                     check(torch.equal(got, again),
                           f"{name} {shape} {mode}: two runs differ")
+                    check(torch.equal(one[0], got[-1]),
+                          f"{name} {shape} {mode}: a map alone differs from "
+                          "the packed launch")
+                    own = ""
+                    if fast:
+                        _, rel32 = rel_err((got,), (ref_fn(x, tab, True),))
+                        check(rel32 <= B10_FAST_PLAIN_TOL,
+                              f"{name} {shape} fast: {rel32:.3e} of the fp32 "
+                              f"plain version > {B10_FAST_PLAIN_TOL}")
+                        own = (f"; {rel32:.3e} of its fp32 plain version "
+                               f"(<= {B10_FAST_PLAIN_TOL})")
                     ms = cuda_ms(lambda: fn(x, tab, fast), 5, warmup=1)
                     plain = cuda_ms(lambda: ref_fn(x, tab), 1, warmup=0)
                     # bytes: x in, the output, the tables once. Operations
                     # per live step: the recurrence's two FMAs and a
                     # multiply (5, in fp64; fp32 in fast), and per map the
                     # complex contraction's two FMAs (4), counted at the
-                    # fp32 rate: the inputs and outputs are fp32, so that
-                    # is the least it could cost (B10a contracts in fp64,
-                    # B10s in its recurrence's precision)
+                    # fp32 rate (67 TFLOP/s), which is also the fp64
+                    # tensor cores' rate that B10a and B10s contract at
                     rec = 5.0 * steps
                     work = (nbytes(x, tab["A"], tab["B"], tab["C"],
                                    ktab["s1"], ktab["s0"], ktab["ls"])
@@ -1234,12 +1261,49 @@ def main():
                             0.0 if fast else rec)
                     bms, bby = bound(*work)
                     print(f"[2] {name} {shape} {mode}: max abs err "
-                          f"{err:.3e} = {rel:.3e} of max|ref| (<= {tol}), "
-                          f"reproducible; kernel {ms:.4f} ms, plain "
-                          f"{plain:.4f} ms, bound {bms:.4f} ms ({bby})")
+                          f"{err:.3e} = {rel:.3e} of max|ref| (<= {tol})"
+                          f"{own}, reproducible, a map alone = packed; "
+                          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+                          f"{bms:.4f} ms ({bby})")
                     b10[(name, lmax, ns[ni], mode)] = (err, (ms, plain, None),
                                                       work)
-            del G, a, got, again, ref
+            del G, a, got, again, one, ref
+    # the fast gate over seeds, at config 8's shape: the fast kernel and its
+    # fp32 plain version against the fp64 loop, and against each other
+    tab = leg.tables(1023, sht.gauss_legendre_rings(1023), (0,), 0, "fold",
+                     dev)
+    worst = {}
+    ftol = B10_FAST_TOL[1023]
+    for seed in range(B10_FAST_SEEDS):
+        gs = torch.Generator(device=dev).manual_seed(100 + seed)
+        G = torch.complex(*(torch.randn((8, tab["Tr"], 1024), generator=gs,
+                                        device=dev) for _ in range(2)))
+        a = torch.complex(*(torch.randn((8, 1024, 1024), generator=gs,
+                                        device=dev) for _ in range(2)))
+        for name, fn, ref_fn, x in (
+                ("legendre_ana", leg.legendre_ana, leg.legendre_ana_ref, G),
+                ("legendre_syn", leg.legendre_syn, leg.legendre_syn_ref, a)):
+            ref = ref_fn(x, tab)
+            plain32 = ref_fn(x, tab, True)
+            got = fn(x, tab, True)
+            _, rk = rel_err((got,), (ref,))
+            _, rp = rel_err((plain32,), (ref,))
+            _, rkp = rel_err((got,), (plain32,))
+            print(f"[2] B10 fast gate, seed {100 + seed}: {name} kernel "
+                  f"{rk:.4e}, fp32 plain version {rp:.4e} of the fp64 loop's "
+                  f"max; kernel vs fp32 plain version {rkp:.4e}")
+            w = worst.setdefault(name, [0.0, 0.0, 0.0])
+            for k, v in enumerate((rk, rp, rkp)):
+                w[k] = max(w[k], v)
+        del G, a, ref, plain32, got
+    for name, (rk, rp, rkp) in worst.items():
+        print(f"[2] B10 fast gate, worst of {B10_FAST_SEEDS} seeds: {name} "
+              f"kernel {rk:.4e}, fp32 plain version {rp:.4e} (limit "
+              f"{ftol}); kernel vs fp32 plain version {rkp:.4e} "
+              f"(limit {B10_FAST_PLAIN_TOL})")
+        check(rk <= ftol and rkp <= B10_FAST_PLAIN_TOL,
+              f"{name} fast over {B10_FAST_SEEDS} seeds: {rk:.3e} (<= "
+              f"{ftol}), {rkp:.3e} (<= {B10_FAST_PLAIN_TOL})")
     # phases 9-11 build their own tables: these would count in the peak
     # memory of phases 3-8
     del tab, ktab
@@ -1770,12 +1834,16 @@ def main():
         check(bool(torch.isfinite(state["a"]).all()), "config 7: not finite")
         if not fast:
             kern = profile_steps(step, 1, ms9, "9")
+            # B10s at one map is the CUDA-core form, syn_cc_kernel
             share = {k: sum(e.self_device_time_total for e in kern
-                            if k in e.key.lower()) / 1e3
-                     for k in ("fft", "ana_kernel", "syn_kernel")}
+                            if any(p in e.key.lower() for p in pats)) / 1e3
+                     for k, pats in (("fft", ("fft",)),
+                                     ("ana", ("ana_kernel",)),
+                                     ("syn", ("syn_kernel",
+                                              "syn_cc_kernel")))}
             print(f"[9] one dd roundtrip: ring FFTs (cuFFT) "
-                  f"{share['fft']:.4f} ms against B10a {share['ana_kernel']:.4f}"
-                  f" ms and B10s {share['syn_kernel']:.4f} ms")
+                  f"{share['fft']:.4f} ms against B10a {share['ana']:.4f}"
+                  f" ms and B10s {share['syn']:.4f} ms")
     counts9 = read_counts(("legendre_ana", "legendre_syn"), "9")
     add_b10(counts9)
     del a0, state
@@ -1888,6 +1956,19 @@ def main():
                   f"(<= {2e-3 if fast else 1e-5})")
             if not fast:
                 profile_steps(step, 2, ms8, tag8)
+                # one step: each Legendre kernel once per Wigner column
+                # (spin 2: n = -2 and +2, all 16 paired maps a launch)
+                before = (leg.legendre_ana.launches,
+                          leg.legendre_syn.launches)
+                step()
+                torch.cuda.synchronize()
+                per = (leg.legendre_ana.launches - before[0],
+                       leg.legendre_syn.launches - before[1])
+                want = (1, 1) if spin == 0 else (2, 2)
+                check(per == want, f"config 8 spin {spin}: one step launched "
+                                   f"B10a / B10s {per}, expected {want}")
+                print(f"[{tag8}] one step launches B10a {per[0]} and B10s "
+                      f"{per[1]} times")
         counts = read_counts(("legendre_ana", "legendre_syn"), tag8)
         add_b10(counts)
         torch.cuda.empty_cache()

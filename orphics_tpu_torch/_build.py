@@ -59,8 +59,8 @@ _SIGNATURES = {
     "rowfft_blk0_launch": ([_VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP], _INT),
     "noise_planes_launch": ([_VP, _VP, _VP, _VP, _INT, _I64, _VP], _INT),
     "mirror_launch": ([_VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP], _INT),
-    "legendre_ana_launch": ([_VP] * 11 + [_INT] * 8 + [_VP], _INT),
-    "legendre_syn_launch": ([_VP] * 11 + [_INT] * 9 + [_VP], _INT),
+    "legendre_ana_launch": ([_VP] * 11 + [_INT] * 13 + [_VP], _INT),
+    "legendre_syn_launch": ([_VP] * 11 + [_INT] * 10 + [_VP], _INT),
 }
 
 

@@ -155,7 +155,7 @@ def load_sht_tables(tab: dict, host: Dict[str, np.ndarray]) -> dict:
     fold)`` (numpy), ``fold`` True for the port's "fold" and "half"
     layouts: the hi/lo recurrence tables ``Ah + Al``, ..., the captured
     seeds ``(sm + sl, smP + slP, se, l0)``. JAX's ``bounds`` are for its
-    (128-m, 256-ring) tiles; they are checked against the port's copy of
+    (128-m, 256-ring) tiles and chunks of 8 l-steps; they are checked against the port's copy of
     ``_bounds_table`` on JAX's ``l0`` and the port's own tile bounds are
     derived from the same ``l0``. Pass the copy to ``legendre_ana`` /
     ``legendre_syn``; ``tab`` and the port's caches are left as they
@@ -171,7 +171,7 @@ def load_sht_tables(tab: dict, host: Dict[str, np.ndarray]) -> dict:
     Lp, Mp = np.shape(host["Ah"])
     Tp = np.shape(host["sm"])[0]
     want = legendre._bounds_table(l0[:Tk, :L1], lmax, tab["theta"][:Tk],
-                                  128, 256, Lp, Tp, Mp)
+                                  128, 256, Lp, Tp, Mp, lc=8)
     if not np.array_equal(want, np.asarray(host["bounds"])):
         raise ValueError("host bounds do not follow from its l0 grid: the "
                          "tables are not _prep_host's for these rings")

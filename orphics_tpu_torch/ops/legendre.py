@@ -9,13 +9,18 @@
   = sum_l Lambda_lm(theta_t) a[b, l, m]``. The kernels run the three-term
   recurrence in float64 (``fast``: float32 with the extended exponent), from
   per-(ring, m) seeds captured at ``l_s`` (the first l whose value the
-  weighting keeps), over per-(m, ring tile) loop bounds with the dead-tile
-  skip, and on north-south symmetric grids over the northern rings only.
+  weighting keeps), over per-(m, 32-ring group) loop bounds with the
+  dead-group skip, and on north-south symmetric grids over the northern
+  rings only; the contractions run on the fp64 tensor cores.
 * :func:`legendre_ana_ref` / :func:`legendre_syn_ref`: the plain float64
   loop over l from the closed-form seeds at ``l0 = max(m, |n|)`` with the
   extended-exponent counter, over every ring, with no captured seeds and no
-  tile bounds. So holding a kernel to its plain version also holds the
-  capture pass and the skip tables.
+  group bounds. So holding a kernel to its plain version also holds the
+  capture pass and the skip tables. With ``fast=True`` (float32 inputs)
+  they are the fast mode's plain version instead: the kernels' algorithm
+  (captured seeds, loop bounds, fold) with their float32 recurrence, each
+  fused multiply-add rounded once as the kernel's is, and float64 sums
+  (:func:`_kernel_ana`, :func:`_kernel_syn`).
 
 For CPU tensors the wrappers run the plain versions; for CUDA tensors they
 launch the kernel or raise. There is no fallback from one to the other.
@@ -45,9 +50,11 @@ __all__ = ["tables", "kernel_tables", "clear_tables", "legendre_ana",
 _RESCALE_BITS = 30
 _INV = float(2.0 ** -_RESCALE_BITS)
 _TH = float(2.0 ** (_RESCALE_BITS // 2))
-_TT = 256      # rings per tile (threads per block), csrc/legendre.cu TT
-_LC = 8        # l-steps per chunk of the loop bounds, csrc/legendre.cu LC
-_MAXB = 8      # maps per launch
+_TG = 32       # rings per group of the loop bounds, csrc/legendre.cu TG
+_LC = 16       # l-steps per chunk, csrc/legendre.cu LC
+_MAXB = 16     # maps per launch
+_ANA_FOLD_MAXB = 8   # folded B10a: S0's and S1's fragments fill the registers
+_ANA_RINGS = 512     # rings per B10a block and slot (16 warps of 32)
 
 
 # ---------------------------------------------------------------------------
@@ -164,14 +171,15 @@ def _rings_symmetric(rings):
     return bool(np.allclose(th + th[::-1], np.pi, rtol=0, atol=1e-12))
 
 
-def _lend_table(lmax, theta, mtile, ttile, Lp, Tp):
+def _lend_table(lmax, theta, mtile, ttile, Lp, Tp, lc=_LC):
     """(n_im, n_jt) chunk-count table for the dead-tile skip: 0 where the
     tile's smallest m exceeds ``lmax * max(sin theta) * 1.02 + 256`` (its
-    Lambda is negligible, below the turning point), else all chunks."""
+    Lambda is negligible, below the turning point), else all chunks of
+    ``lc`` l-steps."""
     th = np.asarray(theta, np.float64)
     n_im = -(-(lmax + 1) // mtile)
     n_jt = Tp // ttile
-    nch = Lp // _LC
+    nch = Lp // lc
     out = np.full((n_im, n_jt), nch, np.int32)
     for jt in range(n_jt):
         rows = th[jt * ttile: min((jt + 1) * ttile, len(th))]
@@ -185,16 +193,16 @@ def _lend_table(lmax, theta, mtile, ttile, Lp, Tp):
     return out
 
 
-def _bounds_table(capL, lmax, theta, mtile, ttile, Lp, Tp, Mp):
+def _bounds_table(capL, lmax, theta, mtile, ttile, Lp, Tp, Mp, lc=_LC):
     """(3 n_im, n_jt) int32 loop bounds from the captured ``l_s`` grid
-    ``capL`` (T, M1): per (m tile, ring tile) the first live chunk (min
-    l_s), one past the last (:func:`_lend_table`), and the first chunk past
-    every seed; tiles with no live lane run no chunk."""
+    ``capL`` (T, M1): per (m tile, ring tile) the first live chunk of ``lc``
+    l-steps (min l_s), one past the last (:func:`_lend_table`), and the
+    first chunk past every seed; tiles with no live lane run no chunk."""
     T, M1 = capL.shape
     n_im = Mp // mtile
     n_jt = Tp // ttile
-    nch = Lp // _LC
-    lend = _lend_table(lmax, theta, mtile, ttile, Lp, Tp)
+    nch = Lp // lc
+    lend = _lend_table(lmax, theta, mtile, ttile, Lp, Tp, lc)
     pad = np.full((Tp, Mp), -1, np.int32)
     pad[:T, :M1] = capL
     tiles = pad.reshape(n_jt, ttile, n_im, mtile)
@@ -203,8 +211,8 @@ def _bounds_table(capL, lmax, theta, mtile, ttile, Lp, Tp, Mp):
     big = np.where(live, tiles, np.int32(2 ** 30))
     lsmin = big.min(axis=(1, 3))
     lsmax = np.where(live, tiles, -1).max(axis=(1, 3))
-    lstart = np.where(any_live, lsmin // _LC, 2 ** 30).T.astype(np.int64)
-    shi = np.where(any_live, lsmax // _LC + 1, 2 ** 30).T.astype(np.int64)
+    lstart = np.where(any_live, lsmin // lc, 2 ** 30).T.astype(np.int64)
+    shi = np.where(any_live, lsmax // lc + 1, 2 ** 30).T.astype(np.int64)
     lend = np.minimum(lend, nch)
     lstart = np.minimum(lstart, lend).astype(np.int32)
     shi = np.minimum(shi, lend).astype(np.int32)
@@ -339,23 +347,22 @@ def _capture(tab, x, sm, se):
 
 
 def _kernel_tables_from(lmax, theta, A, B, C, capP, capC, capE, capL):
-    """The kernel's table set: float64 recurrence tables ``A, B, C`` (L1,
-    M1) padded to whole chunks, the rings' cosines, the captured seeds
+    """The kernel's table set: float64 recurrence tables ``A, B, C`` m-major
+    (M1, Lp), padded to whole chunks, the rings' cosines, the captured seeds
     (M1, Tk) as float64 true values (default mode) and float32 mantissas
-    with their exponent (``fast``), and the (3 M1, n_jt) loop bounds for
-    one-m, ``_TT``-ring tiles."""
+    with their exponent (``fast``), and the (3 M1, ng) loop bounds for
+    one-m, ``_TG``-ring groups."""
     L1 = lmax + 1
     Lp = -(-L1 // _LC) * _LC
     M1, Tk = capC.shape
-    Tp = -(-Tk // _TT) * _TT
+    Tp = -(-Tk // _TG) * _TG
     dev = capC.device
     scale = torch.pow(2.0, -30.0 * capE.to(torch.float64))
-    pad = lambda a: torch.nn.functional.pad(a, (0, 0, 0, Lp - L1))
-    bounds = _bounds_table(capL.cpu().numpy().T, lmax, theta[:Tk], 1, _TT,
+    mmajor = lambda a: torch.nn.functional.pad(a.T, (0, Lp - L1)).contiguous()
+    bounds = _bounds_table(capL.cpu().numpy().T, lmax, theta[:Tk], 1, _TG,
                            Lp, Tp, M1)
-    k = dict(Lp=Lp, Tk=Tk, njt=Tp // _TT,
-             A=pad(A).contiguous(), B=pad(B).contiguous(),
-             C=pad(C).contiguous(),
+    k = dict(Lp=Lp, Tk=Tk, ng=Tp // _TG,
+             A=mmajor(A), B=mmajor(B), C=mmajor(C),
              x=torch.as_tensor(np.cos(theta[:Tk]), dtype=torch.float64,
                                device=dev),
              s1=(capC * scale).contiguous(), s0=(capP * scale).contiguous(),
@@ -423,9 +430,128 @@ def _lambda_rows(tab, device):
         yield l, k, c * w
 
 
-def legendre_ana_ref(G, tab):
+def _fmaf(a, b, c):
+    """``fmaf(a, b, c)`` of float32 tensors: ``a b + c`` rounded once to
+    float32. The product is exact in float64; the float64 sum is made
+    round-to-odd from its exact error (two-sum), so rounding it to float32
+    is the single correct rounding."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    si = s.view(torch.int64)
+    step = torch.where((err > 0) == (s > 0), 1, -1)    # away from or to 0
+    si = torch.where((err != 0) & (si % 2 == 0), si + step, si)
+    return si.view(torch.float64).to(torch.float32)
+
+
+def _fast_rows(lp, lc, e, A, B, C, x, seed, s1, s0, se):
+    """One l-step of the fast kernel's float32 recurrence on (M1, Tk) lanes,
+    ``fmaf(fmaf(a, x, b), c, C p)`` with each fused multiply-add rounded
+    once (:func:`_fmaf`); then the seed injection, the 2^-30 rescale and the
+    (1, 2^-30, 0) weighting. Returns (p, c, e, weighted)."""
+    t = _fmaf(A[:, None], x, B[:, None].expand(-1, x.shape[0]))
+    ln = _fmaf(t, lc, C[:, None] * lp)
+    ln = torch.where(seed, s1, ln)
+    pn = torch.where(seed, s0, lc)
+    e = torch.where(seed, se, e)
+    big = (ln.abs() > _TH) & (e > 0)
+    ln = torch.where(big, ln * _INV, ln)
+    pn = torch.where(big, pn * _INV, pn)
+    e = e - big.to(e.dtype)
+    w = torch.where(e == 0, ln, torch.where(e == 1, ln * _INV,
+                                            torch.zeros_like(ln)))
+    return pn, ln, e, w
+
+
+def _kernel_lambda(tab, fast):
+    """Yield (l, Lambda_l (M1, Tk) float64) as the kernels compute them, on
+    the tables' device: captured seeds injected at l_s, float64 (or the fast
+    float32 recurrence with its exponent), zero outside each (m, 32-ring
+    group)'s chunk bounds."""
+    k = kernel_tables(tab)
+    M1, Tk = tab["lmax"] + 1, k["Tk"]
+    dt = torch.float32 if fast else torch.float64
+    sfx = "32" if fast else ""
+    A, B, C = (k[n + sfx] for n in "ABC")
+    x = k["x" + sfx]
+    s1 = k["s1_32" if fast else "s1"]
+    s0 = k["s0_32" if fast else "s0"]
+    dev = s1.device
+    b = k["bounds"].long()
+    grp = torch.arange(Tk, device=dev) // _TG
+    lo = b[:M1][:, grp]
+    hi = b[M1:2 * M1][:, grp]
+    lp = torch.zeros((M1, Tk), dtype=dt, device=dev)
+    lc = torch.zeros_like(lp)
+    e = torch.zeros((M1, Tk), dtype=torch.int32, device=dev)
+    for l in range(k["Lp"]):
+        seed = k["ls"] == l
+        if fast:
+            lp, lc, e, w = _fast_rows(lp, lc, e, A[:, l], B[:, l],
+                                      C[:, l], x, seed, s1, s0, k["se"])
+        else:
+            ln = (A[:, l, None] * x + B[:, l, None]) * lc \
+                + C[:, l, None] * lp
+            ln = torch.where(seed, s1, ln)
+            lp = torch.where(seed, s0, lc)
+            lc = w = ln
+        ch = l // _LC
+        yield l, torch.where((ch >= lo) & (ch < hi), w.double(), 0.0)
+
+
+def _kernel_ana(G, tab, fast=False):
+    """The analysis as the kernel computes it (:func:`_kernel_lambda`),
+    summed in float64: ``G`` (B, Tr, M1) complex -> (B, L1, M1) of its
+    dtype."""
+    L1 = tab["lmax"] + 1
+    parts = _fold_G(G, tab["T"]) if tab["layout"] == "fold" else (G, G)
+    parts = [p.to(torch.complex128) for p in parts]
+    out = torch.zeros((G.shape[0], L1, L1), dtype=torch.complex128,
+                      device=G.device)
+    for l, lam in _kernel_lambda(tab, fast):
+        if l < L1:
+            out[:, l] = torch.einsum("mt,btm->bm", lam.to(out.dtype),
+                                     parts[l % 2])
+    return out.to(G.dtype)
+
+
+def _kernel_syn(a, tab, fast=False):
+    """The synthesis as the kernel computes it (:func:`_kernel_lambda`),
+    summed in float64: ``a`` (B, L1, M1) complex -> (B, Tr, M1) of its
+    dtype."""
+    L1 = tab["lmax"] + 1
+    Tk = kernel_tables(tab)["Tk"]
+    acc = torch.zeros((2, a.shape[0], Tk, L1), dtype=torch.complex128,
+                      device=a.device)
+    a2 = a.to(torch.complex128)
+    fold = tab["layout"] == "fold"
+    for l, lam in _kernel_lambda(tab, fast):
+        if l < L1:
+            acc[l % 2 if fold else 0] += lam.T[None] * a2[:, l, None, :]
+    if fold:
+        sg = torch.where(torch.arange(L1, device=a.device) % 2 == 0, 1.0,
+                         -1.0)
+        out = _unfold_acc(acc[0] + acc[1], sg * (acc[0] - acc[1]), tab["T"])
+    else:
+        out = acc[0]
+    return out.to(a.dtype)
+
+
+def _plain_fast(x, fast):
+    """True where the fast mode's plain version applies: ``fast`` asked for
+    on float32 inputs (float64 inputs take the float64 loop, as the
+    kernels' float64 instance does)."""
+    return bool(fast) and x.real.dtype != torch.float64
+
+
+def legendre_ana_ref(G, tab, fast: bool = False):
     """Plain version of :func:`legendre_ana`: ``G`` (B, Tr, M1) complex ->
-    (B, L1, M1) of ``G``'s dtype, computed in float64."""
+    (B, L1, M1) of ``G``'s dtype, computed in float64 (``fast``, float32
+    inputs: the fast kernel's float32 recurrence, :func:`_kernel_ana`)."""
+    if _plain_fast(G, fast):
+        return _kernel_ana(G, tab, True)
     L1 = tab["lmax"] + 1
     gr = G.real.to(torch.float64)
     gi = G.imag.to(torch.float64)
@@ -438,9 +564,12 @@ def legendre_ana_ref(G, tab):
     return torch.complex(out_r, out_i).to(G.dtype)
 
 
-def legendre_syn_ref(a, tab):
+def legendre_syn_ref(a, tab, fast: bool = False):
     """Plain version of :func:`legendre_syn`: ``a`` (B, L1, M1) complex ->
-    (B, Tr, M1) of ``a``'s dtype, computed in float64."""
+    (B, Tr, M1) of ``a``'s dtype, computed in float64 (``fast``, float32
+    inputs: the fast kernel's float32 recurrence, :func:`_kernel_syn`)."""
+    if _plain_fast(a, fast):
+        return _kernel_syn(a, tab, True)
     ar = a.real.to(torch.float64)
     ai = a.imag.to(torch.float64)
     shape = (a.shape[0], tab["Tr"], a.shape[-1])
@@ -488,40 +617,46 @@ def legendre_ana(G, tab, fast: bool = False):
     L1, M1) of ``G``'s dtype."""
     _check_in(G, tab, tab["Tr"], "legendre_ana")
     if not G.is_cuda:
-        return legendre_ana_ref(G, tab)
+        return legendre_ana_ref(G, tab, fast)
     rdt = G.real.dtype
     k, ptrs, fast_i, f64 = _kernel_args(tab, rdt, fast)
     lib = _build.library()
     fold = tab["layout"] == "fold"
-    if fold:
-        S0, S1 = _fold_G(G, tab["T"])
-        parts = (S0.real, S0.imag, S1.real, S1.imag)
-    else:
-        parts = (G.real, G.imag)
-    # (M1, B, K, Tk): each block (one m) stages its rings contiguously
-    Gk = torch.stack(parts, dim=1).permute(3, 0, 1, 2).contiguous()
-    M1, L1, nb = Gk.shape[0], tab["lmax"] + 1, G.shape[0]
-    outs = []
+    # (B, Tr, M1, 2): the kernel reads each m's column (and folds it)
+    Gk = torch.view_as_real(G.resolve_conj().contiguous())
+    nb, Tr, M1 = G.shape
+    L1, Tk = tab["lmax"] + 1, k["Tk"]
+    cap = _ANA_FOLD_MAXB if fold else _MAXB
+    out = torch.empty((nb, L1, M1, 2), dtype=rdt, device=G.device)
     stream = torch.cuda.current_stream(G.device).cuda_stream
-    for b0 in range(0, nb, _MAXB):
-        n = min(_MAXB, nb - b0)
-        gk = Gk[:, b0:b0 + n].contiguous()
-        out = torch.zeros((M1, k["Lp"], n, 2), dtype=torch.float64,
-                          device=G.device)
-        err = lib.legendre_ana_launch(*ptrs, gk.data_ptr(), out.data_ptr(),
-                                      M1, k["Lp"], k["Tk"], k["njt"], n,
-                                      int(fold), fast_i, f64, stream)
+    for b0 in range(0, nb, cap):
+        n = min(cap, nb - b0)
+        # two rings a lane where one column tile holds the maps and one
+        # block of 1024 rings then covers the grid; else one block per 512
+        # rings, whose partial sums are added here in ring order (the
+        # order of the two-ring block's own sum)
+        tiles = -(-(2 if fold else 1) * 2 * n // 8)
+        rr = 2 if tiles == 1 and _ANA_RINGS < Tk <= 2 * _ANA_RINGS else 1
+        nsg = -(-Tk // (_ANA_RINGS * rr))
+        dst = out[b0:b0 + n]
+        part = dst if nsg == 1 else torch.empty(
+            (nsg, n, L1, M1, 2), dtype=torch.float64, device=G.device)
+        err = lib.legendre_ana_launch(*ptrs, Gk[b0:b0 + n].data_ptr(),
+                                      part.data_ptr(), M1, k["Lp"], L1, Tk,
+                                      Tr, tab["T"], k["ng"], n, rr,
+                                      int(nsg == 1), int(fold), fast_i, f64,
+                                      stream)
         _build.check(err, "legendre_ana")
         legendre_ana.launches += 1
-        outs.append(out[:, :L1].permute(2, 1, 0, 3))      # (n, L1, M1, 2)
-    out = torch.cat(outs) if len(outs) > 1 else outs[0]
-    return torch.complex(out[..., 0], out[..., 1]).to(G.dtype)
+        if nsg > 1:
+            acc = part[0]
+            for i in range(1, nsg):
+                acc = acc + part[i]
+            dst.copy_(acc)
+    return torch.view_as_complex(out)
 
 
 legendre_ana.launches = 0
-
-
-_SYN_NB = (1, 2, 4, 8)      # the synthesis kernel's map-count instances
 
 
 def legendre_syn(a, tab, fast: bool = False):
@@ -531,36 +666,26 @@ def legendre_syn(a, tab, fast: bool = False):
     dtype."""
     _check_in(a, tab, tab["lmax"] + 1, "legendre_syn")
     if not a.is_cuda:
-        return legendre_syn_ref(a, tab)
+        return legendre_syn_ref(a, tab, fast)
     rdt = a.real.dtype
     k, ptrs, fast_i, f64 = _kernel_args(tab, rdt, fast)
     lib = _build.library()
     fold = tab["layout"] == "fold"
-    M1, L1, nb = a.shape[2], a.shape[1], a.shape[0]
-    ak = torch.stack((a.real, a.imag), dim=-1).permute(2, 1, 0, 3)
-    ak = torch.nn.functional.pad(ak, (0, 0, 0, 0, 0, k["Lp"] - L1))
-    nh = 2 if fold else 1
+    nb, L1, M1 = a.shape
+    # (B, L1, M1, 2): the kernel reads each m's column
+    ak = torch.view_as_real(a.resolve_conj().contiguous())
+    rows = tab["T"] if fold else k["Tk"]
+    out = torch.empty((nb, rows, M1, 2), dtype=rdt, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    outs = []
     for b0 in range(0, nb, _MAXB):
         n = min(_MAXB, nb - b0)
-        akn = ak[:, :, b0:b0 + n].contiguous()            # (M1, Lp, n, 2)
-        out = torch.empty((M1, n, nh, 2, k["Tk"]), dtype=rdt,
-                          device=a.device)
-        err = lib.legendre_syn_launch(*ptrs, akn.data_ptr(), out.data_ptr(),
-                                      M1, k["Lp"], k["Tk"], k["njt"], n,
-                                      next(v for v in _SYN_NB if v >= n),
+        err = lib.legendre_syn_launch(*ptrs, ak[b0:b0 + n].data_ptr(),
+                                      out[b0:b0 + n].data_ptr(), M1, k["Lp"],
+                                      L1, k["Tk"], tab["T"], k["ng"], n,
                                       int(fold), fast_i, f64, stream)
         _build.check(err, "legendre_syn")
         legendre_syn.launches += 1
-        outs.append(out.permute(1, 2, 4, 0, 3))       # (n, nh, Tk, M1, 2)
-    out = torch.cat(outs) if len(outs) > 1 else outs[0]
-    acc = torch.complex(out[..., 0].contiguous(), out[..., 1].contiguous())
-    if fold:
-        acc = _unfold_acc(acc[:, 0], acc[:, 1], tab["T"])
-    else:
-        acc = acc[:, 0]
-    return acc.to(a.dtype)
+    return torch.view_as_complex(out)
 
 
 legendre_syn.launches = 0

@@ -1,14 +1,14 @@
-"""Timing of the kernels redesigned on the register-resident FFT core: B6
-``rowqc_half`` / ``rowqc_pp`` and B6s ``rows_half`` / ``rows_pp``
-(``--kernel rowpower``), B3 ``colfft`` / ``colifft`` and B3s
-``colfft_scaled`` (``--kernel colfft``), B4 ``rowfft`` / ``rowifft`` /
-``rowifft_scaled_y``, B5 ``rowifft_noise_y`` and B4b ``rowfft_blk0``
-(``--kernel rowfft``).
+"""Timing of the redesigned kernels: B6 ``rowqc_half`` / ``rowqc_pp`` and
+B6s ``rows_half`` / ``rows_pp`` (``--kernel rowpower``), B3 ``colfft`` /
+``colifft`` and B3s ``colfft_scaled`` (``--kernel colfft``), B4 ``rowfft``
+/ ``rowifft`` / ``rowifft_scaled_y``, B5 ``rowifft_noise_y`` and B4b
+``rowfft_blk0`` (``--kernel rowfft``), the Legendre kernels B10a
+``legendre_ana`` and B10s ``legendre_syn`` (``--kernel legendre``).
 
 Run from the repository root on a machine with one NVIDIA Hopper GPU and
 nvcc:
 
-    python3 scripts/bench_kernels.py --kernel {rowpower,colfft,rowfft}
+    python3 scripts/bench_kernels.py --kernel {rowpower,colfft,rowfft,legendre}
         [--tree DIR] [--quick]
 
 It imports ``orphics_tpu_torch`` from ``DIR`` (default: this checkout), so
@@ -21,7 +21,10 @@ device-memory rate and bound, its error against the plain version, the
 library call (``torch.fft`` along the same axis) and, for ``colfft`` and
 ``rowfft``, the kernel each call took where the library counts it. The bound
 printed is the bytes' alone (B5's, which its Philox and erfinvf work sets,
-is ``chip_smoke.py``'s). ``--quick`` times one small shape. The correctness checks (every n, ragged shapes, two runs
+is ``chip_smoke.py``'s). ``--quick`` times one small shape. ``legendre``
+times B10a and B10s, dd and fast, at ``chip_smoke.py`` phase 2's shapes
+(bench configs 8, 8p and 7) and at 16 folded maps, with the launches each
+call took and the bound from phase 2's operation count. The correctness checks (every n, ragged shapes, two runs
 bit-equal) are ``chip_smoke.py``'s and ``tests/test_torch_cuda.py``'s.
 """
 from __future__ import annotations
@@ -34,6 +37,13 @@ from pathlib import Path
 import torch
 
 HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+FP64_FLOP_PER_S = 34e12
+# B10: (label, lmax, maps, Wigner columns, layout, columns timed)
+LEGENDRE_SHAPES = (("config 8", 1023, 8, (0,), "fold", (0,)),
+                   ("16 folded maps", 1023, 16, (0,), "fold", (0,)),
+                   ("config 8p", 1023, 16, (-2, 2), "half", (0, 1)),
+                   ("config 7", 2047, 1, (0,), "fold", (0,)))
 SHAPES = ((96, 2048), (64, 2048), (64, 512), (192, 1024), (16, 4096),
           (64, 256))
 
@@ -129,13 +139,68 @@ def rowfft_cases(x, gen):
     return cases, refs
 
 
+def legendre_bench(reps, quick):
+    """B10a / B10s at LEGENDRE_SHAPES (``quick``: config 8 only), dd and
+    fast: CUDA-event time, launches per call and the bound of
+    ``chip_smoke.py`` phase 2 (5 operations a live step for the recurrence,
+    fp64 in dd and fp32 in fast, 4 a map and step for the contraction at
+    the fp32 rate; the tables, the input and the output once)."""
+    from orphics_tpu_torch.ops import legendre as leg
+    from orphics_tpu_torch.ops import sht
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    for label, lmax, nm, ns, layout, nis in (
+            LEGENDRE_SHAPES[:1] if quick else LEGENDRE_SHAPES):
+        rings = sht.gauss_legendre_rings(lmax)
+        M1 = lmax + 1
+        for ni in nis:
+            tab = leg.tables(lmax, rings, ns, ni, layout, dev)
+            k = leg.kernel_tables(tab)
+            ls = k["ls"]
+            steps = float(((M1 - ls) * (ls >= 0)).sum().item())
+            G = torch.complex(*(torch.randn((nm, tab["Tr"], M1),
+                                            generator=gen, device=dev)
+                                for _ in range(2)))
+            a = torch.complex(*(torch.randn((nm, M1, M1), generator=gen,
+                                            device=dev) for _ in range(2)))
+            tabb = sum(t.numel() * t.element_size() for t in
+                       (tab["A"], tab["B"], tab["C"], k["s1"], k["s0"], ls))
+            for name, fn, x, out_b in (
+                    ("legendre_ana", leg.legendre_ana, G, 8 * nm * M1 * M1),
+                    ("legendre_syn", leg.legendre_syn, a,
+                     8 * nm * tab["Tr"] * M1)):
+                for mode in ("dd", "fast"):
+                    fast = mode == "fast"
+                    before = fn.launches
+                    fn(x, tab, fast)
+                    torch.cuda.synchronize()
+                    launches = fn.launches - before
+                    ms = cuda_ms(lambda: fn(x, tab, fast), reps)
+                    rec = 5.0 * steps
+                    t_ops = ((rec if fast else 0.0) + 4.0 * nm * steps) \
+                        / FP32_FLOP_PER_S + (0.0 if fast else rec) \
+                        / FP64_FLOP_PER_S
+                    t_bytes = (x.numel() * x.element_size() + tabb + out_b) \
+                        / HBM_BYTES_PER_S
+                    bound = max(t_ops, t_bytes) * 1e3
+                    print(f"time {name} {label} lmax {lmax} x{nm} {layout} "
+                          f"n={ns[ni]} {mode}: {ms:.4f} ms in {launches} "
+                          f"launch(es); bound {bound:.4f} ms "
+                          f"({'operations' if t_ops >= t_bytes else 'bytes'})"
+                          f" = {bound / ms:.3f} of the time")
+            del G, a
+        leg.clear_tables()
+        torch.cuda.empty_cache()
+
+
 # family -> (cases, sources whose resource report is printed, shapes,
 # counter of the register-resident kernel's launches or None)
 FAMILIES = {"rowpower": (rowpower_cases, ("rowpower.cu",), SHAPES, None),
             "colfft": (colfft_cases, ("colfft.cu",), SHAPES,
                        "colfft_regs_launches"),
             "rowfft": (rowfft_cases, ("rowfft.cu", "rowpower.cu"),
-                       ((96, 2048), (64, 512)), "rowfft_regs_launches")}
+                       ((96, 2048), (64, 512)), "rowfft_regs_launches"),
+            "legendre": (None, ("legendre.cu",), (), None)}
 
 
 def main():
@@ -168,9 +233,13 @@ def main():
     # without that kernel)
     counter = getattr(lib, counter_name, None) if counter_name else None
 
+    reps = 3 if opts.quick else 10
+    if cases_of is None:
+        legendre_bench(reps, opts.quick)
+        print(f"card: {card}")
+        return 0
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(8)
-    reps = 3 if opts.quick else 10
     for b, n in ((8, 2048),) if opts.quick else shapes:
         x = tuple(torch.randn((b, n, n), generator=gen, device=dev)
                   for _ in range(2))

@@ -132,30 +132,67 @@ def test_host_tables(lmax):
 
 
 @pytest.mark.parametrize("lmax", [47, 2047])
-def test_bounds_tables(lmax):
+def test_bounds_tables(lmax, monkeypatch):
     """The dead-tile and loop-bound tables equal JAX's on the same l_s
-    grid (at lmax 2047, JAX's own (128, 256) tiles and the port's (1,
-    256) tiles, dead tiles engaged)."""
+    grid: at JAX's chunk of 8 l-steps, JAX's own (128, 256) tiles and (1,
+    256) tiles; at the kernels' chunk of 16 (JAX's functions with their
+    chunk set to 16) the kernels' (1, 32) groups, dead groups engaged at
+    lmax 2047."""
     rings = jsht.gauss_legendre_rings(lmax)
     Th = (rings.ntheta + 1) // 2
     th = rings.theta_array()[:Th]
-    Lp = -(-(lmax + 1) // 8) * 8
     capL = np.random.default_rng(lmax).integers(-1, lmax + 1,
                                                 (Th, lmax + 1)).astype(
                                                     np.int32)
-    for mt, tt in ((128, 256), (1, 256)):
-        Tp = -(-Th // tt) * tt
-        Mp = -(-(lmax + 1) // mt) * mt
-        np.testing.assert_array_equal(
-            leg._lend_table(lmax, th, mt, tt, Lp, Tp),
-            ps._lend_table(lmax, th, mt, tt, Lp, Tp))
-        if lmax < 100:
+    for lc, tiles in ((8, ((128, 256), (1, 256))),
+                      (leg._LC, ((1, leg._TG), (128, 256)))):
+        monkeypatch.setattr(ps, "_UNROLL", lc)
+        Lp = -(-(lmax + 1) // lc) * lc
+        for mt, tt in tiles:
+            Tp = -(-Th // tt) * tt
+            Mp = -(-(lmax + 1) // mt) * mt
             np.testing.assert_array_equal(
-                leg._bounds_table(capL, lmax, th, mt, tt, Lp, Tp, Mp),
-                ps._bounds_table(capL, lmax, th, mt, tt, Lp, Tp, Mp))
+                leg._lend_table(lmax, th, mt, tt, Lp, Tp, lc),
+                ps._lend_table(lmax, th, mt, tt, Lp, Tp))
+            if lmax < 100 or (mt, lc) == (1, leg._LC):
+                np.testing.assert_array_equal(
+                    leg._bounds_table(capL, lmax, th, mt, tt, Lp, Tp, Mp,
+                                      lc),
+                    ps._bounds_table(capL, lmax, th, mt, tt, Lp, Tp, Mp))
     if lmax == 2047:
-        assert (leg._lend_table(lmax, th, 1, 256, Lp, -(-Th // 256) * 256)
-                == 0).any()
+        for tt in (256, leg._TG):
+            assert (leg._lend_table(lmax, th, 1, tt, Lp,
+                                    -(-Th // tt) * tt) == 0).any()
+
+
+def test_kernel_bounds_follow_the_group(jref):
+    """The kernel tables' bounds are _bounds_table's on the captured l_s at
+    the kernels' (1, 32) groups and chunk of 16; the m-major recurrence
+    tables are the plain version's, transposed and padded to whole
+    chunks."""
+    for lmax, ns, ni, layout in ((47, (0,), 0, "fold"),
+                                 (48, (0,), 0, "fold"),
+                                 (47, (-2, 2), 1, "half")):
+        tab = leg.tables(lmax, tsht.gauss_legendre_rings(lmax), ns, ni,
+                         layout)
+        k = leg.kernel_tables(tab)
+        L1, Tk = lmax + 1, k["Tk"]
+        assert k["Lp"] % leg._LC == 0 and k["Lp"] - leg._LC < L1 <= k["Lp"]
+        assert k["ng"] == -(-Tk // leg._TG)
+        want = leg._bounds_table(k["ls"].numpy().T, lmax,
+                                 tab["theta"][:Tk], 1, leg._TG, k["Lp"],
+                                 k["ng"] * leg._TG, L1)
+        np.testing.assert_array_equal(k["bounds"].numpy(), want)
+        for n in "ABC":
+            assert k[n].shape == (L1, k["Lp"])
+            np.testing.assert_array_equal(k[n][:, :L1].numpy(),
+                                          tab[n].T.numpy())
+            assert not k[n][:, L1:].any()
+        # JAX's captured l_s give the same bounds at the kernels' groups
+        ls = np.asarray(jref[("host", lmax, ns, ni)]["l0"])[:Tk, :L1]
+        np.testing.assert_array_equal(
+            leg._bounds_table(ls, lmax, tab["theta"][:Tk], 1, leg._TG,
+                              k["Lp"], k["ng"] * leg._TG, L1), want)
 
 
 @pytest.mark.parametrize("T", [10, 11])
@@ -280,74 +317,8 @@ def test_f32_roundtrip():
 
 
 # ------------------------------ the kernel's algorithm, emulated on the CPU
-
-def _emulate_lambda(tab, fast):
-    """Yield (l, Lambda_l (M1, Tk) float64) as the kernels compute them:
-    captured seeds injected at l_s, fp64 (or fast fp32 with the
-    exponent), zero outside each (m, ring tile)'s chunk bounds."""
-    k = leg.kernel_tables(tab)
-    M1, Tk, njt = tab["lmax"] + 1, k["Tk"], k["njt"]
-    dt = torch.float32 if fast else torch.float64
-    sfx = "32" if fast else ""
-    A, B, C = (k[n + sfx] for n in "ABC")
-    x = k["x" + sfx]
-    s1 = k["s1_32" if fast else "s1"]
-    s0 = k["s0_32" if fast else "s0"]
-    b = k["bounds"].long()
-    tile = torch.arange(Tk) // leg._TT
-    lo = b[:M1][:, tile]
-    hi = b[M1:2 * M1][:, tile]
-    lp = torch.zeros((M1, Tk), dtype=dt)
-    lc = torch.zeros_like(lp)
-    e = torch.zeros((M1, Tk), dtype=torch.int32)
-    for l in range(k["Lp"]):
-        ln = (A[l][:, None] * x + B[l][:, None]) * lc + C[l][:, None] * lp
-        seed = k["ls"] == l
-        ln = torch.where(seed, s1, ln)
-        pn = torch.where(seed, s0, lc)
-        w = ln
-        if fast:
-            e = torch.where(seed, k["se"], e)
-            big = (ln.abs() > leg._TH) & (e > 0)
-            ln = torch.where(big, ln * leg._INV, ln)
-            pn = torch.where(big, pn * leg._INV, pn)
-            e = e - big.int()
-            w = torch.where(e == 0, ln, torch.where(e == 1, ln * leg._INV,
-                                                     0.0))
-        lp, lc = pn, ln
-        ch = l // leg._LC
-        yield l, torch.where((ch >= lo) & (ch < hi), w.double(), 0.0)
-
-
-def _emulate_ana(G, tab, fast=False):
-    L1 = tab["lmax"] + 1
-    parts = leg._fold_G(G, tab["T"]) if tab["layout"] == "fold" else (G, G)
-    parts = [p.to(torch.complex128) for p in parts]
-    out = torch.zeros((G.shape[0], L1, L1), dtype=torch.complex128)
-    for l, lam in _emulate_lambda(tab, fast):
-        if l < L1:
-            out[:, l] = torch.einsum("mt,btm->bm", lam.to(out.dtype),
-                                     parts[l % 2])
-    return out.to(G.dtype)
-
-
-def _emulate_syn(a, tab, fast=False):
-    L1 = tab["lmax"] + 1
-    Tk = leg.kernel_tables(tab)["Tk"]
-    acc = torch.zeros((2, a.shape[0], Tk, L1), dtype=torch.complex128)
-    a2 = a.to(torch.complex128)
-    fold = tab["layout"] == "fold"
-    for l, lam in _emulate_lambda(tab, fast):
-        if l < L1:
-            acc[l % 2 if fold else 0] += lam.T[None] * a2[:, l, None, :]
-    if fold:
-        sg = torch.where(torch.arange(L1) % 2 == 0, 1.0, -1.0)
-        out = leg._unfold_acc(acc[0] + acc[1], sg * (acc[0] - acc[1]),
-                              tab["T"])
-    else:
-        out = acc[0]
-    return out.to(a.dtype)
-
+# (leg._kernel_ana / _kernel_syn; the fast mode's plain version is this
+# emulation)
 
 @pytest.mark.parametrize("seeds", ["port", "jax"])
 def test_kernel_algorithm_vs_pallas(jref, seeds):
@@ -367,8 +338,8 @@ def test_kernel_algorithm_vs_pallas(jref, seeds):
                     else ("host", lmax, ns, ni)
                 own[ni] = convert.load_sht_tables(
                     leg.tables(lmax, rings, ns, ni, layout), jref[hkey])
-        ana = lambda G, tab: _emulate_ana(G, own.get(tab["ni"], tab))
-        syn = lambda a, tab: _emulate_syn(a, own.get(tab["ni"], tab))
+        ana = lambda G, tab: leg._kernel_ana(G, own.get(tab["ni"], tab))
+        syn = lambda a, tab: leg._kernel_syn(a, own.get(tab["ni"], tab))
         if ns == (0,):
             x, ref = jref[("ana", lmax, grid)]
             assert _rel(tsht.map2alm(torch.as_tensor(x), rings, lmax,
@@ -405,10 +376,40 @@ def test_kernel_algorithm_fast(jref):
     m = torch.as_tensor(jref[("ana", lmax, "gl")][0])
     w = tsht._weights(rings, torch.float32, "cpu")
     G = (tsht._ring_analysis(m, rings, lmax) * w[:, None])[None]
-    dd = _emulate_ana(G, tab)
-    fast = _emulate_ana(G, tab, fast=True)
+    dd = leg._kernel_ana(G, tab)
+    fast = leg._kernel_ana(G, tab, fast=True)
     assert _rel(fast, dd) <= TOL_FAST
     got = tsht._mat2alm(fast[0], lmax)
     assert _rel(got, jref["fast"]) <= TOL_FAST
     a = dd[:, :, :]
-    assert _rel(_emulate_syn(a, tab, True), _emulate_syn(a, tab)) <= TOL_FAST
+    assert _rel(leg._kernel_syn(a, tab, True),
+                leg._kernel_syn(a, tab)) <= TOL_FAST
+
+
+def test_fast_plain_version():
+    """The plain versions with ``fast`` on float32 inputs are the fast
+    kernel's algorithm, and the wrappers take them for CPU tensors; float64
+    inputs take the float64 loop whatever ``fast`` says, as the kernels'
+    float64 instance does."""
+    lmax = 40
+    rings = tsht.gauss_legendre_rings(lmax)
+    rng = np.random.default_rng(5)
+    for layout, ns, ni in (("fold", (0,), 0), ("half", (-2, 2), 0)):
+        tab = leg.tables(lmax, rings, ns, ni, layout)
+        G = torch.complex(*(torch.as_tensor(rng.standard_normal(
+            (2, tab["Tr"], lmax + 1)), dtype=torch.float32)
+            for _ in range(2)))
+        a = torch.complex(*(torch.as_tensor(rng.standard_normal(
+            (2, lmax + 1, lmax + 1)), dtype=torch.float32)
+            for _ in range(2)))
+        for fn, ref, emu, x in ((leg.legendre_ana, leg.legendre_ana_ref,
+                                 leg._kernel_ana, G),
+                                (leg.legendre_syn, leg.legendre_syn_ref,
+                                 leg._kernel_syn, a)):
+            want = emu(x, tab, True)
+            assert torch.equal(ref(x, tab, fast=True), want)
+            assert torch.equal(fn(x, tab, fast=True), want)
+            dd = ref(x, tab)
+            assert 0 < _rel(want, dd) <= TOL_FAST
+            x64 = x.to(torch.complex128)
+            assert torch.equal(ref(x64, tab, fast=True), ref(x64, tab))
