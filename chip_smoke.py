@@ -15,7 +15,8 @@ takes at 512^2), 6 FastCl at the JAX package's bench config 1 (2048^2,
 0.5', batch 192, nseg 100), 7 ``FastCl.cross_bandpowers`` at bench config
 2 (2048^2, batch 128, the 12 % taper), 8 the fused ILC coadd at bench
 config 4 (512^2, six bands, tSZ deprojected, 32 coadds), 9 SHT roundtrips
-at bench config 7 (lmax 2047, dd and fast), 10 the curved-sky masked
+at bench config 7 (lmax 2047, dd and fast; the fast roundtrip also at lmax
+1023, each held to the reference's contract), 10 the curved-sky masked
 spectra at bench config 8 (lmax 1023, batch 8, dd and fast), 11 its spin-2
 leg, bench config 8p, 12 the TT QE reconstruction-only step at bench
 config 3 (512^2, batch 64; its full-plane and its half-plane branch), 13
@@ -24,10 +25,15 @@ B2', beside FastCl's fused analysis), 14 the N0 debias at config 3's
 settings (lensed sims, mcn0, rdn0, NlGenerator, n1_tt, a polarized sim).
 Phases 3-14 each set the launch counts to 0 before they drive their path
 and check them after; 4-14 print throughput, peak memory, device time by
-kernel and a check of the output against the plain versions.
+kernel and a check of the output against the plain versions. Phases 2, 4,
+5 and 14 print B8's blocks whose deflection range exceeded its window
+(0 where the displacement is clipped to 8 pixels); phases 6 and 7 hold
+FastCl's bandpowers from its kept ids (edge segments dropped) to those
+from the full ids.
 The JSON object on a line before the last holds each kernel's launches
 (on the full-plane lensing path for the kernels it runs, on the FastCl
-path and the config-1 step body for B2/B3/B5/B6, on config 2's for B3s/B6s, on config 4's for B9, on
+path and the config-1 step body for B2/B3/B5/B6, on config 2's for
+B3s/B6s, on config 4's for B9, on
 configs 7, 8 and 8p together for B10a/B10s, on phase 13's paths for
 B6h/B6h'/B2' and for B4b, which no composition runs since B6 pairs every
 element through the exact mirror map), error, times and bound; the
@@ -83,14 +89,14 @@ B5_RADIX2_MS = 8.6917
 # rounded once: the same Lambda bit for bit): 2^-22, two float32 ulps of
 # max|ref|, since the float64 sums run in another order and an output may
 # round to the neighbouring float32 value (8 seeds read 0 to 1.0e-10).
-# Against the fp64 loop, per lmax: the float32 recurrence's own error,
-# which the plain version reads to the same digits; over 8 seeds at config
-# 8's shape 1.8e-3 to 5.4e-3, at config 8p's up to 6.2e-3, so 1e-2 at lmax
-# 1023 (5e-3 before: seed-dependent, ROADMAP C); at lmax 2047 1.3e-2
-# (B10a) and 3.8e-2 (B10s), so 8e-2 (NVIDIA H100 80GB HBM3, 700 W; PERF.md
-# section 6)
+# Against the fp64 loop: the float32 recurrence's own error, which the
+# plain version reads to the same digits. With the recurrence's factor
+# rounded once from float64 coefficients (legendre.cu: factor), 8 seeds at
+# config 8's shape read at most 6.8e-4 (B10a) and 1.3e-3 (B10s), the other
+# lmax 1023 shapes at most 9.3e-4, and lmax 2047 7.7e-4 and 1.1e-3
+# (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6): 3e-3 at both lmax
 B10_FAST_SEEDS = 8
-B10_FAST_TOL = {1023: 1e-2, 2047: 8e-2}
+B10_FAST_TOL = {1023: 3e-3, 2047: 3e-3}
 B10_FAST_PLAIN_TOL = 2.0 ** -22
 # Philox-4x32-10's integer instructions per pair of B5's draw (philox.cuh:
 # philox_pair): ten rounds of two 32 x 32 -> 64-bit multiplies, each two
@@ -112,6 +118,46 @@ def bound(nbytes, flops, flops64=0.0, intops=0.0):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def live_sectors(ids, nseg):
+    """The 32-byte sectors of a float32 row (8 elements, the unit the
+    memory moves) that hold an id in ``[0, nseg)``: the sectors a segment
+    sum that drops the other ids must read."""
+    kept = (ids >= 0) & (ids < nseg)
+    pad = (-kept.numel()) % 8
+    kept = torch.nn.functional.pad(kept, (0, pad))
+    return int(kept.view(-1, 8).any(1).sum().item())
+
+
+def bin_bytes(ids, nseg, planes, *outs):
+    """Bytes a segment sum of ``planes`` (each (B, N) float32) over ``ids``
+    must move: where every id is kept, each plane once; else the 32-byte
+    sectors of each row that hold a kept id. The ids and the outputs
+    once."""
+    B, N = planes[0].shape
+    sectors = live_sectors(ids, nseg)
+    data = (nbytes(*planes) if sectors * 8 >= N
+            else sectors * 32 * B * len(planes))
+    return data + nbytes(ids, *outs)
+
+
+def with_full_ids(fc, edges):
+    """A shallow copy of the FastCl ``fc`` that bins with its full
+    digitized tables (the edge segments 0 and nseg - 1 kept, as the JAX
+    package's FastCl bins), for the kept-vs-full checks of phases 6 and 7."""
+    import copy
+    from orphics_tpu_torch.ops import dft
+    perm, _ = dft.row_perm(fc.n)
+    dig = np.digitize(fc.geom.modlmap_np()[perm][:, perm], edges,
+                      right=True).astype(np.int32)
+    p_of_h, pnyq = dft.half_rows(fc.n)
+    full = copy.copy(fc)
+    ids = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=fc.device)
+    full._idc = ids(dig[p_of_h].reshape(-1))
+    full._ids0 = ids(dig[0])
+    full._idsn = ids(dig[pnyq])
+    return full
 
 
 def fft_flops(n, count):
@@ -254,7 +300,7 @@ def main():
     from orphics_tpu_torch.ops.fourier import gauss_beam
     from orphics_tpu_torch.models.lenspipe import LensedQEPipeline
     from orphics_tpu_torch.models.theory import default_theory
-    from orphics_tpu_torch.models.fastcl import FastCl
+    from orphics_tpu_torch.models.fastcl import FastCl, drop_edge_segments
     from orphics_tpu_torch.ops import dft
     from orphics_tpu_torch.models import qe as qemod
     from orphics_tpu_torch.ops.fourier import kfilter, mask_kspace
@@ -367,24 +413,36 @@ def main():
     b8_times = None
     for order in (5, 3):
         coeffs = spline_coeffs(cmb, geom, order).contiguous()
+        lens_map_kernel.wide_blocks(reset=True)
         out = lens_map_kernel(coeffs, alpha, geom, order=order, maxdisp_px=8,
                               prefiltered=True)
+        again = lens_map_kernel(coeffs, alpha, geom, order=order,
+                                maxdisp_px=8, prefiltered=True)
+        wide = lens_map_kernel.wide_blocks()
         ref = lens_map_ref(coeffs, alpha, geom, order, 8)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         scale = ref.abs().max().item()
         check(err <= 2e-5 * scale, f"B8 order {order}: error {err:.3e} > "
                                    f"2e-5 * {scale:.3e}")
+        check(torch.equal(out, again), f"B8 order {order}: two runs differ")
+        # a clip of D = 8 keeps every block's floor range within the
+        # shared-memory window (2 D = 16 pixels)
+        check(wide == 0, f"B8 order {order}: {wide} blocks took their taps "
+                         "from device memory at config 6's deflection")
+        del again
         b8_err = max(b8_err, err)
+        # ten warm-up calls: one run read 0.43 against 0.28 ms at order 5
+        # after two (the profiles of the same run read 0.28)
         ms = cuda_ms(lambda: lens_map_kernel(coeffs, alpha, geom, order=order,
                                              maxdisp_px=8, prefiltered=True),
-                     20)
+                     20, warmup=10)
         plain = cuda_ms(lambda: lens_map_ref(coeffs, alpha, geom, order, 8),
                         3, warmup=1)
         print(f"[2] B8 lens_map_kernel order {order} (64, 1, 512, 512) D=8: "
               f"max|alpha|/dy {amax:.3f}, max abs err {err:.3e} "
-              f"(max|ref| {scale:.3e}); kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms")
+              f"(max|ref| {scale:.3e}), reproducible, wide blocks {wide} "
+              f"(must be 0); kernel {ms:.4f} ms, plain {plain:.4f} ms")
         if b8_times is None:
             # no PyTorch call evaluates a quintic spline; operations: the
             # (order + 1)^2 taps' multiply-adds and ~8 per weight
@@ -643,19 +701,37 @@ def main():
     fc1 = FastCl(geom1, ells_th, cltt, bin_edges=edges1, device=dev)
     P1, P2, n1 = 96, 64, 2048
 
-    # B1 at the half plane's (96, 2097152) with FastCl's ids (nseg 100) and
-    # with dl = 20 edges out to l = 8000 (nseg 400, two segment tiles)
+    # B1 at the half plane's (96, 2097152) over FastCl's ids: the full
+    # digitized table (nseg 100) and the kept one FastCl bins with (edge
+    # segments -1, drop_edge_segments), and over dl = 20 edges out to
+    # l = 8000 (nseg 400, two segment tiles). Each beside its bound: the
+    # kept table's counts only the 32-byte sectors that hold a kept id
     perm1, _ = dft.row_perm(n1)
     ml_half = geom1.modlmap_np()[perm1][:, perm1][dft.half_rows(n1)[0]]
     ids400 = torch.as_tensor(np.digitize(
         ml_half.ravel(), np.arange(20, 8000, 20.0), right=True)
         .astype(np.int32), device=dev)
+    full_np = np.digitize(ml_half.ravel(), edges1, right=True) \
+        .astype(np.int32)
     del ml_half
+    ids_full = torch.as_tensor(full_np, device=dev)
+    ids_kept = fc1._idc
+    check(torch.equal(ids_kept.cpu(), torch.as_tensor(
+        drop_edge_segments(full_np, fc1._nsg))),
+        "FastCl's ids are not its digitized table with the edge segments "
+        "dropped")
+    del full_np
+    kept_share = (ids_kept >= 0).double().mean().item()
     data = torch.randn((P1, n1 * n1 // 2), generator=gen, device=dev) ** 2 \
         - 0.5
     data2 = torch.randn((P1, n1 * n1 // 2), generator=gen, device=dev) ** 2 \
         - 0.5
-    for nseg, ids in ((fc1._nsg, fc1._idc), (400, ids400)):
+    sector_share = live_sectors(ids_kept, fc1._nsg) / (ids_kept.numel() / 8)
+    print(f"[2] FastCl's half-plane ids: {kept_share:.4f} of the elements "
+          f"kept, {sector_share:.4f} of the 32-byte sectors hold a kept id")
+    b2_cases = (("full ids", ids_full, fc1._nsg),
+                ("kept ids", ids_kept, fc1._nsg))
+    for tag, ids, nseg in b2_cases + (("nseg 400", ids400, 400),):
         out = bin_reduce(data, ids, nseg)
         again = bin_reduce(data, ids, nseg)
         ref = bin_reduce_ref(data, ids, nseg)
@@ -663,47 +739,57 @@ def main():
         torch.cuda.synchronize()
         err = (out - ref).abs()
         rel = (err / absref.clamp_min(1e-30)).max().item()
-        check(rel <= 1e-6, f"B1 nseg {nseg}: error {rel:.3e} of binned "
-                           "|data| > 1e-6")
-        check(torch.equal(out, again), f"B1 nseg {nseg}: two runs differ")
+        check(rel <= 1e-6, f"B1 {tag}: error {rel:.3e} of binned |data| > "
+                           "1e-6")
+        check(torch.equal(out, again), f"B1 {tag}: two runs differ")
         b1_err = max(b1_err, err.max().item())
         ms = cuda_ms(lambda: bin_reduce(data, ids, nseg), 10)
         plain = cuda_ms(lambda: bin_reduce_ref(data, ids, nseg), 3, warmup=1)
-        print(f"[2] B1 bin_reduce ({P1}, {n1 * n1 // 2}) nseg={nseg}: max rel "
-              f"err {rel:.3e} of binned |data|, reproducible; kernel "
-              f"{ms:.4f} ms, plain {plain:.4f} ms")
+        bnd, by = bound(bin_bytes(ids, nseg, (data,), out), data.numel())
+        print(f"[2] B1 bin_reduce ({P1}, {n1 * n1 // 2}) {tag} nseg={nseg}: "
+              f"max rel err {rel:.3e} of binned |data|, reproducible; kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by})")
     results["bin_reduce"]["max_abs_err"] = b1_err
 
-    # B2: the two half-plane fields of 96 pairs over FastCl's ids
-    out = bin2_reduce(data, data2, fc1._idc, fc1._nsg)
-    again = bin2_reduce(data, data2, fc1._idc, fc1._nsg)
-    ref = bin2_reduce_ref(data, data2, fc1._idc, fc1._nsg)
+    # B2: the two half-plane fields of 96 pairs over FastCl's kept ids (its
+    # call since the edge segments are dropped; the record) and over the
+    # full ids
     b2_err = 0.0
-    for k, (o, a, r, x) in enumerate(zip(out, again, ref, (data, data2))):
-        absref = bin_reduce_ref(x.abs(), fc1._idc, fc1._nsg)
-        err = (o - r).abs()
-        rel = (err / absref.clamp_min(1e-30)).max().item()
-        check(rel <= 1e-6, f"B2 output {k}: error {rel:.3e} of binned "
-                           "|data| > 1e-6")
-        check(torch.equal(o, a), f"B2 output {k}: two runs differ")
-        b2_err = max(b2_err, err.max().item())
-    ms = cuda_ms(lambda: bin2_reduce(data, data2, fc1._idc, fc1._nsg), 10)
-    plain = cuda_ms(lambda: bin2_reduce_ref(data, data2, fc1._idc,
-                                            fc1._nsg), 3, warmup=1)
-    # library: one index_add_ over both inputs stacked
-    ids64, both = fc1._idc.long(), torch.cat([data, data2])
-    acc = torch.zeros((2 * P1, fc1._nsg), device=dev)
-    lib = cuda_ms(lambda: acc.index_add_(1, ids64, both), 5)
-    del ids64, both, acc
-    print(f"[2] B2 bin2_reduce ({P1}, {n1 * n1 // 2}) x 2 nseg={fc1._nsg}: "
-          f"each output within 1e-6 of binned |data| (max abs err "
-          f"{b2_err:.3e}), reproducible; kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms, index_add_ {lib:.4f} ms")
+    for tag, ids, nseg in b2_cases:
+        out = bin2_reduce(data, data2, ids, nseg)
+        again = bin2_reduce(data, data2, ids, nseg)
+        ref = bin2_reduce_ref(data, data2, ids, nseg)
+        for k, (o, a, r, x) in enumerate(zip(out, again, ref, (data, data2))):
+            absref = bin_reduce_ref(x.abs(), ids, nseg)
+            err = (o - r).abs()
+            rel = (err / absref.clamp_min(1e-30)).max().item()
+            check(rel <= 1e-6, f"B2 {tag} output {k}: error {rel:.3e} of "
+                               "binned |data| > 1e-6")
+            check(torch.equal(o, a), f"B2 {tag} output {k}: two runs differ")
+            b2_err = max(b2_err, err.max().item())
+        ms = cuda_ms(lambda: bin2_reduce(data, data2, ids, nseg), 10)
+        plain = cuda_ms(lambda: bin2_reduce_ref(data, data2, ids, nseg), 3,
+                        warmup=1)
+        # library: one index_add_ over both inputs stacked (the dropped ids
+        # into a column that is cut off)
+        idx = torch.where(ids >= 0, ids, nseg).long()
+        both = torch.cat([data, data2])
+        acc = torch.zeros((2 * P1, nseg + 1), device=dev)
+        lib = cuda_ms(lambda: acc.index_add_(1, idx, both), 5)
+        del idx, both, acc
+        work = (bin_bytes(ids, nseg, (data, data2), *out),
+                2.0 * data.numel())
+        bnd, by = bound(*work)
+        print(f"[2] B2 bin2_reduce ({P1}, {n1 * n1 // 2}) x 2 {tag} "
+              f"nseg={nseg}: each output within 1e-6 of binned |data| (max "
+              f"abs err {b2_err:.3e}), reproducible; kernel {ms:.4f} ms, "
+              f"plain {plain:.4f} ms, index_add_ {lib:.4f} ms, bound "
+              f"{bnd:.4f} ms ({by})")
     results["bin2_reduce"] = kernel_entry(
         "bin2_reduce", "bin_reduce.cu", "pallas_kernels.py:163", b2_err,
-        (ms, plain, lib), (nbytes(data, data2, fc1._idc, *out),
-                           2.0 * data.numel()))
+        (ms, plain, lib), work)
     del data, data2, out, again, ref, absref, err, ids, ids400, o, a, r, x
+    del ids_full
     torch.cuda.empty_cache()
 
     # B4b and B6 on a (96, 2048, 2048) column intermediate, and at n = 384
@@ -939,25 +1025,32 @@ def main():
     torch.cuda.empty_cache()
 
     # B2' (bin_pair_power) on Z and its mirror: 96 pairs at 2048^2 over
-    # config 1's full-plane ids (nseg 100), and 32 pairs at 512^2 over
-    # config 3's permuted_bin_tables ids; sym False and True. bin(q) within
-    # 1e-6 of itself, bin(c), which cancels, within 1e-6 of bin(|c|); two
-    # runs bit-equal. Library: four elementwise passes and two index_add_.
-    ids_full1 = torch.as_tensor(np.digitize(
-        geom1.modlmap_np()[perm1][:, perm1].ravel(), edges1, right=True)
-        .astype(np.int32), device=dev)
+    # config 1's full-plane ids (nseg 100; phase 13's call, the record) and
+    # over the same ids with the edge segments dropped, and 32 pairs at
+    # 512^2 over config 3's permuted_bin_tables ids; sym False and True.
+    # bin(q) within 1e-6 of itself, bin(c), which cancels, within 1e-6 of
+    # bin(|c|); two runs bit-equal. Library: four elementwise passes and
+    # two index_add_.
+    full_np = np.digitize(geom1.modlmap_np()[perm1][:, perm1].ravel(),
+                          edges1, right=True).astype(np.int32)
+    ids_full1 = torch.as_tensor(full_np, device=dev)
+    ids_kept1 = torch.as_tensor(drop_edge_segments(full_np, len(edges1) + 1),
+                                device=dev)
+    del full_np
     perm3, _ = dft.row_perm(512)
     edges3 = np.arange(40, 2000, 80.0)
     ids3, _, nseg3 = dft.permuted_bin_tables(geom.modlmap_np(), perm3, edges3,
                                              device=dev)
     z3 = planes((32, 512, 512))
     pp_err = 0.0
-    for zz, ids, nseg, timed in ((z3, ids3, nseg3, False),
-                                 (z1, ids_full1, len(edges1) + 1, True)):
+    for zz, ids, nseg, timed, what in (
+            (z3, ids3, nseg3, False, ""),
+            (z1, ids_full1, len(edges1) + 1, True, " full ids"),
+            (z1, ids_kept1, len(edges1) + 1, False, " kept ids")):
         B = zz[0].shape[0]
         four = tuple(a.reshape(B, -1)
                      for a in tuple(zz) + tuple(mirror_pp(*zz)))
-        tag = f"({B}, {four[0].shape[1]}) nseg={nseg}"
+        tag = f"({B}, {four[0].shape[1]}) nseg={nseg}{what}"
         absc = bin_reduce_ref((four[0] * four[2] - four[1] * four[3]).abs(),
                               ids, nseg)
         for sym in (False, True):
@@ -982,7 +1075,9 @@ def main():
             del again, ref
             ms = cuda_ms(lambda: bin_pair_power(*four, ids, nseg, sym=sym),
                          10)
-            line += f"; kernel {ms:.4f} ms"
+            bnd, by = bound(bin_bytes(ids, nseg, four, *got),
+                            12.0 * four[0].numel())
+            line += f"; kernel {ms:.4f} ms, bound {bnd:.4f} ms ({by})"
             if timed and not sym:
                 plain = cuda_ms(lambda: bin_pair_power_ref(*four, ids, nseg),
                                 2, warmup=1)
@@ -1008,7 +1103,7 @@ def main():
     results["bin_pair_power"] = kernel_entry(
         "bin_pair_power", "bin_reduce.cu", "pallas_kernels.py:262", pp_err,
         *pp_rec)
-    del z1, z3, zz, ids_full1, ids3
+    del z1, z3, zz, ids_full1, ids_kept1, ids3
     torch.cuda.empty_cache()
 
     # B5: the config-1 covsqrt scale, 96 pairs; B5n's stream through B4's
@@ -1249,11 +1344,12 @@ def main():
                     plain = cuda_ms(lambda: ref_fn(x, tab), 1, warmup=0)
                     # bytes: x in, the output, the tables once. Operations
                     # per live step: the recurrence's two FMAs and a
-                    # multiply (5, in fp64; fp32 in fast), and per map the
+                    # multiply (5, in fp64; fp32 in fast, with two FMAs
+                    # more for the factor's low parts: 9), and per map the
                     # complex contraction's two FMAs (4), counted at the
                     # fp32 rate (67 TFLOP/s), which is also the fp64
                     # tensor cores' rate that B10a and B10s contract at
-                    rec = 5.0 * steps
+                    rec = (9.0 if fast else 5.0) * steps
                     work = (nbytes(x, tab["A"], tab["B"], tab["C"],
                                    ktab["s1"], ktab["s0"], ktab["ls"])
                             + out_b,
@@ -1350,6 +1446,17 @@ def main():
             for fn in fns:
                 fn.launches = 0
         row_regs_at_reset[0] = klib.rowfft_regs_launches()
+        lens_map_kernel.wide_blocks(reset=True)
+
+    def read_wide(tag, must_be_zero):
+        """B8's blocks since reset_counts() whose deflection range exceeded
+        the shared-memory window (their taps came from device memory)"""
+        wide = lens_map_kernel.wide_blocks()
+        print(f"[{tag}] B8 blocks with taps from device memory: {wide}"
+              + (" (must be 0 at the pipeline's cap D = 8)" if must_be_zero
+                 else ""))
+        if must_be_zero:
+            check(wide == 0, f"{tag}: {wide} B8 blocks wider than the window")
 
     def check_row_route(counts, tag):
         """Every B4 and B5 launch of the path since reset_counts() took the
@@ -1391,6 +1498,7 @@ def main():
     step_ms = pipeline_rate(pipe, batch, gen, 5, card, "4")
     ratio_gate(pipe, batch, gen, "4")
     read_counts(("bin_reduce", "lens_map_kernel"), "4")
+    read_wide("4", True)
     # the kernel path agrees with the plain path on a small input
     small = rect_geometry(width_arcmin=128 * 2.0, px_res_arcmin=2.0)
     p_gpu = LensedQEPipeline(small, th, lens_order=5, device=dev)
@@ -1419,6 +1527,7 @@ def main():
     lens_path = ("bin_reduce", "lens_map_kernel", "colfft", "rowfft",
                  "noise_planes", "mirror_pp")
     counts = read_counts(lens_path, "5")
+    read_wide("5", True)
     check_row_route(counts, "5")
     for name in lens_path:
         results[name]["launches"] = counts[name]
@@ -1495,6 +1604,19 @@ def main():
     check_row_route(counts6, "6")
     for name in ("bin2_reduce", "colfft", "rowifft_noise_y", "rowqc_half"):
         results[name]["launches"] = counts6[name]
+    # FastCl bins with the edge segments dropped (-1 ids): its bandpowers
+    # equal those from the full ids, which sum the edge segments too and
+    # then cut them off, to 1e-6 relative per bin
+    fc_full = with_full_ids(fc, edges1)
+    kept_bp = fc.sim_bandpowers(99, batch6)
+    full_bp = fc_full.sim_bandpowers(99, batch6)
+    krel = ((kept_bp - full_bp).abs() / full_bp.abs()).max().item()
+    check(krel <= 1e-6, f"config 1: bandpowers from the kept ids vs the full "
+                        f"ids {krel:.3e} relative")
+    print(f"[6] config 1's {batch6} bandpowers from the kept ids vs the full "
+          f"ids: {krel:.3e} relative per bin (<= 1e-6), bit-equal: "
+          f"{torch.equal(kept_bp, full_bp)}")
+    del fc_full, kept_bp, full_bp
     profile_steps(lambda: fc.sim_bandpowers(gen6, batch6), 3, sim_ms, "6")
     profile_steps(lambda: config1_step(7), 3, step1_ms, "6 config-1")
     del fc, bp, mbp, ordered, out
@@ -1625,6 +1747,18 @@ def main():
           f"versions) on the same maps: {srel:.3e} of sqrt(P11 P22) per bin "
           f"(<= 5e-5); {xrel:.3e} of the bin's max |cross| over the pairs")
     del fc_cpu, taper_cpu, bs_cpu, p12
+    # the same step's maps binned with the full ids (edge segments summed,
+    # then cut off): 1e-6 of each bin's largest |cross| over the pairs
+    fc_full = with_full_ids(fc, edges1)
+    full_bs = fc_full.cross_bandpowers(m1, m2, window=taper) / w2
+    kdiff = (bs - full_bs).abs().amax(0) / full_bs.abs().amax(0)
+    krel = kdiff.max().item()
+    check(krel <= 1e-6, f"config 2: cross spectra from the kept ids vs the "
+                        f"full ids {krel:.3e} of the bin's max")
+    print(f"[7] config 2's {pairs7} cross spectra from the kept ids vs the "
+          f"full ids: {krel:.3e} of each bin's max |cross| (<= 1e-6), "
+          f"bit-equal: {torch.equal(bs, full_bs)}")
+    del fc_full, full_bs, kdiff
     # gates on the step's own maps (8 of each): cross(m, m) is the auto
     # spectrum; the fused taper equals pre-multiplied maps (a correlated
     # pair, so that no bin is near 0)
@@ -1815,7 +1949,9 @@ def main():
     a0 = torch.complex(torch.randn(n7, generator=g7, device=dev),
                        torch.randn(n7, generator=g7, device=dev))
     a0[: lmax7 + 1] = a0[: lmax7 + 1].real.to(a0.dtype)    # m = 0 real
-    for fast, tol, tag in ((False, 3.2e-6, ""), (True, 1e-2, "_fast")):
+    # gates: the reference's roundtrip contracts at lmax 2047, 3.2e-6 in dd
+    # and 6.4e-3 in fast (orphics_tpu/ops/pallas_sht.py:145-150)
+    for fast, tol, tag in ((False, 3.2e-6, ""), (True, 6.4e-3, "_fast")):
         def roundtrip(a, fast=fast):
             return sht.map2alm(sht.alm2map(a, rings7, lmax7, fast=fast),
                                rings7, lmax7, fast=fast)
@@ -1847,6 +1983,27 @@ def main():
     counts9 = read_counts(("legendre_ana", "legendre_syn"), "9")
     add_b10(counts9)
     del a0, state
+    # the fast roundtrip at lmax 1023 against the reference's 1.8e-3
+    # (pallas_sht.py:146-147), one unit-variance complex64 alm as bench.py
+    # config 7 makes it, the dd error beside it; after the launch counts,
+    # which are config 7's
+    lmax7b = 1023
+    rings7b = sht.gauss_legendre_rings(lmax7b)
+    n7b = almops.nalm(lmax7b)
+    a0 = torch.complex(torch.randn(n7b, generator=g7, device=dev),
+                       torch.randn(n7b, generator=g7, device=dev))
+    a0[: lmax7b + 1] = a0[: lmax7b + 1].real.to(a0.dtype)
+    errs7b = {}
+    for fast in (False, True):
+        a2 = sht.map2alm(sht.alm2map(a0, rings7b, lmax7b, fast=fast),
+                         rings7b, lmax7b, fast=fast)
+        errs7b[fast] = (a2 - a0).abs().max().item()
+    check(errs7b[True] <= 1.8e-3, f"lmax 1023 fast roundtrip: "
+                                  f"{errs7b[True]:.3e} > 1.8e-3")
+    print(f"[9] lmax {lmax7b} roundtrip max-abs error: fast "
+          f"{errs7b[True]:.3e} (<= 1.8e-3), dd {errs7b[False]:.3e} "
+          "(the reference's 2.2e-6, read)")
+    del a0, a2, rings7b
     torch.cuda.empty_cache()
 
     # ---- 10. bench config 8: curved-sky masked-spectrum Monte Carlo at
@@ -2304,6 +2461,7 @@ def main():
           f"each, on the card) vs kappa_nfw_generic: {nfw_rel:.3e} relative "
           "(<= 1e-4: the quadrature stops at 2000 Mpc)")
     read_counts(("lens_map_kernel", "bin_reduce"), "14")
+    read_wide("14", False)
     del flp, fls, obs_p, ex, eta14, q3
     torch.cuda.empty_cache()
 

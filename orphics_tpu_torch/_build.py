@@ -34,15 +34,16 @@ _I64 = ctypes.c_longlong
 _F32 = ctypes.c_float
 # name -> (argtypes, restype) of every exported C function
 _SIGNATURES = {
-    "bin_reduce_launch": ([_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
-                           _INT, _VP], _INT),
-    "bin2_reduce_launch": ([_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
-                            _INT, _VP], _INT),
+    "bin_reduce_launch": ([_VP] * 5 + [_INT] * 5 + [_VP], _INT),
+    "bin2_reduce_launch": ([_VP] * 5 + [_INT] * 5 + [_VP], _INT),
     "bin_pair_power_launch": ([_VP] * 7 + [_INT] * 6 + [_VP], _INT),
-    "bin_reduce_span": ([], _INT),
+    "bin_reduce_nspan": ([_INT, _INT, _INT], _INT),
     "bin_reduce_seg_cap": ([], _INT),
-    "lens_spline_launch": ([_VP, _VP, _VP, _INT, _INT, _INT, _INT, _F32,
-                            _F32, _INT, _INT, _VP], _INT),
+    "lens_spline_launch": ([_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
+                            _F32, _F32, _INT, _INT, _VP], _INT),
+    "lens_spline_tile_rows": ([], _INT),
+    "lens_spline_tile_cols": ([], _INT),
+    "lens_spline_window_range": ([], _INT),
     "dft_launch": ([_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
                     _INT, _VP], _INT),
     "dft_noise_launch": ([_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
@@ -59,8 +60,8 @@ _SIGNATURES = {
     "rowfft_blk0_launch": ([_VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP], _INT),
     "noise_planes_launch": ([_VP, _VP, _VP, _VP, _INT, _I64, _VP], _INT),
     "mirror_launch": ([_VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP], _INT),
-    "legendre_ana_launch": ([_VP] * 11 + [_INT] * 13 + [_VP], _INT),
-    "legendre_syn_launch": ([_VP] * 11 + [_INT] * 10 + [_VP], _INT),
+    "legendre_ana_launch": ([_VP] * 12 + [_INT] * 13 + [_VP], _INT),
+    "legendre_syn_launch": ([_VP] * 12 + [_INT] * 10 + [_VP], _INT),
 }
 
 

@@ -35,6 +35,7 @@ import torch
 
 from ._device import resolve
 from .ops import legendre
+from .models.fastcl import drop_edge_segments
 from .models.lenspipe import PLANE_NAMES, PP_PLANE_NAMES
 from .models.theory import TheorySpectra
 
@@ -118,18 +119,19 @@ def load_fastcl_tables(fc, tables: Dict[str, np.ndarray]) -> None:
     ``tables`` holds every name of ``FASTCL_TABLE_NAMES`` as numpy arrays
     (``_covsqrt_pp`` may be None); the boundary-row one-hots ``_oh0``
     and ``_ohn`` ``(n, nseg)`` become the row ids that the port bins with
-    (their ``argmax`` over axis 1).
+    (their ``argmax`` over axis 1). As the port's own tables, the ids carry
+    -1 for the edge segments (``fastcl.drop_edge_segments``).
     """
     dev = fc.device
-    ids = lambda a: torch.as_tensor(np.array(a, dtype=np.int32),
-                                    device=dev)
+    nseg = int(tables["_nsg"])
+    ids = lambda a: torch.as_tensor(drop_edge_segments(a, nseg), device=dev)
     cs = tables["_covsqrt_pp"]
     fc._covsqrt_pp = None if cs is None else torch.as_tensor(
         np.array(cs, dtype=np.float32), device=dev).contiguous()
     fc._idc = ids(np.asarray(tables["_idc"]).ravel())
     fc._icnt = torch.as_tensor(np.array(tables["_icnt"], dtype=np.float32),
                                device=dev)
-    fc._nsg = int(tables["_nsg"])
+    fc._nsg = nseg
     fc._mrow = torch.as_tensor(np.array(tables["_mrow"], dtype=np.int64),
                                device=dev)
     fc._ids0 = ids(np.argmax(np.asarray(tables["_oh0"]), axis=1))

@@ -18,11 +18,14 @@
 // as true fp64 values (after capture a lane's value is at least ~2^-50, so
 // no extended exponent is needed). The fast mode keeps the plain fp32
 // recurrence of _fast_step with its 2^-30 rescale and its e weighting
-// (1, 2^-30, 0), per lane.
+// (1, 2^-30, 0), per lane, but rounds the factor a x + b once from fp64 a
+// and x (factor below: two FMAs more a step); with a and x rounded to fp32
+// the near-polar low-m lanes drifted, and the lmax 1023 roundtrip missed
+// the reference's 1.8e-3.
 //
 // Bound: operations (chip_smoke.py phase 2, the larger of bytes and
 // operations). Per live (ring, m, l) step the recurrence (5 fp64
-// operations; fp32 in fast) and per map the complex contraction (two FMAs:
+// operations; 9 fp32 in fast) and per map the complex contraction (two FMAs:
 // 4 operations, counted at the fp32 rate, which the fp64 tensor cores
 // match); the bytes are ~0.2 GB at lmax 2047. The first form of these
 // kernels ran 12-30x that bound, held back by latency and instruction
@@ -97,6 +100,7 @@ struct Tabs {
   const void* B;
   const void* C;
   const void* x;        // (Tk) R
+  const float* xlo;     // (Tk) fast: x - fp32(x), the ring cosine's low part
   const void* s1;       // (M1, Tk) R: Lambda_{l_s} (fast: mantissa)
   const void* s0;       // (M1, Tk) R: Lambda_{l_s - 1}
   const int* se;        // (M1, Tk) exponent of the fast mantissas
@@ -122,7 +126,7 @@ __device__ __forceinline__ void mma1684(double (&d)[4], double a0, double a1,
 // into the (M1, Tk) seed tables.
 template <typename R>
 struct Lane {
-  R p, c, x;
+  R p, c, x, xl;
   int e, ls, i;
 };
 
@@ -135,6 +139,7 @@ __device__ inline void lane_init(Lane<R>& ln, const Tabs& tb, int m, int t,
   ln.c = R(0);
   ln.e = 0;
   ln.x = valid ? static_cast<const R*>(tb.x)[t] : R(0);
+  ln.xl = valid && sizeof(R) == 4 ? static_cast<R>(tb.xlo[t]) : R(0);
   ln.ls = valid ? tb.ls[ln.i] : -1;
 }
 
@@ -163,11 +168,23 @@ struct Seeds {
   }
 };
 
+// The recurrence's factor a x + b. Fast, the table holds a - 2 and the lane
+// x's low part too: 2 x + (2 x_lo + ((a - 2) x + b)), so that the factor,
+// near 2 on the low-m lanes, is rounded once from a and x as they are in
+// fp64 (fp32 tables of a and x drift those lanes' values by ~l^2 ulps:
+// 1.86e-3 for the lmax 1023 roundtrip against 1.8e-3 in the reference)
+__device__ inline double factor(const Lane<double>& ln, double a, double b) {
+  return fma(a, ln.x, b);
+}
+__device__ inline float factor(const Lane<float>& ln, float a, float b) {
+  return fmaf(2.0f, ln.x, fmaf(2.0f, ln.xl, fmaf(a, ln.x, b)));
+}
+
 // One l-step where no lane of the warp takes its seed and (fast) every
 // exponent is 0: the plain recurrence, weight 1.
 template <typename R>
 __device__ inline double step_plain(Lane<R>& ln, R a, R b, R c) {
-  const R nv = madd(madd(a, ln.x, b), ln.c, c * ln.p);
+  const R nv = madd(factor(ln, a, b), ln.c, c * ln.p);
   ln.p = ln.c;
   ln.c = nv;
   return static_cast<double>(nv);
@@ -179,7 +196,7 @@ __device__ inline double step_plain(Lane<R>& ln, R a, R b, R c) {
 __device__ inline double step_full(Lane<double>& ln, double a, double b,
                                    double c, int l, double s1, double s0,
                                    int) {
-  double nv = fma(fma(a, ln.x, b), ln.c, c * ln.p);
+  double nv = fma(factor(ln, a, b), ln.c, c * ln.p);
   double pv = ln.c;
   if (l == ln.ls) {
     nv = s1;
@@ -193,7 +210,7 @@ __device__ inline double step_full(Lane<double>& ln, double a, double b,
 __device__ inline double step_full(Lane<float>& ln, float a, float b,
                                    float c, int l, float s1, float s0,
                                    int se) {
-  float nv = fmaf(fmaf(a, ln.x, b), ln.c, c * ln.p);
+  float nv = fmaf(factor(ln, a, b), ln.c, c * ln.p);
   float pv = ln.c;
   if (l == ln.ls) {
     nv = s1;
@@ -878,15 +895,17 @@ bool bad_shape(int M1, int Lp, int Tk, int ng, int nmaps) {
 extern "C" {
 
 // B10a. Tables (A, B, C m-major (M1, Lp), x, s1, s0) are fp32 when fast,
-// else fp64; G is the maps' (nmaps, Tr, M1, 2), Tr = T folded (the kernel
-// rings are the Tk = (T + 1) / 2 northern ones), else Tk, fp64 when f64,
+// with A - 2 in place of A and xlo the low part of x, else fp64; G is
+// the maps' (nmaps, Tr, M1, 2), Tr = T folded (the kernel rings are the
+// Tk = (T + 1) / 2 northern ones), else Tk, fp64 when f64,
 // else fp32; out, every element written: when direct, the maps' (nmaps,
 // L1, M1, 2) in G's type, else fp64 partials (nsg, nmaps, L1, M1, 2) with
 // nsg = ceil(Tk / (512 rr)) for the caller to sum in order. rr = 2 needs
 // one column tile (2 maps folded, 4 not) and Tk <= 1024; folded, nmaps <=
 // 8. fast is ignored for fp64 inputs.
 int legendre_ana_launch(const void* A, const void* B, const void* C,
-                        const void* x, const void* s1, const void* s0,
+                        const void* x, const float* xlo, const void* s1,
+                        const void* s0,
                         const int* se, const int* ls, const int* bounds,
                         const void* G, void* out, int M1, int Lp, int L1,
                         int Tk, int Tr, int T, int ng, int nmaps, int rr,
@@ -897,7 +916,7 @@ int legendre_ana_launch(const void* A, const void* B, const void* C,
       || ana_tiles(nmaps, fold) > 4 || (rr != 1 && rr != 2)
       || (rr == 2 && (ana_tiles(nmaps, fold) != 1 || Tk > 1024)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Tabs tb{A, B, C, x, s1, s0, se, ls, bounds, M1, Lp, Tk, ng};
+  const Tabs tb{A, B, C, x, xlo, s1, s0, se, ls, bounds, M1, Lp, Tk, ng};
   const AnaArgs g{nmaps, L1, Tr, T, direct};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (f64)
@@ -913,7 +932,8 @@ int legendre_ana_launch(const void* A, const void* B, const void* C,
 // B10s. a: the maps' (nmaps, L1, M1, 2); out: the maps' (nmaps, fold ? T :
 // Tk, M1, 2); both fp64 when f64, else fp32.
 int legendre_syn_launch(const void* A, const void* B, const void* C,
-                        const void* x, const void* s1, const void* s0,
+                        const void* x, const float* xlo, const void* s1,
+                        const void* s0,
                         const int* se, const int* ls, const int* bounds,
                         const void* a, void* out, int M1, int Lp, int L1,
                         int Tk, int T, int ng, int nmaps, int fold, int fast,
@@ -921,7 +941,7 @@ int legendre_syn_launch(const void* A, const void* B, const void* C,
   if (bad_shape(M1, Lp, Tk, ng, nmaps) || L1 < 1 || L1 > Lp
       || (Tk + 127) / 128 > 65535 || (fold && Tk != (T + 1) / 2))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Tabs tb{A, B, C, x, s1, s0, se, ls, bounds, M1, Lp, Tk, ng};
+  const Tabs tb{A, B, C, x, xlo, s1, s0, se, ls, bounds, M1, Lp, Tk, ng};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (f64)
     return fold

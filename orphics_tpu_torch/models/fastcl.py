@@ -37,7 +37,17 @@ from ..ops.mirror import _mirror_tables
 from ..ops.rowpower import qc_fields, rows_pp, rowqc_pp, s_field
 from .grf import spec2flat
 
-__all__ = ["FastCl"]
+__all__ = ["FastCl", "drop_edge_segments"]
+
+
+def drop_edge_segments(ids, nseg: int):
+    """``ids`` (numpy) with the under- and overflow segments 0 and
+    ``nseg - 1`` set to -1. The binning kernels drop ids outside
+    ``[0, nseg)`` and read no data where a warp's ids are all dropped; the
+    bandpowers never use those two segments (``[:, 1:-1]``), whose bins
+    then come out 0."""
+    ids = np.asarray(ids, dtype=np.int32)
+    return np.where((ids == 0) | (ids == nseg - 1), np.int32(-1), ids)
 
 
 class FastCl:
@@ -79,7 +89,12 @@ class FastCl:
             (1.0 / safe * (counts > 0)).astype(np.float32), device=dev)
         self._norm = float(np.float32(geom.area / geom.npix ** 2))
         p_of_h, self._pnyq = D.half_rows(n)
-        ids = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+        # the bin tables carry -1 for the edge segments, which the
+        # bandpowers drop: the kernels then skip the data there (89 % of
+        # the half plane at bench config 1)
+        ids = lambda a: torch.as_tensor(
+            np.ascontiguousarray(drop_edge_segments(a, self._nsg)),
+            device=dev)
         self._idc = ids(dig2d[p_of_h].reshape(-1))
         self._mrow = torch.as_tensor(_mirror_tables(n), dtype=torch.long,
                                      device=dev)

@@ -12,10 +12,13 @@ case:
         ``(|Z|^2 + |Zm|^2) / 2``) and ``c = Re(Z Zm)`` of a packed Fourier
         pair and its mirror, formed as the planes are read
 
-For a CUDA tensor each launches the hand-written kernel in
-``csrc/bin_reduce.cu``: fp64 partials per warp in shared memory, then
-fixed-order sums over warps and element spans, so the result is
-deterministic with no atomics. Any segment count: segments beyond the
+Ids outside ``[0, nseg)`` are dropped, as the JAX one-hot drops them; a
+caller that throws segments away passes -1 for them, and the kernel then
+reads no data where a warp's ids are all dropped. For a CUDA tensor each
+launches the hand-written kernel in ``csrc/bin_reduce.cu``: a block walks
+a few batch rows over one id table, fp64 partials per warp in shared
+memory, then fixed-order sums over warps and element spans, so the result
+is deterministic with no atomics. Any segment count: segments beyond the
 kernel's per-block cap are split into tiles (:func:`_seg_tiles`), each
 reading the data once. For a CPU tensor each runs its plain version. There
 is no fallback from one to the other.
@@ -32,14 +35,17 @@ __all__ = ["bin_reduce", "bin_reduce_ref", "bin2_reduce", "bin2_reduce_ref",
 
 def bin_reduce_ref(data, ids, nseg: int, weights=None):
     """Plain PyTorch version: ``index_add_`` over the segment axis in
-    float64, returned as float32."""
+    float64, returned as float32; ids outside ``[0, nseg)`` are dropped
+    (summed into a column that is cut off)."""
     x = data.to(torch.float64)
     if weights is not None:
         x = x * weights.to(torch.float64)
-    out = torch.zeros((data.shape[0], nseg), dtype=torch.float64,
+    idx = ids.to(torch.long)
+    idx = torch.where((idx >= 0) & (idx < nseg), idx, nseg)
+    out = torch.zeros((data.shape[0], nseg + 1), dtype=torch.float64,
                       device=data.device)
-    out.index_add_(1, ids.to(torch.long), x)
-    return out.to(torch.float32)
+    out.index_add_(1, idx, x)
+    return out[:, :nseg].to(torch.float32)
 
 
 def bin2_reduce_ref(d1, d2, ids, nseg: int):
@@ -92,7 +98,7 @@ def _launch(inputs, ids, nseg, weights, what, sym=False):
     B, N = inputs[0].shape
     nd = min(len(inputs), 2)
     tile, ntiles = _seg_tiles(nseg, lib.bin_reduce_seg_cap())
-    nspan = -(-N // lib.bin_reduce_span())
+    nspan = lib.bin_reduce_nspan(B, N, ntiles)
     dev = inputs[0].device
     scratch = torch.empty((nd, nspan, B, nseg), dtype=torch.float64,
                           device=dev)
@@ -119,8 +125,9 @@ def _launch(inputs, ids, nseg, weights, what, sym=False):
 
 
 def bin_reduce(data, ids, nseg: int, weights=None):
-    """``(B, N)`` float32 data, ``(N,)`` int32 ids in ``[0, nseg)``,
-    optional ``(N,)`` float32 weights -> ``(B, nseg)`` float32 sums (B1)."""
+    """``(B, N)`` float32 data, ``(N,)`` int32 ids (those outside
+    ``[0, nseg)`` dropped), optional ``(N,)`` float32 weights ->
+    ``(B, nseg)`` float32 sums (B1)."""
     _check(data, ids, weights, nseg)
     if data.is_cuda:
         out = _launch((data,), ids, nseg, weights, "bin_reduce")[0]

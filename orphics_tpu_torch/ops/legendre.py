@@ -7,7 +7,8 @@
 * :func:`legendre_ana` / :func:`legendre_syn` (``csrc/legendre.cu``):
   ``out[b, l, m] = sum_t Lambda_lm(theta_t) G[b, t, m]`` and ``acc[b, t, m]
   = sum_l Lambda_lm(theta_t) a[b, l, m]``. The kernels run the three-term
-  recurrence in float64 (``fast``: float32 with the extended exponent), from
+  recurrence in float64 (``fast``: float32 with the extended exponent, its
+  factor ``a x + b`` rounded once from float64 ``a`` and ``x``), from
   per-(ring, m) seeds captured at ``l_s`` (the first l whose value the
   weighting keeps), over per-(m, 32-ring group) loop bounds with the
   dead-group skip, and on north-south symmetric grids over the northern
@@ -371,6 +372,10 @@ def _kernel_tables_from(lmax, theta, A, B, C, capP, capC, capE, capL):
              bounds=torch.as_tensor(bounds, device=dev).contiguous())
     for name in ("A", "B", "C", "x"):
         k[name + "32"] = k[name].to(torch.float32)
+    # the fast recurrence's factor 2 x + (2 x_lo + (A - 2) x + B) rounds
+    # once from float64 A and x (_fast_factor)
+    k["A32"] = (k["A"] - 2.0).to(torch.float32)
+    k["xlo32"] = (k["x"] - k["x32"].double()).to(torch.float32)
     k["s1_32"] = capC.to(torch.float32).contiguous()
     k["s0_32"] = capP.to(torch.float32).contiguous()
     return k
@@ -446,12 +451,25 @@ def _fmaf(a, b, c):
     return si.view(torch.float64).to(torch.float32)
 
 
-def _fast_rows(lp, lc, e, A, B, C, x, seed, s1, s0, se):
+def _fast_factor(A, B, x, xlo):
+    """The fast recurrence's factor ``a x + b`` on (M1, Tk) lanes,
+    ``fmaf(2, x, fmaf(2, x_lo, fmaf(A - 2, x, B)))`` (``A`` holds A - 2,
+    ``xlo`` the low part of x): near 2 on the low-m lanes, it rounds once
+    from float64 A and x (``legendre.cu:factor``)."""
+    shape = (A.shape[0], x.shape[0])
+    two = torch.full(shape, 2.0, dtype=torch.float32, device=x.device)
+    xs, xl = x.expand(shape), xlo.expand(shape)
+    t = _fmaf(A[:, None].expand(shape), xs, B[:, None].expand(shape))
+    return _fmaf(two, xs, _fmaf(two, xl, t))
+
+
+def _fast_rows(lp, lc, e, A, B, C, x, xlo, seed, s1, s0, se):
     """One l-step of the fast kernel's float32 recurrence on (M1, Tk) lanes,
-    ``fmaf(fmaf(a, x, b), c, C p)`` with each fused multiply-add rounded
-    once (:func:`_fmaf`); then the seed injection, the 2^-30 rescale and the
-    (1, 2^-30, 0) weighting. Returns (p, c, e, weighted)."""
-    t = _fmaf(A[:, None], x, B[:, None].expand(-1, x.shape[0]))
+    ``fmaf(t, c, C p)`` with the factor ``t`` of :func:`_fast_factor` and
+    each fused multiply-add rounded once (:func:`_fmaf`); then the seed
+    injection, the 2^-30 rescale and the (1, 2^-30, 0) weighting. Returns
+    (p, c, e, weighted)."""
+    t = _fast_factor(A, B, x, xlo)
     ln = _fmaf(t, lc, C[:, None] * lp)
     ln = torch.where(seed, s1, ln)
     pn = torch.where(seed, s0, lc)
@@ -490,7 +508,8 @@ def _kernel_lambda(tab, fast):
         seed = k["ls"] == l
         if fast:
             lp, lc, e, w = _fast_rows(lp, lc, e, A[:, l], B[:, l],
-                                      C[:, l], x, seed, s1, s0, k["se"])
+                                      C[:, l], x, k["xlo32"], seed, s1, s0,
+                                      k["se"])
         else:
             ln = (A[:, l, None] * x + B[:, l, None]) * lc \
                 + C[:, l, None] * lp
@@ -595,7 +614,7 @@ def _kernel_args(tab, real_dtype, fast):
     sfx = "32" if fast else ""
     ptrs = [k["A" + sfx].data_ptr(), k["B" + sfx].data_ptr(),
             k["C" + sfx].data_ptr(), k["x" + sfx].data_ptr(),
-            k["s1_32" if fast else "s1"].data_ptr(),
+            k["xlo32"].data_ptr(), k["s1_32" if fast else "s1"].data_ptr(),
             k["s0_32" if fast else "s0"].data_ptr(), k["se"].data_ptr(),
             k["ls"].data_ptr(), k["bounds"].data_ptr()]
     return k, ptrs, int(fast), int(f64)

@@ -6,10 +6,13 @@ prefilter :func:`spline_coeffs`) and evaluated at displaced positions.
 :func:`lens_map_kernel` is the counterpart of ``lens_map_pallas``: the
 displacement is clipped to ``[-maxdisp_px, maxdisp_px]`` pixels per axis
 and the (order+1)^2 taps are summed. For a CUDA tensor it launches
-``csrc/lens_spline.cu`` (one thread per output pixel, direct taps); for a
-CPU tensor it runs the plain version :func:`lens_map_ref`. It takes any
-(ny, nx): :func:`blocks` and :func:`supported` stay only for parity with
-the JAX package's API.
+``csrc/lens_spline.cu``: a ``TILE`` of outputs per block, weights in the
+closed form of :func:`spline_weights`, taps from a shared-memory window
+of the block's deflection range (blocks whose range exceeds
+``WINDOW_RANGE`` pixels take their taps from device memory and are counted
+by ``lens_map_kernel.wide_blocks``). For a CPU tensor it runs the plain
+version :func:`lens_map_ref`. It takes any (ny, nx): :func:`blocks` and
+:func:`supported` stay only for parity with the JAX package's API.
 """
 from __future__ import annotations
 
@@ -21,9 +24,24 @@ from ..geometry import Geometry
 from . import fourier as F
 
 __all__ = ["lens_map_kernel", "lens_map_ref", "spline_coeffs", "blocks",
-           "supported", "spline_taps"]
+           "supported", "spline_taps", "spline_weights", "TILE",
+           "WINDOW_RANGE"]
 
 _OFFS = {3: (-1, 0, 1, 2), 5: (-2, -1, 0, 1, 2, 3)}
+# The B-spline's polynomial pieces on t in [0, 1): the weight of tap k is
+# sum_i _SPLINE_POLY[order][k][i] t^i (csrc/lens_spline.cu: W3, W5)
+_SPLINE_POLY = {
+    3: np.array([[1, -3, 3, -1], [4, 0, -6, 3], [1, 3, 3, -3],
+                 [0, 0, 0, 1]], np.float64) / 6.0,
+    5: np.array([[1, -5, 10, -10, 5, -1], [26, -50, 20, 20, -20, 5],
+                 [66, 0, -60, 0, 30, -10], [26, 50, 20, -20, -20, 10],
+                 [1, 5, 10, 10, 5, -5], [0, 0, 0, 0, 0, 1]],
+                np.float64) / 120.0}
+# the kernel's output tile (rows, columns) per block, and the largest range
+# of deflection floors per axis that a block's shared-memory window holds
+# (csrc/lens_spline.cu: TY, TX, RMAX)
+TILE = (64, 32)
+WINDOW_RANGE = 16
 
 
 def _bspline3_weights(t):
@@ -47,6 +65,23 @@ def _bspline5_weights(t):
                          - 45 * ax ** 4 + 5 * ax ** 5) / 120.0, r)
         return torch.where((ax >= 2) & (ax < 3), (3.0 - ax) ** 5 / 120.0, r)
     return tuple(b5(t - m) for m in (-2, -1, 0, 1, 2, 3))
+
+
+def spline_weights(t, order: int):
+    """The ``order + 1`` B-spline weights at fraction ``t`` in ``[0, 1)``
+    (taps ``floor + _OFFS[order]``) in closed form: each weight's
+    polynomial piece by Horner, in ``t``'s dtype, as the kernel evaluates
+    them (no absolute value, no branch). Equals ``_bspline3_weights`` /
+    ``_bspline5_weights``."""
+    poly = _SPLINE_POLY[order].astype(np.float32 if t.dtype == torch.float32
+                                      else np.float64)
+    out = []
+    for row in poly:
+        p = torch.full_like(t, float(row[-1]))
+        for c in row[-2::-1]:
+            p = p * t + float(c)
+        out.append(p)
+    return tuple(out)
 
 
 def _bspline_freq_response(n, order):
@@ -144,6 +179,28 @@ def lens_map_ref(coeffs, alpha, geom: Geometry, order: int = 5,
     return spline_taps(coeffs, yb, xb, py - fy, px - fx, order)
 
 
+# per device: the count of blocks that took their taps from device memory
+_WIDE = {}
+
+
+def _wide_counter(device):
+    if device not in _WIDE:
+        _WIDE[device] = torch.zeros(1, dtype=torch.int64, device=device)
+    return _WIDE[device]
+
+
+def _wide_blocks(reset: bool = False) -> int:
+    """Blocks of the kernel's launches (all devices, since the last reset)
+    whose deflection range exceeded the shared-memory window, so that
+    their taps came from device memory; ``reset`` sets the count to 0
+    after reading it. Reading synchronizes with the device."""
+    total = sum(int(t.item()) for t in _WIDE.values())
+    if reset:
+        for t in _WIDE.values():
+            t.zero_()
+    return total
+
+
 def _launch(coeffs, alpha, geom, order, maxdisp_px):
     if not (coeffs.is_contiguous() and alpha.is_contiguous()):
         raise ValueError("lens_map_kernel needs contiguous tensors")
@@ -152,9 +209,11 @@ def _launch(coeffs, alpha, geom, order, maxdisp_px):
     lib = _build.library()
     stream = torch.cuda.current_stream(coeffs.device).cuda_stream
     err = lib.lens_spline_launch(coeffs.data_ptr(), alpha.data_ptr(),
-                                 out.data_ptr(), B, C, ny, nx,
-                                 float(geom.dy), float(geom.dx), order,
-                                 int(maxdisp_px), stream)
+                                 out.data_ptr(),
+                                 _wide_counter(coeffs.device).data_ptr(),
+                                 B, C, ny, nx, float(geom.dy),
+                                 float(geom.dx), order, int(maxdisp_px),
+                                 stream)
     _build.check(err, "lens_map_kernel")
     lens_map_kernel.launches += 1
     return out
@@ -192,6 +251,7 @@ def lens_map_kernel(imap, alpha, geom: Geometry, order: int = 5,
 
 
 lens_map_kernel.launches = 0
+lens_map_kernel.wide_blocks = _wide_blocks
 
 
 def blocks(ny, nx):

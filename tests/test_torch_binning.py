@@ -113,6 +113,51 @@ def test_bin2_reduce_matches_bin2_matmul():
         bin2_reduce(tq, tc[:2], tid, nsg)
 
 
+def _dropped_ids(rng, n, nseg):
+    """Ids in [0, nseg) with runs of -1 (a caller's dropped segments), one
+    of them longer than the kernels' 32-id steps, and a few ids >= nseg
+    (also dropped)."""
+    ids = rng.integers(0, nseg, n).astype(np.int32)
+    ids[rng.random(n) < 0.5] = -1
+    ids[100:400] = -1
+    ids[rng.random(n) < 0.01] = nseg + 3
+    return ids
+
+
+@pytest.mark.parametrize("n,weighted", [(8192 + 1000, False),
+                                        (2 * 8192, True)])
+def test_ref_drops_ids_like_bin_matmul(n, weighted):
+    """Ids outside [0, nseg) (-1 where a caller drops segments) are
+    dropped by the plain versions as by the JAX one-hot: B1 against
+    ``bin_matmul``, B2 against ``bin2_matmul``, within 1e-6 of the binned
+    |data|, and equal to the sums over the kept ids alone."""
+    rng = np.random.default_rng(n + 7)
+    B, nseg = 3, 21
+    d1, d2 = (rng.standard_normal((B, n)).astype(np.float32) + 0.3
+              for _ in range(2))
+    ids = _dropped_ids(rng, n, nseg)
+    w = rng.integers(1, 3, n).astype(np.float32) if weighted else None
+    tid = torch.as_tensor(ids)
+    tw = None if w is None else torch.as_tensor(w)
+    want = bin_matmul(jnp.asarray(d1), jnp.asarray(ids), nseg,
+                      weights=None if w is None else jnp.asarray(w),
+                      interpret=True)
+    got = bin_reduce(torch.as_tensor(d1), tid, nseg, tw)
+    absref = bin_reduce_ref(torch.as_tensor(np.abs(d1)), tid, nseg, tw)
+    assert _bin_err(got, want, absref) <= TOL_BIN
+    keep = (ids >= 0) & (ids < nseg)
+    wn = np.ones(n) if w is None else w.astype(np.float64)
+    oracle = np.stack([np.bincount(ids[keep], (d1[b] * wn)[keep],
+                                   minlength=nseg) for b in range(B)])
+    assert _bin_err(got, oracle, absref) <= 1e-7
+    want2 = bin2_matmul(jnp.asarray(d1), jnp.asarray(d2), jnp.asarray(ids),
+                        nseg, block=4096, interpret=True)
+    got2 = bin2_reduce(torch.as_tensor(d1), torch.as_tensor(d2), tid, nseg)
+    for g, wj, x in zip(got2, want2, (d1, d2)):
+        absref = bin_reduce_ref(torch.as_tensor(np.abs(x)), tid, nseg)
+        assert _bin_err(g, wj, absref) <= TOL_BIN
+
+
 def test_seg_tiles_cover_every_segment_once():
     """The kernel's segment tiling: tiles of at most ``cap`` segments, none
     empty, covering [0, nseg) exactly once."""
@@ -226,6 +271,43 @@ def test_bin_pair_power_matches_jax(n, sym):
         assert _bin_err(g, oracle, absref) <= TOL_BIN
     ref = bin_pair_power_ref(*t, tid, nseg, sym)
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+# B2' with dropped ids against the JAX kernel: bin(c) cancels, and the
+# JAX kernel's bf16 hi/lo sums of c read up to 1.03e-6 of bin(|c|) against
+# the float64 sums on the inputs below (the port's plain version 1e-7), so
+# the two are held to each other at 2e-6. A dropped pixel summed by either
+# side would be an error of order 1.
+TOL_PAIR_JAX = 2e-6
+
+
+@pytest.mark.parametrize("sym", [False, True])
+def test_bin_pair_power_drops_ids_like_jax(sym):
+    """B2' with -1 (and >= nseg) ids against the JAX kernel in interpret
+    mode and against float64 sums over the kept ids: the dropped pixels'
+    fields are left out of both sums."""
+    rng = np.random.default_rng(31 + sym)
+    B, n, nseg = 2, 4 * 1024 + 300, 17
+    planes = [rng.standard_normal((B, n)).astype(np.float32)
+              for _ in range(4)]
+    ids = _dropped_ids(rng, n, nseg)
+    want = j_bin_pair_power(*(jnp.asarray(a) for a in planes),
+                            jnp.asarray(ids), nseg, block=1024, sym=sym,
+                            interpret=True)
+    tid = torch.as_tensor(ids)
+    got = bin_pair_power(*(torch.as_tensor(a) for a in planes), tid, nseg,
+                         sym=sym)
+    zr, zi, mr, mi = planes
+    q = 0.5 * (zr ** 2 + zi ** 2 + mr ** 2 + mi ** 2) if sym \
+        else zr ** 2 + zi ** 2
+    keep = (ids >= 0) & (ids < nseg)
+    for g, wj, field in zip(got, want, (q, zr * mr - zi * mi)):
+        absref = bin_reduce_ref(torch.as_tensor(np.abs(field)), tid, nseg)
+        assert _bin_err(g, wj, absref) <= TOL_PAIR_JAX
+        oracle = np.stack([np.bincount(ids[keep],
+                                       field[b][keep].astype(np.float64),
+                                       minlength=nseg) for b in range(B)])
+        assert _bin_err(g, oracle, absref) <= 1e-7
 
 
 def test_bin_pair_power_splits_a_packed_pair():

@@ -34,7 +34,7 @@ from orphics_tpu.ops.windows import get_taper as jget_taper
 
 import orphics_tpu_torch as tp
 from orphics_tpu_torch.convert import FASTCL_TABLE_NAMES, load_fastcl_tables
-from orphics_tpu_torch.models.fastcl import FastCl
+from orphics_tpu_torch.models.fastcl import FastCl, drop_edge_segments
 from orphics_tpu_torch.ops.windows import get_taper
 
 torch.set_num_threads(1)
@@ -99,15 +99,27 @@ def _rel(got, want):
 
 
 def test_tables_match_jax(ref):
+    """The port's tables are the JAX ones, except that the id tables carry
+    -1 for the two edge segments (0 and nseg - 1) that the bandpowers
+    drop, so that the binning kernels skip their data."""
     _, tg = _geoms()
     fc = FastCl(tg, ref["ells"], ref["cltt"], bin_edges=EDGES, device="cpu")
     t = ref["tables"]
-    np.testing.assert_array_equal(fc._idc.numpy(), t["_idc"])
+    nsg = int(t["_nsg"])
+    edge = lambda a: np.where((a == 0) | (a == nsg - 1), -1, a)
+    np.testing.assert_array_equal(fc._idc.numpy(), edge(t["_idc"]))
+    assert (fc._idc.numpy() == -1).sum() == np.isin(t["_idc"],
+                                                    (0, nsg - 1)).sum() > 0
+    assert fc._idc.numpy().max() == nsg - 2
     np.testing.assert_array_equal(fc._icnt.numpy(), t["_icnt"])
-    assert fc._nsg == int(t["_nsg"]) == len(EDGES) + 1
+    assert fc._nsg == nsg == len(EDGES) + 1
     np.testing.assert_array_equal(fc._mrow.numpy(), t["_mrow"])
-    np.testing.assert_array_equal(fc._ids0.numpy(), t["_oh0"].argmax(1))
-    np.testing.assert_array_equal(fc._idsn.numpy(), t["_ohn"].argmax(1))
+    np.testing.assert_array_equal(fc._ids0.numpy(),
+                                  edge(t["_oh0"].argmax(1)))
+    np.testing.assert_array_equal(fc._idsn.numpy(),
+                                  edge(t["_ohn"].argmax(1)))
+    np.testing.assert_array_equal(drop_edge_segments(t["_idc"], nsg),
+                                  edge(t["_idc"]))
     np.testing.assert_array_equal(fc.centers, t["centers"])
     # the fp32 |l| planes differ by an ulp on ~1 % of pixels (XLA's sqrt)
     cs = t["_covsqrt_pp"]
@@ -149,6 +161,32 @@ def test_cross_bandpowers_matches_jax(fc, ref, windowed):
     assert got.shape == (3, len(EDGES) - 1) and got.dtype == torch.float32
     want = ref["cross_w" if windowed else "cross"]
     assert np.abs(got.numpy() - want).max() <= RTOL * np.abs(want).max()
+
+
+def test_bandpowers_of_kept_ids_equal_full_ids(ref):
+    """The bandpowers from the tables with the edge segments dropped equal
+    those from the full ids (the JAX tables as they are) to 1e-6 relative
+    per bin: the kept bins are summed from the same terms, and the edge
+    bins, now 0, are cut off. Auto, sims and cross spectra."""
+    _, tg = _geoms()
+    kept = FastCl(tg, ref["ells"], ref["cltt"], bin_edges=EDGES,
+                  device="cpu")
+    full = FastCl(tg, ref["ells"], ref["cltt"], bin_edges=EDGES,
+                  device="cpu")
+    t = ref["tables"]
+    full._idc = torch.as_tensor(t["_idc"].ravel().astype(np.int32))
+    full._ids0 = torch.as_tensor(t["_oh0"].argmax(1).astype(np.int32))
+    full._idsn = torch.as_tensor(t["_ohn"].argmax(1).astype(np.int32))
+    assert (kept._idc == -1).any() and not (full._idc == -1).any()
+    m, m2 = torch.as_tensor(ref["maps"]), torch.as_tensor(ref["maps2"])
+    er, ei = torch.as_tensor(ref["er"]), torch.as_tensor(ref["ei"])
+    for a, b in ((kept.map_bandpowers(m), full.map_bandpowers(m)),
+                 (kept.sim_bandpowers_from_noise(er, ei),
+                  full.sim_bandpowers_from_noise(er, ei))):
+        assert _rel(a.numpy(), b.numpy()) <= 1e-6
+    a = kept.cross_bandpowers(m, m2).numpy()
+    b = full.cross_bandpowers(m, m2).numpy()
+    assert np.abs(a - b).max() <= 1e-6 * np.abs(b).max()
 
 
 def test_cross_bandpowers_auto_and_window(ref):

@@ -2,8 +2,11 @@
 prefilter, kernel B8's plain version ``lens_map_ref`` against
 ``lens_map_pallas`` in interpret mode (orders 3 and 5, batched, and past
 the displacement cap), the uncapped spline path, kappa -> deflection, and
-``FlatLensingSims`` on the same draws. The CUDA kernel is held to its
-plain version in test_torch_cuda.py."""
+``FlatLensingSims`` on the same draws. B8's closed-form weights
+(``spline_weights``) against the piecewise ones, and a torch emulation of
+the kernel's per-block window (tile range, window origin, wrapped-index
+tables, wide blocks through device memory) against ``lens_map_ref``. The
+CUDA kernel is held to its plain version in test_torch_cuda.py."""
 import numpy as np
 import pytest
 import jax
@@ -162,3 +165,120 @@ def test_flat_lensing_sims_same_draws():
     assert np.abs(obs_t.numpy() - b).max() <= 1e-4 * np.abs(b).max()
     gen = torch.Generator().manual_seed(1)
     assert tf.get_sim(gen).shape == tg.shape
+
+
+def test_closed_form_weights_equal_piecewise():
+    """``spline_weights`` (the Horner pieces the kernel evaluates) against
+    the piecewise ``_bspline{3,5}_weights`` on a grid of t in [0, 1): the
+    same polynomials, so 1e-7 in float64 (they agree to ~1e-15). In
+    float32 each Horner step rounds once against the float64 piecewise
+    weights: 3e-7 absolute (weights <= 0.67, a few float32 ulps)."""
+    t64 = torch.linspace(0.0, 1.0, 4097, dtype=torch.float64)[:-1]
+    for order, piecewise in ((3, tlensop._bspline3_weights),
+                             (5, tlensop._bspline5_weights)):
+        want = piecewise(t64)
+        got = tlensop.spline_weights(t64, order)
+        assert len(got) == order + 1
+        for g, w in zip(got, want):
+            assert (g - w).abs().max().item() <= 1e-7
+        g32 = tlensop.spline_weights(t64.float(), order)
+        for g, w in zip(g32, want):
+            assert g.dtype == torch.float32
+            assert (g.double() - w).abs().max().item() <= 3e-7
+        np.testing.assert_allclose(sum(got).numpy(), 1.0, atol=1e-12)
+
+
+def _emulate_b8(coeffs, alpha, geom, order, D, tile=tlensop.TILE,
+                rmax=tlensop.WINDOW_RANGE):
+    """The CUDA kernel's per-block bookkeeping in torch: for each tile of
+    outputs, the range of the clipped deflection floors, the window's
+    origin and size, the wrapped row and column tables, the window's taps
+    (rows outer, columns inner) with the closed-form weights; a block whose
+    range exceeds ``rmax`` takes its taps from the whole plane, wrapped per
+    tap. Returns the lensed maps and the count of such wide blocks."""
+    B, C, ny, nx = coeffs.shape
+    TY, TX = tile
+    o0 = tlensop._OFFS[order][0]
+    py = torch.clamp(alpha[:, 0] / geom.dy, -D, D)
+    px = torch.clamp(alpha[:, 1] / geom.dx, -D, D)
+    fy, fx = torch.floor(py), torch.floor(px)
+    wy = tlensop.spline_weights(py - fy, order)
+    wx = tlensop.spline_weights(px - fx, order)
+    fy, fx = fy.long(), fx.long()
+    out = torch.empty_like(coeffs)
+    wide = 0
+    for b in range(B):
+        for by0 in range(0, ny, TY):
+            for bx0 in range(0, nx, TX):
+                sl = (b, slice(by0, by0 + TY), slice(bx0, bx0 + TX))
+                fyb, fxb = fy[sl], fx[sl]
+                vy, vx = fyb.shape
+                lo_y, lo_x = int(fyb.min()), int(fxb.min())
+                rng_y, rng_x = int(fyb.max()) - lo_y, int(fxb.max()) - lo_x
+                iy = torch.arange(vy)[:, None]
+                ix = torch.arange(vx)[None, :]
+                if rng_y > rmax or rng_x > rmax:
+                    wide += 1
+                    rows = [(by0 + iy + fyb + o0 + k) % ny
+                            for k in range(order + 1)]
+                    cols = [(bx0 + ix + fxb + o0 + m) % nx
+                            for m in range(order + 1)]
+                    taps = lambda src, k, m: src[rows[k], cols[m]]
+                else:
+                    h, w = vy + rng_y + order, vx + rng_x + order
+                    wrow = (by0 + lo_y + o0 + torch.arange(h)) % ny
+                    wcol = (bx0 + lo_x + o0 + torch.arange(w)) % nx
+                    ry, rx = iy + fyb - lo_y, ix + fxb - lo_x
+                    taps = lambda src, k, m: src[wrow][:, wcol][ry + k,
+                                                                rx + m]
+                for c in range(C):
+                    acc = torch.zeros((vy, vx))
+                    for k in range(order + 1):
+                        t = torch.zeros((vy, vx))
+                        for m in range(order + 1):
+                            t = t + wx[m][sl] * taps(coeffs[b, c], k, m)
+                        acc = acc + wy[k][sl] * t
+                    out[b, c, by0:by0 + vy, bx0:bx0 + vx] = acc
+    return out, wide
+
+
+@pytest.mark.parametrize("order", [3, 5])
+def test_kernel_window_emulation_matches_ref(order):
+    """The emulated kernel equals ``lens_map_ref`` to 2e-5 of the max on a
+    ragged grid (70 x 45: no side a multiple of the tile), two batch
+    entries and two components: with the pipeline's cap D = 8 (no wide
+    block: a floor range is at most 2 D = 16), and with D = max(ny, nx)
+    and a deflection whose floors span more than the window in some
+    blocks (those take their taps from the whole plane) but not all."""
+    tg = tp.rect_geometry(width_arcmin=45 * 3.0, height_arcmin=70 * 3.0,
+                          px_res_arcmin=3.0)
+    assert tg.shape == (70, 45)
+    rng = np.random.default_rng(order)
+    B, C = 2, 2
+    maps = torch.as_tensor(rng.standard_normal((B, C) + tg.shape)
+                           .astype(np.float32))
+    coeffs = tlensop.spline_coeffs(maps, tg, order).contiguous()
+    # a smooth deflection: white noise low-passed on the Fourier plane
+    k = np.fft.fft2(rng.standard_normal((B, 2) + tg.shape))
+    ky = np.fft.fftfreq(tg.shape[0])[:, None]
+    kx = np.fft.fftfreq(tg.shape[1])[None, :]
+    smooth = np.fft.ifft2(k * np.exp(-(ky ** 2 + kx ** 2) / 0.002)).real
+    smooth /= np.abs(smooth).max()
+    TY, TX = tlensop.TILE
+    nblocks = B * -(-tg.shape[0] // TY) * -(-tg.shape[1] // TX)
+    for amax_px, D, wide_expected in ((6.0, 8, False),
+                                      (15.0, max(tg.shape), True)):
+        alpha = torch.as_tensor((smooth * amax_px * tg.dy)
+                                .astype(np.float32))
+        ref = tlensop.lens_map_ref(coeffs, alpha, tg, order, D)
+        got, wide = _emulate_b8(coeffs, alpha, tg, order, D)
+        if wide_expected:
+            assert 0 < wide < nblocks, wide
+        else:
+            assert wide == 0
+        scale = ref.abs().max().item()
+        assert (got - ref).abs().max().item() <= TOL_LENS * scale
+        # a tighter window sends every block through device memory
+        got, wide = _emulate_b8(coeffs, alpha, tg, order, D, rmax=-1)
+        assert wide == nblocks
+        assert (got - ref).abs().max().item() <= TOL_LENS * scale

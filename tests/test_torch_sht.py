@@ -15,10 +15,19 @@ Tolerances:
   in torch on the CPU, on the port's seeds and on JAX's
   (``convert.load_sht_tables``): 1e-6 of max|ref|; its fast mode against
   its default mode 2e-4 (tests/test_sht.py:716-748);
-* float32 roundtrip: 3e-6 (the JAX dd roundtrip error at lmax 1023-2047).
+* float32 roundtrip: 3e-6 (the JAX dd roundtrip error at lmax 1023-2047);
+* the fast roundtrip at lmax 127 on one alm, against JAX's fast kernels in
+  interpret mode: with the reference's factor arithmetic (``a x + b`` from
+  float32 a and x, as ``_fast_step`` forms it) the port's error is JAX's to
+  5 % (they read 5.58e-5 to three digits), with its own factor (rounded
+  once from float64) at most half of JAX's.
+  ``PYTHONPATH=. python tests/test_torch_sht.py LMAX ...``, from the
+  repo's root, prints these readings, and both dd errors, at other lmax.
 
 Each JAX reference is computed once per module, in the ``jref`` fixture.
 """
+from unittest import mock
+
 import jax  # noqa: F401  (the JAX package runs on its CPU backend)
 import jax.numpy as jnp
 import numpy as np
@@ -40,6 +49,7 @@ TOL_F64 = 1e-10
 TOL_F32 = 1e-6
 TOL_FAST = 2e-4
 TOL_RT = 3e-6
+TOL_FAST_RT_REF = 0.05
 
 
 def _rel(got, ref):
@@ -413,3 +423,78 @@ def test_fast_plain_version():
             assert 0 < _rel(want, dd) <= TOL_FAST
             x64 = x.to(torch.complex128)
             assert torch.equal(ref(x64, tab, fast=True), ref(x64, tab))
+
+
+# ------------------------------------------- the fast roundtrip against JAX
+
+def _roundtrip_alm(lmax):
+    """One unit-variance complex64 alm, m = 0 real (healpy packing)."""
+    n = talm.nalm(lmax)
+    rng = np.random.default_rng(lmax)
+    a = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
+        np.complex64)
+    a[: lmax + 1] = a[: lmax + 1].real
+    return a
+
+
+def _reference_factor(A, B, x, xlo):
+    """The fast factor as the JAX package's ``_fast_step`` forms it,
+    ``a x + b`` from float32 ``a`` and ``x`` (one fused multiply-add);
+    ``A`` holds float32 a here, and ``xlo`` is unused."""
+    shape = (A.shape[0], x.shape[0])
+    return leg._fmaf(A[:, None].expand(shape), x.expand(shape),
+                     B[:, None].expand(shape))
+
+
+def _fast_roundtrip_errors(lmax, jax_dd=False):
+    """Max-abs errors of ``map2alm(alm2map(a))`` on :func:`_roundtrip_alm`
+    at GL rings: JAX's Pallas kernels in interpret mode (fast; dd too if
+    ``jax_dd``), the port's fast plain version, the same with
+    :func:`_reference_factor`, and the port's dd."""
+    a0 = _roundtrip_alm(lmax)
+    rj = jsht.gauss_legendre_rings(lmax)
+    rt = tsht.gauss_legendre_rings(lmax)
+    out = {}
+    for mode in ("fast", "dd") if jax_dd else ("fast",):
+        fast = mode == "fast"
+        m = ps.alm2map_pl(jnp.asarray(a0), rj, lmax, interpret=True,
+                          fast=fast)
+        a1 = ps.map2alm_pl(m, rj, lmax, interpret=True, fast=fast)
+        out["jax " + mode] = float(np.abs(np.asarray(a1) - a0).max())
+    at = torch.as_tensor(a0)
+
+    def port(fast):
+        a1 = tsht.map2alm(tsht.alm2map(at, rt, lmax, fast=fast), rt, lmax,
+                          fast=fast)
+        return (a1 - at).abs().max().item()
+
+    out["port fast"] = port(True)
+    own = leg.kernel_tables
+    with mock.patch.object(leg, "kernel_tables",
+                           lambda tab: dict(own(tab),
+                                            A32=own(tab)["A"].float())), \
+            mock.patch.object(leg, "_fast_factor", _reference_factor):
+        out["port, reference factor"] = port(True)
+    out["port dd"] = port(False)
+    return out
+
+
+def test_fast_roundtrip_vs_jax():
+    """The fast roundtrip against JAX's: the port with the reference's
+    factor arithmetic reads JAX's error, and with its own factor less."""
+    e = _fast_roundtrip_errors(127)
+    ref = e["jax fast"]
+    assert abs(e["port, reference factor"] - ref) <= TOL_FAST_RT_REF * ref
+    assert e["port fast"] <= 0.5 * ref
+    assert e["port dd"] <= TOL_RT
+
+
+if __name__ == "__main__":
+    # PYTHONPATH=. python tests/test_torch_sht.py 511 1023: the readings
+    # of test_fast_roundtrip_vs_jax at other lmax, with both dd errors
+    import sys
+    jax.config.update("jax_platforms", "cpu")
+    for lmax in map(int, sys.argv[1:]):
+        errs = _fast_roundtrip_errors(lmax, jax_dd=True)
+        print(lmax, ", ".join(f"{k} {v:.4e}" for k, v in errs.items()),
+              flush=True)
