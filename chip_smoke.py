@@ -29,7 +29,9 @@ kernel and a check of the output against the plain versions. Phases 2, 4,
 5 and 14 print B8's blocks whose deflection range exceeded its window
 (0 where the displacement is clipped to 8 pixels); phases 6 and 7 hold
 FastCl's bandpowers from its kept ids (edge segments dropped) to those
-from the full ids.
+from the full ids. Phases 2 and 8 check that B9 at 512^2 ran on its
+register-resident kernel (rowcombine_regs_launches) and phase 2 that B5
+and B4's inverse of B5n's draw agree bit for bit (one stream).
 The JSON object on a line before the last holds each kernel's launches
 (on the full-plane lensing path for the kernels it runs, on the FastCl
 path and the config-1 step body for B2/B3/B5/B6, on config 2's for
@@ -57,13 +59,15 @@ import torch
 # NVIDIA's H100 SXM data sheet: HBM rate, and the fp32 and fp64 rates
 # outside the tensor cores (the kernels here are fp32 FFTs and sums, and
 # the fp64 Legendre recurrence); 32-bit integer instructions (B5's Philox)
-# at 64 lanes per SM and clock (CUDA C++ Programming Guide, arithmetic
-# instruction throughput, compute capability 9.0), 132 SMs, 1980 MHz (the
-# data sheet's boost clock)
+# at 64 lanes per SM and clock beside the 128 fp32 lanes, and 128 lanes of
+# instructions issued per SM and clock in all (four schedulers of one warp
+# each; CUDA C++ Programming Guide, arithmetic instruction throughput,
+# compute capability 9.0), 132 SMs, 1980 MHz (the data sheet's boost clock)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 FP64_FLOP_PER_S = 34e12
 INT32_OP_PER_S = 64 * 132 * 1.98e9
+ISSUE_LANES_PER_S = 128 * 132 * 1.98e9
 
 # B6 rowqc_half at (96, 2048, 2048) and B6s rows_half at (64, 2048, 2048) on
 # the shared-memory radix-2 core, alone and with the strip patches their
@@ -84,6 +88,11 @@ B3_RADIX2_2048_MS = (17.8832, 16.2099)
 B4_RADIX2_512_MS = (0.2621, 0.2558)
 B4_RADIX2_2048_MS = (8.6547, 7.8047)
 B5_RADIX2_MS = 8.6917
+# B9 rowcombine_pp at (96, 512, 512), nq 3, on the shared-memory radix-2
+# core (one block per coadd and row pair), in ms on the same card (PERF.md
+# section 6): what phase 2 reads the register-resident kernel's time
+# against
+B9_RADIX2_MS = 0.4992
 # B10a / B10s fast mode (float32 recurrence). Against the fast mode's own
 # plain version (the same float32 recurrence emulated in torch, each FMA
 # rounded once: the same Lambda bit for bit): 2^-22, two float32 ulps of
@@ -105,15 +114,34 @@ B10_FAST_PLAIN_TOL = 2.0 ** -22
 PHILOX_INT_OPS_PER_PAIR = 10 * (2 * 2 + 2) + 4
 
 
+def ops_ms(flops, flops64=0.0, intops=0.0):
+    """The least time the card could take for ``flops`` fp32, ``flops64``
+    fp64 and ``intops`` 32-bit integer operations: the pipes run side by
+    side, so the longest pipe, or the issue of the fp32 instructions (an
+    FMA, two operations, a lane) and the integer ones (leaving out the
+    fp64 ones only lowers it), whichever is longer."""
+    t_fp32 = flops / FP32_FLOP_PER_S
+    return max(t_fp32, flops64 / FP64_FLOP_PER_S, intops / INT32_OP_PER_S,
+               t_fp32 + intops / ISSUE_LANES_PER_S) * 1e3
+
+
 def bound(nbytes, flops, flops64=0.0, intops=0.0):
     """``(ms, "bytes" or "operations")``: the least time the card could take
     for work that moves ``nbytes`` (each input read once, each output
-    written once) and does ``flops`` fp32, ``flops64`` fp64 and ``intops``
-    32-bit integer operations."""
+    written once) and does the operations of :func:`ops_ms`."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (flops / FP32_FLOP_PER_S + flops64 / FP64_FLOP_PER_S
-             + intops / INT32_OP_PER_S) * 1e3
+    t_ops = ops_ms(flops, flops64, intops)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_parts(work):
+    """The terms of ``bound(*work)`` for a draw's printout: bytes, the fp32
+    and integer pipes, and their issue, in ms."""
+    nb, flops, _, intops = work
+    return (f"bytes {nb / HBM_BYTES_PER_S * 1e3:.4f}, fp32 "
+            f"{flops / FP32_FLOP_PER_S * 1e3:.4f}, integer "
+            f"{intops / INT32_OP_PER_S * 1e3:.4f}, their issue "
+            f"{(flops / FP32_FLOP_PER_S + intops / ISSUE_LANES_PER_S) * 1e3:.4f}")
 
 
 def nbytes(*tensors):
@@ -215,6 +243,21 @@ def profile_steps(step, nsteps, step_ms, tag):
         print(f"[{tag}]   {e.self_device_time_total / (nsteps * 1e3):9.4f}  "
               f"{e.count // nsteps:4d}x  {e.key[:90]}")
     return kern
+
+
+def host_ops(step, nsteps, tag):
+    """The host calls that take a step's host time (torch.profiler, CPU
+    activity, ``nsteps`` steps): the six largest by self time, in us per
+    step."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(nsteps):
+            step()
+        torch.cuda.synchronize()
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    print(f"[{tag}] host calls by self time (us per step): "
+          + ", ".join(f"{e.key} {e.self_cpu_time_total / nsteps:.1f} "
+                      f"({e.count // nsteps}x)" for e in ops[:6]))
 
 
 def throughput(step, batch, nsteps, label, unit, card, tag):
@@ -677,18 +720,25 @@ def main():
     check(abs(corr) < 1e-3, f"B5n: corr(re, im) {corr:.3e}")
     ms = cuda_ms(lambda: noise_planes(scale, words, 32), 20)
     plain = cuda_ms(lambda: noise_planes_ref(scale, words, 32), 20)
+    # the draw alone: one torch.randn of the same 2 x 32 x 512^2 values
+    lib = cuda_ms(lambda: torch.randn((2,) + tuple(zr.shape), device=dev),
+                  20)
+    # operations: ~25 fp32 per value (erfinvf, the uniform, the scale) and
+    # Philox's integer instructions per pair, as B5's entry counts them
+    b5n_work = (nbytes(scale, words, zr, zi), 25.0 * 2 * zr.numel(), 0.0,
+                PHILOX_INT_OPS_PER_PAIR * zr.numel() / 2)
     print(f"[2] B5n noise_planes (32, 512, 512) x 2: {N} values finite, "
           f"mean {mean:.3e} (5 sigma {5.0 / math.sqrt(N):.3e}), |std-1| "
           f"{abs(std - 1.0):.3e} (< 2e-3), share beyond 4 sigma {tail:.4e} vs "
           f"{p4:.4e}, corr(re, im) {corr:.3e}, reproducible; kernel "
-          f"{ms:.4f} ms, plain (torch.randn x scale) {plain:.4f} ms")
-    # operations: ~25 fp32 per value (erfinvf, the uniform, the scale;
-    # Philox's integer work is not counted); no PyTorch call draws this
-    # law scaled in one pass
+          f"{ms:.4f} ms (bound {bound(*b5n_work)[0]:.4f} ms by "
+          f"{bound(*b5n_work)[1]}; {bound_parts(b5n_work)}), plain "
+          f"(torch.randn x "
+          f"scale) {plain:.4f} ms, torch.randn of the same values (the draw "
+          f"alone) {lib:.4f} ms")
     results["noise_planes"] = kernel_entry(
         "noise_planes", "noise.cu", "pallas_fft.py:737", abs(std - 1.0),
-        (ms, plain, None), (nbytes(scale, words, zr, zi),
-                            25.0 * 2 * zr.numel()))
+        (ms, plain, lib), b5n_work)
     del zr, zi, zr2, zi2, zr3, er, ei, e
     torch.cuda.empty_cache()
 
@@ -1118,6 +1168,8 @@ def main():
     exact = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
     check(rel <= 1.5e-5, f"B5 vs rowifft(noise_planes): error {rel:.3e} of "
                          "max|ref| > 1.5e-5")
+    check(exact, "B5 and rowifft(noise_planes) on the same words differ: "
+                 "the two kernels no longer draw one stream")
     del ref
     other = dft.rowifft_noise_y(sc1, w + 1, P1)
     check(not torch.equal(got[0], other[0]), "B5: other words, same stream")
@@ -1147,10 +1199,8 @@ def main():
           f"{var_r:.6f} (re), {var_i:.6f} (im) (within 2e-3 of 1), "
           f"n E[re im] {corr:.3e}; kernel {ms:.4f} ms "
           f"({B5_RADIX2_MS / ms:.2f}x the radix-2 core's {B5_RADIX2_MS} ms; "
-          f"bound {bound(*b5_work)[0]:.4f} ms, of which bytes "
-          f"{bound(b5_work[0], 0.0)[0]:.4f}, fp32 "
-          f"{b5_work[1] / FP32_FLOP_PER_S * 1e3:.4f}, integer "
-          f"{b5_work[3] / INT32_OP_PER_S * 1e3:.4f}), plain "
+          f"bound {bound(*b5_work)[0]:.4f} ms by {bound(*b5_work)[1]}; "
+          f"{bound_parts(b5_work)}), plain "
           f"(torch.randn, then torch.fft.ifft) {plain:.4f} ms, "
           f"torch.fft.ifft along the rows {row_ifft_lib:.4f} ms")
     results["rowifft_noise_y"] = kernel_entry(
@@ -1249,31 +1299,48 @@ def main():
     torch.cuda.empty_cache()
 
     # B9 at bench config 4's shape: 32 coadds of 3 band pairs at 512^2
-    # (96 pairs), and at n = 384 (nq 3, two coadds); 1e-5 of max|ref|
-    # (tests/test_core.py's bound for the JAX kernel)
+    # (96 pairs), on the register-resident kernel, and at n = 384 (nq 3,
+    # two coadds) on the radix-2 one; 1e-5 of max|ref| (tests/test_core.py's
+    # bound for the JAX kernel), two runs bit-equal
     b9_err = 0.0
     for npt, nq, n9 in ((96, 3, 512), (6, 3, 384)):
         y9 = planes((npt, n9, n9))
         w9 = tuple(torch.randn((nq, n9, n9), generator=gen, device=dev)
                    for _ in range(4))
-        err, rel = rel_err(rowcombine_pp(*y9, *w9, nq),
-                           rowcombine_pp_ref(*y9, *w9, nq))
+        before = klib.rowcombine_regs_launches()
+        got = rowcombine_pp(*y9, *w9, nq)
+        again = rowcombine_pp(*y9, *w9, nq)
         torch.cuda.synchronize()
+        regs = klib.rowcombine_regs_launches() - before
+        want = 2 if n9 == 512 else 0
+        check(regs == want, f"B9 ({npt}, {n9}, {n9}): {regs} of 2 launches "
+                            f"on the register-resident kernel, not {want}")
+        check(all(torch.equal(g, a) for g, a in zip(got, again)),
+              f"B9 ({npt}, {n9}, {n9}): two runs differ")
+        err, rel = rel_err(got, rowcombine_pp_ref(*y9, *w9, nq))
         check(rel <= 1e-5, f"B9 rowcombine_pp ({npt}, {n9}, {n9}) nq {nq}: "
                            f"error {rel:.3e} of max|ref| > 1e-5")
         b9_err = max(b9_err, err)
         print(f"[2] B9 rowcombine_pp ({npt}, {n9}, {n9}) nq {nq}, "
               f"{npt // nq} coadds: max abs err {err:.3e} = {rel:.3e} of "
-              "max|ref| (<= 1e-5)")
+              f"max|ref| (<= 1e-5); two runs bit-equal on the "
+              + ("register-resident" if regs else "radix-2") + " kernel")
+        del got, again
         if n9 == 512:
             ms = cuda_ms(lambda: rowcombine_pp(*y9, *w9, nq), 20)
             plain = cuda_ms(lambda: rowcombine_pp_ref(*y9, *w9, nq), 5)
-            print(f"[2] B9 ({npt}, {n9}, {n9}) nq {nq}: kernel {ms:.4f} ms, "
-                  f"plain {plain:.4f} ms (no single PyTorch call computes "
-                  "it)")
+            # the row transform alone: torch.fft.fft along the rows of Y
+            yc = torch.complex(*y9)
+            lib = cuda_ms(lambda: torch.fft.fft(yc, dim=-1), 20)
+            del yc
             b9_work = (nbytes(*y9, *w9) + 2 * 4 * (npt // nq) * n9 * n9,
                        fft_flops(n9, npt * n9) + 16.0 * npt * n9 * n9)
-            b9_times = (ms, plain, None)
+            print(f"[2] B9 ({npt}, {n9}, {n9}) nq {nq}: kernel {ms:.4f} ms "
+                  f"({B9_RADIX2_MS / ms:.2f}x the radix-2 kernel's "
+                  f"{B9_RADIX2_MS} ms; bound {bound(*b9_work)[0]:.4f} ms), "
+                  f"plain {plain:.4f} ms, torch.fft.fft along the rows of "
+                  f"Y (the row transform alone) {lib:.4f} ms")
+            b9_times = (ms, plain, lib)
     results["rowcombine_pp"] = kernel_entry(
         "rowcombine_pp", "rowcombine.cu", "pallas_fft.py:1603", b9_err,
         b9_times, b9_work)
@@ -1440,12 +1507,14 @@ def main():
                 "bin_pair_power": (bin_pair_power,)}
 
     row_regs_at_reset = [0]
+    b9_regs_at_reset = [0]
 
     def reset_counts():
         for fns in counters.values():
             for fn in fns:
                 fn.launches = 0
         row_regs_at_reset[0] = klib.rowfft_regs_launches()
+        b9_regs_at_reset[0] = klib.rowcombine_regs_launches()
         lens_map_kernel.wide_blocks(reset=True)
 
     def read_wide(tag, must_be_zero):
@@ -1855,16 +1924,62 @@ def main():
         lambda: config4_step(next(seeds)), batch8, 50, "config-4 step "
         "(port's ilc_6band_deproj_coadds_per_sec_512x512_fp32) 512^2 2' "
         f"{nf} bands tSZ deprojected batch {batch8}", "coadds/s", card, "8")
+    # the host's time to queue a step (no synchronize inside the window):
+    # where it exceeds the device time, the step is host-bound
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        config4_step(next(seeds))
+    host8_ms = (time.perf_counter() - t0) / 20 * 1e3
+    torch.cuda.synchronize()
+    print(f"[8] the host queues a config-4 step in {host8_ms:.3f} ms")
+    host_ops(lambda: config4_step(next(seeds)), 10, "8")
     counts8 = read_counts(("colfft", "rowfft", "rowifft_noise_y",
                            "rowcombine_pp"), "8")
     check_row_route(counts8, "8")
-    print(f"[8] 53 steps (1 check, 2 warm-up, 50 timed): "
-          f"{counts8['rowcombine_pp'] / 53:.0f} B9, "
-          f"{counts8['rowifft_noise_y'] / 53:.0f} B5, "
-          f"{counts8['colfft'] / 53:.0f} B3, {counts8['rowfft'] / 53:.0f} B4 "
+    b9_regs = klib.rowcombine_regs_launches() - b9_regs_at_reset[0]
+    check(b9_regs == counts8["rowcombine_pp"],
+          f"8: {b9_regs} of {counts8['rowcombine_pp']} B9 launches on the "
+          "register-resident kernel")
+    print(f"[8] B9 launches on the register-resident kernel: {b9_regs} of "
+          f"{counts8['rowcombine_pp']}")
+    print(f"[8] 83 steps (1 check, 2 warm-up, 50 timed, 20 queued, 10 "
+          f"traced): {counts8['rowcombine_pp'] / 83:.0f} B9, "
+          f"{counts8['rowifft_noise_y'] / 83:.0f} B5, "
+          f"{counts8['colfft'] / 83:.0f} B3, {counts8['rowfft'] / 83:.0f} B4 "
           "launches per step")
     results["rowcombine_pp"]["launches"] = counts8["rowcombine_pp"]
     profile_steps(lambda: config4_step(next(seeds)), 10, step8_ms, "8")
+    # the seed words' route into the same step, in this phase's context:
+    # a Python int (two fills on the card, the path above), a copy from
+    # pageable memory (as seed_words made them before it used fills; it
+    # synchronizes the stream), and a non-blocking copy from pinned memory; each twice, in
+    # turn, 50 steps timed and 20 queued without a synchronize
+    routes8 = {
+        "int seed (two fills)": lambda s: s,
+        "pageable copy": lambda s: torch.as_tensor(
+            np.array([s, 0], np.int32), device=dev),
+        "pinned copy": lambda s: torch.tensor(
+            [s, 0], dtype=torch.int32).pin_memory().to(dev,
+                                                       non_blocking=True)}
+    for name, words_of in list(routes8.items()) * 2:
+        def routed():
+            return config4_step(words_of(next(seeds)))
+        for _ in range(2):
+            routed()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            routed()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(20):
+            routed()
+        t2 = time.perf_counter()
+        torch.cuda.synchronize()
+        print(f"[8] seed words by {name}: {(t1 - t0) / 50 * 1e3:.4f} "
+              f"ms/step; with no synchronize of the caller's, the host "
+              f"takes {(t2 - t1) / 20 * 1e3:.4f} ms a step")
     # the timed step's own output at its own shape (32 coadds, 96 pairs at
     # 512^2): card (B5 -> B9 -> packed ifft2pp) vs the CPU's plain versions
     # on the same noise, which B5n draws as B5 does (phase 2)

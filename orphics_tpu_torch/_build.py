@@ -57,6 +57,7 @@ _SIGNATURES = {
     "qc_pp_half_launch": ([_VP, _VP, _VP, _VP, _INT, _INT, _VP], _INT),
     "s_pp_half_launch": ([_VP, _VP, _VP, _INT, _INT, _VP], _INT),
     "rowcombine_launch": ([_VP] * 9 + [_INT, _INT, _INT, _VP], _INT),
+    "rowcombine_regs_launches": ([], _I64),
     "rowfft_blk0_launch": ([_VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP], _INT),
     "noise_planes_launch": ([_VP, _VP, _VP, _VP, _INT, _I64, _VP], _INT),
     "mirror_launch": ([_VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP], _INT),

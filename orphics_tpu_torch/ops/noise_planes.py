@@ -5,8 +5,9 @@
 re and im float32 planes of ``scale * eta``, eta standard normal. For a
 CUDA ``scale`` it launches ``csrc/noise.cu``: Philox-4x32-10 keyed by the
 two seed words, which the kernel reads from device memory, so the words
-may be drawn on the card with no host round trip. For a CPU ``scale`` it
-runs the plain version :func:`noise_planes_ref`: ``torch.randn`` from a
+may be drawn on the card with no host round trip; element ``e`` of the
+flat output takes pair ``e // 2`` of the stream, and a thread writes four
+neighbouring elements of one plane. For a CPU ``scale`` it runs the plain version :func:`noise_planes_ref`: ``torch.randn`` from a
 generator seeded by the words. The two are different streams with the
 same law, as the JAX package's on-chip draw and its CPU fallback are.
 """
@@ -22,13 +23,26 @@ __all__ = ["noise_planes", "noise_planes_ref", "seed_words"]
 
 def seed_words(seed, device=None):
     """``(2,)`` int32 words from a scalar stream id (second word 0) or a
-    word pair; a tensor stays on its device unless ``device`` is given."""
+    word pair; a tensor stays on its device unless ``device`` is given.
+    Words from a Python value reach a CUDA ``device`` as two fills, whose
+    values travel as kernel arguments: a copy from pageable host memory
+    would synchronize the stream, so that a step drawn from an integer seed
+    could not queue its kernels ahead of the card."""
     if isinstance(seed, torch.Tensor):
         w = seed.to(device=device if device is not None else seed.device,
                     dtype=torch.int32)
     else:
-        w = torch.as_tensor(np.asarray(seed, dtype=np.int64).astype(np.int32),
-                            device=device)
+        w = np.asarray(seed, dtype=np.int64).astype(np.int32)
+        w = w.reshape(-1) if w.ndim <= 1 else w
+        if w.shape == (1,):
+            w = np.append(w, np.int32(0))
+        if (w.shape == (2,) and device is not None
+                and torch.device(device).type == "cuda"):
+            out = torch.full((2,), int(w[0]), dtype=torch.int32,
+                             device=device)
+            out[1:].fill_(int(w[1]))
+            return out
+        w = torch.as_tensor(w, device=device)
     w = w.reshape(-1) if w.ndim <= 1 else w
     if tuple(w.shape) not in ((1,), (2,)):
         raise ValueError(f"seed must be a scalar or (2,) words; got shape "

@@ -11,11 +11,17 @@ with static complex weight planes ``alpha = (w_2q - i w_2q+1) / 2`` and
 of the per-band Fourier planes, without the Hermitian split.
 
 * :func:`rowcombine_pp` (B9, ``csrc/rowcombine.cu``): takes the column-DFT
-  intermediates ``Y``; one block transforms a row and its mirror row of
-  every pair of a coadd, in a fixed band order, and writes the coadd rows
-  once. Its mirror is exact on every row and column, so the port needs
-  none of the JAX function's wrap-strip patches (B4 ``zrow``, B4b): B9
-  alone is the function.
+  intermediates ``Y``. At ``n = 128 Bk`` with ``Bk`` a power of two a
+  block of the register-resident kernel owns a row pair ``(p,
+  mirror_pos(p))`` for :func:`coadds_per_block` coadds: for each band pair
+  ``q`` in a fixed order it transforms the pair's rows of its coadds,
+  loads ``alpha_q`` and ``beta_q`` of the two rows once and applies them to
+  all its coadds, and it writes the coadd rows once after the last ``q``
+  (:func:`rowcombine_split_emul` is the same algorithm in plain PyTorch).
+  Any other ``Bk`` (``n = 384``) takes the radix-2 kernel, one block per
+  coadd and row pair. The mirror is exact on every row and column, so the
+  port needs none of the JAX function's wrap-strip patches (B4 ``zrow``,
+  B4b): B9 alone is the function.
 * :func:`rowcombine_pp_ref`: the plain version, ``rowfft_ref``,
   ``mirror_pp_ref`` and the weighted sum over ``q``.
 
@@ -24,13 +30,16 @@ launches the kernel. There is no fallback from one to the other.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import _build
-from .dft import _check, _tables, rowfft_ref
+from .dft import _check, _tables, half_rows, rowfft_ref, rowfft_split_emul
 from .mirror import mirror_pp_ref
+from .rowpower import mirror_pos
 
-__all__ = ["rowcombine_pp", "rowcombine_pp_ref"]
+__all__ = ["rowcombine_pp", "rowcombine_pp_ref", "rowcombine_split_emul",
+           "coadds_per_block", "row_pairs"]
 
 
 def rowcombine_pp_ref(yr, yi, alr, ali, ber, bei, nq: int):
@@ -43,6 +52,70 @@ def rowcombine_pp_ref(yr, yi, alr, ali, ber, bei, nq: int):
     cre = (alr * zr - ali * zi + ber * mr + bei * mi).sum(1)
     cim = (alr * zi + ali * zr + bei * mr - ber * mi).sum(1)
     return cre, cim
+
+
+def coadds_per_block(n: int) -> int:
+    """``G``, the coadds a block of the register-resident B9 kernel takes
+    at ``n = 128 Bk``: its ``32 / Bk`` rows (2 at ``Bk >= 16``) are one row
+    pair of ``G`` coadds (``csrc/rowcombine.cu:cb_rows``)."""
+    bk = n // 128
+    return 1 if bk >= 16 else 16 // bk
+
+
+def row_pairs(n: int):
+    """``(p, pm, self_mirror)`` of the register-resident B9 kernel's
+    ``n / 2`` blocks: block 0 takes rows 0 and 64 (ky = 0 and N/2), each its
+    own mirror (``self_mirror`` True); block ``x`` the half row ``x``
+    (:func:`~orphics_tpu_torch.ops.dft.half_rows`) and its mirror row. The
+    blocks cover every row once."""
+    p = half_rows(n)[0].copy()
+    pm = mirror_pos(p, n // 128)
+    p[0], pm[0] = 0, 64
+    self_mirror = np.arange(n // 2) == 0
+    return p, pm, self_mirror
+
+
+def rowcombine_split_emul(yr, yi, alr, ali, ber, bei, nq: int):
+    """:func:`rowcombine_pp` by the register-resident kernel's algorithm in
+    float32 plain PyTorch (``Bk`` a power of two): the blocks of
+    :func:`row_pairs`, each for ``g`` = :func:`coadds_per_block` coadds
+    (coadds past the last are zeros and are not stored); for ``q = 0 .. nq-1`` in that order the pair's rows of the
+    block's coadds through
+    :func:`~orphics_tpu_torch.ops.dft.rowfft_split_emul`, each column paired
+    with the partner row (the row itself in block 0) at ``mirror_pos``, and
+    ``alpha_q``, ``beta_q`` of the two rows, taken once, applied to all
+    ``g`` coadds; the sums over ``q`` in the kernel's expression. Not a
+    plain version (that is :func:`rowcombine_pp_ref`)."""
+    npt, n, _ = yr.shape
+    nco = npt // nq
+    g = coadds_per_block(n)
+    groups = -(-nco // g)
+    p, pm, self_mirror = row_pairs(n)
+    as_long = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.long,
+                                        device=yr.device)
+    rows = as_long(np.stack([p, pm], 1).reshape(-1))       # (block, m)
+    partner = as_long(np.where(self_mirror[:, None], [[0, 1]], [[1, 0]])
+                      + 2 * np.arange(n // 2)[:, None]).reshape(-1)
+    qm = as_long(mirror_pos(np.arange(n), n // 128))
+    pad = lambda a: torch.cat([a.reshape(nco, nq, n, n), a.new_zeros(
+        (groups * g - nco, nq, n, n))]).reshape(groups, g, nq, n, n)
+    ypr, ypi = pad(yr), pad(yi)
+    cr = torch.zeros((groups, g, n, n), dtype=torch.float32,
+                     device=yr.device)
+    ci = torch.zeros_like(cr)
+    for q in range(nq):
+        zr, zi = rowfft_split_emul(ypr[:, :, q].index_select(2, rows),
+                                   ypi[:, :, q].index_select(2, rows))
+        mr, mi = (a.index_select(2, partner).index_select(3, qm)
+                  for a in (zr, zi))
+        # one load of the weights of the block's two rows for its g coadds
+        ar, ai, br, bi = (w[q].index_select(0, rows) for w in
+                          (alr, ali, ber, bei))
+        cr = cr + (ar * zr - ai * zi + br * mr + bi * mi)
+        ci = ci + (ar * zi + ai * zr + bi * mr - br * mi)
+    out = lambda c: torch.empty_like(c).index_copy_(2, rows, c).reshape(
+        groups * g, n, n)[:nco].contiguous()
+    return out(cr), out(ci)
 
 
 def rowcombine_pp(yr, yi, alr, ali, ber, bei, nq: int):
@@ -69,6 +142,8 @@ def rowcombine_pp(yr, yi, alr, ali, ber, bei, nq: int):
         return rowcombine_pp_ref(yr, yi, alr, ali, ber, bei, nq)
     if not all(t.is_contiguous() for t in (yr, yi, alr, ali, ber, bei)):
         raise ValueError("rowcombine_pp needs contiguous tensors")
+    if any(t.data_ptr() % 8 for t in (yr, yi, alr, ali, ber, bei)):
+        raise ValueError("rowcombine_pp needs 8-byte aligned tensors")
     lib = _build.library()
     if n > lib.dft_max_n():
         raise ValueError(f"rowcombine_pp: n={n} exceeds the kernel's "

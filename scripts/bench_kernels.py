@@ -4,15 +4,18 @@ B6s ``rows_half`` / ``rows_pp`` (``--kernel rowpower``), B3 ``colfft`` /
 / ``rowifft`` / ``rowifft_scaled_y``, B5 ``rowifft_noise_y`` and B4b
 ``rowfft_blk0`` (``--kernel rowfft``), the Legendre kernels B10a
 ``legendre_ana`` and B10s ``legendre_syn`` (``--kernel legendre``), the
-lensing displacement B8 ``lens_map_kernel`` (``--kernel lens``) and the
+lensing displacement B8 ``lens_map_kernel`` (``--kernel lens``), the
 segment sums B1 ``bin_reduce``, B2 ``bin2_reduce`` and B2'
-``bin_pair_power`` (``--kernel binreduce``).
+``bin_pair_power`` (``--kernel binreduce``), the ILC coadd B9
+``rowcombine_pp`` (``--kernel rowcombine``) and the noise draw B5n
+``noise_planes`` (``--kernel noise``).
 
 Run from the repository root on a machine with one NVIDIA Hopper GPU and
 nvcc:
 
     python3 scripts/bench_kernels.py --kernel
-        {rowpower,colfft,rowfft,legendre,lens,binreduce} [--tree DIR] [--quick]
+        {rowpower,colfft,rowfft,legendre,lens,binreduce,rowcombine,noise}
+        [--tree DIR] [--quick]
 
 It imports ``orphics_tpu_torch`` from ``DIR`` (default: this checkout), so
 two commits are compared on one card by unpacking the other with ``git
@@ -38,7 +41,16 @@ lensing pipeline's (192, 131,584) weighted, and B2' at phase 13's full
 plane; each bound counts the 32-byte sectors that hold a kept id, the ids
 and the outputs once, and each error is read against float64 sums of
 |data| made here, so that a tree whose plain versions predate dropped ids
-is timed the same way. The correctness checks (every n, ragged shapes,
+is timed the same way. ``rowcombine`` times B9 at bench config 4's
+(96, 512^2) with nq 3 (32 coadds) and at (6, 384^2), with the kernel
+each call took where the tree counts it, beside ``torch.fft.fft`` along
+the rows of the same Y (the row transform alone). ``noise`` times B5n at
+the lensing pipeline's (32, 512^2) and at an odd (3, 5, 7), its kernel's
+device time in a ``torch.profiler`` trace beside, with the bound
+of ``chip_smoke.py`` phase 2 (the bytes, or the longer of the fp32 and
+Philox's integer pipes and their issue), beside one ``torch.randn`` of the same values (the draw
+alone), and first the digests of a few draws of B5n and B5 on fixed
+words, equal on two trees where the stream is. The correctness checks (every n, ragged shapes,
 two runs bit-equal) are ``chip_smoke.py``'s and
 ``tests/test_torch_cuda.py``'s.
 """
@@ -54,6 +66,18 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 FP64_FLOP_PER_S = 34e12
+# chip_smoke.py: INT32_OP_PER_S, ISSUE_LANES_PER_S, PHILOX_INT_OPS_PER_PAIR
+INT32_OP_PER_S = 64 * 132 * 1.98e9
+ISSUE_LANES_PER_S = 128 * 132 * 1.98e9
+PHILOX_INT_OPS_PER_PAIR = 10 * (2 * 2 + 2) + 4
+
+
+def ops_s(flops, flops64=0.0, intops=0.0):
+    """chip_smoke.py's ``ops_ms`` in seconds: the longest pipe, or the
+    issue of the fp32 and integer instructions."""
+    t_fp32 = flops / FP32_FLOP_PER_S
+    return max(t_fp32, flops64 / FP64_FLOP_PER_S, intops / INT32_OP_PER_S,
+               t_fp32 + intops / ISSUE_LANES_PER_S)
 # B10: (label, lmax, maps, Wigner columns, layout, columns timed)
 LEGENDRE_SHAPES = (("config 8", 1023, 8, (0,), "fold", (0,)),
                    ("16 folded maps", 1023, 16, (0,), "fold", (0,)),
@@ -75,6 +99,21 @@ def cuda_ms(fn, reps, warmup=2):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps):
+    """Device time per call of ``fn``: its kernels' time in a
+    ``torch.profiler`` trace of ``reps`` calls, no host time between them."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / reps / 1e3
 
 
 def rel(got, ref):
@@ -192,9 +231,8 @@ def legendre_bench(reps, quick):
                     launches = fn.launches - before
                     ms = cuda_ms(lambda: fn(x, tab, fast), reps)
                     rec = (9.0 if fast else 5.0) * steps
-                    t_ops = ((rec if fast else 0.0) + 4.0 * nm * steps) \
-                        / FP32_FLOP_PER_S + (0.0 if fast else rec) \
-                        / FP64_FLOP_PER_S
+                    t_ops = ops_s((rec if fast else 0.0) + 4.0 * nm * steps,
+                                  0.0 if fast else rec)
                     t_bytes = (x.numel() * x.element_size() + tabb + out_b) \
                         / HBM_BYTES_PER_S
                     bound = max(t_ops, t_bytes) * 1e3
@@ -349,6 +387,71 @@ def binreduce_bench(reps, quick):
                nseg)
 
 
+def rowcombine_cases(y, gen):
+    """(name, call, plain call, bytes moved) of B9 on pair planes y with
+    nq 3 (1 where the pairs are not a multiple of 3; Y, the weights and the coadd planes once each), and the library
+    call: the row transform alone"""
+    from orphics_tpu_torch.ops.rowcombine import (rowcombine_pp,
+                                                  rowcombine_pp_ref)
+    npt, n, _ = y[0].shape
+    nq = 3 if npt % 3 == 0 else 1
+    w = tuple(torch.randn((nq, n, n), generator=gen, device=y[0].device)
+              for _ in range(4))
+    nbytes = 8 * npt * n * n + 16 * nq * n * n + 8 * (npt // nq) * n * n
+    cases = (("rowcombine_pp", lambda: rowcombine_pp(*y, *w, nq),
+              lambda: rowcombine_pp_ref(*y, *w, nq), nbytes),)
+    yc = torch.complex(*y)
+    refs = (("torch.fft.fft along the rows (the row transform alone)",
+             lambda: torch.fft.fft(yc, dim=-1)),)
+    return cases, refs
+
+
+def noise_bench(reps, quick):
+    """B5n at the lensing pipeline's (32, 512^2) and at (3, 5, 7): CUDA-event
+    time, the bound of ``chip_smoke.py`` phase 2 (bytes: the scale, the
+    words and the two outputs once; operations: ~25 fp32 a value and
+    Philox's integer instructions a pair), and one ``torch.randn`` of the
+    same values (the draw alone)."""
+    import hashlib
+    from orphics_tpu_torch.ops import dft
+    from orphics_tpu_torch.ops.noise_planes import noise_planes
+    dev = torch.device("cuda")
+    words = torch.tensor([123456789, -98765], dtype=torch.int32, device=dev)
+    # the stream's digest: equal digests on two trees mean the same bits
+    # (tests/test_torch_cuda.py::test_noise_stream_is_pinned holds them)
+    for tag, outs in (
+            ("B5n (3, 64, 64)", noise_planes(
+                torch.ones((64, 64), device=dev), words, 3)),
+            ("B5n (3, 5, 7)", noise_planes(
+                torch.ones((5, 7), device=dev), words, 3)),
+            ("B5 (2, 256, 256)", dft.rowifft_noise_y(
+                torch.ones((256, 256), device=dev), words, 2))):
+        h = hashlib.sha256()
+        for o in outs:
+            h.update(o.cpu().numpy().tobytes())
+        print(f"stream {tag}: sha256 {h.hexdigest()[:16]}")
+    for batch, shape in ((8, (512, 512)),) if quick else (
+            (32, (512, 512)), (3, (5, 7))):
+        scale = torch.linspace(0.5, 2.0, shape[0] * shape[1],
+                               device=dev).reshape(shape)
+        values = batch * scale.numel()
+        ms = cuda_ms(lambda: noise_planes(scale, words, batch), reps)
+        dev_ms = device_ms(lambda: noise_planes(scale, words, batch), reps)
+        draw = cuda_ms(lambda: torch.randn((2, batch) + shape, device=dev),
+                       reps)
+        t_bytes = (4 * scale.numel() + 8 + 8 * values) / HBM_BYTES_PER_S
+        t_ops = ops_s(25.0 * 2 * values, 0.0,
+                      PHILOX_INT_OPS_PER_PAIR * values / 2)
+        bound = max(t_bytes, t_ops) * 1e3
+        print(f"time noise_planes ({batch}, {shape[0]}, {shape[1]}) x 2: "
+              f"{ms:.4f} ms (device time in a profiler trace {dev_ms:.4f} "
+              f"ms); bound {bound:.4f} ms "
+              f"({'operations' if t_ops >= t_bytes else 'bytes'}: bytes "
+              f"{t_bytes * 1e3:.4f}, operations {t_ops * 1e3:.4f}) = "
+              f"{bound / ms:.3f} of the time; torch.randn of the same "
+              f"values (the draw alone) {draw:.4f} ms")
+
+
 # family -> (cases, sources whose resource report is printed, shapes,
 # counter of the register-resident kernel's launches or None)
 FAMILIES = {"rowpower": (rowpower_cases, ("rowpower.cu",), SHAPES, None),
@@ -358,7 +461,10 @@ FAMILIES = {"rowpower": (rowpower_cases, ("rowpower.cu",), SHAPES, None),
                        ((96, 2048), (64, 512)), "rowfft_regs_launches"),
             "legendre": (legendre_bench, ("legendre.cu",), (), None),
             "lens": (lens_bench, ("lens_spline.cu",), (), None),
-            "binreduce": (binreduce_bench, ("bin_reduce.cu",), (), None)}
+            "binreduce": (binreduce_bench, ("bin_reduce.cu",), (), None),
+            "rowcombine": (rowcombine_cases, ("rowcombine.cu",),
+                           ((96, 512), (6, 384)), "rowcombine_regs_launches"),
+            "noise": (noise_bench, ("noise.cu",), (), None)}
 
 
 def main():

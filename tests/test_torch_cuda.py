@@ -28,7 +28,8 @@ from orphics_tpu_torch.ops.lens import (TILE, WINDOW_RANGE, lens_map_kernel,
 from orphics_tpu_torch.ops.mirror import mirror_pp, mirror_pp_ref
 from orphics_tpu_torch.ops.noise_planes import noise_planes
 from orphics_tpu_torch.models.fastcl import FastCl
-from orphics_tpu_torch.ops.rowcombine import rowcombine_pp, rowcombine_pp_ref
+from orphics_tpu_torch.ops.rowcombine import (coadds_per_block, rowcombine_pp,
+                                              rowcombine_pp_ref)
 from orphics_tpu_torch.ops.rowpower import (qc_pp_half, qc_pp_half_ref,
                                             rowqc_half, rowqc_pp,
                                             rowqc_pp_ref, rows_half, rows_pp,
@@ -267,6 +268,56 @@ def test_noise_kernel_law_and_seeds(cuda_device):
         noise_planes(scale, torch.zeros(3, dtype=torch.int32), 1)
 
 
+# sha256 (first 16 hex digits) of the re and im planes that B5n and B5
+# draw on the words (123456789, -98765) under a unit scale, as
+# scripts/bench_kernels.py --kernel noise prints them; equal for the
+# kernels before and after their 16-byte and conversion-free forms
+_STREAM_DIGESTS = {("noise_planes", 3, (64, 64)): "053b0a667124014d",
+                   ("noise_planes", 3, (5, 7)): "5442f6b4eac055ef",
+                   ("rowifft_noise_y", 2, (256, 256)): "c57697196e182706"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn,batch,shape", list(_STREAM_DIGESTS))
+def test_noise_stream_is_pinned(cuda_device, fn, batch, shape):
+    """The Philox stream of B5n (16-byte and element-wise kernels) and B5,
+    bit for bit."""
+    import hashlib
+    words = torch.tensor([123456789, -98765], dtype=torch.int32,
+                         device=cuda_device)
+    draw = noise_planes if fn == "noise_planes" else dft.rowifft_noise_y
+    outs = draw(torch.ones(shape, device=cuda_device), words, batch)
+    h = hashlib.sha256()
+    for o in outs:
+        h.update(o.cpu().numpy().tobytes())
+    assert h.hexdigest()[:16] == _STREAM_DIGESTS[(fn, batch, shape)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(5, 7), (6, 6), (3, 4)])
+def test_noise_kernel_odd_and_ragged_planes(cuda_device, shape):
+    """B5n at batch 3 on planes of 35 (an odd total), 36 (a multiple of 4)
+    and 12 elements: each flat element e takes the stream's pair e // 2, so
+    the draw equals scale times the flat draw of one unit plane of 108
+    elements (the 16-byte kernel) bit for bit; two runs bit-equal."""
+    rng = np.random.default_rng(sum(shape))
+    scale = torch.as_tensor(rng.uniform(0.5, 2.0, shape).astype(np.float32),
+                            device=cuda_device)
+    words = torch.tensor([31, -7], dtype=torch.int32, device=cuda_device)
+    before = noise_planes.launches
+    r, i = noise_planes(scale, words, 3)
+    r2, i2 = noise_planes(scale, words, 3)
+    ur, ui = noise_planes(torch.ones((1, 108), device=cuda_device), words, 1)
+    torch.cuda.synchronize()
+    assert noise_planes.launches == before + 3
+    assert r.shape == i.shape == (3,) + shape
+    assert torch.equal(r, r2) and torch.equal(i, i2)
+    tot = 3 * scale.numel()
+    sc = scale.reshape(1, -1).expand(3, -1).reshape(-1)
+    assert torch.equal(r.reshape(-1), sc * ur.reshape(-1)[:tot])
+    assert torch.equal(i.reshape(-1), sc * ui.reshape(-1)[:tot])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("nseg", [113, 400, 1000])
 def test_bin_reduce_any_nseg(cuda_device, nseg):
@@ -431,28 +482,61 @@ def test_rows_kernel_matches_ref(cuda_device, b, n):
     _fused_case(rows_pp, rows_half, rows_pp_ref, b, n, cuda_device)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,nq,nco", [(256, 2, 3), (384, 3, 2), (512, 1, 2)])
-def test_rowcombine_kernel_matches_ref(cuda_device, n, nq, nco):
-    """B9 against its plain version (rowfft, mirror, weighted sum over q),
-    and bit-reproducible (fixed band order)."""
-    rng = np.random.default_rng(n + nq)
+def _rowcombine_case(n, nq, nco, device, seed):
+    """B9 at (nco nq, n, n) on data drawn from ``seed`` against its plain
+    version (rowfft, mirror, weighted sum over q) at TOL_QC, two runs
+    bit-equal (fixed band order, fixed ownership), both launches on the
+    register-resident kernel at a power-of-two Bk and on the radix-2
+    kernel at any other Bk."""
+    rng = np.random.default_rng(seed)
     yr, yi = (torch.as_tensor(rng.standard_normal((nco * nq, n, n))
-                              .astype(np.float32), device=cuda_device)
+                              .astype(np.float32), device=device)
               for _ in range(2))
     w = [torch.as_tensor(rng.standard_normal((nq, n, n)).astype(np.float32),
-                         device=cuda_device) for _ in range(4)]
-    before = rowcombine_pp.launches
+                         device=device) for _ in range(4)]
+    lib = _build.library()
+    before = rowcombine_pp.launches, lib.rowcombine_regs_launches()
     got = rowcombine_pp(yr, yi, *w, nq)
     again = rowcombine_pp(yr, yi, *w, nq)
     torch.cuda.synchronize()
-    assert rowcombine_pp.launches == before + 2
+    assert rowcombine_pp.launches == before[0] + 2
+    bk = n // 128
+    regs = lib.rowcombine_regs_launches() - before[1]
+    assert regs == (0 if bk & (bk - 1) else 2), (n, regs)
     ref = rowcombine_pp_ref(yr, yi, *w, nq)
     scale = ref[0].abs().max().item()
     for g, a, r in zip(got, again, ref):
         assert g.shape == r.shape == (nco, n, n)
         assert (g - r).abs().max().item() <= TOL_QC * scale
         assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,nq,nco", [(256, 2, 3), (384, 3, 2), (512, 1, 2)])
+def test_rowcombine_kernel_matches_ref(cuda_device, n, nq, nco):
+    """B9 against its plain version, bit-reproducible, on the kernel its Bk
+    calls for."""
+    _rowcombine_case(n, nq, nco, cuda_device, n + nq)
+
+
+# B9 on the register-resident kernel at every power-of-two Bk: coadd
+# counts that fill no block of G = coadds_per_block(n) coadds (1, G + 1,
+# 33), nq 1 and 3; 33 coadds of 3 pairs up to 512, one pair above; one
+# coadd of one pair at 4096 (the plain version's memory)
+_B9_GROUPS = [(n, nq, nco) for n in (256, 512) for nq in (1, 3)
+              for nco in ("1", "G+1", "33")] \
+    + [(n, nq, nco) for n in (1024, 2048) for nq in (1, 3)
+       for nco in ("1", "G+1")] \
+    + [(1024, 1, "33"), (2048, 1, "33"), (4096, 1, "1")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,nq,nco", _B9_GROUPS)
+def test_rowcombine_regs_kernel_coadd_groups(cuda_device, n, nq, nco):
+    """The register-resident B9 with coadd counts that fill no block."""
+    g = coadds_per_block(n)
+    nco = {"1": 1, "G+1": g + 1, "33": 33}[nco]
+    _rowcombine_case(n, nq, nco, cuda_device, n + nq + nco)
 
 
 @pytest.mark.cuda

@@ -24,7 +24,10 @@ functions within 2e-5 (1.5e-5 at n = 2048); and the B4 / B5 row kernels'
 inverse (``rowifft_split_emul``, the scaled form multiplying first): of the
 plain versions and the JAX ``rowifft`` / ``rowifft_scaled_y`` within 2e-5
 (1.5e-5 at n = 2048). B4b's order (``rowfft_blk0_split_emul``) equals the
-row kernel's columns [0, 128) bit for bit.
+row kernel's columns [0, 128) bit for bit. A numpy model of B5n's index
+map (``_noise_index_map``: which thread of ``csrc/noise.cu`` writes which
+element from which Philox pair and word) writes every element once, from
+pair e // 2.
 """
 import numpy as np
 import pytest
@@ -722,3 +725,69 @@ def test_fused_fields_on_cpu_are_the_plain_version(case, name):
     assert len(got) == len(plain) == (4 if name == "rowqc_pp" else 3)
     for g, r in zip(got, plain):
         assert torch.equal(g, r)
+
+
+_NOISE_THREADS = 256  # csrc/noise.cu: THREADS
+
+
+def _noise_index_map(batch: int, plane: int, vec=None):
+    """A numpy model of the writes of ``csrc/noise.cu``'s launch for
+    ``(batch, plane)`` outputs, as arrays ``(b, i, e, q, word)``, one entry
+    per store of
+    an element to ``ore`` and ``oim``: batch entry ``b`` and plane index
+    ``i`` as the kernel forms them from its grid (x over chunks of 256
+    threads of four plane elements, y over the batch), the flat index ``e``
+    it writes, the Philox pair ``q`` it draws and the word it takes for the
+    real part (0: x, 1: y; the imaginary part takes word + 2). ``vec``:
+    the 16-byte kernel (default: where ``plane`` is a multiple of 4, as the
+    launch picks it for aligned arrays), else the element-wise one."""
+    vec = plane % 4 == 0 if vec is None else vec
+    if vec and plane % 4:
+        raise ValueError("the 16-byte kernel takes planes of a multiple of 4 "
+                         "elements")
+    quads = -(-plane // 4)
+    grid_x = -(-quads // _NOISE_THREADS)
+    t = np.arange(grid_x * _NOISE_THREADS)        # thread of the plane
+    rows = []
+    for b in range(batch):                        # blockIdx.y (gridDim.y)
+        if vec:
+            t_ = t[t < quads]
+            e = 4 * (np.int64(b) * quads + t_)
+            q0 = e >> 1
+            for k, (dq, word) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+                rows.append((np.full(t_.size, b), 4 * t_ + k, e + k, q0 + dq,
+                             np.full(t_.size, word)))
+        else:
+            i0 = 4 * t[4 * t < plane]
+            for k in range(4):
+                i = i0 + k
+                i = i[i < plane]                  # the last chunk's cut
+                e = np.int64(b) * plane + i
+                rows.append((np.full(i.size, b), i, e, e >> 1, e & 1))
+    return tuple(np.concatenate(c) for c in zip(*rows))
+
+
+@pytest.mark.parametrize("batch,shape", [(3, (5, 7)), (3, (6, 6)),
+                                         (2, (3, 4)), (1, (1, 1)),
+                                         (4, (9, 130)), (32, (64, 64))])
+def test_noise_index_map_writes_each_element_once(batch, shape):
+    """B5n's kernels (``csrc/noise.cu``): each (batch, plane) element is
+    written exactly once, at its flat index, from pair e // 2 with word x
+    (re) or z (im) for even e and y or w for odd e, at odd totals (3 x 35)
+    and at planes that are not a multiple of 4; at planes that are, both
+    kernels write the same map."""
+    plane = shape[0] * shape[1]
+    vecs = (False, True) if plane % 4 == 0 else (False,)
+    maps = []
+    for vec in vecs:
+        b, i, e, q, word = _noise_index_map(batch, plane, vec)
+        assert np.array_equal(np.sort(e), np.arange(batch * plane))
+        assert np.array_equal(e, b * plane + i)
+        assert ((i >= 0) & (i < plane)).all()
+        assert np.array_equal(q, e // 2) and np.array_equal(word, e % 2)
+        order = np.argsort(e)
+        maps.append(np.stack([q[order], word[order]]))
+    assert all(np.array_equal(maps[0], m) for m in maps[1:])
+    with pytest.raises(ValueError, match="multiple of 4"):
+        _noise_index_map(1, 6, vec=True)
+

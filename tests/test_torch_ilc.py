@@ -13,6 +13,12 @@ versions (CPU tensors). Inputs come from numpy seeds. Bounds:
 * ``rowcombine_pp`` at n = 384 (Bk = 3), nq 3, two coadds: 1e-5 of
   max|ref| (fp32 transforms by two factorizations, tests/test_core.py's
   own bound for the JAX kernel);
+* the register-resident B9 kernel's algorithm (``rowcombine_split_emul``:
+  row pairs through ``mirror_pos``, G coadds sharing one weight load, q in
+  fixed order), which cannot run here: 1e-5 of max|ref| against
+  ``rowcombine_pp_ref`` at n = 256 and 512, nq 1 and 3, ncoadds 1, G - 1
+  and G + 1, and against the JAX ``rowcombine_pp`` at n = 256 (the same
+  bound, for the same reason);
 * the fused coadds at 256^2, four bands: 1e-5 of max|ref|, against the
   JAX fused functions and against ``ifft2(cilc(fft2(maps)))``, with each
   package's own weights and with the JAX weights carried across by
@@ -36,7 +42,10 @@ from orphics_tpu_torch.models import ilc as TI
 from orphics_tpu_torch.ops import dft as D
 from orphics_tpu_torch.ops.binning import Bin2D
 from orphics_tpu_torch.ops.mirror import mirror_pp_ref
-from orphics_tpu_torch.ops.rowcombine import rowcombine_pp, rowcombine_pp_ref
+from orphics_tpu_torch.ops.rowcombine import (coadds_per_block, row_pairs,
+                                              rowcombine_pp,
+                                              rowcombine_pp_ref,
+                                              rowcombine_split_emul)
 
 torch.set_num_threads(1)
 
@@ -97,6 +106,21 @@ def combine():
     """Pair intermediates, weights and the JAX ``rowcombine_pp`` at 384."""
     rng = np.random.default_rng(21)
     n, nq, nco = 384, 3, 2
+    yr, yi = (rng.standard_normal((nco * nq, n, n)).astype(np.float32)
+              for _ in range(2))
+    w = [rng.standard_normal((nq, n, n)).astype(np.float32)
+         for _ in range(4)]
+    ref = pf.rowcombine_pp(jnp.asarray(yr), jnp.asarray(yi),
+                           *(jnp.asarray(x) for x in w), nq, interpret=True)
+    return nq, yr, yi, w, tuple(np.asarray(r) for r in ref)
+
+
+@pytest.fixture(scope="module")
+def combine256():
+    """Pair intermediates, weights and the JAX ``rowcombine_pp`` at 256
+    (Bk = 2, G = 8), nq 3, three coadds."""
+    rng = np.random.default_rng(22)
+    n, nq, nco = 256, 3, 3
     yr, yi = (rng.standard_normal((nco * nq, n, n)).astype(np.float32)
               for _ in range(2))
     w = [rng.standard_normal((nq, n, n)).astype(np.float32)
@@ -269,6 +293,52 @@ def test_rowcombine_matches_jax(combine):
     hc = rowcombine_pp(*args[:2], *(x.contiguous() for x in wsplit), nq)
     assert np.abs(hc[0].numpy() - cr.numpy()).max() <= 1e-5 * cr.abs().max()
     assert np.abs(hc[1].numpy() - ci.numpy()).max() <= 1e-5 * cr.abs().max()
+
+
+@pytest.mark.parametrize("nco", ["1", "G-1", "G+1"])
+@pytest.mark.parametrize("nq", [1, 3])
+@pytest.mark.parametrize("n", [256, 512])
+def test_rowcombine_split_emul_matches_ref(n, nq, nco):
+    """The register-resident B9 kernel's order (blocks of row pairs, G
+    coadds a block, coadd counts that fill no block) against the plain
+    version."""
+    g = coadds_per_block(n)
+    nco = {"1": 1, "G-1": g - 1, "G+1": g + 1}[nco]
+    rng = np.random.default_rng(n + 10 * nq + nco)
+    y = [torch.as_tensor(rng.standard_normal((nco * nq, n, n))
+                         .astype(np.float32)) for _ in range(2)]
+    w = [torch.as_tensor(rng.standard_normal((nq, n, n)).astype(np.float32))
+         for _ in range(4)]
+    got = rowcombine_split_emul(*y, *w, nq)
+    ref = rowcombine_pp_ref(*y, *w, nq)
+    scale = max(r.abs().max().item() for r in ref)
+    for gg, r in zip(got, ref):
+        assert gg.shape == r.shape == (nco, n, n)
+        assert (gg - r).abs().max().item() <= TOL_FUSED * scale
+
+
+def test_rowcombine_split_emul_matches_jax(combine256):
+    nq, yr, yi, w, ref = combine256
+    got = rowcombine_split_emul(torch.as_tensor(yr), torch.as_tensor(yi),
+                                *(torch.as_tensor(x) for x in w), nq)
+    scale = np.abs(ref[0]).max()
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape == (3, 256, 256)
+        assert np.abs(g.numpy() - r).max() <= TOL_FUSED * scale
+
+
+@pytest.mark.parametrize("n", [256, 512, 1024, 4096])
+def test_rowcombine_row_pairs_cover_every_row_once(n):
+    """The kernel's blocks: n / 2 row pairs covering every row once, each
+    pair a row and its mirror row, block 0 the two rows that are their
+    own mirror (0 and 64)."""
+    from orphics_tpu_torch.ops.rowpower import mirror_pos
+    p, pm, self_mirror = row_pairs(n)
+    assert np.array_equal(np.sort(np.concatenate([p, pm])), np.arange(n))
+    assert np.array_equal(self_mirror, np.arange(n // 2) == 0)
+    assert (p[0], pm[0]) == (0, 64)
+    assert mirror_pos(0, n // 128) == 0 and mirror_pos(64, n // 128) == 64
+    assert np.array_equal(mirror_pos(p[1:], n // 128), pm[1:])
 
 
 def test_rowcombine_rejects_what_the_kernel_does_not_take(combine):
