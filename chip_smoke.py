@@ -22,9 +22,14 @@ leg, bench config 8p, 12 the TT QE reconstruction-only step at bench
 config 3 (512^2, batch 64; its full-plane and its half-plane branch), 13
 the unfused pair spectra at config 1's shape (fft2pp, then B6h + B2 or B7 +
 B2', beside FastCl's fused analysis), 14 the N0 debias at config 3's
-settings (lensed sims, mcn0, rdn0, NlGenerator, n1_tt, a polarized sim).
-Phases 3-14 each set the launch counts to 0 before they drive their path
-and check them after; 4-14 print throughput, peak memory, device time by
+settings (lensed sims, mcn0, rdn0, NlGenerator, n1_tt, a polarized sim),
+15 cluster stacking at bench config 5 (10^4 stamps of 64^2: GRF stamps,
+the shared-geometry max-likelihood fill of a 5' hole, Bin2D profiles on
+B1, chi^2 over 16 NFW templates; card vs CPU on 256 stamps, the
+conditional-variance identity on 10^4 noisy stamps, and
+``nfwfit.lens_cov`` at 32^2 on B8).
+Phases 3-15 each set the launch counts to 0 before they drive their path
+and check them after; 4-15 print throughput, peak memory, device time by
 kernel and a check of the output against the plain versions. Phases 2, 4,
 5 and 14 print B8's blocks whose deflection range exceeded its window
 (0 where the displacement is clipped to 8 pixels); phases 6 and 7 hold
@@ -38,7 +43,9 @@ path and the config-1 step body for B2/B3/B5/B6, on config 2's for
 B3s/B6s, on config 4's for B9, on
 configs 7, 8 and 8p together for B10a/B10s, on phase 13's paths for
 B6h/B6h'/B2' and for B4b, which no composition runs since B6 pairs every
-element through the exact mirror map), error, times and bound; the
+element through the exact mirror map; B1 and B8 also by path, with
+config 5's and ``lens_cov``'s counts, and a second B1 record at config
+5's shape), error, times and bound; the
 last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any
 failed check raises, so the exit code is non-zero and no result line is
 printed. It imports nothing of JAX.
@@ -335,11 +342,13 @@ def main():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
-    from orphics_tpu_torch import _build, rect_geometry
+    from orphics_tpu_torch import Geometry, _build, rect_geometry
     from orphics_tpu_torch.entry import entry
     from orphics_tpu_torch.geometry import arcmin
     from orphics_tpu_torch.models import foregrounds as fg
     from orphics_tpu_torch.models import grf, ilc, lensing
+    from orphics_tpu_torch.models import nfwfit, pixcov
+    from orphics_tpu_torch.models.cosmology import Cosmology
     from orphics_tpu_torch.ops.fourier import gauss_beam
     from orphics_tpu_torch.models.lenspipe import LensedQEPipeline
     from orphics_tpu_torch.models.theory import default_theory
@@ -800,6 +809,44 @@ def main():
               f"max rel err {rel:.3e} of binned |data|, reproducible; kernel "
               f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by})")
     results["bin_reduce"]["max_abs_err"] = b1_err
+
+    # B1 at bench config 5's profile binning: 10^4 stamps of 64^2 at 0.5'
+    # over the ids of Bin2D(modrmap, arange(0, 10, 1)'), nseg 11. Bin2D
+    # passes every pixel an id; those beyond 9' go to the last segment,
+    # which Bin2D cuts off after the sum
+    g5 = Geometry(64, 64, 0.5 * arcmin, 0.5 * arcmin)
+    pbin5 = Bin2D(g5.modrmap_np(), np.arange(0.0, 10.0, 1.0) * arcmin,
+                  device=dev)
+    ids5, nseg5 = pbin5._ids, pbin5._nseg
+    beyond5 = (ids5 == nseg5 - 1).double().mean().item()
+    data5 = torch.randn((10_000, ids5.numel()), generator=gen, device=dev)
+    out = bin_reduce(data5, ids5, nseg5)
+    again = bin_reduce(data5, ids5, nseg5)
+    ref = bin_reduce_ref(data5, ids5, nseg5)
+    absref = bin_reduce_ref(data5.abs(), ids5, nseg5)
+    torch.cuda.synchronize()
+    err = (out - ref).abs()
+    rel = (err / absref.clamp_min(1e-30)).max().item()
+    check(rel <= 1e-6, f"B1 config 5: error {rel:.3e} of binned |data| > "
+                       "1e-6")
+    check(torch.equal(out, again), "B1 config 5: two runs differ")
+    ms = cuda_ms(lambda: bin_reduce(data5, ids5, nseg5), 50)
+    plain = cuda_ms(lambda: bin_reduce_ref(data5, ids5, nseg5), 5)
+    ids5l = ids5.long()
+    acc5 = torch.zeros((10_000, nseg5), device=dev)
+    lib = cuda_ms(lambda: acc5.index_add_(1, ids5l, data5), 20)
+    work5 = (nbytes(data5, ids5, out), data5.numel())
+    bnd, by = bound(*work5)
+    print(f"[2] B1 bin_reduce config 5 (10000, 4096) nseg={nseg5}: "
+          f"{beyond5:.4f} of the pixels lie beyond 9' (the last segment, "
+          f"summed and cut off); max rel err {rel:.3e} of binned |data|, "
+          f"reproducible; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"index_add_ {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+    results["bin_reduce_config5"] = kernel_entry(
+        "bin_reduce_config5", "bin_reduce.cu", "pallas_kernels.py:94",
+        err.max().item(), (ms, plain, lib), work5)
+    del data5, out, again, ref, absref, err, ids5l, acc5
+    torch.cuda.empty_cache()
 
     # B2: the two half-plane fields of 96 pairs over FastCl's kept ids (its
     # call since the edge segments are dropped; the record) and over the
@@ -2580,12 +2627,178 @@ def main():
     del flp, fls, obs_p, ex, eta14, q3
     torch.cuda.empty_cache()
 
+    # ---- 15. bench config 5 (bench.py:581-656): cluster stacking, 10^4
+    # stamps of 64^2 at 0.5', beam 1.4'; a 5' hole filled by the shared
+    # max-likelihood geometry (10 uK' white noise in pcov); Bin2D profiles
+    # on edges arange(0, 10, 1)' (B1); chi^2 against 16 NFW templates,
+    # masses geomspace(5e13, 8e14), cinv = 1e4 I; argmin
+    nst5, n5 = 10_000, 64
+    # memory the earlier phases still hold: the step's footprint is read
+    # above it, as a process running config 5 alone would see it
+    base15 = torch.cuda.memory_allocated()
+    beam5 = lambda l: gauss_beam(l, 1.4)
+    nvar5 = (10.0 * arcmin) ** 2 / (g5.dy * g5.dx)
+    m1, m2 = pixcov.get_geometry_regions(1, n5, 0.5 * arcmin, 5.0 * arcmin)
+    t0 = time.perf_counter()
+    eye5 = torch.eye(n5 * n5, dtype=torch.float64, device=dev)
+    pcov5 = pixcov.scov_from_theory(g5, th, beam5, ncomp=1) + nvar5 * eye5
+    check(pcov5.is_cuda and pcov5.dtype == torch.float64,
+          "15: scov_from_theory with no device is not float64 on the card")
+    cs64, mm64 = pixcov.make_geometry(pcov5, m1, m2, ncomp=1)
+    cs5, mm5 = cs64.to(torch.float32), mm64.to(torch.float32)
+    del pcov5
+    torch.cuda.synchronize()
+    geo_s = time.perf_counter() - t0
+    # the same geometry built entirely in float32 (as the TPU bench does)
+    pcov32 = pixcov.scov_from_theory(g5, th, beam5, ncomp=1,
+                                     dtype=torch.float32) \
+        + nvar5 * eye5.to(torch.float32)
+    _, mm_f32 = pixcov.make_geometry(pcov32, m1, m2, ncomp=1)
+    del pcov32, eye5
+    cc5 = Cosmology()
+    masses5 = np.geomspace(5e13, 8e14, 16)
+    modr5 = g5.modrmap_np()
+    temps5 = torch.stack([pbin5.bin(nfwfit.nfw_kappa(m, modr5, cc5)
+                                    .to(torch.float32))[1] for m in masses5])
+    nb5 = temps5.shape[-1]
+    cinv5 = torch.eye(nb5, device=dev) * 1e4
+    ells5 = np.arange(th.lpad + 1)
+    ps5 = np.asarray(th.lCl("TT", ells5))[None, None]
+    mgen5 = grf.MapGen(g5, ps5)
+    gen15 = torch.Generator(device=dev).manual_seed(15)
+    print(f"[15] geometry: {len(m1)} hole and {len(m2)} context pixels; "
+          f"float64 pcov (4096^2) inverted, deprojected and solved on the "
+          f"card in {geo_s:.3f} s; meanmul cast to float32 for the fill; "
+          f"16 NFW templates over {nb5} bins")
+
+    def fill_profiles(stamps, covsqrt, meanmul, binner):
+        filled = pixcov.inpaint_stamps_batched(stamps, covsqrt, meanmul,
+                                               m1, m2)
+        return filled, binner.bin(filled[:, 0])[1]
+
+    def chi2_of(profs, temps, cinv):
+        diff = profs[:, None, :] - temps[None, :, :]
+        return torch.einsum("bmi,ij,bmj->bm", diff, cinv, diff)
+
+    def step5():
+        stamps = mgen5.get_map(gen15, batch=(nst5,))[:, None]
+        _, profs = fill_profiles(stamps, cs5, mm5, pbin5)
+        return chi2_of(profs, temps5, cinv5).argmin(dim=1)
+
+    cell5 = (f"{nst5} stamps of {n5}^2 0.5' beam 1.4' 5' hole, 16 masses, "
+             f"{nb5} profile bins")
+    reset_counts()
+    best5 = step5()
+    torch.cuda.synchronize()
+    check(tuple(best5.shape) == (nst5,) and int(best5.min()) >= 0
+          and int(best5.max()) < 16, "15: argmin out of range")
+    step5_ms = throughput(step5, nst5, 5, "config-5 step (port's "
+                          f"stack_inpaint_nfwfit_stamps_per_sec_64x64) "
+                          f"{cell5}", "stamps/s", card, "15")
+    peak_all = torch.cuda.max_memory_allocated()
+    peak5 = (peak_all - base15) / 1e9
+    check(peak5 <= 4.0, f"15: the step's peak memory {peak5:.3f} GB > 4 GB")
+    counts15 = read_counts(("bin_reduce",), "15")
+    check(counts15["bin_reduce"] == 8, f"15: {counts15['bin_reduce']} B1 "
+          "launches in 8 steps (1 check, 2 warm-up, 5 timed)")
+    print(f"[15] peak memory {peak5:.3f} GB above the {base15 / 1e9:.3f} GB "
+          f"that phases 2-14 still hold ({peak_all / 1e9:.3f} GB in all; <= "
+          f"4 GB; a (B, nh, nc) meanmul would take "
+          f"{nst5 * len(m1) * len(m2) * 4 / 1e9:.1f} GB in float32); B1 "
+          f"launches: {counts15['bin_reduce']} in 8 steps")
+    profile_steps(step5, 3, step5_ms, "15")
+    # card (kernels) against the CPU (plain versions): 256 stamps on the
+    # same injected noise, the same float32 geometry and templates
+    eta5 = grf.rand_kmap(g5, torch.Generator().manual_seed(55), 1,
+                         batch=(256,), device="cpu")
+    mgen5c = grf.MapGen(g5, ps5, device="cpu")
+    pbin5c = Bin2D(modr5, np.arange(0.0, 10.0, 1.0) * arcmin, device="cpu")
+    st_g = mgen5.get_map_from_noise(eta5.to(dev))[:, None]
+    st_c = mgen5c.get_map_from_noise(eta5)[:, None]
+    f_g, p_g = fill_profiles(st_g, cs5, mm5, pbin5)
+    f_c, p_c = fill_profiles(st_c, cs5.cpu(), mm5.cpu(), pbin5c)
+    x_g = chi2_of(p_g, temps5, cinv5).cpu().double().numpy()
+    x_c = chi2_of(p_c, temps5.cpu(), cinv5.cpu()).double().numpy()
+    _, f_err = rel_err((f_g.cpu(),), (f_c,))
+    _, p_err = rel_err((p_g.cpu(),), (p_c,))
+    x_err = float(np.max(np.abs(x_g - x_c) / x_c))
+    two = np.sort(x_c, axis=1)[:, :2]
+    clear = (two[:, 1] - two[:, 0]) / two[:, 0] > 1e-3
+    same = np.array_equal(x_g.argmin(1)[clear], x_c.argmin(1)[clear])
+    check(f_err <= 1e-5 and p_err <= 1e-5 and x_err <= 1e-4 and same,
+          f"15: card vs CPU: fill {f_err:.3e}, profiles {p_err:.3e}, chi^2 "
+          f"{x_err:.3e}, argmin equal where clear: {same}")
+    print(f"[15] 256 stamps, card (kernels) vs CPU (plain versions) on the "
+          f"same noise: filled stamps {f_err:.3e} of max (<= 1e-5), "
+          f"profiles {p_err:.3e} (<= 1e-5), chi^2 {x_err:.3e} relative "
+          f"(<= 1e-4), argmin equal on the {int(clear.sum())} stamps whose "
+          f"two smallest chi^2 differ by > 1e-3")
+    # finding, not a gate: the fill from a geometry built in float32
+    f32 = pixcov.inpaint_stamps_batched(st_g, cs5, mm_f32, m1, m2)
+    _, f32_err = rel_err((f32,), (f_g,))
+    print(f"[15] the fill from a geometry built entirely in float32 differs "
+          f"from the float64-built one by {f32_err:.3e} of max")
+    del st_g, st_c, f_g, f_c, p_g, p_c, f32, mm_f32, eta5, mgen5c
+    # the conditional-variance identity (tests/test_pixcov.py:42-76) at
+    # 64^2: no beam, no deprojection, 10^4 float64 GRF + noise stamps
+    pcov_nb = pixcov.scov_from_theory(g5, th, None, ncomp=1) + nvar5 \
+        * torch.eye(n5 * n5, dtype=torch.float64, device=dev)
+    cs_nb, mm_nb = pixcov.make_geometry(pcov_nb, m1, m2, deproject=False,
+                                        ncomp=1)
+    del pcov_nb
+    pred = torch.diagonal(cs_nb @ cs_nb.T)
+    mg64 = grf.MapGen(g5, ps5, dtype=torch.float64)
+    sims = (mg64.get_map(gen15, batch=(nst5,))
+            + torch.randn((nst5, n5, n5), generator=gen15,
+                          dtype=torch.float64, device=dev)
+            * math.sqrt(nvar5)).reshape(nst5, -1)
+    m1t = torch.as_tensor(m1, device=dev)
+    res5 = sims[:, m1t] - sims[:, torch.as_tensor(m2, device=dev)] @ mm_nb.T
+    ratio = (res5.var(dim=0) / pred).cpu().numpy()
+    check(abs(ratio.mean() - 1.0) < 0.05,
+          f"15: residual / predicted variance mean {ratio.mean():.4f}")
+    print(f"[15] {nst5} noisy stamps of 64^2: residual variance / "
+          f"diag(covsqrt covsqrt^T) mean {ratio.mean():.4f} (within 0.05 of "
+          f"1), range [{ratio.min():.4f}, {ratio.max():.4f}] over "
+          f"{ratio.size} hole pixels")
+    del sims, res5, mg64, cs_nb, mm_nb, pred
+    torch.cuda.empty_cache()
+    # nfwfit.lens_cov at 32^2, order 5: the lensed covariance of a 1e15
+    # halo's deflection, one B8 launch a side, against the CPU's plain path
+    g32 = Geometry(32, 32, 0.5 * arcmin, 0.5 * arcmin)
+    ucov = pixcov.scov_from_theory(g32, th, beam5, ncomp=1,
+                                   dtype=torch.float32)
+    kap32 = nfwfit.nfw_kappa(1e15, g32.modrmap_np(), cc5).to(torch.float32)
+    alpha32 = lensing.alpha_from_kappa(kap32, g32).contiguous()
+    reset_counts()
+    lc_g = nfwfit.lens_cov(ucov, alpha32, g32, lens_order=5)
+    torch.cuda.synchronize()
+    counts_lc = read_counts(("lens_map_kernel",), "15")
+    check(counts_lc["lens_map_kernel"] == 2, f"15: lens_cov launched B8 "
+          f"{counts_lc['lens_map_kernel']} times (one a side)")
+    lc_c = nfwfit.lens_cov(ucov.cpu(), alpha32.cpu(), g32, lens_order=5)
+    _, lc_err = rel_err((lc_g.cpu(),), (lc_c,))
+    check(lc_err <= 2e-5, f"15: lens_cov card vs CPU {lc_err:.3e} > 2e-5")
+    print(f"[15] nfwfit.lens_cov (1024, 1024) at 32^2 order 5, max|alpha|/dx "
+          f"{(alpha32.abs().max() / g32.dx).item():.3f}: card (2 B8 "
+          f"launches) vs CPU {lc_err:.3e} of max (<= 2e-5)")
+    results["bin_reduce_config5"]["launches"] = counts15["bin_reduce"]
+    results["bin_reduce"]["launches_by_path"] = {
+        "lensing": results["bin_reduce"]["launches"],
+        "config5": counts15["bin_reduce"]}
+    results["lens_map_kernel"]["launches_by_path"] = {
+        "lensing": results["lens_map_kernel"]["launches"],
+        "lens_cov": counts_lc["lens_map_kernel"]}
+    del ucov, lc_g, lc_c, cs5, mm5, cs64, mm64, temps5
+    torch.cuda.empty_cache()
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for r in results.values():
         check(all(k in r for k in keys), f"{r['name']}: record lacks "
               f"{[k for k in keys if k not in r]}")
-    print(json.dumps({"kernels": [results[k] for k in counters]}))
+    print(json.dumps({"kernels": [results[k] for k in counters]
+                      + [results["bin_reduce_config5"]]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -7,9 +7,10 @@ nothing falls back to the CPU on its own.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["resolve"]
+__all__ = ["resolve", "as_tensor"]
 
 
 def resolve(device=None) -> torch.device:
@@ -22,3 +23,13 @@ def resolve(device=None) -> torch.device:
             "no CUDA device is available; the port runs on the card by "
             "default: pass device=\"cpu\" to run on the CPU")
     return dev
+
+
+def as_tensor(x, device=None, dtype=None) -> torch.Tensor:
+    """A tensor keeps its device (cast to ``dtype`` if one is given); a host
+    number or array becomes a tensor (of ``dtype``, else its own) on
+    ``resolve(device)``, copied so that it shares no memory with the
+    caller's array."""
+    if isinstance(x, torch.Tensor):
+        return x if dtype is None else x.to(dtype)
+    return torch.as_tensor(np.array(x), dtype=dtype, device=resolve(device))

@@ -20,6 +20,12 @@ module needs neither jax nor ``orphics_tpu``:
     (``orphics_tpu.models.ilc.cilc_weights`` / ``silc_weights``) as the
     tensor that :func:`~orphics_tpu_torch.models.ilc.linear_coadd_fused`
     coadds with;
+  * :func:`load_pixcov_geometry` takes a JAX inpainting geometry
+    (``orphics_tpu.models.pixcov.make_geometry`` /
+    ``make_geometries_batched`` output with its hole and context indices,
+    or a file of ``save_geometries``) as the tensors that
+    :func:`~orphics_tpu_torch.models.pixcov.inpaint_stamps_batched` fills
+    with;
   * :func:`load_sht_tables` copies a port
     :func:`~orphics_tpu_torch.ops.legendre.tables` entry with the JAX
     Legendre kernel's prepared tables
@@ -41,7 +47,8 @@ from .models.theory import TheorySpectra
 
 __all__ = ["theory_from_numpy", "load_pipeline_planes",
            "load_pipeline_pp_planes", "load_fastcl_tables",
-           "load_ilc_weights", "load_sht_tables", "TT_HALF_NAMES",
+           "load_ilc_weights", "load_pixcov_geometry", "load_sht_tables",
+           "TT_HALF_NAMES",
            "TT_PP_NAMES", "FASTCL_TABLE_NAMES"]
 
 # the arrays of QE._tt_half_plans(), in its tuple order (sym excluded)
@@ -148,6 +155,31 @@ def load_ilc_weights(w2d: np.ndarray, device=None) -> torch.Tensor:
     if w.ndim != 3 or w.shape[1] != w.shape[2]:
         raise ValueError(f"ILC weights must be (nfreq, n, n), got {w.shape}")
     return torch.as_tensor(w, device=resolve(device)).contiguous()
+
+
+def load_pixcov_geometry(geometry, device=None):
+    """``(covsqrt, meanmul, m1, m2)`` of a JAX inpainting geometry:
+    ``geometry`` is a mapping or sequence of the four host arrays
+    (``covsqrt``, ``meanmul``, ``m1``, ``m2``; a leading batch axis on the
+    first two kept) or the path of a ``save_geometries`` file. The
+    matrices become tensors of their own dtype on ``device`` (the card
+    unless it names another); the index arrays stay host int64."""
+    if isinstance(geometry, (str, bytes)) or hasattr(geometry, "__fspath__"):
+        with np.load(geometry) as d:
+            geometry = (d["covsqrts"], d["meanmuls"], d["m1"], d["m2"])
+    elif isinstance(geometry, dict):
+        geometry = tuple(geometry[k] for k in ("covsqrt", "meanmul", "m1",
+                                               "m2"))
+    covsqrt, meanmul, m1, m2 = (np.asarray(a) for a in geometry)
+    if covsqrt.shape[-2:] != (m1.size, m1.size) or \
+            meanmul.shape[-2:] != (m1.size, m2.size):
+        raise ValueError(f"covsqrt {covsqrt.shape} / meanmul {meanmul.shape}"
+                         f" do not match {m1.size} hole and {m2.size} "
+                         "context pixels")
+    dev = resolve(device)
+    return (torch.as_tensor(np.array(covsqrt), device=dev),
+            torch.as_tensor(np.array(meanmul), device=dev),
+            m1.astype(np.int64), m2.astype(np.int64))
 
 
 def load_sht_tables(tab: dict, host: Dict[str, np.ndarray]) -> dict:

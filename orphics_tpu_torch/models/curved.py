@@ -13,7 +13,7 @@ Every draw takes a ``torch.Generator`` and has a ``*_from_noise`` twin that
 takes the standard normals, so the tests feed both packages the same draws.
 Not ported yet: ``rotate_map``, ``MapRotator``, ``MapRotatorEquator``,
 ``get_rotated_pixels`` (they resample through ``mapstools._bilinear_at``,
-ROADMAP queue A item 13) and ``cutout_gnomonic`` (``utils/healpix``, item
+ROADMAP queue A item 13b) and ``cutout_gnomonic`` (``utils/healpix``, item
 21); each raises ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -375,7 +375,7 @@ def south_galactic_mask(geom, **kw):
 
 
 _WAIT = ("needs the port of models/mapstools' _bilinear_at (ROADMAP queue "
-         "A, item 13)")
+         "A, item 13b)")
 
 
 def get_rotated_pixels(*args, **kwargs):

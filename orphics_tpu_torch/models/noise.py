@@ -166,11 +166,13 @@ def modulated_noise_map(generator: torch.Generator, ivar_map, geom: Geometry,
 def get_masked_ivar(ivar_map, geom: Geometry, grow_arcmin=10.0,
                     threshold=1e-10):
     """Zero ivar within ``grow_arcmin`` of empty regions (reference
-    ``maps.py:80``). Needs ``ops/distance.grow_mask``, which is not
-    ported yet (ROADMAP queue A, item 12)."""
-    raise NotImplementedError(
-        "get_masked_ivar needs the port of ops/distance (ROADMAP queue A, "
-        "item 12)")
+    ``maps.py:80``); follows the device of ``ivar_map``."""
+    from ..ops.distance import grow_mask
+    mask = (ivar_map > threshold).to(torch.float32)
+    g = grow_mask(mask, geom, grow_arcmin * arcmin)
+    return torch.where(g > 0, ivar_map,
+                       torch.zeros((), dtype=ivar_map.dtype,
+                                   device=ivar_map.device))
 
 
 def white_noise_with_atm_func(ells, uk_arcmin, lknee, alpha,

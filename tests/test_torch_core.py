@@ -31,6 +31,11 @@ from orphics_tpu_torch.ops import binning as tbinning, windows as twindows
 from orphics_tpu_torch.ops import alm as talm, sht as tsht
 from orphics_tpu_torch.models import curved as tcurved, noise as tnoise
 from orphics_tpu_torch.models import lensing as tlensing, qe as tqe
+from orphics_tpu_torch.ops import algorithms as talgorithms
+from orphics_tpu_torch.ops import distance as tdistance
+from orphics_tpu_torch.models import cosmology as tcosmology
+from orphics_tpu_torch.models import nfwfit as tnfwfit, pixcov as tpixcov
+from orphics_tpu_torch.models import rsd as trsd, splits as tsplits
 
 torch.set_num_threads(1)
 
@@ -217,6 +222,47 @@ def test_grf_synthesis(geoms, theories):
     assert m.shape == (2,) + tg.shape and torch.isfinite(m).all()
 
 
+# the modules of the flat-sky stacking slice, by their path in both packages
+_SLICE_MODULES = ("ops.distance", "ops.matfft", "ops.algorithms",
+                  "models.lensed_cls", "models.cosmology", "models.rsd",
+                  "models.szhalo", "models.nfwfit", "models.pixcov",
+                  "models.splits", "models.splitlens")
+
+
+@pytest.mark.parametrize("path", _SLICE_MODULES)
+def test_slice_names_resolve(path):
+    """Every name in the ``__all__`` of the JAX module resolves in the
+    port's module of the same path, and every public function or class of
+    the JAX module does too."""
+    import importlib
+    import inspect
+    jmod = importlib.import_module("orphics_tpu." + path)
+    tmod = importlib.import_module("orphics_tpu_torch." + path)
+    public = {n for n, v in vars(jmod).items()
+              if not n.startswith("_") and (inspect.isfunction(v)
+                                            or inspect.isclass(v))
+              and getattr(v, "__module__", "") == jmod.__name__}
+    missing = sorted(n for n in set(jmod.__all__) | public
+                     if not hasattr(tmod, n))
+    assert not missing, missing
+    assert set(tmod.__all__) >= set(jmod.__all__)
+
+
+def test_slice_gated_functions_raise():
+    """The functions of the slice that need a module not ported yet raise
+    NotImplementedError naming their ROADMAP queue A item."""
+    from orphics_tpu_torch.models import cosmology as tcos, nfwfit as tnfw
+    from orphics_tpu_torch.utils import fitting as tfit
+    g = tp.rect_geometry(width_arcmin=16 * 2.0, px_res_arcmin=2.0)
+    with pytest.raises(NotImplementedError, match="item 13b"):
+        tnfw.mass_estimate(None, None, g, 2e14, 3.2, 0.5)
+    for name in ("fk_comparison", "pk_comparison"):
+        with pytest.raises(NotImplementedError, match="item 21"):
+            getattr(tcos, name)("H0", 0.5, 67.0, 70.0,
+                                ks=np.array([0.01, 0.1]), plot_file="x.png")
+    assert tfit.__all__ == ["fit_gauss"]
+
+
 def test_port_imports_no_jax():
     """The port runs without jax: importing its modules loads none."""
     code = ("import sys\n"
@@ -230,7 +276,9 @@ def test_port_imports_no_jax():
             "orphics_tpu_torch.ops.alm, orphics_tpu_torch.ops.sht, "
             "orphics_tpu_torch.ops.legendre, orphics_tpu_torch.models.noise, "
             "orphics_tpu_torch.models.curved, "
-            "orphics_tpu_torch.entry, orphics_tpu_torch.convert\n"
+            "orphics_tpu_torch.entry, orphics_tpu_torch.convert, "
+            + ", ".join("orphics_tpu_torch." + m for m in _SLICE_MODULES)
+            + ", orphics_tpu_torch.utils.fitting\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'orphics_tpu.')) or "
             "m == 'orphics_tpu')\n"
@@ -292,6 +340,32 @@ _NO_DEVICE = {
         1e-4, 0.7, 1500.0, tlensing.rho_nfw(2e14, 3.2, 1.5), 0.4, nps=401),
     "nfw_kappa_profile": lambda g, th: tlensing.nfw_kappa_profile(
         g.modrmap_np(), 2e14, 1200.0, 0.35, 0.6, rdel_mpc_overh=1.2),
+    "distance_transform": lambda g, th: tdistance.distance_transform(
+        np.eye(4, dtype=bool)),
+    "grow_mask": lambda g, th: tdistance.grow_mask(np.ones(g.shape), g, 1e-3),
+    "mask_srcs": lambda g, th: tdistance.mask_srcs(g, [[1, 1]], 1e-3),
+    "vectorized_bisection_search": lambda g, th:
+        talgorithms.vectorized_bisection_search(
+            np.ones(3), lambda y: y, (0.0, 2.0), "increasing"),
+    "LimberCosmology": lambda g, th: tcosmology.LimberCosmology(numz=20),
+    "get_lensed_cls": lambda g, th: tcosmology.get_lensed_cls(
+        np.arange(100.0), np.ones(100), np.ones(100), npix=64),
+    "Pgg_Pvv_Pgv": lambda g, th: trsd.Pgg_Pvv_Pgv(
+        np.array([0.1]), np.array([0.5]), 0.5),
+    "nfw_kappa": lambda g, th: tnfwfit.nfw_kappa(
+        2e14, g.modrmap_np(), tcosmology.Cosmology()),
+    "binned_nfw": lambda g, th: tnfwfit.binned_nfw(
+        2e14, 0.5, 3.2, tcosmology.Cosmology(), g, np.arange(0, 8.0)),
+    "kappa_nfw_profiley": lambda g, th: tnfwfit.kappa_nfw_profiley(g),
+    "lens_cov": lambda g, th: tnfwfit.lens_cov(
+        np.eye(16), np.zeros((2, 4, 4)), tp.rect_geometry(
+            width_arcmin=8.0, px_res_arcmin=2.0)),
+    "scov_from_theory": lambda g, th: tpixcov.scov_from_theory(
+        tp.Geometry(4, 4, 1e-3, 1e-3), th, ncomp=1),
+    "extract_stamps": lambda g, th: tpixcov.extract_stamps(
+        np.zeros((16, 16)), [[8, 8]], 4),
+    "noise_from_splits": lambda g, th: tsplits.noise_from_splits(
+        np.zeros((2, 1) + g.shape), g),
 }
 
 

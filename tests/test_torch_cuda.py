@@ -859,3 +859,76 @@ def test_lens_kernel_ragged_components_wide_blocks(cuda_device, order):
         err = (out - ref).abs().max().item()
         assert err <= TOL_LENS * ref.abs().max().item(), (amax_px, err)
         assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+def test_bin_reduce_at_config5_ids(cuda_device):
+    """B1 at bench config 5's profile binning: 10^4 stamps of 64^2 at 0.5'
+    over the ids of Bin2D(modrmap, arange(0, 10, 1)'), nseg 11 (most
+    pixels lie beyond 9' and are summed into the last segment)."""
+    from orphics_tpu_torch.geometry import arcmin
+    from orphics_tpu_torch.ops.binning import Bin2D
+    g = tp.Geometry(64, 64, 0.5 * arcmin, 0.5 * arcmin)
+    pb = Bin2D(g.modrmap_np(), np.arange(0.0, 10.0, 1.0) * arcmin,
+               device=cuda_device)
+    assert pb._nseg == 11
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    data = torch.randn((10_000, 4096), generator=gen, device=cuda_device)
+    before = bin_reduce.launches
+    out = bin_reduce(data, pb._ids, pb._nseg)
+    again = bin_reduce(data, pb._ids, pb._nseg)
+    torch.cuda.synchronize()
+    assert bin_reduce.launches == before + 2
+    ref = bin_reduce_ref(data, pb._ids, pb._nseg)
+    absref = bin_reduce_ref(data.abs(), pb._ids, pb._nseg)
+    assert ((out - ref).abs() <= TOL_BIN * absref).all()
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+def test_stacking_step_card_matches_cpu(cuda_device):
+    """Config 5's fill and profiles at 64^2 on 64 stamps: the card (one
+    shared-geometry product, B1) against the CPU (plain versions) on the
+    same stamps and float32 geometry."""
+    from orphics_tpu_torch.geometry import arcmin
+    from orphics_tpu_torch.ops.binning import Bin2D
+    from orphics_tpu_torch.ops.fourier import gauss_beam
+    from orphics_tpu_torch.models import pixcov
+    g = tp.Geometry(64, 64, 0.5 * arcmin, 0.5 * arcmin)
+    th = default_theory()
+    m1, m2 = pixcov.get_geometry_regions(1, 64, 0.5 * arcmin, 5 * arcmin)
+    scov = pixcov.scov_from_theory(g, th, lambda l: gauss_beam(l, 1.4),
+                                   ncomp=1, device=cuda_device)
+    nvar = (10.0 * arcmin) ** 2 / (g.dy * g.dx)
+    cs, mm = pixcov.make_geometry(
+        scov + nvar * torch.eye(4096, dtype=torch.float64,
+                                device=cuda_device), m1, m2, ncomp=1)
+    mm = mm.to(torch.float32)
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    st = torch.randn((64, 1, 64, 64), generator=gen, device=cuda_device)
+    got = pixcov.inpaint_stamps_batched(st, cs, mm, m1, m2)
+    want = pixcov.inpaint_stamps_batched(st.cpu(), cs.cpu(), mm.cpu(), m1, m2)
+    assert (got.cpu() - want).abs().max() <= 1e-5 * want.abs().max()
+    edges = np.arange(0.0, 10.0, 1.0) * arcmin
+    pg = Bin2D(g.modrmap_np(), edges, device=cuda_device).bin(got[:, 0])[1]
+    pc = Bin2D(g.modrmap_np(), edges, device="cpu").bin(want[:, 0])[1]
+    assert (pg.cpu() - pc).abs().max() <= 1e-5 * pc.abs().max()
+
+
+@pytest.mark.cuda
+def test_lens_cov_card_matches_cpu(cuda_device):
+    """nfwfit.lens_cov at 32^2, order 5: two B8 launches on the card
+    against the CPU's plain path, within the displacement contract."""
+    from orphics_tpu_torch.models import nfwfit
+    g = tp.rect_geometry(width_arcmin=32 * 2.0, px_res_arcmin=2.0)
+    rng = np.random.default_rng(7)
+    A = rng.standard_normal((1024, 1024)).astype(np.float32)
+    U = torch.as_tensor(A @ A.T / 1024)
+    alpha = torch.as_tensor((rng.standard_normal((2, 32, 32)) * g.dy * 0.7)
+                            .astype(np.float32))
+    before = lens_map_kernel.launches
+    got = nfwfit.lens_cov(U.to(cuda_device), alpha.to(cuda_device), g)
+    torch.cuda.synchronize()
+    assert lens_map_kernel.launches == before + 2
+    want = nfwfit.lens_cov(U, alpha, g)
+    assert (got.cpu() - want).abs().max() <= TOL_LENS * want.abs().max()
