@@ -27,8 +27,13 @@ settings (lensed sims, mcn0, rdn0, NlGenerator, n1_tt, a polarized sim),
 the shared-geometry max-likelihood fill of a 5' hole, Bin2D profiles on
 B1, chi^2 over 16 NFW templates; card vs CPU on 256 stamps, the
 conditional-variance identity on 10^4 noisy stamps, and
-``nfwfit.lens_cov`` at 32^2 on B8).
-Phases 3-15 each set the launch counts to 0 before they drive their path
+``nfwfit.lens_cov`` at 32^2 on B8), 16 pure-B bandpowers of masked
+polarization sims (1024^2 2', 16 lensed sims a step, ``mapstools.Purify``,
+one B1 launch a step; card vs CPU in float32 and float64, the E-only
+leakage gate at full size; untimed card checks of ``utils/healpix.
+smoothing`` at nside 512 on B10a/B10s, ``curved.MapRotatorEquator``,
+``mapstools.inpaint_cg`` and ``nfwfit.mass_estimate``).
+Phases 3-16 each set the launch counts to 0 before they drive their path
 and check them after; 4-15 print throughput, peak memory, device time by
 kernel and a check of the output against the plain versions. Phases 2, 4,
 5 and 14 print B8's blocks whose deflection range exceeded its window
@@ -43,9 +48,10 @@ path and the config-1 step body for B2/B3/B5/B6, on config 2's for
 B3s/B6s, on config 4's for B9, on
 configs 7, 8 and 8p together for B10a/B10s, on phase 13's paths for
 B6h/B6h'/B2' and for B4b, which no composition runs since B6 pairs every
-element through the exact mirror map; B1 and B8 also by path, with
-config 5's and ``lens_cov``'s counts, and a second B1 record at config
-5's shape), error, times and bound; the
+element through the exact mirror map; B1, B8 and B10a/B10s also by
+path, with config 5's, the pure-B path's, ``lens_cov``'s and the healpix
+bridge's counts, and B1 records at config 5's and the pure-B path's
+shapes), error, times and bound; the
 last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any
 failed check raises, so the exit code is non-zero and no result line is
 printed. It imports nothing of JAX.
@@ -376,6 +382,8 @@ def main():
                                                 s_field, s_pp_half,
                                                 s_pp_half_ref)
     from orphics_tpu_torch.ops.windows import get_taper
+    from orphics_tpu_torch.models import mapstools
+    from orphics_tpu_torch.utils import healpix
     from orphics_tpu_torch.models import curved
     from orphics_tpu_torch.ops import alm as almops
     from orphics_tpu_torch.ops import legendre as leg
@@ -2792,13 +2800,221 @@ def main():
     del ucov, lc_g, lc_c, cs5, mm5, cs64, mm64, temps5
     torch.cuda.empty_cache()
 
+    # ---- 16. pure-B bandpowers of masked polarization sims (the Smith 2006
+    # estimator of BB analyses: mapstools.Purify) at a ground-based BB
+    # field's size: 1024^2 at 2' (34 deg, ~1165 deg^2), 16 lensed TT/EE/
+    # BB/TE sims a step from MapGen (3 x 3 ps), the 18 % taper, the pure
+    # (T, E, B) transforms, the TT, EE and BB auto powers x area / npix^2,
+    # and one Bin2D over all 48 planes on edges arange(300, 2500, 200): one
+    # B1 launch a step
+    n16, nsim16 = 1024, 16
+    g16 = rect_geometry(width_arcmin=n16 * 2.0, px_res_arcmin=2.0)
+    ps16 = grf.cmb_ps(th)
+    edges16 = np.arange(300, 2500, 200.0)
+    base16 = torch.cuda.memory_allocated()
+    mg16 = grf.MapGen(g16, ps16)
+    win16 = get_taper(g16, taper_percent=18.0)[0]
+    pur16 = mapstools.Purify(g16, win16)
+    bin16 = Bin2D(g16.modlmap_np(), edges16)
+    check(win16.is_cuda and bin16._ids.is_cuda and pur16.windict[
+        "d2Win_dx2"].is_cuda, "16: Purify / Bin2D built with no device are "
+                              "not on the card")
+    gen16 = torch.Generator(device=dev).manual_seed(16)
+
+    def pure_spectra(iqu, pur, binner, method="pure"):
+        """(B, 3, nbins) binned TT, EE, BB auto powers of the purified
+        (T, E, B) transforms of ``iqu * window``: one Bin2D call."""
+        f = torch.stack(pur.lteb_from_iqu(iqu * pur.windict["Win"],
+                                          method=method), -3)
+        p2d = (f.real ** 2 + f.imag ** 2) * (g16.area / g16.npix ** 2)
+        return binner.bin(p2d.to(torch.float32))[1]
+
+    def step16():
+        return pure_spectra(mg16.get_map(gen16, batch=(nsim16,)), pur16,
+                            bin16)
+
+    cell16 = (f"{n16}^2 2' ({n16 * 2 / 60:.1f} deg), {nsim16} lensed IQU "
+              f"sims, 18 % taper, pure TEB, {len(edges16) - 1} bins")
+    reset_counts()
+    ms16 = throughput(step16, nsim16, 5, f"pure-B bandpowers {cell16}",
+                      "sims/s", card, "16")
+    peak16 = (torch.cuda.max_memory_allocated() - base16) / 1e9
+    counts16 = read_counts(("bin_reduce",), "16")
+    check(counts16["bin_reduce"] == 7, f"16: {counts16['bin_reduce']} B1 "
+          "launches in 7 steps (2 warm-up, 5 timed)")
+    print(f"[16] peak memory {peak16:.3f} GB above the {base16 / 1e9:.3f} GB "
+          f"that phases 2-15 still hold; B1 launches: "
+          f"{counts16['bin_reduce']} in 7 steps (one a step)")
+    profile_steps(step16, 3, ms16, "16")
+    # gate 1: card against the CPU on the same noise, 2 sims: float32 on
+    # both (cuFFT vs pocketfft, B1 vs its plain version), then the CPU in
+    # float64 (the window's derivatives are float64-built on both)
+    eta16 = grf.rand_kmap(g16, torch.Generator().manual_seed(161), 3,
+                          batch=(2,), device="cpu")
+    got16 = pure_spectra(mg16.get_map_from_noise(eta16.to(dev)), pur16,
+                         bin16).cpu().double().numpy()
+    bin16c = Bin2D(g16.modlmap_np(), edges16, device="cpu")
+    errs16 = {}
+    for dt, cdt, tol in ((torch.float32, torch.complex64, 1e-5),
+                         (torch.float64, torch.complex128, 1e-4)):
+        mgc = grf.MapGen(g16, ps16, dtype=dt, device="cpu")
+        purc = mapstools.Purify(g16, win16.cpu().to(dt))
+        ref = pure_spectra(mgc.get_map_from_noise(eta16.to(cdt)), purc,
+                           bin16c).double().numpy()
+        errs16[dt] = spectra_err(got16, ref)
+        check(errs16[dt] <= tol, f"16: card vs CPU {dt}: {errs16[dt]:.3e} "
+                                 f"of each spectrum's max > {tol}")
+    print(f"[16] 2 sims, card (float32, kernels) vs CPU on the same noise: "
+          f"{errs16[torch.float32]:.3e} of each spectrum's max vs the CPU's "
+          f"float32 (<= 1e-5), {errs16[torch.float64]:.3e} vs its float64 "
+          f"(<= 1e-4)")
+    del mgc, purc, eta16
+    # gate 2: 16 E-only sims (B = 0) at full size: the pure estimator's BB
+    # over the standard one's, the thresholds of tests/test_mapstools.py
+    ps16e = np.zeros_like(ps16)
+    ps16e[0, 0], ps16e[1, 1] = ps16[0, 0], ps16[1, 1]
+    iqu_e = grf.MapGen(g16, ps16e).get_map(gen16, batch=(nsim16,))
+    bb = {m: pure_spectra(iqu_e, pur16, bin16, m)[:, 2].double().mean(0)
+          for m in ("standard", "pure")}
+    r16 = (bb["pure"] / bb["standard"]).cpu().numpy()
+    check(bool(np.all(r16 < 0.01)) and r16.mean() < 0.002,
+          f"16: pure / standard BB on E-only sims {r16}")
+    print(f"[16] {nsim16} E-only sims: pure / standard BB per bin "
+          f"{np.array2string(r16, precision=6)} (each < 0.01), mean "
+          f"{r16.mean():.3e} (< 0.002)")
+    del iqu_e, bb
+    torch.cuda.empty_cache()
+    # B1 at this path's shape: (48, 1048576) fp32 over Bin2D's full ids
+    # (every pixel an id; segments 0 and nseg - 1, about 83 % of the
+    # pixels, summed and cut off)
+    ids16, nseg16 = bin16._ids, bin16._nseg
+    edge16 = ((ids16 == 0) | (ids16 == nseg16 - 1)).double().mean().item()
+    data16 = torch.randn((3 * nsim16, g16.npix), generator=gen16, device=dev)
+    out = bin_reduce(data16, ids16, nseg16)
+    again = bin_reduce(data16, ids16, nseg16)
+    ref = bin_reduce_ref(data16, ids16, nseg16)
+    absref = bin_reduce_ref(data16.abs(), ids16, nseg16)
+    torch.cuda.synchronize()
+    err = (out - ref).abs()
+    rel = (err / absref.clamp_min(1e-30)).max().item()
+    check(rel <= 1e-6 and torch.equal(out, again),
+          f"B1 pure-B shape: error {rel:.3e} of binned |data|, or two runs "
+          "differ")
+    ms = cuda_ms(lambda: bin_reduce(data16, ids16, nseg16), 20)
+    plain = cuda_ms(lambda: bin_reduce_ref(data16, ids16, nseg16), 3)
+    ids16l = ids16.long()
+    acc16 = torch.zeros((3 * nsim16, nseg16), device=dev)
+    lib = cuda_ms(lambda: acc16.index_add_(1, ids16l, data16), 10)
+    work16 = (nbytes(data16, ids16, out), data16.numel())
+    bnd, by = bound(*work16)
+    kept = torch.where((ids16 > 0) & (ids16 < nseg16 - 1), ids16, -1)
+    kbnd, _ = bound(bin_bytes(kept, nseg16, (data16,), out), data16.numel())
+    print(f"[16] B1 bin_reduce ({3 * nsim16}, {g16.npix}) nseg={nseg16}: "
+          f"{edge16:.4f} of the pixels in the two edge segments Bin2D cuts "
+          f"off; max rel err {rel:.3e} of binned |data|, reproducible; kernel "
+          f"{ms:.4f} ms, plain {plain:.4f} ms, index_add_ {lib:.4f} ms, bound "
+          f"{bnd:.4f} ms ({by}; {kbnd:.4f} ms for the sectors of kept ids) "
+          f"on {card}")
+    results["bin_reduce_pureb"] = kernel_entry(
+        "bin_reduce_pureb", "bin_reduce.cu", "pallas_kernels.py:94",
+        err.max().item(), (ms, plain, lib), work16)
+    results["bin_reduce_pureb"]["launches"] = counts16["bin_reduce"]
+    results["bin_reduce"]["launches_by_path"]["pureb"] = \
+        counts16["bin_reduce"]
+    del data16, out, again, ref, absref, err, ids16l, acc16, kept
+    del mg16, pur16, win16
+    torch.cuda.empty_cache()
+    # untimed card checks of the slice, each against the CPU
+    # utils/healpix.smoothing of an nside-512 float64 map at lmax 1024
+    # through the ring bridge: B10a and B10s on the card, the plain fp64
+    # loop on the CPU
+    reset_counts()
+    nside16 = 512
+    hmap16 = np.random.default_rng(512).standard_normal(12 * nside16 ** 2)
+    t0 = time.perf_counter()
+    sm_g = healpix.smoothing(hmap16, np.deg2rad(0.5), lmax=1024)
+    dt_g = time.perf_counter() - t0
+    counts_hp = read_counts(("legendre_ana", "legendre_syn"), "16")
+    t0 = time.perf_counter()
+    sm_c = healpix.smoothing(hmap16, np.deg2rad(0.5), lmax=1024,
+                             device="cpu")
+    dt_c = time.perf_counter() - t0
+    hp_err = float(np.abs(sm_g - sm_c).max() / np.abs(sm_c).max())
+    check(hp_err <= 1e-5, f"16: healpix.smoothing card vs CPU {hp_err:.3e}")
+    print(f"[16] utils/healpix.smoothing nside {nside16} lmax 1024 float64 "
+          f"(B10a {counts_hp['legendre_ana']}, B10s "
+          f"{counts_hp['legendre_syn']} launches; {dt_g:.3f} s with the host "
+          f"bridge, CPU {dt_c:.3f} s): {hp_err:.3e} of max (<= 1e-5)")
+    for name in ("legendre_ana", "legendre_syn"):
+        results[name]["launches_by_path"] = {
+            "sht": results[name]["launches"], "healpix": counts_hp[name]}
+    del hmap16, sm_g, sm_c
+    leg.clear_tables()
+    torch.cuda.empty_cache()
+    # curved.MapRotatorEquator of a 1024^2 2' float32 GRF centred at dec
+    # -40 deg onto a 20 x 12 deg equatorial patch (host float64 positions,
+    # float32 weights on both devices)
+    g16r = rect_geometry(width_arcmin=n16 * 2.0, px_res_arcmin=2.0,
+                         y0_deg=-40.0)
+    map16 = grf.MapGen(g16r, ps16[:1, :1], device="cpu").get_map_from_noise(
+        grf.rand_kmap(g16r, torch.Generator().manual_seed(40), 1,
+                      device="cpu"))
+    kw16 = dict(center_source=(g16r.y0, 0.3), patch_width_deg=20.0,
+                patch_height_deg=12.0)
+    rot_g = curved.MapRotatorEquator(g16r, **kw16).rotate(map16.to(dev))
+    rot_c = curved.MapRotatorEquator(g16r, device="cpu", **kw16).rotate(
+        map16)
+    _, rot_err = rel_err((rot_g.cpu(),), (rot_c,))
+    check(rot_c.abs().max() > 0 and rot_err <= 1e-6,
+          f"16: MapRotatorEquator card vs CPU {rot_err:.3e}")
+    print(f"[16] curved.MapRotatorEquator {tuple(g16r.shape)} at dec -40 "
+          f"-> {tuple(rot_g.shape)}: card vs CPU {rot_err:.3e} of max "
+          "(<= 1e-6)")
+    del map16, rot_g, rot_c
+    # inpaint_cg at 256^2 2', float64, the 10' central hole of
+    # tests/test_mapstools.py
+    g16i = rect_geometry(width_arcmin=256 * 2.0, px_res_arcmin=2.0)
+    ells16 = np.arange(th.lpad + 1)
+    cltt16 = np.asarray(th.lCl("TT", ells16))
+    p2d16 = grf.cl2flat(g16i, ells16, cltt16, dtype=torch.float64,
+                        device="cpu") + 1e-4 * cltt16.max()
+    mgi = grf.MapGen(g16i, (cltt16 + 1e-4 * cltt16.max())[None, None],
+                     dtype=torch.float64, device="cpu")
+    gci = torch.Generator().manual_seed(3)
+    imap16, rand16 = mgi.get_map(gci), mgi.get_map(gci)
+    mask16 = torch.as_tensor((g16i.modrmap_np() > 10 * arcmin).astype(
+        np.float64))
+    fill_g, it_g = mapstools._inpaint_cg(
+        (imap16 * mask16).to(dev), rand16.to(dev), mask16.to(dev),
+        p2d16.to(dev), 1e-6, 500, None)
+    fill_c, it_c = mapstools._inpaint_cg(imap16 * mask16, rand16, mask16,
+                                         p2d16, 1e-6, 500, None)
+    _, cg_err = rel_err((fill_g.cpu(),), (fill_c,))
+    check(cg_err <= 1e-6, f"16: inpaint_cg card vs CPU {cg_err:.3e}")
+    print(f"[16] inpaint_cg 256^2 float64 10' hole, eps 1e-6: {it_g} CG "
+          f"iterations on the card, {it_c} on the CPU; card vs CPU "
+          f"{cg_err:.3e} of max (<= 1e-6)")
+    # nfwfit.mass_estimate on a 64^2 0.5' stamp: a 3e14 halo in white
+    # noise from a 2e14 guess
+    g16m = Geometry(64, 64, 0.5 * arcmin, 0.5 * arcmin)
+    kap16 = nfwfit.nfw_kappa(3e14, g16m.modrmap_np(), cc5, device="cpu") \
+        + 1e-3 * torch.randn(g16m.shape, generator=gci, dtype=torch.float64)
+    n2d16 = np.full(g16m.shape, 1e-9)
+    m_g = nfwfit.mass_estimate(kap16.to(dev), n2d16, g16m, 2e14, 3.2, 0.5)
+    m_c = nfwfit.mass_estimate(kap16, n2d16, g16m, 2e14, 3.2, 0.5)
+    m_err = max(abs(a - b) / abs(b) for a, b in zip(m_g, m_c))
+    check(m_err <= 1e-4, f"16: mass_estimate card vs CPU {m_err:.3e}")
+    print(f"[16] nfwfit.mass_estimate 64^2: mass {m_g[0]:.6e} (card), "
+          f"{m_c[0]:.6e} (CPU), {m_err:.3e} relative (<= 1e-4)")
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for r in results.values():
         check(all(k in r for k in keys), f"{r['name']}: record lacks "
               f"{[k for k in keys if k not in r]}")
     print(json.dumps({"kernels": [results[k] for k in counters]
-                      + [results["bin_reduce_config5"]]}))
+                      + [results["bin_reduce_config5"],
+                         results["bin_reduce_pureb"]]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

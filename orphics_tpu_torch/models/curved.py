@@ -11,10 +11,10 @@ grids as dense ``(ntheta, nphi)`` tensors; alms use healpy packing.
 
 Every draw takes a ``torch.Generator`` and has a ``*_from_noise`` twin that
 takes the standard normals, so the tests feed both packages the same draws.
-Not ported yet: ``rotate_map``, ``MapRotator``, ``MapRotatorEquator``,
-``get_rotated_pixels`` (they resample through ``mapstools._bilinear_at``,
-ROADMAP queue A item 13b) and ``cutout_gnomonic`` (``utils/healpix``, item
-21); each raises ``NotImplementedError``.
+The patch rotations (``get_rotated_pixels``, ``rotate_map``,
+``MapRotator``, ``MapRotatorEquator``; ROADMAP queue A item 18b) resample
+through ``mapstools._bilinear_at`` (item 13b); ``cutout_gnomonic`` samples
+a healpix map through ``utils/healpix`` (item 21), on the host.
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ import math
 import numpy as np
 import torch
 
-from .._device import resolve
+from .._device import as_tensor, resolve
 from ..geometry import Geometry
 from ..ops import alm as almops
 from ..ops import sht
@@ -374,33 +374,256 @@ def south_galactic_mask(geom, **kw):
     return galactic_mask(geom, 0.0, np.deg2rad(90.0), **kw)
 
 
-_WAIT = ("needs the port of models/mapstools' _bilinear_at (ROADMAP queue "
-         "A, item 13b)")
+def _geom_posang(geom: Geometry, dtype=torch.float64, device=None):
+    """Absolute (dec, ra) of every pixel of a flat patch (small-patch
+    cylindrical approximation consistent with ``Geometry``)."""
+    device = resolve(device)
+    iy = (torch.arange(geom.ny, dtype=dtype, device=device)
+          - (geom.ny - 1) / 2) * geom.dy
+    ix = (torch.arange(geom.nx, dtype=dtype, device=device)
+          - (geom.nx - 1) / 2) * geom.dx
+    return torch.meshgrid(geom.y0 + iy, ix, indexing="ij")
 
 
-def get_rotated_pixels(*args, **kwargs):
-    """Reference ``get_rotated_pixels`` (``maps.py:1738``): not ported."""
-    raise NotImplementedError("get_rotated_pixels waits with rotate_map, "
-                              "which " + _WAIT)
+def _source_pixels(dec_s, ra_s, geom_source, source_ra0, xp):
+    """Fractional source pixels of absolute (dec, ra) in numpy or torch
+    (``xp``), the RA taken relative to ``source_ra0`` and wrapped."""
+    ra_s = ra_s - source_ra0
+    ra_s = xp.arctan2(xp.sin(ra_s), xp.cos(ra_s))
+    py = ((dec_s - float(geom_source.y0)) / float(geom_source.dy)
+          + (geom_source.ny - 1) / 2)
+    px = ra_s / float(geom_source.dx) + (geom_source.nx - 1) / 2
+    return py, px
 
 
-def rotate_map(*args, **kwargs):
-    """Reference ``rotate_map`` (``maps.py:1780``): not ported."""
-    raise NotImplementedError("rotate_map " + _WAIT)
+def get_rotated_pixels(geom_source: Geometry, geom_target: Geometry,
+                       inverse=False, rot=None, source_ra0=0.0,
+                       center_source=None, center_target=None, device=None):
+    """Fractional source-pixel positions (2, ny, nx), float64, of every
+    target pixel after recentring the source patch onto the target patch
+    (reference ``get_rotated_pixels``, ``maps.py:1738``). ``rot``
+    overrides the recentring rotation; ``center_source`` /
+    ``center_target`` override the (dec, ra) patch centers otherwise
+    taken from the geometries (``y0`` is the dec center; the source RA
+    origin is ``source_ra0``). ``inverse`` swaps the sense of the
+    recentring.
+
+    A host ``rot`` (the common case) gives positions computed in host
+    float64 numpy and put on ``device``, so the card and the CPU sample
+    the same positions. A tensor ``rot`` gives positions computed in
+    float64 on its device."""
+    if rot is None:
+        cs = ((geom_source.y0, source_ra0) if center_source is None
+              else center_source)
+        ct = ((geom_target.y0, 0.0) if center_target is None
+              else center_target)
+        if inverse:
+            cs, ct = ct, cs
+        rot = pointing_rotation(cs, ct)
+    if torch.is_tensor(rot):
+        rot = rot.to(torch.float64)
+        dec_t, ra_t = _geom_posang(geom_target, device=rot.device)
+        cd = torch.cos(dec_t)
+        v = torch.stack([cd * torch.cos(ra_t), cd * torch.sin(ra_t),
+                         torch.sin(dec_t)], -1)
+        vs = torch.einsum("ij,...j->...i", rot, v)
+        dec_s = torch.arcsin(torch.clamp(vs[..., 2], -1.0, 1.0))
+        ra_s = torch.atan2(vs[..., 1], vs[..., 0])
+        py, px = _source_pixels(dec_s, ra_s, geom_source, source_ra0,
+                                torch)
+        return torch.stack([py, px])
+    rot = np.asarray(rot, np.float64)
+    gt = geom_target
+    iy = (np.arange(gt.ny) - (gt.ny - 1) / 2) * float(gt.dy) + float(gt.y0)
+    ix = (np.arange(gt.nx) - (gt.nx - 1) / 2) * float(gt.dx)
+    dec_t, ra_t = np.meshgrid(iy, ix, indexing="ij")
+    v = np.stack([np.cos(dec_t) * np.cos(ra_t),
+                  np.cos(dec_t) * np.sin(ra_t), np.sin(dec_t)], -1)
+    vs = np.einsum("ij,...j->...i", rot, v)
+    dec_s = np.arcsin(np.clip(vs[..., 2], -1.0, 1.0))
+    ra_s = np.arctan2(vs[..., 1], vs[..., 0])
+    py, px = _source_pixels(dec_s, ra_s, geom_source, source_ra0, np)
+    return torch.as_tensor(np.stack([py, px]), device=resolve(device))
+
+
+def _sample(imap, pix, order):
+    from .mapstools import _bilinear_at
+    if order not in (0, 1):
+        raise NotImplementedError(
+            "rotate_map implements order 0 (nearest) and 1 (bilinear); "
+            "higher-order spline resampling is not available")
+    py, px = pix[0], pix[1]
+    if order == 0:
+        py, px = torch.round(py), torch.round(px)
+    return _bilinear_at(imap, py, px)
+
+
+def rotate_map(imap, geom_source: Geometry, geom_target: Geometry,
+               rot=None, order=1, source_ra0=0.0, device=None):
+    """Resample ``imap`` (on ``geom_source``) onto ``geom_target`` through
+    a real spherical rotation (reference ``rotate_map``/``MapRotator``,
+    ``maps.py:1780,1681``), on ``imap``'s device. ``rot`` is a 3x3
+    rotation taking target coordinates to source coordinates; by default
+    the recentering rotation between the two patch centers.
+    ``source_ra0`` is the absolute RA of the source patch center, needed
+    whenever ``rot`` lands vectors at a nonzero source RA (as in
+    :class:`MapRotatorEquator`). ``order``: 0 (nearest) or 1
+    (bilinear)."""
+    imap = as_tensor(imap, device)
+    if torch.is_tensor(rot):
+        rot = rot.to(imap.device)
+    pix = get_rotated_pixels(geom_source, geom_target, rot=rot,
+                             source_ra0=source_ra0, device=imap.device)
+    return _sample(imap, pix, order)
 
 
 class MapRotator:
-    """Reference ``MapRotator`` (``maps.py:1681``): not ported."""
+    """Rotate maps from one patch geometry to another through the proper
+    spherical pointing transform (reference ``MapRotator``,
+    ``maps.py:1681``). The source positions are formed once, on
+    ``device`` (a tensor ``rot``'s own device)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("MapRotator " + _WAIT)
+    def __init__(self, geom_source: Geometry, geom_target: Geometry,
+                 rot=None, source_ra0=0.0, device=None):
+        self.geom_source = geom_source
+        self.geom_target = geom_target
+        self.rot = rot
+        self.source_ra0 = float(source_ra0)
+        self.pix = get_rotated_pixels(geom_source, geom_target, rot=rot,
+                                      source_ra0=self.source_ra0,
+                                      device=device)
+
+    def rotate(self, imap):
+        return _sample(as_tensor(imap, self.pix.device), self.pix, 1)
 
 
 class MapRotatorEquator(MapRotator):
-    """Reference ``MapRotatorEquator`` (``maps.py:1687``): not ported."""
+    """Rotate a map from a source geometry onto an equator-centered
+    target patch (reference ``maps.py:1687``): the target geometry is
+    built from the requested patch size, with the pixel size matched to
+    the source's (scaled by cos(max |dec|) of the source, the reference's
+    recommended-pixel logic, unless overridden), then rotation proceeds as
+    in :class:`MapRotator` through the pointing rotation that carries the
+    source center to the target center; optionally Fourier-resampled to
+    ``downsample_pix_arcmin``."""
+
+    def __init__(self, geom_source: Geometry, center_source,
+                 patch_width_deg, patch_height_deg,
+                 width_multiplier=1.0, height_multiplier=1.5,
+                 pix_target_override_arcmin=None, downsample_pix_arcmin=None,
+                 device=None):
+        from ..geometry import arcmin as ARCMIN, rect_geometry
+        source_pix_arcmin = min(geom_source.dy, geom_source.dx) / ARCMIN
+        if pix_target_override_arcmin is None:
+            max_dec = abs(center_source[0]) + geom_source.ny \
+                * geom_source.dy / 2.0
+            pix = source_pix_arcmin * np.cos(min(max_dec, np.pi / 2.2))
+        else:
+            pix = pix_target_override_arcmin
+        geom_target = rect_geometry(
+            width_arcmin=patch_width_deg * 60.0 * width_multiplier,
+            height_arcmin=patch_height_deg * 60.0 * height_multiplier,
+            px_res_arcmin=pix)
+        rot = pointing_rotation(center_source, (0.0, 0.0))
+        # the rotation lands target vectors at the source's ABSOLUTE RA
+        super().__init__(geom_source, geom_target, rot=rot,
+                         source_ra0=center_source[1], device=device)
+        self.downsample_pix_arcmin = downsample_pix_arcmin
+
+    def rotate(self, imap):
+        out = super().rotate(imap)
+        if self.downsample_pix_arcmin is not None:
+            from ..geometry import arcmin as ARCMIN
+            from .mapstools import resample_fft
+            out, _ = resample_fft(out, self.geom_target,
+                                  self.downsample_pix_arcmin * ARCMIN)
+        return out
 
 
-def cutout_gnomonic(*args, **kwargs):
-    """Reference ``cutout_gnomonic`` (``maps.py:2425``): not ported."""
-    raise NotImplementedError("cutout_gnomonic needs the port of "
-                              "utils/healpix (ROADMAP queue A, item 21)")
+def cutout_gnomonic(hp_map, rot=None, coord=None, xsize=200, ysize=None,
+                    reso=1.5, nest=False, remove_dip=False,
+                    remove_mono=False, gal_cut=0, flip="astro"):
+    """Gnomonic (tangent-plane) cutout of a healpix map (reference
+    ``cutout_gnomonic``, ``maps.py:2425``, a healpy.gnomview derivative).
+    Host-side viewer helper, numpy throughout, as in the JAX package.
+
+    ``rot`` is (lon, lat[, psi]) in degrees placing that point at the
+    cutout center with an extra ``psi`` rotation about the line of
+    sight; ``coord`` of 'G'/'C' (or a pair rotating first->second)
+    reinterprets the map's frame through the galactic<->equatorial
+    rotation; ``reso`` is the pixel size in arcmin; ``flip='astro'`` puts
+    east on the left (rows increase northward in both conventions).
+    Sampling is nearest-pixel; healpy UNSEEN sentinel values pass through
+    unchanged. ``remove_mono``/``remove_dip`` subtract the monopole (and
+    dipole) fitted over finite, non-UNSEEN pixels outside ``|b| <
+    gal_cut`` degrees."""
+    from ..utils import healpix as hpx
+    hp_map = np.asarray(hp_map.cpu() if torch.is_tensor(hp_map) else hp_map,
+                        np.float64)
+    nside = hpx.npix2nside(hp_map.size)
+
+    if remove_dip or remove_mono:
+        pix = np.arange(hp_map.size)
+        th, ph = hpx.pix2ang(nside, hpx.nest2ring(nside, pix)
+                             if nest else pix)
+        # exclude healpy's UNSEEN sentinel (finite but ~-1.6e30) as well
+        # as nan/inf from the fit, like healpy's mask_bad
+        good = np.isfinite(hp_map) & (np.abs(hp_map) < 1e25)
+        if gal_cut > 0:
+            good &= np.abs(90.0 - np.degrees(th)) >= gal_cut
+        v = np.stack([np.sin(th) * np.cos(ph), np.sin(th) * np.sin(ph),
+                      np.cos(th)], -1)
+        if remove_dip:
+            A = np.concatenate([np.ones((good.sum(), 1)), v[good]], 1)
+            coef, *_ = np.linalg.lstsq(A, hp_map[good], rcond=None)
+            hp_map = hp_map - coef[0] - v @ coef[1:]
+        else:
+            hp_map = hp_map - hp_map[good].mean()
+
+    if ysize is None:
+        ysize = xsize
+    if rot is None:
+        rot = (0.0, 0.0, 0.0)
+    rot = tuple(np.atleast_1d(rot).astype(np.float64)) + (0.0, 0.0)
+    lon0, lat0, psi = np.radians(rot[0]), np.radians(rot[1]), \
+        np.radians(rot[2])
+
+    # tangent-plane coordinates (radians); screen x rightward, y upward
+    step = np.radians(reso / 60.0)
+    xs = (np.arange(xsize) - (xsize - 1) / 2.0) * step
+    ys = (np.arange(ysize) - (ysize - 1) / 2.0) * step
+    X, Y = np.meshgrid(xs, ys)
+    if flip == "astro":
+        X = -X                       # east toward the left
+    if psi != 0.0:
+        c, s = np.cos(psi), np.sin(psi)
+        X, Y = c * X - s * Y, s * X + c * Y
+
+    # gnomonic inverse: direction = center + X e_east + Y e_north
+    n_hat = np.array([np.cos(lat0) * np.cos(lon0),
+                      np.cos(lat0) * np.sin(lon0), np.sin(lat0)])
+    e_east = np.array([-np.sin(lon0), np.cos(lon0), 0.0])
+    e_north = np.array([-np.sin(lat0) * np.cos(lon0),
+                        -np.sin(lat0) * np.sin(lon0), np.cos(lat0)])
+    d = (n_hat[None, None] + X[..., None] * e_east[None, None]
+         + Y[..., None] * e_north[None, None])
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+
+    if coord is not None:
+        coord = [coord] if isinstance(coord, str) else list(coord)
+        if len(coord) == 2 and coord[0] != coord[1]:
+            # directions are in the SECOND frame; pull back to the map's
+            pair = (coord[0], coord[1])
+            if pair not in (("G", "C"), ("C", "G")):
+                raise NotImplementedError(
+                    "cutout_gnomonic supports G<->C rotations")
+            R = np.asarray(gal2equ_rotation(inverse=(pair == ("C", "G"))))
+            d = d @ R                # R^T applied to row vectors
+    theta = np.arccos(np.clip(d[..., 2], -1.0, 1.0))
+    phi = np.arctan2(d[..., 1], d[..., 0]) % (2 * np.pi)
+    pix = hpx.ang2pix(nside, theta.ravel(), phi.ravel())
+    if nest:
+        pix = hpx.ring2nest(nside, pix)
+    # rows increase northward regardless of flip (healpy's projected-map
+    # convention; display with origin='lower')
+    return hp_map[pix].reshape(ysize, xsize)

@@ -16,8 +16,8 @@ covariance rows as one batch of maps in one call of
 ``lensing.lens_map_spline`` (kernel B8 on the card), then all columns:
 the row-parallel MPI loop of reference ``lens_cov_pol``.
 :func:`fit_nfw_profile` walks its profile models in a Python loop like
-the reference. :func:`mass_estimate` needs ``mapstools.MatchedFilter``
-(ROADMAP queue A, item 13b) and raises until then.
+the reference. :func:`mass_estimate` fits NFW templates with
+``mapstools.MatchedFilter`` (ROADMAP queue A, item 13b).
 """
 from __future__ import annotations
 
@@ -467,14 +467,30 @@ def kappa_nfw(M, c, R, theta, cc, z, device=None):
 
 def mass_estimate(kappa_recon, kappa_noise_2d, geom: Geometry,
                   mass_guess, concentration, z, cc=None, kmask=None,
-                  niter=3):
+                  niter=3, device=None):
     """Matched-filter mass estimate of a cutout kappa reconstruction (the
-    JAX package's working version of reference ``lensing.py:730``). It
-    needs ``mapstools.MatchedFilter``, which is not ported yet (ROADMAP
-    queue A, item 13b): it raises."""
-    raise NotImplementedError(
-        "mass_estimate needs mapstools.MatchedFilter, which is not ported "
-        "yet (ROADMAP queue A, item 13b)")
+    JAX package's working version of reference ``lensing.py:730``): fit
+    the amplitude of an NFW template with the 2D-noise-weighted matched
+    filter (``mapstools.MatchedFilter``), convert amplitude to mass, and
+    iterate the template mass to self-consistency. Runs on
+    ``kappa_recon``'s device (``device`` for a host map).
+
+    Returns (mass, mass_variance)."""
+    from .cosmology import Cosmology
+    from .mapstools import MatchedFilter
+    if cc is None:
+        cc = Cosmology()
+    kappa_recon = as_tensor(kappa_recon, device)
+    dev = kappa_recon.device
+    modr = torch.as_tensor(geom.modrmap_np(), device=dev)
+    m = float(mass_guess)
+    for _ in range(niter):
+        temp = nfw_kappa(m, modr, cc, zL=z,
+                         concentration=concentration).reshape(geom.shape)
+        mf = MatchedFilter(geom, temp, kappa_noise_2d)
+        amp, var = mf.apply(kappa_recon, kmask=kmask)
+        m = float(amp) * m
+    return m, float(var) * mass_guess ** 2
 
 
 def kappa_nfw_profiley1d(thetas, mass=2e14, conc=3.0, z=0.7, z_s=1100.0,

@@ -36,6 +36,8 @@ from orphics_tpu_torch.ops import distance as tdistance
 from orphics_tpu_torch.models import cosmology as tcosmology
 from orphics_tpu_torch.models import nfwfit as tnfwfit, pixcov as tpixcov
 from orphics_tpu_torch.models import rsd as trsd, splits as tsplits
+from orphics_tpu_torch.models import mapstools as tmapstools
+from orphics_tpu_torch.utils import healpix as thealpix
 
 torch.set_num_threads(1)
 
@@ -250,12 +252,16 @@ def test_slice_names_resolve(path):
 
 def test_slice_gated_functions_raise():
     """The functions of the slice that need a module not ported yet raise
-    NotImplementedError naming their ROADMAP queue A item."""
+    NotImplementedError naming their ROADMAP queue A item; mass_estimate,
+    gated on item 13b until the map-tools slice, now runs."""
     from orphics_tpu_torch.models import cosmology as tcos, nfwfit as tnfw
     from orphics_tpu_torch.utils import fitting as tfit
     g = tp.rect_geometry(width_arcmin=16 * 2.0, px_res_arcmin=2.0)
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        tnfw.mass_estimate(None, None, g, 2e14, 3.2, 0.5)
+    kap = tnfw.nfw_kappa(2e14, g.modrmap_np(), tcos.Cosmology(),
+                         device="cpu")
+    m, v = tnfw.mass_estimate(kap, np.ones(g.shape), g, 2e14, 3.2, 0.7,
+                              niter=1)
+    assert m == pytest.approx(2e14, rel=1e-6) and v > 0
     for name in ("fk_comparison", "pk_comparison"):
         with pytest.raises(NotImplementedError, match="item 21"):
             getattr(tcos, name)("H0", 0.5, 67.0, 70.0,
@@ -276,6 +282,12 @@ def test_port_imports_no_jax():
             "orphics_tpu_torch.ops.alm, orphics_tpu_torch.ops.sht, "
             "orphics_tpu_torch.ops.legendre, orphics_tpu_torch.models.noise, "
             "orphics_tpu_torch.models.curved, "
+            "orphics_tpu_torch.models.mapstools, "
+            "orphics_tpu_torch.models.shear, "
+            "orphics_tpu_torch.utils.healpix, orphics_tpu_torch.maps, "
+            "orphics_tpu_torch.lensing, orphics_tpu_torch.pixcov, "
+            "orphics_tpu_torch.foregrounds, orphics_tpu_torch.algorithms, "
+            "orphics_tpu_torch.cosmology, "
             "orphics_tpu_torch.entry, orphics_tpu_torch.convert, "
             + ", ".join("orphics_tpu_torch." + m for m in _SLICE_MODULES)
             + ", orphics_tpu_torch.utils.fitting\n"
@@ -366,6 +378,26 @@ _NO_DEVICE = {
         np.zeros((16, 16)), [[8, 8]], 4),
     "noise_from_splits": lambda g, th: tsplits.noise_from_splits(
         np.zeros((2, 1) + g.shape), g),
+    "Purify": lambda g, th: tmapstools.Purify(g, np.ones(g.shape)),
+    "MatchedFilter": lambda g, th: tmapstools.MatchedFilter(
+        g, np.ones(g.shape)),
+    "FourierStack": lambda g, th: tmapstools.FourierStack(g, _EDGES),
+    "mapstools.MapRotator": lambda g, th: tmapstools.MapRotator(g, g),
+    "curved.MapRotator": lambda g, th: tcurved.MapRotator(g, g),
+    "MapRotatorEquator": lambda g, th: tcurved.MapRotatorEquator(
+        g, (0.0, 0.0), 1.0, 1.0),
+    "mapstools.galactic_mask": lambda g, th: tmapstools.galactic_mask(
+        g, 8, 1.0, 2.0),
+    "healpix.map2alm": lambda g, th: thealpix.map2alm(np.zeros(12 * 16), 8),
+    "inpaint_cg": lambda g, th: tmapstools.inpaint_cg(
+        np.zeros(g.shape), np.zeros(g.shape), np.ones(g.shape),
+        np.ones(g.shape), g),
+    "get_normalized_center": lambda g, th: tmapstools.get_normalized_center(
+        g),
+    "gauss_kern": lambda g, th: tmapstools.gauss_kern(1.0, 1.0),
+    "ncov": lambda g, th: tmapstools.ncov(tp.Geometry(4, 4, 1e-3, 1e-3),
+                                          10.0),
+    "get_rotated_pixels": lambda g, th: tcurved.get_rotated_pixels(g, g),
 }
 
 

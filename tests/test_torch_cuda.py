@@ -932,3 +932,77 @@ def test_lens_cov_card_matches_cpu(cuda_device):
     assert lens_map_kernel.launches == before + 2
     want = nfwfit.lens_cov(U, alpha, g)
     assert (got.cpu() - want).abs().max() <= TOL_LENS * want.abs().max()
+
+
+# Map-tools slice. Pure B: the card's float32 binned spectra against the
+# CPU's float32 run of the same path, 1e-5 of each spectrum's max (cuFFT
+# against pocketfft, B1 against its plain version), and against the CPU's
+# float64 run, 1e-4 (chip_smoke.py phase 16 states the reading). Rotation:
+# the same host float64 positions and float32 weights on both devices,
+# 1e-6 of max. healpix.smoothing in float64: the B10 kernels' fp64 sums
+# against the plain loop, 1e-10 of max.
+TOL_PUREB = {torch.float32: 1e-5, torch.float64: 1e-4}
+
+
+def _pure_b_spectra(geom, iqu, window, binner):
+    from orphics_tpu_torch.models.mapstools import Purify
+    fT, fE, fB = Purify(geom, window).lteb_from_iqu(iqu * window)
+    f = torch.stack([fT, fE, fB], -3)
+    p2d = (f.conj() * f).real * (geom.area / geom.npix ** 2)
+    return binner.bin(p2d.to(torch.float32))[1]
+
+
+@pytest.mark.cuda
+def test_pure_b_card_matches_cpu(cuda_device):
+    from orphics_tpu_torch.ops.binning import Bin2D
+    geom = tp.rect_geometry(width_arcmin=256 * 2.0, px_res_arcmin=2.0)
+    mg = grf.MapGen(geom, grf.cmb_ps(default_theory()), device="cpu")
+    eta = grf.rand_kmap(geom, torch.Generator().manual_seed(16), 3,
+                        batch=(2,), device="cpu")
+    iqu = mg.get_map_from_noise(eta)
+    win = get_taper(geom, taper_percent=18.0, device="cpu")[0]
+    edges = np.arange(300, 2500, 200.0)
+    before = bin_reduce.launches
+    got = _pure_b_spectra(geom, iqu.to(cuda_device), win.to(cuda_device),
+                          Bin2D(geom.modlmap_np(), edges,
+                                device=cuda_device)).cpu()
+    assert bin_reduce.launches == before + 1
+    binner = Bin2D(geom.modlmap_np(), edges, device="cpu")
+    for dt, tol in TOL_PUREB.items():
+        ref = _pure_b_spectra(geom, iqu.to(dt), win.to(dt), binner)
+        scale = ref.abs().amax(dim=-1, keepdim=True)
+        assert ((got - ref).abs() <= tol * scale).all(), dt
+
+
+@pytest.mark.cuda
+def test_rotate_map_card_matches_cpu(cuda_device):
+    from orphics_tpu_torch.models import curved
+    src = tp.rect_geometry(width_arcmin=256 * 2.0, px_res_arcmin=2.0,
+                           y0_deg=-40.0)
+    rng = np.random.default_rng(40)
+    imap = torch.as_tensor(rng.standard_normal(src.shape).astype(np.float32))
+    rot = curved.MapRotatorEquator(src, (src.y0, 0.2), 4.0, 3.0,
+                                   device=cuda_device)
+    got = rot.rotate(imap.to(cuda_device)).cpu()
+    ref = curved.MapRotatorEquator(src, (src.y0, 0.2), 4.0, 3.0,
+                                   device="cpu").rotate(imap)
+    assert ref.abs().max() > 0
+    assert (got - ref).abs().max() <= 1e-6 * ref.abs().max()
+    tgt = tp.rect_geometry(width_arcmin=200 * 2.0, px_res_arcmin=2.0,
+                           y0_deg=-39.0)
+    got = curved.rotate_map(imap.to(cuda_device), src, tgt).cpu()
+    ref = curved.rotate_map(imap, src, tgt)
+    assert ref.abs().max() > 0
+    assert (got - ref).abs().max() <= 1e-6 * ref.abs().max()
+
+
+@pytest.mark.cuda
+def test_healpix_smoothing_card_matches_cpu(cuda_device):
+    from orphics_tpu_torch.utils import healpix
+    nside = 64
+    hmap = np.random.default_rng(64).standard_normal(12 * nside * nside)
+    a0, s0 = leg.legendre_ana.launches, leg.legendre_syn.launches
+    got = healpix.smoothing(hmap, np.deg2rad(1.0), device=cuda_device)
+    assert leg.legendre_ana.launches > a0 and leg.legendre_syn.launches > s0
+    ref = healpix.smoothing(hmap, np.deg2rad(1.0), device="cpu")
+    assert np.abs(got - ref).max() <= 1e-10 * np.abs(ref).max()

@@ -170,8 +170,19 @@ def test_filter_bin_and_matched_filter(setup):
                                   rayleigh_sigma_arcmin=0.5)
     for a, b in zip(got, want):
         assert a == pytest.approx(b, rel=RTOL_HOST)
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        TNF.mass_estimate(None, None, tg, 2e14, 3.2, 0.5, cc=tc)
+    # mass_estimate on the port's MatchedFilter (ROADMAP queue A item 13b):
+    # a 3e14 halo in white noise, fitted from a 2e14 guess, three rounds
+    rng = np.random.default_rng(9)
+    kap = np.asarray(JNF.nfw_kappa(3e14, jnp.asarray(jg.modrmap_np()), jc)) \
+        + 1e-3 * rng.standard_normal(jg.shape)
+    n2d = np.full(jg.shape, 1e-9)
+    kmask = (jg.modlmap_np() < 20000).astype(np.float64)
+    want = JNF.mass_estimate(kap, n2d, jg, 2e14, 3.2, 0.5, cc=jc,
+                             kmask=kmask)
+    got = TNF.mass_estimate(kap, n2d, tg, 2e14, 3.2, 0.5, cc=tc,
+                            kmask=kmask, device="cpu")
+    for a, b in zip(got, want):
+        assert a == pytest.approx(b, rel=RTOL_TORCH64)
 
 
 @pytest.mark.parametrize("beam", [None, "beam"])
