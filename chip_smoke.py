@@ -1,8 +1,9 @@
 """Card check of the PyTorch / CUDA port: build its kernels, hold each to
 its plain PyTorch version at the main path's shapes, drive the flagship
 step, both paths of the lensing pipeline, FastCl, the ILC coadd, the
-curved-sky SHT, the QE reconstruction-only step, the unfused pair spectra
-and the N0 debias on the card, and check what comes out.
+curved-sky SHT, the QE reconstruction-only step, the unfused pair spectra,
+the N0 debias, cluster stacking, pure-B bandpowers and the distributed
+layer on the card, and check what comes out.
 
 Run from the repository root on a machine with one NVIDIA Hopper GPU
 and nvcc:
@@ -32,8 +33,17 @@ polarization sims (1024^2 2', 16 lensed sims a step, ``mapstools.Purify``,
 one B1 launch a step; card vs CPU in float32 and float64, the E-only
 leakage gate at full size; untimed card checks of ``utils/healpix.
 smoothing`` at nside 512 on B10a/B10s, ``curved.MapRotatorEquator``,
-``mapstools.inpaint_cg`` and ``nfwfit.mass_estimate``).
-Phases 3-16 each set the launch counts to 0 before they drive their path
+``mapstools.inpaint_cg`` and ``nfwfit.mass_estimate``), 17 the
+distributed layer (``parallel/``) on a one-rank NCCL group and a (1, 1)
+DeviceMesh: ``ensemble_stats`` of the flagship step at 512^2 (64 sims,
+chunk 16) against a plain loop, ``masked_bandpowers_dist`` at 4096^2 0.5'
+(B1 on the column block), the ring-split ``map2alm_dist`` /
+``alm2map_dist`` at lmax 2047 and ``map2alm_spin_dist`` at lmax 1023
+(B10a/B10s in layout "full") against the serial folded transforms,
+``lens_cov_dist`` at 32^2 (B8 on covariance rows), each beside its S = 4
+split run as four threads of this process (``parallel.runtime.emulate``),
+and ``entry.dryrun_multichip(1)``.
+Phases 3-17 each set the launch counts to 0 before they drive their path
 and check them after; 4-15 print throughput, peak memory, device time by
 kernel and a check of the output against the plain versions. Phases 2, 4,
 5 and 14 print B8's blocks whose deflection range exceeded its window
@@ -49,9 +59,10 @@ B3s/B6s, on config 4's for B9, on
 configs 7, 8 and 8p together for B10a/B10s, on phase 13's paths for
 B6h/B6h'/B2' and for B4b, which no composition runs since B6 pairs every
 element through the exact mirror map; B1, B8 and B10a/B10s also by
-path, with config 5's, the pure-B path's, ``lens_cov``'s and the healpix
-bridge's counts, and B1 records at config 5's and the pure-B path's
-shapes), error, times and bound; the
+path, with config 5's, the pure-B path's, ``lens_cov``'s, the healpix
+bridge's and the distributed path's counts, B1 records at config 5's and
+the pure-B path's shapes, and B10a/B10s records at layout "full", lmax
+2047, with the distributed path's launches), error, times and bound; the
 last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any
 failed check raises, so the exit code is non-zero and no result line is
 printed. It imports nothing of JAX.
@@ -63,10 +74,12 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 # NVIDIA's H100 SXM data sheet: HBM rate, and the fp32 and fp64 rates
@@ -217,6 +230,27 @@ def kernel_entry(name, source, replaces, err, times, work):
                 replaces="orphics_tpu/ops/" + replaces, max_abs_err=err,
                 ms=times[0], plain_ms=times[1], bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=times[2])
+
+
+def b10_steps(tab, ktab):
+    """The live (ring, m, l) steps of a B10 call: from each (ring, m)'s
+    captured seed l_s to lmax, none where it has no seed."""
+    ls = ktab["ls"]
+    return float(((tab["lmax"] + 1 - ls) * (ls >= 0)).sum().item())
+
+
+def b10_work(x, tab, ktab, out_b, nm, steps, fast):
+    """(bytes, fp32, fp64 operations) of one B10a / B10s call on ``nm`` maps
+    of ``x``: bytes x in, the output (``out_b``), the tables once.
+    Operations per live step: the recurrence's two FMAs and a multiply (5,
+    in fp64; fp32 in fast, with two FMAs more for the factor's low parts:
+    9), and per map the complex contraction's two FMAs (4), counted at the
+    fp32 rate (67 TFLOP/s), which is also the fp64 tensor cores' rate that
+    B10a and B10s contract at."""
+    rec = (9.0 if fast else 5.0) * steps
+    return (nbytes(x, tab["A"], tab["B"], tab["C"], ktab["s1"], ktab["s0"],
+                   ktab["ls"]) + out_b,
+            (rec if fast else 0.0) + 4.0 * nm * steps, 0.0 if fast else rec)
 
 
 def check(cond, msg):
@@ -388,6 +422,11 @@ def main():
     from orphics_tpu_torch.ops import alm as almops
     from orphics_tpu_torch.ops import legendre as leg
     from orphics_tpu_torch.ops import sht
+    from orphics_tpu_torch.entry import build_qe_pipeline, dryrun_multichip
+    from orphics_tpu_torch.parallel import fourier as pfourier
+    from orphics_tpu_torch.parallel import runtime as prt
+    from orphics_tpu_torch.parallel import sht as psht
+    from orphics_tpu_torch.parallel.statistics import SuffStats
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1421,8 +1460,7 @@ def main():
             tab = leg.tables(lmax, rings, ns, ni, layout, dev)
             ktab = leg.kernel_tables(tab)
             torch.cuda.synchronize()
-            ls = ktab["ls"]
-            steps = float(((M1 - ls) * (ls >= 0)).sum().item())
+            steps = b10_steps(tab, ktab)
             dead = int((ktab["bounds"][M1:2 * M1] == 0).sum().item())
             print(f"[2] B10 tables {shape}: capture pass and bounds "
                   f"{time.perf_counter() - t0:.3f} s; {ktab['Tk']} kernel "
@@ -1464,19 +1502,7 @@ def main():
                                f"(<= {B10_FAST_PLAIN_TOL})")
                     ms = cuda_ms(lambda: fn(x, tab, fast), 5, warmup=1)
                     plain = cuda_ms(lambda: ref_fn(x, tab), 1, warmup=0)
-                    # bytes: x in, the output, the tables once. Operations
-                    # per live step: the recurrence's two FMAs and a
-                    # multiply (5, in fp64; fp32 in fast, with two FMAs
-                    # more for the factor's low parts: 9), and per map the
-                    # complex contraction's two FMAs (4), counted at the
-                    # fp32 rate (67 TFLOP/s), which is also the fp64
-                    # tensor cores' rate that B10a and B10s contract at
-                    rec = (9.0 if fast else 5.0) * steps
-                    work = (nbytes(x, tab["A"], tab["B"], tab["C"],
-                                   ktab["s1"], ktab["s0"], ktab["ls"])
-                            + out_b,
-                            (rec if fast else 0.0) + 4.0 * nm * steps,
-                            0.0 if fast else rec)
+                    work = b10_work(x, tab, ktab, out_b, nm, steps, fast)
                     bms, bby = bound(*work)
                     print(f"[2] {name} {shape} {mode}: max abs err "
                           f"{err:.3e} = {rel:.3e} of max|ref| (<= {tol})"
@@ -3007,14 +3033,298 @@ def main():
     print(f"[16] nfwfit.mass_estimate 64^2: mass {m_g[0]:.6e} (card), "
           f"{m_c[0]:.6e} (CPU), {m_err:.3e} relative (<= 1e-4)")
 
+    # ---- 17. the distributed layer (parallel/) on a one-rank NCCL group
+    # and a (1, 1) mesh: each leg at a size users run, timed, held to the
+    # serial path; the S = 4 split of each run as four threads of this
+    # process (runtime.emulate) on the same inputs. Launches count only
+    # in the mesh runs (dist_run)
+    tally17 = {k: 0 for k in ("bin_reduce", "lens_map_kernel",
+                              "legendre_ana", "legendre_syn")}
+
+    def dist_run(fn):
+        """``fn()`` with the launch counts from 0; its launches join the
+        phase's"""
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        for k in tally17:
+            tally17[k] += sum(f.launches for f in counters[k])
+        return out
+
+    t17 = time.perf_counter()
+    store17 = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    check(prt.init_multihost(init_method="file://" + store17.name + "/store",
+                             world_size=1, rank=0,
+                             local_rank=torch.cuda.current_device(),
+                             device=dev, timeout=300) == (0, 1),
+          "17: init_multihost")
+    mesh17 = prt.get_mesh((1, 1), device=dev)
+    check(dist.get_backend() == "nccl" and mesh17.device_mesh is not None,
+          "17: not a NCCL DeviceMesh")
+    print(f"[17] one-rank NCCL group (file store) and a (1, 1) DeviceMesh "
+          f"in {time.perf_counter() - t0:.3f} s")
+    # (a) ensemble_stats of the flagship step at entry()'s size (512^2,
+    # 2'), 64 sims, chunk 16, against a plain loop of step() on the same
+    # task generators
+    step17 = build_qe_pipeline(geom, th, device=dev)
+    labels17 = ("cross", "auto_in", "auto_rec")
+
+    def sim17(g):
+        return dict(zip(labels17, step17.step(g)))
+
+    nsims17, seed17 = 64, 17
+    # warm-up: a 2-sim ensemble, whose all-reduce sets up the sims axis's
+    # NCCL communicator
+    t0 = time.perf_counter()
+    prt.ensemble_stats(sim17, 2, seed=seed17, mesh=mesh17)
+    torch.cuda.synchronize()
+    dt_warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    st17 = dist_run(lambda: prt.ensemble_stats(sim17, nsims17, seed=seed17,
+                                               mesh=mesh17, chunk=16))
+    dt_ens = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    outs17 = [step17.step(prt.task_generator(seed17, i, dev))
+              for i in range(nsims17)]
+    torch.cuda.synchronize()
+    dt_loop = time.perf_counter() - t0
+    ens_err = 0.0
+    for j, k in enumerate(labels17):
+        x17 = torch.stack([o[j] for o in outs17])
+        ser = SuffStats.zeros(x17.shape[1], device=dev).add(x17)
+        for f in ("n", "s", "ss"):
+            ens_err = max(ens_err, rel_err((getattr(st17[k], f),),
+                                           (getattr(ser, f),))[1])
+    check(ens_err <= 1e-6, f"17: ensemble_stats vs serial SuffStats "
+                           f"{ens_err:.3e}")
+    print(f"[17a] ensemble_stats of the flagship step 512^2 2', {nsims17} "
+          f"sims, chunk 16: {nsims17 / dt_ens:.2f} sims/s ({dt_ens:.3f} s) "
+          f"against a plain loop of step() {nsims17 / dt_loop:.2f} sims/s "
+          f"({dt_loop:.3f} s), after a 2-sim warm-up ensemble ({dt_warm:.3f} "
+          f"s with the communicator's set-up); N, sum, sum x x^T vs a serial "
+          f"SuffStats of the same outputs {ens_err:.3e} of max (<= 1e-6) on "
+          f"{card}")
+    del outs17, step17
+    # (b) masked bandpowers at 4096^2, 0.5' (34 deg), 12 % taper, edges
+    # arange(80, 8000, 400) (tests/test_parallel.py:330), against the
+    # serial power (torch.fft.fft2, |Z|^2) binned by B1's plain version
+    # (float64 index_add_); the serial path on B1 is timed beside it
+    n17 = 4096
+    g17 = rect_geometry(width_arcmin=n17 * 0.5, px_res_arcmin=0.5)
+    gen17 = torch.Generator(device=dev).manual_seed(170)
+    m17 = torch.randn((n17, n17), generator=gen17, device=dev)
+    taper17 = get_taper(g17, taper_percent=12.0, device=dev)[0].to(
+        torch.float32).contiguous()
+    edges17 = np.arange(80, 8000, 400.0)
+    dig17 = np.digitize(g17.modlmap_np(), edges17).astype(np.int32)
+    dig17[dig17 == len(edges17)] = 0
+    dig17 = torch.as_tensor(dig17, device=dev)
+    nb17 = len(edges17) - 1
+    norm17 = float(g17.area) / float(g17.npix) ** 2
+    ids17 = torch.where((dig17 >= 1) & (dig17 <= nb17), dig17 - 1,
+                        -1).to(torch.int32).reshape(-1).contiguous()
+    cnt17 = torch.bincount(ids17[ids17 >= 0].long(), minlength=nb17)
+
+    def bp_dist(mesh):
+        return pfourier.masked_bandpowers_dist(m17, taper17, dig17, nb17,
+                                               norm17, mesh)
+
+    def power17():
+        z = torch.fft.fft2((m17 * taper17).to(torch.complex64))
+        return ((z.real * z.real + z.imag * z.imag) * norm17).reshape(
+            1, -1).contiguous()
+
+    def bp_serial():
+        s = bin_reduce(power17(), ids17, nb17)[0]
+        return (s.double() / cnt17.clamp_min(1)).float()
+
+    bp_d = dist_run(lambda: bp_dist(mesh17))
+    bp_s = (bin_reduce_ref(power17(), ids17, nb17)[0].double()
+            / cnt17.clamp_min(1)).float()
+    t0 = time.perf_counter()
+    bp_e = prt.emulate(bp_dist, (1, 4), device=dev)
+    torch.cuda.synchronize()
+    dt_emul = time.perf_counter() - t0
+    bp_err = ((bp_d - bp_s).abs() / bp_s.abs()).max().item()
+    bp_eerr = max(((b - bp_s).abs() / bp_s.abs()).max().item() for b in bp_e)
+    check(bp_err <= 1e-5 and bp_eerr <= 1e-5, f"17: masked bandpowers "
+          f"{bp_err:.3e}, S = 4 {bp_eerr:.3e} of the plain binning")
+    ms_bpd = cuda_ms(lambda: bp_dist(mesh17), 5)
+    ms_bps = cuda_ms(bp_serial, 5)
+    print(f"[17b] masked_bandpowers_dist 4096^2 0.5' ({nb17} bins): "
+          f"{ms_bpd:.4f} ms on the (1, 1) mesh (B1 also counting the bins' "
+          f"pixels), serial fft2 + B1 {ms_bps:.4f} ms (counts known), the "
+          f"S = 4 split in one process {dt_emul:.3f} s "
+          f"(host clock, first call); max relative error per bin vs the "
+          f"serial power binned in float64 (plain version) {bp_err:.3e}, "
+          f"S = 4 {bp_eerr:.3e} (<= 1e-5)")
+    profile_steps(lambda: bp_dist(mesh17), 3, ms_bpd, "17b")
+    del m17, taper17, dig17, ids17, bp_e
+    torch.cuda.empty_cache()
+    # (c) the ring-split SHT at lmax 2047 (bench config 7's size) and the
+    # spin analysis at lmax 1023, B10a/B10s in layout "full", against the
+    # serial folded transforms, within the dd contract (3.2e-6 of max)
+    lmax17 = 2047
+    rings17 = sht.gauss_legendre_rings(lmax17)
+    n17a = almops.nalm(lmax17)
+    a17 = torch.complex(torch.randn(n17a, generator=gen17, device=dev),
+                        torch.randn(n17a, generator=gen17, device=dev))
+    a17[: lmax17 + 1] = a17[: lmax17 + 1].real.to(a17.dtype)
+    map17 = sht.alm2map(a17, rings17, lmax17)
+    t0 = time.perf_counter()
+    a_dist = dist_run(lambda: psht.map2alm_dist(map17, rings17, lmax17,
+                                                mesh17))
+    m_dist = dist_run(lambda: psht.alm2map_dist(a17, rings17, lmax17,
+                                                mesh17))
+    dt_first = time.perf_counter() - t0
+    a_ser = sht.map2alm(map17, rings17, lmax17)
+    t0 = time.perf_counter()
+    a_em = prt.emulate(lambda mm: psht.map2alm_dist(
+        map17, rings17, lmax17, mm, axis="grid"), (1, 4), device=dev)
+    m_em = prt.emulate(lambda mm: psht.alm2map_dist(
+        a17, rings17, lmax17, mm, axis="grid"), (1, 4), device=dev)
+    torch.cuda.synchronize()
+    dt_emul = time.perf_counter() - t0
+    errs = {"map2alm": rel_err((a_dist,), (a_ser,))[1],
+            "alm2map": rel_err((m_dist,), (map17,))[1],
+            "map2alm S=4": max(rel_err((a,), (a_ser,))[1] for a in a_em),
+            "alm2map S=4": max(rel_err((m,), (map17,))[1] for m in m_em)}
+    check(max(errs.values()) <= 3.2e-6, f"17: ring-split SHT {errs}")
+    ms17 = {"map2alm_dist": cuda_ms(lambda: psht.map2alm_dist(
+                map17, rings17, lmax17, mesh17), 3, warmup=1),
+            "map2alm": cuda_ms(lambda: sht.map2alm(map17, rings17, lmax17),
+                               3, warmup=1),
+            "alm2map_dist": cuda_ms(lambda: psht.alm2map_dist(
+                a17, rings17, lmax17, mesh17), 3, warmup=1),
+            "alm2map": cuda_ms(lambda: sht.alm2map(a17, rings17, lmax17), 3,
+                               warmup=1)}
+    print(f"[17c] ring-split SHT lmax {lmax17}, one map, dd, layout full: "
+          f"map2alm_dist {ms17['map2alm_dist']:.4f} ms (serial folded "
+          f"{ms17['map2alm']:.4f}), alm2map_dist {ms17['alm2map_dist']:.4f} "
+          f"ms (serial folded {ms17['alm2map']:.4f}); first calls with the "
+          f"capture passes {dt_first:.3f} s, the S = 4 split {dt_emul:.3f} s;"
+          " error of max vs serial: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + " (<= 3.2e-6)")
+    profile_steps(lambda: psht.map2alm_dist(map17, rings17, lmax17, mesh17),
+                  3, ms17["map2alm_dist"], "17c")
+    # the B10a/B10s record at layout "full", lmax 2047, one map: the
+    # kernel vs its plain version, its time, bound and the plain time
+    tab17 = leg.tables(lmax17, rings17, (0,), 0, "full", dev)
+    ktab17 = leg.kernel_tables(tab17)
+    steps17 = b10_steps(tab17, ktab17)
+    M17 = lmax17 + 1
+    G17 = torch.complex(*(torch.randn((1, tab17["Tr"], M17), generator=gen17,
+                                      device=dev) for _ in range(2)))
+    A17 = torch.complex(*(torch.randn((1, M17, M17), generator=gen17,
+                                      device=dev) for _ in range(2)))
+    for name, fn, ref_fn, x, out_b in (
+            ("legendre_ana", leg.legendre_ana, leg.legendre_ana_ref, G17,
+             8 * M17 * M17),
+            ("legendre_syn", leg.legendre_syn, leg.legendre_syn_ref, A17,
+             8 * tab17["Tr"] * M17)):
+        got = fn(x, tab17)
+        err, rel = rel_err((got,), (ref_fn(x, tab17),))
+        check(rel <= 1e-6, f"17: {name} full lmax {lmax17}: {rel:.3e} of "
+                           "max|ref|")
+        ms = cuda_ms(lambda: fn(x, tab17), 5, warmup=1)
+        plain = cuda_ms(lambda: ref_fn(x, tab17), 1, warmup=0)
+        work = b10_work(x, tab17, ktab17, out_b, 1, steps17, False)
+        results[name + "_full"] = kernel_entry(
+            name + "_full", "legendre.cu", "pallas_sht.py:1230,1325"
+            if name == "legendre_ana" else "pallas_sht.py:1273,1379", err,
+            (ms, plain, None), work)
+        r = results[name + "_full"]
+        print(f"[17c] {name} layout full lmax {lmax17} x1 dd ({steps17:.6e} "
+              f"live steps): max abs err {err:.3e} = {rel:.3e} of max|ref| "
+              f"(<= 1e-6); kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}) on {card}")
+    del G17, A17, got, a_em, m_em, a_dist, m_dist, a_ser, map17, a17
+    # the spin analysis at lmax 1023 (bench config 8p's size)
+    lmax17s = 1023
+    rings17s = sht.gauss_legendre_rings(lmax17s)
+    n17s = almops.nalm(lmax17s)
+    e17, b17 = (torch.complex(torch.randn(n17s, generator=gen17, device=dev),
+                              torch.randn(n17s, generator=gen17, device=dev))
+                for _ in range(2))
+    q17, u17 = sht.alm2map_spin(e17, b17, rings17s, lmax17s)
+    eb_dist = dist_run(lambda: psht.map2alm_spin_dist(q17, u17, rings17s,
+                                                      lmax17s, mesh17))
+    eb_ser = sht.map2alm_spin(q17, u17, rings17s, lmax17s)
+    eb_em = prt.emulate(lambda mm: psht.map2alm_spin_dist(
+        q17, u17, rings17s, lmax17s, mm, axis="grid"), (1, 4), device=dev)
+    sp_err = rel_err(eb_dist, eb_ser)[1]
+    sp_eerr = max(rel_err(eb, eb_ser)[1] for eb in eb_em)
+    check(max(sp_err, sp_eerr) <= 3.2e-6, f"17: map2alm_spin_dist "
+          f"{sp_err:.3e}, S = 4 {sp_eerr:.3e}")
+    ms_sd = cuda_ms(lambda: psht.map2alm_spin_dist(q17, u17, rings17s,
+                                                   lmax17s, mesh17), 3,
+                    warmup=1)
+    ms_ss = cuda_ms(lambda: sht.map2alm_spin(q17, u17, rings17s, lmax17s),
+                    3, warmup=1)
+    print(f"[17c] map2alm_spin_dist lmax {lmax17s}: {ms_sd:.4f} ms (serial "
+          f"spin fold {ms_ss:.4f} ms); error of max vs serial {sp_err:.3e}, "
+          f"S = 4 {sp_eerr:.3e} (<= 3.2e-6)")
+    del e17, b17, q17, u17, eb_dist, eb_ser, eb_em
+    leg.clear_tables()
+    torch.cuda.empty_cache()
+    # (d) the row-split lensed covariance at 32^2 (npix 1024, phase 15's
+    # lens_cov), B8 on each rank's rows, against nfwfit.lens_cov
+    g17c = Geometry(32, 32, 0.5 * arcmin, 0.5 * arcmin)
+    ucov17 = pixcov.scov_from_theory(g17c, th, beam5, ncomp=1,
+                                     dtype=torch.float32)
+    alpha17 = lensing.alpha_from_kappa(nfwfit.nfw_kappa(
+        1e15, g17c.modrmap_np(), cc5).to(torch.float32), g17c).contiguous()
+    lc_d = dist_run(lambda: pfourier.lens_cov_dist(ucov17, alpha17, g17c,
+                                                   mesh17, lens_order=5))
+    lc_s = nfwfit.lens_cov(ucov17, alpha17, g17c, lens_order=5)
+    lc_e = prt.emulate(lambda mm: pfourier.lens_cov_dist(
+        ucov17, alpha17, g17c, mm, lens_order=5), (2, 2), device=dev)
+    lc_err = rel_err((lc_d,), (lc_s,))[1]
+    lc_eerr = max(rel_err((c,), (lc_s,))[1] for c in lc_e)
+    check(max(lc_err, lc_eerr) <= 1e-6, f"17: lens_cov_dist {lc_err:.3e}, "
+          f"S = 4 {lc_eerr:.3e} of max")
+    print(f"[17d] lens_cov_dist (1024, 1024) at 32^2 order 5: vs "
+          f"nfwfit.lens_cov {lc_err:.3e} of max, the S = 4 row split "
+          f"{lc_eerr:.3e} (<= 1e-6)")
+    del ucov17, alpha17, lc_d, lc_s, lc_e
+    dist.destroy_process_group()
+    store17.cleanup()
+    # (e) the dry run on one card: its own one-rank NCCL group
+    t0 = time.perf_counter()
+    dist_run(lambda: dryrun_multichip(1))
+    check(not dist.is_initialized(), "17: the dry run left its group")
+    print(f"[17e] entry.dryrun_multichip(1) over NCCL: every leg within its "
+          f"gate in {time.perf_counter() - t0:.3f} s")
+    for k, v in tally17.items():
+        check(v > 0, f"17: {k} was not launched on the distributed path")
+    # every B10 launch counted here is a layout-"full" call of a
+    # distributed transform (the dry run's references run the plain
+    # analysis): B10a for map2alm_dist at lmax 2047, the two of
+    # map2alm_spin_dist and the dry run's two; B10s for alm2map_dist at
+    # lmax 2047 and the dry run's
+    check((tally17["legendre_ana"], tally17["legendre_syn"]) == (5, 2),
+          f"17: B10a/B10s launched {tally17['legendre_ana']}/"
+          f"{tally17['legendre_syn']} times on the distributed path, not 5/2")
+    print(f"[17] launches on the distributed path: {tally17}; the phase "
+          f"took {time.perf_counter() - t17:.3f} s")
+    for k in ("bin_reduce", "lens_map_kernel", "legendre_ana",
+              "legendre_syn"):
+        results[k]["launches_by_path"]["dist"] = tally17[k]
+    for k in ("legendre_ana", "legendre_syn"):
+        results[k + "_full"]["launches"] = tally17[k]
+    torch.cuda.empty_cache()
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for r in results.values():
         check(all(k in r for k in keys), f"{r['name']}: record lacks "
               f"{[k for k in keys if k not in r]}")
     print(json.dumps({"kernels": [results[k] for k in counters]
-                      + [results["bin_reduce_config5"],
-                         results["bin_reduce_pureb"]]}))
+                      + [results[k] for k in (
+                          "bin_reduce_config5", "bin_reduce_pureb",
+                          "legendre_ana_full", "legendre_syn_full")]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

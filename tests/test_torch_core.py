@@ -38,6 +38,8 @@ from orphics_tpu_torch.models import nfwfit as tnfwfit, pixcov as tpixcov
 from orphics_tpu_torch.models import rsd as trsd, splits as tsplits
 from orphics_tpu_torch.models import mapstools as tmapstools
 from orphics_tpu_torch.utils import healpix as thealpix
+from orphics_tpu_torch.utils import fitting as tfitting
+import orphics_tpu_torch.parallel as tparallel
 
 torch.set_num_threads(1)
 
@@ -228,7 +230,10 @@ def test_grf_synthesis(geoms, theories):
 _SLICE_MODULES = ("ops.distance", "ops.matfft", "ops.algorithms",
                   "models.lensed_cls", "models.cosmology", "models.rsd",
                   "models.szhalo", "models.nfwfit", "models.pixcov",
-                  "models.splits", "models.splitlens")
+                  "models.splits", "models.splitlens",
+                  "parallel.statistics", "parallel.runtime",
+                  "parallel.fourier", "parallel.sht", "utils.fitting",
+                  "utils.profiling")
 
 
 @pytest.mark.parametrize("path", _SLICE_MODULES)
@@ -253,7 +258,8 @@ def test_slice_names_resolve(path):
 def test_slice_gated_functions_raise():
     """The functions of the slice that need a module not ported yet raise
     NotImplementedError naming their ROADMAP queue A item; mass_estimate,
-    gated on item 13b until the map-tools slice, now runs."""
+    gated on item 13b until the map-tools slice, now runs, and
+    utils/fitting is whole but for eig_analyze's plot."""
     from orphics_tpu_torch.models import cosmology as tcos, nfwfit as tnfw
     from orphics_tpu_torch.utils import fitting as tfit
     g = tp.rect_geometry(width_arcmin=16 * 2.0, px_res_arcmin=2.0)
@@ -266,7 +272,10 @@ def test_slice_gated_functions_raise():
         with pytest.raises(NotImplementedError, match="item 21"):
             getattr(tcos, name)("H0", 0.5, 67.0, 70.0,
                                 ks=np.array([0.01, 0.1]), plot_file="x.png")
-    assert tfit.__all__ == ["fit_gauss"]
+    es = tfit.eig_analyze(np.eye(2)[:, :, None, None] * np.ones((2, 2, 3, 3)))
+    assert es.shape == (3, 3, 2)
+    with pytest.raises(NotImplementedError, match="item 21"):
+        tfit.eig_analyze(np.ones((2, 2, 3, 3)), plot_file="x.png")
 
 
 def test_port_imports_no_jax():
@@ -290,7 +299,7 @@ def test_port_imports_no_jax():
             "orphics_tpu_torch.cosmology, "
             "orphics_tpu_torch.entry, orphics_tpu_torch.convert, "
             + ", ".join("orphics_tpu_torch." + m for m in _SLICE_MODULES)
-            + ", orphics_tpu_torch.utils.fitting\n"
+            + ", orphics_tpu_torch.parallel, orphics_tpu_torch.mpi\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'orphics_tpu.')) or "
             "m == 'orphics_tpu')\n"
@@ -369,6 +378,15 @@ _NO_DEVICE = {
     "binned_nfw": lambda g, th: tnfwfit.binned_nfw(
         2e14, 0.5, 3.2, tcosmology.Cosmology(), g, np.arange(0, 8.0)),
     "kappa_nfw_profiley": lambda g, th: tnfwfit.kappa_nfw_profiley(g),
+    "get_mesh": lambda g, th: tparallel.get_mesh(),
+    "SuffStats.zeros": lambda g, th: tparallel.SuffStats.zeros(3),
+    "Statistics.add": lambda g, th: tparallel.Statistics().add(
+        "x", np.ones((2, 3))),
+    "ensemble_stats": lambda g, th: tparallel.ensemble_stats(
+        lambda gen: {"x": torch.ones(2)}, 4),
+    "task_generator": lambda g, th: tparallel.runtime.task_generator(0, 1),
+    "InverseTransformSampling": lambda g, th:
+        tfitting.InverseTransformSampling(np.arange(4.0), np.ones(4)),
     "lens_cov": lambda g, th: tnfwfit.lens_cov(
         np.eye(16), np.zeros((2, 4, 4)), tp.rect_geometry(
             width_arcmin=8.0, px_res_arcmin=2.0)),

@@ -35,7 +35,7 @@ TOL_BIN = 1e-6
 TOL_SHEAR = 1e-8
 
 FACADES = ("maps", "lensing", "pixcov", "foregrounds", "algorithms",
-           "cosmology")
+           "cosmology", "mpi")
 MODULES = ("models.mapstools", "utils.healpix", "models.curved",
            "models.shear")
 
