@@ -2,15 +2,17 @@
 its plain PyTorch version at the main path's shapes, drive the flagship
 step, both paths of the lensing pipeline, FastCl, the ILC coadd, the
 curved-sky SHT, the QE reconstruction-only step, the unfused pair spectra,
-the N0 debias, cluster stacking, pure-B bandpowers and the distributed
-layer on the card, and check what comes out.
+the N0 debias, cluster stacking, pure-B bandpowers, the distributed layer
+and the galaxy-catalog slice on the card, and check what comes out.
 
 Run from the repository root on a machine with one NVIDIA Hopper GPU
 and nvcc:
 
     python3 chip_smoke.py
 
-Phases: 0 card, 1 build, 2 kernels vs plain versions, 3 flagship step,
+Phases: 0 card, 1 build (the kernels, and the host HEALPix library by
+g++), 2 kernels vs plain versions (B1 also in float64 at phase 18's
+shape), 3 flagship step,
 4 half-plane pipeline, 5 full-plane pipeline (the path ``impl="auto"``
 takes at 512^2), 6 FastCl at the JAX package's bench config 1 (2048^2,
 0.5', batch 192, nseg 100), 7 ``FastCl.cross_bandpowers`` at bench config
@@ -42,8 +44,14 @@ chunk 16) against a plain loop, ``masked_bandpowers_dist`` at 4096^2 0.5'
 (B10a/B10s in layout "full") against the serial folded transforms,
 ``lens_cov_dist`` at 32^2 (B8 on covariance rows), each beside its S = 4
 split run as four threads of this process (``parallel.runtime.emulate``),
-and ``entry.dryrun_multichip(1)``.
-Phases 3-17 each set the launch counts to 0 before they drive their path
+and ``entry.dryrun_multichip(1)``, 18 the galaxy-catalog slice at a
+2048^2 0.5' patch: ``Pow2Cat`` mocks from Limber spectra, 8 a step in
+float64, binned by one float64 B1 launch (mocks/s, the Poisson and
+recovery gates, card vs CPU on the same noise), ``binned_map`` and
+``healpix_binned_map`` of 10^7 sources, ``reconstruct_velocities`` of
+10^6 galaxies and 10^7 randoms at nmesh 256 (card vs CPU) and the JAX
+package's infall test.
+Phases 3-18 each set the launch counts to 0 before they drive their path
 and check them after; 4-15 print throughput, peak memory, device time by
 kernel and a check of the output against the plain versions. Phases 2, 4,
 5 and 14 print B8's blocks whose deflection range exceeded its window
@@ -61,7 +69,8 @@ B6h/B6h'/B2' and for B4b, which no composition runs since B6 pairs every
 element through the exact mirror map; B1, B8 and B10a/B10s also by
 path, with config 5's, the pure-B path's, ``lens_cov``'s, the healpix
 bridge's and the distributed path's counts, B1 records at config 5's and
-the pure-B path's shapes, and B10a/B10s records at layout "full", lmax
+the pure-B path's shapes, B1's float64 record at phase 18's shape (with
+its launches there), and B10a/B10s records at layout "full", lmax
 2047, with the distributed path's launches), error, times and bound; the
 last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any
 failed check raises, so the exit code is non-zero and no result line is
@@ -138,6 +147,10 @@ B10_FAST_PLAIN_TOL = 2.0 ** -22
 # instructions at the integer rate, and two three-way xors, plus four to
 # form the counter
 PHILOX_INT_OPS_PER_PAIR = 10 * (2 * 2 + 2) + 4
+
+# the galaxy-catalog path's bandpower edges (phase 18 and B1's float64
+# record in phase 2): ell 200 to 3000 by 200
+CAT_EDGES = np.arange(200.0, 3001.0, 200.0)
 
 
 def ops_ms(flops, flops64=0.0, intops=0.0):
@@ -446,6 +459,11 @@ def main():
         if ("registers" in line or "spill" in line or "Compiling" in line
                 or line.startswith("==")):
             print("[1]   " + line.strip())
+    t0 = time.perf_counter()
+    check(_build.healpix_library() is not None, "the native HEALPix "
+          "library did not build: " + _build.healpix_build_log())
+    print(f"[1] host library csrc/healpix.cpp: {time.perf_counter() - t0:.3f}"
+          f" s (g++ {' '.join(_build.HOST_FLAGS)})")
 
     # ---- 2. kernels vs plain versions at the main path's shapes
     geom = rect_geometry(width_arcmin=512 * 2.0, px_res_arcmin=2.0)
@@ -893,6 +911,46 @@ def main():
         "bin_reduce_config5", "bin_reduce.cu", "pallas_kernels.py:94",
         err.max().item(), (ms, plain, lib), work5)
     del data5, out, again, ref, absref, err, ids5l, acc5
+    torch.cuda.empty_cache()
+
+    # B1's float64 instance at the galaxy-catalog path's shape (phase 18):
+    # one Bin2D of 8 mocks' three float64 power planes at 2048^2 0.5',
+    # edges 200..3000 by 200 (nseg 16). Held to the float64 plain version
+    # at 1e-12 of the binned |data|
+    g18b = rect_geometry(width_arcmin=2048 * 0.5, px_res_arcmin=0.5)
+    b64 = Bin2D(g18b.modlmap_np(), CAT_EDGES, device=dev)
+    ids64, nseg64 = b64._ids, b64._nseg
+    data64 = torch.rand((24, ids64.numel()), generator=gen, device=dev,
+                        dtype=torch.float64) - 0.25
+    out = bin_reduce(data64, ids64, nseg64)
+    again = bin_reduce(data64, ids64, nseg64)
+    ref = bin_reduce_ref(data64, ids64, nseg64)
+    absref = bin_reduce_ref(data64.abs(), ids64, nseg64)
+    torch.cuda.synchronize()
+    check(out.dtype == torch.float64, f"B1 float64: output {out.dtype}")
+    err = (out - ref).abs()
+    rel = (err / absref.clamp_min(1e-300)).max().item()
+    check(rel <= 1e-12, f"B1 float64: error {rel:.3e} of binned |data| > "
+                        "1e-12")
+    check(torch.equal(out, again), "B1 float64: two runs differ")
+    ms = cuda_ms(lambda: bin_reduce(data64, ids64, nseg64), 20)
+    plain = cuda_ms(lambda: bin_reduce_ref(data64, ids64, nseg64), 3,
+                    warmup=1)
+    ids64l = ids64.long()
+    acc64 = torch.zeros((24, nseg64), dtype=torch.float64, device=dev)
+    lib = cuda_ms(lambda: acc64.index_add_(1, ids64l, data64), 5)
+    # bytes: the float64 data once (twice the float32 bytes), ids, output;
+    # operations: one fp64 add an element
+    work64 = (nbytes(data64, ids64, out), 0.0, float(data64.numel()))
+    bnd, by = bound(*work64)
+    print(f"[2] B1 bin_reduce float64 (24, {ids64.numel()}) nseg={nseg64}: "
+          f"max rel err {rel:.3e} of binned |data| (<= 1e-12), "
+          f"reproducible; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"index_add_ {lib:.4f} ms, bound {bnd:.4f} ms ({by}) on {card}")
+    results["bin_reduce_f64"] = kernel_entry(
+        "bin_reduce_f64", "bin_reduce.cu", "pallas_kernels.py:94",
+        err.max().item(), (ms, plain, lib), work64)
+    del data64, out, again, ref, absref, err, ids64l, acc64, b64, ids64
     torch.cuda.empty_cache()
 
     # B2: the two half-plane fields of 96 pairs over FastCl's kept ids (its
@@ -1594,6 +1652,7 @@ def main():
         for fns in counters.values():
             for fn in fns:
                 fn.launches = 0
+        bin_reduce.launches_f64 = 0
         row_regs_at_reset[0] = klib.rowfft_regs_launches()
         b9_regs_at_reset[0] = klib.rowcombine_regs_launches()
         lens_map_kernel.wide_blocks(reset=True)
@@ -3316,6 +3375,229 @@ def main():
         results[k + "_full"]["launches"] = tally17[k]
     torch.cuda.empty_cache()
 
+    # ---- 18. the galaxy-catalog slice (models/catalogs) at a survey's
+    # size: a 2048^2 0.5' patch (17 deg square, ~291 deg^2, a DES/HSC-size
+    # field). (a) Pow2Cat mocks at 3 galaxies/arcmin^2 in float64, 8 a
+    # step, as tests/test_facade.py:68-100 runs them: correlated
+    # (delta_g, kappa) from Limber spectra (LimberCosmology with
+    # catalogs.dndz, bias 1.5), Poisson counts, delta_g from the counts,
+    # fft2 of both, the three power planes, one Bin2D of all of them (one
+    # float64 B1 launch a step); (b) binned_map of 10^7 weighted sources;
+    # (c) healpix_binned_map of the same at nside 2048; (d)
+    # reconstruct_velocities of 10^6 galaxies and 10^7 randoms at nmesh
+    # 256 (a BOSS-CMASS-size run)
+    from orphics_tpu_torch.models import catalogs as cats
+    from orphics_tpu_torch.models.cosmology import LimberCosmology
+    t18 = time.perf_counter()
+    g18 = rect_geometry(width_arcmin=2048 * 0.5, px_res_arcmin=0.5)
+    t0 = time.perf_counter()
+    lc18 = LimberCosmology(numz=300, nz_pk=200, nk_pk=300, device=dev)
+    zs18 = np.linspace(0.01, 4.0, 300)
+    lc18.addNz("g", zs18, cats.dndz(zs18), bias=1.5)
+    ells18 = np.arange(3001.0)
+    lc18.generateCls(ells18)
+    clgg18, clkg18, clkk18 = (lc18.getCl("g", "g"), lc18.getCl("cmb", "g"),
+                              lc18.getCl("cmb", "cmb"))
+    check(bool(np.all(np.isfinite([clgg18, clkg18, clkk18]))),
+          "18: Limber spectra not finite")
+    p2c = cats.Pow2Cat(g18, ells18, clgg18, clkg18, clkk18,
+                       ngal_per_arcmin2=3.0)
+    check(p2c.mgen.covsqrt.is_cuda
+          and p2c.mgen.covsqrt.dtype == torch.float64,
+          "18: Pow2Cat's covsqrt is not float64 on the card")
+    bin18 = Bin2D(g18.modlmap_np(), CAT_EDGES)
+    print(f"[18] Limber spectra (ell 0..3000, bias 1.5, dndz z0 1/3) and "
+          f"Pow2Cat / Bin2D tables in {time.perf_counter() - t0:.3f} s; "
+          f"nbar {p2c.nbar:.4f} galaxies a pixel")
+    gen18 = torch.Generator(device=dev).manual_seed(18)
+    nmock = 8
+    norm18 = g18.area / g18.npix ** 2
+
+    def spectra18(counts, kappa):
+        """(B, 3, nbins) float64 binned <dg k>, <dg dg>, <k k>: one B1"""
+        dg = counts / counts.mean(dim=(-2, -1), keepdim=True) - 1.0
+        kd, kk = torch.fft.fft2(dg), torch.fft.fft2(kappa)
+        planes = torch.stack([(kd.conj() * kk).real,
+                              kd.real ** 2 + kd.imag ** 2,
+                              kk.real ** 2 + kk.imag ** 2], 1) * norm18
+        return bin18.bin(planes)[1]
+
+    def step18():
+        counts, kappa = p2c.get_cat(gen18, batch=(nmock,))
+        return spectra18(counts, kappa)
+
+    cell18 = (f"2048^2 0.5' (~291 deg^2), 3 gal/arcmin^2, float64, "
+              f"{nmock} mocks a step, {len(CAT_EDGES) - 1} bins")
+    reset_counts()
+    base18 = torch.cuda.memory_allocated()
+    ms18 = throughput(step18, nmock, 4, f"Pow2Cat mocks -> binned "
+                      f"spectra {cell18}", "mocks/s", card, "18")
+    peak18 = (torch.cuda.max_memory_allocated() - base18) / 1e9
+    counts18 = read_counts(("bin_reduce",), "18")
+    f64_18 = bin_reduce.launches_f64
+    check(counts18["bin_reduce"] == 6 and f64_18 == 6,
+          f"18: {counts18['bin_reduce']} B1 launches ({f64_18} float64) in "
+          "6 steps (2 warm-up, 4 timed)")
+    print(f"[18] peak memory {peak18:.3f} GB above the {base18 / 1e9:.3f} GB "
+          f"held before; B1 launches {counts18['bin_reduce']} in 6 steps, "
+          f"all {f64_18} on float64 data")
+    profile_steps(step18, 2, ms18, "18")
+    # gate: Poisson counts by statistics, counts - lambda over the pixels
+    # of 8 mocks: mean 0 and variance <lambda> within 5 sigma
+    delta, kappa = p2c.get_maps(gen18, batch=(nmock,))
+    lam = torch.clamp(p2c.nbar * (1.0 + delta), min=0.0)
+    res = p2c.counts_from_delta(delta, gen18) - lam
+    n18 = res.numel()
+    lbar = lam.mean().item()
+    sd_var = math.sqrt((lbar + 2 * (lam ** 2).mean().item()) / n18)
+    pm, pv = res.mean().item(), res.var().item()
+    check(abs(pm) <= 5 * math.sqrt(lbar / n18)
+          and abs(pv - lbar) <= 5 * sd_var,
+          f"18: Poisson counts - lambda: mean {pm:.3e}, variance {pv:.6f} "
+          f"against <lambda> {lbar:.6f}")
+    print(f"[18] Poisson counts - lambda over {n18} pixels: mean {pm:.3e} "
+          f"({abs(pm) / math.sqrt(lbar / n18):.2f} sigma), variance "
+          f"{pv:.6f} against <lambda> {lbar:.6f} "
+          f"({abs(pv - lbar) / sd_var:.2f} sigma; <= 5)")
+    del delta, kappa, lam, res
+    # gate: the recovery of <delta_g kappa> over 32 mocks, each bin within
+    # 5 sigma (the mocks' scatter / sqrt(32)) of the same Bin2D of clkg
+    # painted on the l-plane
+    reset_counts()
+    sp18 = torch.cat([step18() for _ in range(4)]).cpu().numpy()
+    check(bin_reduce.launches_f64 == 4, "18: the recovery's 4 B1 launches "
+                                        "were not all float64")
+    want18 = bin18.bin(grf.cl2flat(g18, ells18, clkg18, dtype=torch.float64,
+                                   device=dev))[1].cpu().numpy()
+    mean18 = sp18[:, 0].mean(axis=0)
+    sig18 = sp18[:, 0].std(axis=0, ddof=1) / math.sqrt(sp18.shape[0])
+    nsig18 = np.abs(mean18 - want18) / sig18
+    check(bool(np.all(np.isfinite(sp18))) and bool(np.all(nsig18 <= 5.0)),
+          f"18: <dg kappa> over {sp18.shape[0]} mocks off by {nsig18} sigma")
+    print(f"[18] <delta_g kappa> over {sp18.shape[0]} mocks vs Bin2D of the "
+          f"painted clkg: |mean - theory| / sigma max {nsig18.max():.3f} "
+          f"(<= 5), ratio {np.round(mean18 / want18, 4).tolist()}")
+    # gate: Pow2Cat.get_maps_from_noise, card vs CPU on the same noise (one
+    # mock at full size)
+    eta18 = grf.rand_kmap(g18, torch.Generator().manual_seed(181), 2,
+                          dtype=torch.float64, device="cpu")
+    p2c_c = cats.Pow2Cat(g18, ells18, clgg18, clkg18, clkk18,
+                         ngal_per_arcmin2=3.0, device="cpu")
+    mg_g = p2c.get_maps_from_noise(eta18.to(dev))
+    mg_c = p2c_c.get_maps_from_noise(eta18)
+    _, m18_err = rel_err(tuple(m.cpu() for m in mg_g), mg_c)
+    check(m18_err <= 1e-10, f"18: get_maps_from_noise card vs CPU "
+                            f"{m18_err:.3e} of max > 1e-10")
+    print(f"[18] Pow2Cat.get_maps_from_noise 2048^2 float64, card vs CPU on "
+          f"the same noise: {m18_err:.3e} of max (<= 1e-10)")
+    del eta18, p2c_c, mg_g, mg_c
+    # (b) binned_map of 10^7 weighted random sources into the 2048^2 map
+    nsrc = 10 ** 7
+    decs18, ras18 = cats.random_catalog_flat(gen18, g18, nsrc, device=dev)
+    w18 = torch.rand(nsrc, generator=gen18, device=dev,
+                     dtype=torch.float64) + 0.5
+    ms_bm = cuda_ms(lambda: cats.binned_map(decs18, ras18, g18, w18), 10)
+    cnt_g = cats.binned_map(decs18, ras18, g18)
+    wm_g = cats.binned_map(decs18, ras18, g18, w18)
+    cnt_c = cats.binned_map(decs18.cpu(), ras18.cpu(), g18)
+    wm_c = cats.binned_map(decs18.cpu(), ras18.cpu(), g18, w18.cpu())
+    check(torch.equal(cnt_g.cpu(), cnt_c), "18: binned_map counts differ "
+                                           "between the card and the CPU")
+    _, bm_err = rel_err((wm_g.cpu(),), (wm_c,))
+    check(bm_err <= 1e-12, f"18: weighted binned_map card vs CPU "
+                           f"{bm_err:.3e} > 1e-12")
+    print(f"[18] binned_map of {nsrc} weighted sources into 2048^2: "
+          f"{ms_bm:.4f} ms = {nsrc / ms_bm * 1e3:.4e} sources/s on {card}; "
+          f"card vs CPU: counts equal ({int(cnt_g.sum().item())} in the "
+          f"map), weighted {bm_err:.3e} of max (<= 1e-12)")
+    del cnt_g, wm_g, cnt_c, wm_c
+    # (c) healpix_binned_map of the same sources at nside 2048: ang2pix on
+    # the host (the native library, built in phase 1), the counts by
+    # index_add_ on the card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hp_g = cats.healpix_binned_map(decs18, ras18, 2048)
+    torch.cuda.synchronize()
+    dt_hp = time.perf_counter() - t0
+    hp_c = cats.healpix_binned_map(decs18.cpu(), ras18.cpu(), 2048)
+    check(torch.equal(hp_g.cpu(), hp_c) and int(hp_c.sum().item()) == nsrc,
+          "18: healpix_binned_map card vs CPU")
+    print(f"[18] healpix_binned_map of {nsrc} sources at nside 2048 "
+          f"(native library: {healpix.have_native()}): {dt_hp:.3f} s "
+          f"(host ang2pix, copies, index_add_), equal to the CPU's")
+    del hp_g, hp_c, decs18, ras18, w18
+    torch.cuda.empty_cache()
+    # (d) reconstruct_velocities: 10^6 galaxies (uniform, and 10 % in a
+    # clump) and 10^7 randoms over a 20 x 20 deg, 0.43 < z < 0.7 volume
+    rng18 = np.random.default_rng(18)
+    ng18, nr18 = 10 ** 6, 10 ** 7
+
+    def shell(n):
+        return (rng18.uniform(-10, 10, n), rng18.uniform(-10, 10, n),
+                rng18.uniform(0.43, 0.7, n))
+
+    ra_g, dec_g, z_g = shell(ng18 - ng18 // 10)
+    nc = ng18 // 10
+    ra_g = np.concatenate([ra_g, rng18.normal(0, 0.7, nc)])
+    dec_g = np.concatenate([dec_g, rng18.normal(0, 0.7, nc)])
+    z_g = np.clip(np.concatenate([z_g, rng18.normal(0.55, 0.012, nc)]),
+                  0.43, 0.7)
+    ra_r, dec_r, z_r = shell(nr18)
+    cat_g = [torch.as_tensor(a, device=dev) for a in (ra_g, dec_g, z_g,
+                                                      ra_r, dec_r, z_r)]
+    kw18 = dict(zeff=0.55, nmesh=256, smoothing_radius=10.0)
+    v_g = cats.reconstruct_velocities(*cat_g, **kw18)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v_g = cats.reconstruct_velocities(*cat_g, **kw18)
+    torch.cuda.synchronize()
+    ms_v = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    v_c = cats.reconstruct_velocities(ra_g, dec_g, z_g, ra_r, dec_r, z_r,
+                                      device="cpu", **kw18)
+    dt_vc = time.perf_counter() - t0
+    _, v_err = rel_err((v_g.cpu(),), (v_c,))
+    check(bool(torch.isfinite(v_g).all()) and v_err <= 1e-8,
+          f"18: reconstruct_velocities card vs CPU {v_err:.3e} > 1e-8")
+    vc = v_c.numpy()[ng18 - nc:]
+    zc = z_g[ng18 - nc:]
+    front = vc[(zc > 0.52) & (zc < 0.545)].mean()
+    behind = vc[(zc > 0.555) & (zc < 0.58)].mean()
+    print(f"[18] reconstruct_velocities {ng18} galaxies, {nr18} randoms, "
+          f"nmesh 256: {ms_v:.3f} ms on {card} (CPU {dt_vc:.3f} s); card vs "
+          f"CPU {v_err:.3e} of max |v| (<= 1e-8); the clump's mean LOS "
+          f"velocity in front {front:.2f}, behind {behind:.2f} km/s")
+    del cat_g, v_g, v_c
+    # JAX's infall sign test (tests/test_surveys.py:122-150) on the card
+    rng3 = np.random.default_rng(3)
+    nr, ngu, ngc = 40000, 8000, 4000
+    ras_r, decs_r, zs_r = (rng3.uniform(-10, 10, nr),
+                           rng3.uniform(-10, 10, nr),
+                           rng3.uniform(0.4, 0.7, nr))
+    ras3 = np.concatenate([rng3.uniform(-10, 10, ngu),
+                           rng3.normal(0, 0.7, ngc)])
+    decs3 = np.concatenate([rng3.uniform(-10, 10, ngu),
+                            rng3.normal(0, 0.7, ngc)])
+    zs3 = np.clip(np.concatenate([rng3.uniform(0.4, 0.7, ngu),
+                                  rng3.normal(0.55, 0.012, ngc)]), 0.4, 0.7)
+    v3 = cats.reconstruct_velocities(ras3, decs3, zs3, ras_r, decs_r, zs_r,
+                                     zeff=0.55, nmesh=64,
+                                     smoothing_radius=15.0).cpu().numpy()
+    check(v3.dtype == np.float64 and bool(np.all(np.isfinite(v3))),
+          "18: infall test output")
+    vc3, zc3 = v3[ngu:], zs3[ngu:]
+    f3 = vc3[(zc3 > 0.52) & (zc3 < 0.545)].mean()
+    b3 = vc3[(zc3 > 0.555) & (zc3 < 0.58)].mean()
+    check(f3 > 10.0 and b3 < -10.0, f"18: infall sign test {f3:.2f}, "
+                                    f"{b3:.2f} km/s")
+    print(f"[18] tests/test_surveys.py's infall test on the card: in front "
+          f"{f3:.2f} km/s (> 10), behind {b3:.2f} km/s (< -10)")
+    results["bin_reduce_f64"]["launches"] = f64_18
+    results["bin_reduce"]["launches_by_path"]["catalog"] = \
+        counts18["bin_reduce"]
+    print(f"[18] the phase took {time.perf_counter() - t18:.3f} s")
+    torch.cuda.empty_cache()
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for r in results.values():
@@ -3324,7 +3606,8 @@ def main():
     print(json.dumps({"kernels": [results[k] for k in counters]
                       + [results[k] for k in (
                           "bin_reduce_config5", "bin_reduce_pureb",
-                          "legendre_ana_full", "legendre_syn_full")]}))
+                          "bin_reduce_f64", "legendre_ana_full",
+                          "legendre_syn_full")]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

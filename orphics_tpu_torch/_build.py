@@ -7,6 +7,12 @@ ctypes. The build runs at first use into ``orphics_tpu_torch/_build/``
 (listed in ``.gitignore``), keyed by a hash of the sources, so a fresh
 checkout builds its kernels from the sources it holds. Nothing is
 compiled at import; a failed build raises.
+
+The one host library, ``csrc/healpix.cpp`` (HEALPix pixel math with
+OpenMP), is built by ``g++`` the same way (:func:`healpix_library`):
+digest-named, into a temporary directory, then renamed into place, so
+that processes building at once do not race. Where it does not build,
+the caller runs its numpy code instead.
 """
 from __future__ import annotations
 
@@ -19,7 +25,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["library", "build_log", "NVCC_FLAGS"]
+__all__ = ["library", "build_log", "healpix_library", "healpix_build_log",
+           "NVCC_FLAGS", "HOST_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent
 SRC_DIR = _PKG / "csrc"
@@ -28,6 +35,11 @@ _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
+# the host library: no -march=native and no contraction into FMAs, so
+# that its float64 arithmetic rounds as numpy's does
+HOST_FLAGS = ["-O3", "-fPIC", "-shared", "-fopenmp", "-std=c++17",
+              "-ffp-contract=off"]
+
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
 _I64 = ctypes.c_longlong
@@ -35,6 +47,7 @@ _F32 = ctypes.c_float
 # name -> (argtypes, restype) of every exported C function
 _SIGNATURES = {
     "bin_reduce_launch": ([_VP] * 5 + [_INT] * 5 + [_VP], _INT),
+    "bin_reduce64_launch": ([_VP] * 5 + [_INT] * 5 + [_VP], _INT),
     "bin2_reduce_launch": ([_VP] * 5 + [_INT] * 5 + [_VP], _INT),
     "bin_pair_power_launch": ([_VP] * 7 + [_INT] * 6 + [_VP], _INT),
     "bin_reduce_nspan": ([_INT, _INT, _INT], _INT),
@@ -161,3 +174,53 @@ def check(err: int, what: str) -> None:
     """Raise if a C launcher returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def _healpix_path():
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    h.update((SRC_DIR / "healpix.cpp").read_bytes())
+    return BUILD_DIR / f"liborphics_healpix_{h.hexdigest()[:16]}.so"
+
+
+def healpix_build_log() -> str:
+    """Why the host library did not build (the compiler's output, or that
+    there is no compiler), or '' if it built or was not tried."""
+    log = _healpix_path().with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+@functools.lru_cache(maxsize=None)
+def healpix_library():
+    """Build (once per source hash) and load ``csrc/healpix.cpp`` with
+    ``g++``; ``None`` where there is no compiler or the build fails
+    (:func:`healpix_build_log` says why)."""
+    path = _healpix_path()
+    if not path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        cxx = shutil.which("g++")
+        if cxx is None:
+            path.with_suffix(".log").write_text("no g++ on PATH\n")
+            return None
+        work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+        try:
+            tmp = work / path.name
+            cmd = [cxx, *HOST_FLAGS, "-o", str(tmp), str(SRC_DIR /
+                                                        "healpix.cpp")]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            if res.returncode != 0:
+                path.with_suffix(".log").write_text(
+                    " ".join(cmd) + "\n" + res.stdout + res.stderr)
+                return None
+            os.replace(tmp, path)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    lib = ctypes.CDLL(str(path))
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    f64p = ctypes.POINTER(ctypes.c_double)
+    lib.ang2pix_ring_z.argtypes = [ctypes.c_long, f64p, f64p, i64p,
+                                   ctypes.c_long]
+    lib.ang2pix_ring_z.restype = None
+    lib.pix2z_ring.argtypes = [ctypes.c_long, i64p, f64p, f64p,
+                               ctypes.c_long]
+    lib.pix2z_ring.restype = None
+    return lib

@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["resolve", "as_tensor"]
+__all__ = ["resolve", "as_tensor", "device_of", "to_numpy"]
 
 
 def resolve(device=None) -> torch.device:
@@ -33,3 +33,15 @@ def as_tensor(x, device=None, dtype=None) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x if dtype is None else x.to(dtype)
     return torch.as_tensor(np.array(x), dtype=dtype, device=resolve(device))
+
+
+def device_of(x, device=None) -> torch.device:
+    """The device of a tensor ``x``; for a host array, ``resolve(device)``."""
+    return x.device if isinstance(x, torch.Tensor) else resolve(device)
+
+
+def to_numpy(x):
+    """A tensor (on any device) or an array-like as a host numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)

@@ -6,19 +6,21 @@
 //        formed in fp32 as the planes are loaded and never stored:
 //          q = |Z|^2, or (|Z|^2 + |Zm|^2) / 2 with sym;  c = Re(Z Zm)
 //   for s in [0, nseg), any nseg
+// B1 has a float32 and a float64 instance (data, weights and output of one
+// type); B2 and B2' take float32.
 //
 // Replaces orphics_tpu/ops/pallas_kernels.py:bin_matmul (_bin_reduce_kernel),
 // :bin2_matmul (_bin2_kernel) and :bin_pair_power (_pair_power_kernel),
 // one-hot bf16 hi/lo MXU contractions on the TPU.
 //
-// Bound: reading the data once, 4 B per element and input plane (ids and
-// weights are shared by every batch row and stay in L2); the arithmetic is
-// one fp64 add per element and summed field (B2' adds ~10 fp32 operations
-// per element for its two fields, against 16 B read). Ids outside
-// [0, nseg) are dropped, and their data need not be read at all: FastCl
-// passes -1 for the two edge segments it throws away, and at bench config
-// 1 those are 89 % of the half plane, so its bound counts only the
-// 128-byte lines that hold a kept id.
+// Bound: reading the data once, 4 B (8 B for B1's float64 instance) per
+// element and input plane (ids and weights are shared by every batch row
+// and stay in L2); the arithmetic is one fp64 add per element and summed
+// field (B2' adds ~10 fp32 operations per element for its two fields,
+// against 16 B read). Ids outside [0, nseg) are dropped, and their data
+// need not be read at all: FastCl passes -1 for the two edge segments it
+// throws away, and at bench config 1 those are 89 % of the half plane, so
+// its bound counts only the 128-byte lines that hold a kept id.
 //
 // Design: per-warp fp64 partials in shared memory. A block owns R batch
 // rows, a span of elements and a tile of at most SEG_CAP segments
@@ -86,11 +88,13 @@ struct Shape {
   static constexpr int UNROLL = MODE == PAIR ? 2 : 4;
 };
 
-template <Mode MODE>
+// T: the data's and weights' type, float, or double for B1's float64
+// instance (B2 and B2' take float only)
+template <Mode MODE, typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-seg_sum_kernel(const float* __restrict__ d0, const float* __restrict__ d1,
-               const float* __restrict__ d2, const float* __restrict__ d3,
-               const int* __restrict__ ids, const float* __restrict__ w,
+seg_sum_kernel(const T* __restrict__ d0, const T* __restrict__ d1,
+               const T* __restrict__ d2, const T* __restrict__ d3,
+               const int* __restrict__ ids, const T* __restrict__ w,
                double* __restrict__ scratch, int B, int N, int nseg,
                int tile, int span, bool sym) {
   constexpr int ND = Shape<MODE>::ND;
@@ -108,7 +112,7 @@ seg_sum_kernel(const float* __restrict__ d0, const float* __restrict__ d1,
     slots[i] = 0.0;
   __syncthreads();
 
-  const float* planes[4] = {d0, d1, d2, d3};
+  const T* planes[4] = {d0, d1, d2, d3};
   const int begin = blockIdx.x * span;
   const int end = min(N, begin + span);
   const int first = begin + warp * STEP;
@@ -174,19 +178,19 @@ seg_sum_kernel(const float* __restrict__ d0, const float* __restrict__ d1,
       continue;
     }
     // the R rows' data where the lane's id is kept
-    float x[UNROLL][R][NP];
-    float wt[UNROLL];
+    T x[UNROLL][R][NP];
+    T wt[UNROLL];
 #pragma unroll
     for (int k = 0; k < UNROLL; ++k) {
       const int n = base + k * 32 + lane;
       const bool on = seg[k] >= 0;
-      wt[k] = (w && on) ? __ldg(w + n) : 1.0f;
+      wt[k] = (w && on) ? __ldg(w + n) : T(1);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const int64_t at = static_cast<int64_t>(b0 + r) * N + n;
 #pragma unroll
         for (int q = 0; q < NP; ++q)
-          x[k][r][q] = (on && r < nr) ? __ldg(planes[q] + at) : 0.0f;
+          x[k][r][q] = (on && r < nr) ? __ldg(planes[q] + at) : T(0);
       }
     }
     load_ids(base + STRIDE);
@@ -279,9 +283,10 @@ seg_sum_kernel(const float* __restrict__ d0, const float* __restrict__ d1,
   }
 }
 
-// out (ND, B, nseg) f32: the spans' partials summed in span order
+// out (ND, B, nseg) T: the spans' partials summed in span order
+template <typename T>
 __global__ void seg_finish_kernel(const double* __restrict__ scratch,
-                                  float* __restrict__ out, int nspan,
+                                  T* __restrict__ out, int nspan,
                                   int total, int per_d) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;   // (d, b, s)
   if (i >= total) return;
@@ -290,7 +295,7 @@ __global__ void seg_finish_kernel(const double* __restrict__ scratch,
   const double* p = scratch + static_cast<int64_t>(d) * nspan * per_d + j;
   double t = 0.0;
   for (int c = 0; c < nspan; ++c) t += p[static_cast<int64_t>(c) * per_d];
-  out[i] = static_cast<float>(t);
+  out[i] = static_cast<T>(t);
 }
 
 int span_for(int B, int N, int ntiles) {
@@ -301,9 +306,9 @@ int span_for(int B, int N, int ntiles) {
   return span;
 }
 
-template <Mode MODE>
-int launch(const float* d0, const float* d1, const float* d2, const float* d3,
-           const int* ids, const float* w, double* scratch, float* out, int B,
+template <Mode MODE, typename T>
+int launch(const T* d0, const T* d1, const T* d2, const T* d3,
+           const int* ids, const T* w, double* scratch, T* out, int B,
            int N, int nseg, int tile, int ntiles, bool sym, void* stream) {
   constexpr int ND = Shape<MODE>::ND;
   constexpr size_t SLOT_BYTES = sizeof(double) * ND * R * WARPS;
@@ -313,20 +318,20 @@ int launch(const float* d0, const float* d1, const float* d2, const float* d3,
     return static_cast<int>(cudaErrorInvalidValue);
   // room for the largest tile's slots (on the current device)
   cudaError_t e = cudaFuncSetAttribute(
-      seg_sum_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      seg_sum_kernel<MODE, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(SLOT_BYTES * SEG_CAP));
   if (e != cudaSuccess) return static_cast<int>(e);
   const int span = span_for(B, N, ntiles);
   const int nspan = (N + span - 1) / span;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  seg_sum_kernel<MODE><<<dim3(nspan, (B + R - 1) / R, ntiles), THREADS,
+  seg_sum_kernel<MODE, T><<<dim3(nspan, (B + R - 1) / R, ntiles), THREADS,
                          SLOT_BYTES * tile, s>>>(
       d0, d1, d2, d3, ids, w, scratch, B, N, nseg, tile, span, sym);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int per_d = B * nseg;
   const int total = ND * per_d;
-  seg_finish_kernel<<<(total + 255) / 256, 256, 0, s>>>(scratch, out, nspan,
+  seg_finish_kernel<T><<<(total + 255) / 256, 256, 0, s>>>(scratch, out, nspan,
                                                         total, per_d);
   return static_cast<int>(cudaGetLastError());
 }
@@ -351,8 +356,18 @@ int bin_reduce_seg_cap() { return SEG_CAP; }
 int bin_reduce_launch(const float* data, const int* ids, const float* w,
                       double* scratch, float* out, int B, int N, int nseg,
                       int tile, int ntiles, void* stream) {
-  return launch<ONE>(data, nullptr, nullptr, nullptr, ids, w, scratch, out, B,
-                     N, nseg, tile, ntiles, false, stream);
+  return launch<ONE, float>(data, nullptr, nullptr, nullptr, ids, w, scratch,
+                            out, B, N, nseg, tile, ntiles, false, stream);
+}
+
+// B1's float64 instance: data (B, N) f64, w (N,) f64 or null, out (B, nseg)
+// f64; ids and scratch as bin_reduce_launch. The products data * w are
+// formed in fp64, as the fp32 instance forms its own.
+int bin_reduce64_launch(const double* data, const int* ids, const double* w,
+                        double* scratch, double* out, int B, int N, int nseg,
+                        int tile, int ntiles, void* stream) {
+  return launch<ONE, double>(data, nullptr, nullptr, nullptr, ids, w, scratch,
+                             out, B, N, nseg, tile, ntiles, false, stream);
 }
 
 // B2. d1, d2 (B, N) f32, ids (N,) i32, scratch (2, nspan, B, nseg) f64,
@@ -360,8 +375,8 @@ int bin_reduce_launch(const float* data, const int* ids, const float* w,
 int bin2_reduce_launch(const float* d1, const float* d2, const int* ids,
                        double* scratch, float* out, int B, int N, int nseg,
                        int tile, int ntiles, void* stream) {
-  return launch<TWO>(d1, d2, nullptr, nullptr, ids, nullptr, scratch, out, B,
-                     N, nseg, tile, ntiles, false, stream);
+  return launch<TWO, float>(d1, d2, nullptr, nullptr, ids, nullptr, scratch,
+                            out, B, N, nseg, tile, ntiles, false, stream);
 }
 
 // B2'. zr, zi, zmr, zmi (B, N) f32 (Z and its mirror), ids (N,) i32,
@@ -371,8 +386,8 @@ int bin_pair_power_launch(const float* zr, const float* zi, const float* zmr,
                           const float* zmi, const int* ids, double* scratch,
                           float* out, int B, int N, int nseg, int tile,
                           int ntiles, int sym, void* stream) {
-  return launch<PAIR>(zr, zi, zmr, zmi, ids, nullptr, scratch, out, B, N,
-                      nseg, tile, ntiles, sym != 0, stream);
+  return launch<PAIR, float>(zr, zi, zmr, zmi, ids, nullptr, scratch, out, B,
+                             N, nseg, tile, ntiles, sym != 0, stream);
 }
 
 }  // extern "C"

@@ -15,9 +15,7 @@ interpolation table, in place of the per-ell Python loop at reference
 
 The ``camb`` / ``classy`` glue (``CAMB``, ``save_glens_cls_from_ini``,
 ``class_cls``) imports those optional packages and raises without them,
-as the JAX functions do; ``ClassCosmology`` raises always. The plots of
-``fk_comparison`` / ``pk_comparison`` need ``utils/plot`` (ROADMAP queue
-A, item 21): with ``plot_file`` they raise.
+as the JAX functions do; ``ClassCosmology`` raises always.
 
 Key reference anchors: ``defaultCosmology/defaultConstants``
 (``cosmology.py:22-68``), EH98 transfer (``:389-468``), ``D_growth``
@@ -1042,13 +1040,6 @@ def get_lss_cls(windows, lmax, nonlinear=True, params=None, device=None):
     return out
 
 
-def _no_plot(name):
-    raise NotImplementedError(
-        f"{name}(plot_file=...) needs utils/plot, which is not ported yet "
-        "(ROADMAP queue A, item 21); call it without plot_file for the "
-        "numbers")
-
-
 def fk_comparison(param, z, val1, val2, oparams=None, ks=None,
                   plot_file=None):
     """Fractional change of the growth rate f(k->scale-indep) between
@@ -1065,7 +1056,10 @@ def fk_comparison(param, z, val1, val2, oparams=None, ks=None,
         out.append(growth_rate(cc, z))
     ratio = np.full(len(ks), out[1] / out[0])
     if plot_file:
-        _no_plot("fk_comparison")
+        from ..utils.plot import Plotter
+        pl = Plotter(xlabel="$k$", ylabel="$f_2/f_1$", xscale="log")
+        pl.add(ks, ratio)
+        pl.done(plot_file)
     return ks, ratio
 
 
@@ -1083,7 +1077,10 @@ def pk_comparison(param, z, val1, val2, oparams=None, ks=None,
         pks.append(np.asarray(cc.P_lin(np.asarray(ks), z)))
     ratio = pks[1] / pks[0]
     if plot_file:
-        _no_plot("pk_comparison")
+        from ..utils.plot import Plotter
+        pl = Plotter(xlabel="$k$", ylabel="$P_2/P_1$", xscale="log")
+        pl.add(ks, ratio)
+        pl.done(plot_file)
     return ks, ratio
 
 

@@ -30,6 +30,7 @@ from ..ops.mirror import mirror_pp
 
 __all__ = ["QE", "lensing_noise_2d", "NlGenerator", "rdn0", "mcn0", "n1_tt"]
 
+ESTIMATORS = ("TT", "TE", "EE", "EB", "TB")
 LEG_FIELDS = {"TT": ("T", "T"), "TE": ("T", "E"), "EE": ("E", "E"),
               "EB": ("E", "B"), "TB": ("T", "B")}
 

@@ -4,7 +4,9 @@
 ``bin_reduce`` is the port of ``orphics_tpu/ops/pallas_kernels.py:bin_matmul``,
 ``bin2_reduce`` that of ``bin2_matmul`` and ``bin_pair_power`` that of
 ``bin_pair_power``, with the same contracts and no ``block`` or tail special
-case:
+case. ``bin_reduce`` follows its data's dtype: float32 data (and weights)
+give float32 sums, float64 data float64 sums (the kernel's float64
+instance); the other two take float32:
 
     bin_reduce:  out[b, s] = sum_n data[b, n] * weights[n] * [ids[n] == s]
     bin2_reduce: the same without weights for two inputs over one id table
@@ -35,8 +37,8 @@ __all__ = ["bin_reduce", "bin_reduce_ref", "bin2_reduce", "bin2_reduce_ref",
 
 def bin_reduce_ref(data, ids, nseg: int, weights=None):
     """Plain PyTorch version: ``index_add_`` over the segment axis in
-    float64, returned as float32; ids outside ``[0, nseg)`` are dropped
-    (summed into a column that is cut off)."""
+    float64, returned in the data's dtype; ids outside ``[0, nseg)`` are
+    dropped (summed into a column that is cut off)."""
     x = data.to(torch.float64)
     if weights is not None:
         x = x * weights.to(torch.float64)
@@ -45,7 +47,7 @@ def bin_reduce_ref(data, ids, nseg: int, weights=None):
     out = torch.zeros((data.shape[0], nseg + 1), dtype=torch.float64,
                       device=data.device)
     out.index_add_(1, idx, x)
-    return out[:, :nseg].to(torch.float32)
+    return out[:, :nseg].to(data.dtype)
 
 
 def bin2_reduce_ref(d1, d2, ids, nseg: int):
@@ -70,17 +72,19 @@ def _seg_tiles(nseg: int, cap: int):
     return -(-nseg // ntiles), ntiles
 
 
-def _check(data, ids, weights, nseg, what="data"):
-    if data.dtype != torch.float32 or data.ndim != 2:
-        raise ValueError(f"{what} must be (B, N) float32, got {data.dtype} "
+def _check(data, ids, weights, nseg, what="data",
+           dtypes=(torch.float32,)):
+    if data.dtype not in dtypes or data.ndim != 2:
+        names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise ValueError(f"{what} must be (B, N) {names}, got {data.dtype} "
                          f"{tuple(data.shape)}")
     n = data.shape[1]
     if ids.dtype != torch.int32 or tuple(ids.shape) != (n,):
         raise ValueError(f"ids must be ({n},) int32, got {ids.dtype} "
                          f"{tuple(ids.shape)}")
-    if weights is not None and (weights.dtype != torch.float32
+    if weights is not None and (weights.dtype != data.dtype
                                 or tuple(weights.shape) != (n,)):
-        raise ValueError(f"weights must be ({n},) float32")
+        raise ValueError(f"weights must be ({n},) {data.dtype}")
     for t in (data, ids) + (() if weights is None else (weights,)):
         if t.device != data.device:
             raise ValueError(f"{what}, ids and weights must share one device")
@@ -102,10 +106,12 @@ def _launch(inputs, ids, nseg, weights, what, sym=False):
     dev = inputs[0].device
     scratch = torch.empty((nd, nspan, B, nseg), dtype=torch.float64,
                           device=dev)
-    out = torch.empty((nd, B, nseg), dtype=torch.float32, device=dev)
+    out = torch.empty((nd, B, nseg), dtype=inputs[0].dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if nd == 1:
-        err = lib.bin_reduce_launch(
+        launch = (lib.bin_reduce64_launch if out.dtype == torch.float64
+                  else lib.bin_reduce_launch)
+        err = launch(
             inputs[0].data_ptr(), ids.data_ptr(),
             None if weights is None else weights.data_ptr(),
             scratch.data_ptr(), out.data_ptr(), B, N, nseg, tile, ntiles,
@@ -125,13 +131,17 @@ def _launch(inputs, ids, nseg, weights, what, sym=False):
 
 
 def bin_reduce(data, ids, nseg: int, weights=None):
-    """``(B, N)`` float32 data, ``(N,)`` int32 ids (those outside
-    ``[0, nseg)`` dropped), optional ``(N,)`` float32 weights ->
-    ``(B, nseg)`` float32 sums (B1)."""
-    _check(data, ids, weights, nseg)
+    """``(B, N)`` float32 or float64 data, ``(N,)`` int32 ids (those outside
+    ``[0, nseg)`` dropped), optional ``(N,)`` weights of the data's dtype ->
+    ``(B, nseg)`` sums of the data's dtype (B1). ``launches`` counts every
+    kernel launch, ``launches_f64`` those of the float64 instance."""
+    _check(data, ids, weights, nseg,
+           dtypes=(torch.float32, torch.float64))
     if data.is_cuda:
         out = _launch((data,), ids, nseg, weights, "bin_reduce")[0]
         bin_reduce.launches += 1
+        if data.dtype == torch.float64:
+            bin_reduce.launches_f64 += 1
         return out
     return bin_reduce_ref(data, ids, nseg, weights)
 
@@ -174,5 +184,6 @@ def bin_pair_power(zr, zi, zmr, zmi, ids, nseg: int, sym: bool = False):
 
 
 bin_reduce.launches = 0
+bin_reduce.launches_f64 = 0
 bin2_reduce.launches = 0
 bin_pair_power.launches = 0

@@ -6,6 +6,9 @@ edges, so it is computed once on the host in float64
 The per-map reduction is :func:`~orphics_tpu_torch.ops.bin_reduce.bin_reduce`
 for every tensor: it picks the kernel or its plain version by the
 tensor's device (the JAX package picks by ``ORPHICS_TPU_BIN``/backend).
+The means keep the data's dtype: float32 or float64 (B1's float64
+instance on the card), each scaled by the float32 ``1/count`` as the JAX
+binner scales them.
 """
 from __future__ import annotations
 
@@ -42,7 +45,8 @@ class Bin2D:
             (1.0 / safe * (self.counts > 0)).astype(np.float32), device=device)
 
     def sum(self, data2d):
-        """Per-bin sums of ``data2d`` (leading batch dims OK)."""
+        """Per-bin sums of ``data2d`` (float32 or float64, leading batch
+        dims OK), in its dtype."""
         lead = data2d.shape[:-2]
         flat = data2d.reshape(-1, data2d.shape[-2] * data2d.shape[-1])
         out = bin_reduce(flat.contiguous(), self._ids, self._nseg)
@@ -51,7 +55,8 @@ class Bin2D:
     def bin(self, data2d, weights=None):
         """``(centers, means)`` of a 2D (or batch of 2D) array."""
         if weights is None:
-            return self.centers, self.sum(data2d) * self._inv_counts
+            sums = self.sum(data2d)
+            return self.centers, sums * self._inv_counts.to(sums.dtype)
         w = torch.as_tensor(weights, dtype=data2d.dtype,
                             device=data2d.device).expand(data2d.shape[-2:])
         num = self.sum(data2d * w)
@@ -61,7 +66,7 @@ class Bin2D:
     def bin_err(self, data2d):
         """``(centers, means, scatter-in-bin error)``."""
         cents, means = self.bin(data2d)
-        sq = self.sum(data2d * data2d) * self._inv_counts
+        sq = self.sum(data2d * data2d) * self._inv_counts.to(means.dtype)
         counts = torch.as_tensor(np.maximum(self.counts, 2), dtype=means.dtype,
                                  device=means.device)
         var = (sq - means ** 2) * counts / (counts - 1.0)
@@ -106,9 +111,9 @@ class RfftBin2D:
         flat = data2d_half.reshape(-1, data2d_half.shape[-2]
                                    * data2d_half.shape[-1])
         out = bin_reduce(flat.contiguous(), self._ids, self._nseg,
-                         weights=self._w)
+                         weights=self._w.to(flat.dtype))
         sums = out.reshape(lead + (self._nseg,))[..., 1:-1]
-        return self.centers, sums * self._inv_counts
+        return self.centers, sums * self._inv_counts.to(sums.dtype)
 
 
 def bin1d(x, y, bin_edges):

@@ -481,14 +481,17 @@ class InverseTransformSampling2D:
 def eig_analyze(cmb2d, start=0, eigfunc=np.linalg.eigh, plot_file=None):
     """Eigenvalue diagnostic of a (ncomp, ncomp, ny, nx) 2D power matrix
     (reference ``stats.py:~190``): prints the minimum eigenvalue and
-    whether any are negative. ``plot_file`` (the sorted spectra's plot)
-    needs utils/plot, not ported yet (ROADMAP queue A, item 21): it
-    raises."""
-    if plot_file is not None:
-        raise NotImplementedError(
-            "eig_analyze(plot_file=...) needs utils/plot, which is not "
-            "ported yet (ROADMAP queue A, item 21); call it without "
-            "plot_file for the eigenvalues")
+    whether any are negative; optionally plots the sorted spectra (the
+    JAX function imports its ``Plotter`` from ``utils.io``, which has
+    none; the port takes ``utils.plot``'s)."""
     es = eigfunc(np.asarray(cmb2d)[start:, start:, ...].T)[0]
     print(start, es.min(), np.any(es < 0.0))
+    if plot_file is not None:
+        from .plot import Plotter
+        numw = range(int(np.prod(es.shape[:-1])))
+        pl = Plotter(xlabel="n", ylabel="e", yscale="log")
+        for ind in range(es.shape[-1]):
+            pl.add(numw, np.sort(np.real(es[..., ind].ravel())))
+            pl.add(numw, np.sort(np.imag(es[..., ind].ravel())), ls="--")
+        pl.done(plot_file)
     return es

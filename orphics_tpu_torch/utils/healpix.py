@@ -4,11 +4,14 @@
 The pixel functions are the JAX package's vectorized numpy
 implementation, copied: ``ang2pix``, ``pix2ang``, ``nside2npix``,
 ``npix2nside``, ``nside2pixarea``, ``query_strip``, ``ring2nest``,
-``nest2ring``, ``ud_grade``. The JAX package can also load a native C++
-build of ``ang2pix`` / ``pix2ang`` (``orphics_tpu/csrc/healpix.cpp``); the
-port has no build of it yet (ROADMAP queue A, item 21), so
-:func:`have_native` is False and every call runs the numpy code, which the
-JAX package holds equal to the native one.
+``nest2ring``, ``ud_grade``. ``ang2pix`` / ``pix2ang`` run the native C++
+library ``csrc/healpix.cpp`` (OpenMP), built with ``g++`` at first use
+(:func:`orphics_tpu_torch._build.healpix_library`) and loaded with
+ctypes, as the JAX package loads its own build; :func:`have_native` says
+whether it built, and where it did not the numpy code runs. The cosine
+and arccos are numpy's on both paths (numpy's SIMD float64 ``arccos``
+differs from libm's ``acos`` by an ulp on ~10 % of pixels), so the two
+give the same pixels and angles exactly (``tests/test_torch_packages.py``).
 
 The harmonic bridge (``map2alm``, ``alm2map``, ``smoothing``) samples the
 healpix grid onto Gauss-Legendre rings on the host, as the JAX package
@@ -17,19 +20,29 @@ the card).
 """
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
+from .. import _build
 from .._device import resolve
 
 __all__ = ["nside2npix", "npix2nside", "nside2pixarea", "ang2pix",
            "pix2ang", "query_strip", "have_native"]
 
 
+def _f64(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+
+
+def _i64(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+
 def have_native() -> bool:
-    """False: the port has no build of the native HEALPix library (ROADMAP
-    queue A, item 21); the numpy pixel functions run instead."""
-    return False
+    """True where the native library built (the first call builds it)."""
+    return _build.healpix_library() is not None
 
 
 def nside2npix(nside: int) -> int:
@@ -127,13 +140,29 @@ def ang2pix(nside, theta, phi, lonlat: bool = False):
         phi = np.radians(lon)
         theta = np.ascontiguousarray(theta)
         phi = np.ascontiguousarray(phi)
+    lib = _build.healpix_library()
+    if lib is not None:
+        # the cosine here, as the numpy code takes it
+        z = np.cos(theta)
+        out = np.empty(theta.shape, dtype=np.int64)
+        lib.ang2pix_ring_z(int(nside), _f64(z), _f64(phi), _i64(out),
+                           theta.size)
+        return out
     return _ang2pix_np(int(nside), theta, phi)
 
 
 def pix2ang(nside, pix, lonlat: bool = False):
     """healpy-compatible RING pix2ang (pixel centers)."""
     pix = np.ascontiguousarray(np.atleast_1d(pix), dtype=np.int64)
-    theta, phi = _pix2ang_np(int(nside), pix)
+    lib = _build.healpix_library()
+    if lib is not None:
+        z = np.empty(pix.shape, dtype=np.float64)
+        phi = np.empty(pix.shape, dtype=np.float64)
+        lib.pix2z_ring(int(nside), _i64(pix), _f64(z), _f64(phi), pix.size)
+        # the arccos here, as the numpy code takes it
+        theta = np.arccos(np.clip(z, -1, 1))
+    else:
+        theta, phi = _pix2ang_np(int(nside), pix)
     if lonlat:
         return np.degrees(phi), 90.0 - np.degrees(theta)
     return theta, phi

@@ -177,7 +177,9 @@ def test_bin_reduce_rejects_bad_inputs():
     d = torch.zeros(2, 10)
     ids = torch.zeros(10, dtype=torch.int32)
     with pytest.raises(ValueError):
-        bin_reduce(d.double(), ids, 3)
+        bin_reduce(d.half(), ids, 3)
+    with pytest.raises(ValueError):
+        bin_reduce(d.double(), ids, 3, weights=torch.ones(10))
     with pytest.raises(ValueError):
         bin_reduce(d, ids.long(), 3)
     with pytest.raises(ValueError):

@@ -259,16 +259,18 @@ def test_theory_glue(theories, tmp_path):
     assert _rel(a["zs"], b["zs"]) <= RTOL_HOST and a["kmax"] == b["kmax"]
 
 
-def test_comparisons_and_gates():
+def test_comparisons_and_gates(tmp_path):
     ks = np.geomspace(1e-3, 0.3, 9)
     for name in ("fk_comparison", "pk_comparison"):
         kt, rt = getattr(TC, name)("H0", 0.5, 67.0, 70.0, ks=ks)
         kj, rj = getattr(JC, name)("H0", 0.5, 67.0, 70.0, ks=ks)
         assert _rel(rt, rj) <= RTOL_HOST
-        # the plot needs utils/plot (queue A, item 21)
-        with pytest.raises(NotImplementedError, match="item 21"):
-            getattr(TC, name)("H0", 0.5, 67.0, 70.0, ks=ks,
-                              plot_file="x.png")
+        # the plot, on utils/plot since the galaxy-catalog slice
+        out = tmp_path / f"{name}.png"
+        _, rp = getattr(TC, name)("H0", 0.5, 67.0, 70.0, ks=ks,
+                                  plot_file=str(out))
+        np.testing.assert_array_equal(rp, rt)
+        assert out.stat().st_size > 0
     # the camb / classy glue raises as the JAX package's does without them
     for name, args in (("CAMB", ()), ("save_glens_cls_from_ini",
                                       ("a.ini", "out")),

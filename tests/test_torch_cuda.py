@@ -1006,3 +1006,75 @@ def test_healpix_smoothing_card_matches_cpu(cuda_device):
     assert leg.legendre_ana.launches > a0 and leg.legendre_syn.launches > s0
     ref = healpix.smoothing(hmap, np.deg2rad(1.0), device="cpu")
     assert np.abs(got - ref).max() <= 1e-10 * np.abs(ref).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,nseg,weighted", [(24, 512 * 512, 16, False),
+                                               (3, 1000, 300, True)])
+def test_bin_reduce_float64_kernel_matches_ref(cuda_device, B, n, nseg,
+                                               weighted):
+    """B1's float64 instance: float64 sums within 1e-12 of the binned |data|
+    of the float64 plain version, reproducible; ids outside [0, nseg)
+    dropped; nseg 300 takes two segment tiles."""
+    rng = np.random.default_rng(n + 64)
+    data = torch.as_tensor(rng.standard_normal((B, n)), device=cuda_device)
+    ids = torch.as_tensor(rng.integers(-1, nseg + 1, n).astype(np.int32),
+                          device=cuda_device)
+    w = (torch.as_tensor(rng.uniform(0.5, 2.0, n), device=cuda_device)
+         if weighted else None)
+    before, b64 = bin_reduce.launches, bin_reduce.launches_f64
+    out = bin_reduce(data, ids, nseg, w)
+    again = bin_reduce(data, ids, nseg, w)
+    torch.cuda.synchronize()
+    assert bin_reduce.launches == before + 2
+    assert bin_reduce.launches_f64 == b64 + 2
+    assert out.dtype == torch.float64
+    ref = bin_reduce_ref(data, ids, nseg, w)
+    absref = bin_reduce_ref(data.abs(), ids, nseg, w)
+    assert ((out - ref).abs() <= 1e-12 * absref).all()
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+def test_binned_map_card_matches_cpu(cuda_device):
+    """catalogs.binned_map: unweighted counts equal, weighted 1e-12 of max,
+    and the float64 Bin2D of a map on B1 against the CPU's."""
+    from orphics_tpu_torch.models import catalogs as cats
+    from orphics_tpu_torch.ops.binning import Bin2D
+    geom = tp.rect_geometry(width_arcmin=256 * 0.5, px_res_arcmin=0.5)
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    decs, ras = cats.random_catalog_flat(gen, geom, 200_000,
+                                         device=cuda_device)
+    w = torch.rand(200_000, generator=gen, device=cuda_device,
+                   dtype=torch.float64) + 0.5
+    cnt = cats.binned_map(decs, ras, geom)
+    assert cnt.is_cuda and cnt.dtype == torch.float64
+    assert torch.equal(cnt.cpu(), cats.binned_map(decs.cpu(), ras.cpu(),
+                                                  geom))
+    wm = cats.binned_map(decs, ras, geom, w).cpu()
+    ref = cats.binned_map(decs.cpu(), ras.cpu(), geom, w.cpu())
+    assert (wm - ref).abs().max() <= 1e-12 * ref.abs().max()
+    edges = np.arange(200.0, 3001.0, 200.0)
+    before = bin_reduce.launches_f64
+    got = Bin2D(geom.modlmap_np(), edges, device=cuda_device).bin(
+        torch.fft.fft2(cnt).abs() ** 2)[1]
+    assert bin_reduce.launches_f64 == before + 1 and got.dtype == \
+        torch.float64
+    want = Bin2D(geom.modlmap_np(), edges, device="cpu").bin(
+        torch.fft.fft2(cnt.cpu()).abs() ** 2)[1]
+    assert ((got.cpu() - want).abs() <= 1e-10 * want.abs()).all()
+
+
+@pytest.mark.cuda
+def test_reconstruct_velocities_card_matches_cpu(cuda_device):
+    from orphics_tpu_torch.models import catalogs as cats
+    rng = np.random.default_rng(32)
+    cat = [rng.uniform(-10, 10, 20000), rng.uniform(-10, 10, 20000),
+           rng.uniform(0.4, 0.7, 20000), rng.uniform(-10, 10, 100000),
+           rng.uniform(-10, 10, 100000), rng.uniform(0.4, 0.7, 100000)]
+    kw = dict(zeff=0.55, nmesh=48, smoothing_radius=15.0)
+    got = cats.reconstruct_velocities(*(torch.as_tensor(a, device=cuda_device)
+                                        for a in cat), **kw)
+    assert got.is_cuda and got.dtype == torch.float64
+    ref = cats.reconstruct_velocities(*cat, device="cpu", **kw)
+    assert (got.cpu() - ref).abs().max() <= 1e-8 * ref.abs().max()

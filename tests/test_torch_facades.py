@@ -35,7 +35,8 @@ TOL_BIN = 1e-6
 TOL_SHEAR = 1e-8
 
 FACADES = ("maps", "lensing", "pixcov", "foregrounds", "algorithms",
-           "cosmology", "mpi")
+           "cosmology", "mpi", "stats", "io", "catalogs", "time",
+           "interfaces", "ephem", "time_utils")
 MODULES = ("models.mapstools", "utils.healpix", "models.curved",
            "models.shear")
 

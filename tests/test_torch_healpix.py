@@ -1,7 +1,8 @@
 """utils/healpix of the port against the JAX module.
 
-The pixel functions are the same numpy code, so their outputs are equal
-exactly. The ring bridge runs the port's SHT at nside <= 32 and lmax <=
+The pixel functions are the same numpy code (``ang2pix`` / ``pix2ang`` on
+the port's native library, with numpy's cosine and arccos), so their
+outputs are equal exactly. The ring bridge runs the port's SHT at nside <= 32 and lmax <=
 63: the host sampling is equal exactly, the transforms within 1e-10 of
 max|ref| in float64 (the same Legendre sums in another order, ring FFTs
 by another library).
@@ -63,7 +64,9 @@ def test_pixel_functions_equal(nside):
 
 
 def test_no_native_library():
-    assert TH.have_native() is False
+    """The port builds its native library where g++ is installed, and its
+    functions still equal the JAX package's numpy code (above)."""
+    assert TH.have_native() is True
     assert set(TH.__all__) >= set(JH.__all__)
 
 
