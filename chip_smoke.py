@@ -57,8 +57,13 @@ card by default, ``tt_verification`` at 512 sims, the distributed pair on
 a one-rank NCCL group): each one's seconds, launches and check, the
 kernels each of the first seven must launch, every kernel call held to
 its plain version on that call's own inputs, and the seven forecasts'
-printed numbers against a ``--device cpu`` run.
-Phases 3-19 each set the launch counts to 0 before they drive their path
+printed numbers against a ``--device cpu`` run, 20 the curved-sky TT
+quadratic estimator (``models/curved_qe``) at lmax 2047 on 3072 x 6144
+Gauss-Legendre rings: the exact sums on the card against the CPU, B10s and
+B10a held to their plain versions on the path's own inputs (16 and 12
+folded maps, one launch each), card vs CPU at lmax 255, the closure of the
+cross and N0 spectra on first-order lensed sims, reconstructions/s.
+Phases 3-20 each set the launch counts to 0 before they drive their path
 and check them after; 4-15 print throughput, peak memory, device time by
 kernel and a check of the output against the plain versions. Phases 2, 4,
 5 and 14 print B8's blocks whose deflection range exceeded its window
@@ -77,8 +82,10 @@ element through the exact mirror map; B1, B8 and B10a/B10s also by
 path, with config 5's, the pure-B path's, ``lens_cov``'s, the healpix
 bridge's and the distributed path's counts, B1 records at config 5's and
 the pure-B path's shapes, B1's float64 record at phase 18's shape (with
-its launches there), and B10a/B10s records at layout "full", lmax
-2047, with the distributed path's launches), error, times and bound; the
+its launches there), B10a/B10s records at layout "full", lmax
+2047, with the distributed path's launches, and at the curved-sky QE's
+folded shape, lmax 2047 on 3072 rings, with its launches), error, times
+and bound; the
 last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any
 failed check raises, so the exit code is non-zero and no result line is
 printed. It imports nothing of JAX.
@@ -639,6 +646,289 @@ def plain_gap(rec, plain):
             e = ((g - r).abs() / sc.clamp_min(1e-30)).max().item()
         gaps.append((e / t if t else e, e, t))
     return max(gaps)[1:]
+
+
+def curved_qe_phase(dev, card, results, reset_counts, read_counts):
+    """Phase 20: the curved-sky TT quadratic estimator
+    (``models/curved_qe``) at full width: lmax 2047 (Planck's TT range) on
+    ``gauss_legendre_rings(3071)`` (3072 x 6144, exact to degree 6143 >= 3
+    lmax: the estimator analyses products of three band-lmax fields), the
+    lensed TT and C^phiphi of ``default_theory()``, 10 uK-arcmin white
+    noise, no beam (ctot = cl + N).
+
+    (a) ``CurvedQE`` with its sums on the card at the default 112 Ls, the
+    build's seconds; R and N0num at three of its Ls held to the sums run
+    with ``device="cpu"`` (1e-12 relative). (b) The B10s input of one
+    ``phi_from_alm`` call on 4 sims (16 stacked alms) and its B10a input
+    (12 weighted product rings) against ``legendre_syn_ref`` /
+    ``legendre_ana_ref`` on the same tensors (phase 2's 1e-6 of max|ref|),
+    with their times and bound. (c) ``phi_from_alm`` of one draw at lmax
+    255 on ``gauss_legendre_rings(383)``, card (kernels) against CPU (plain
+    versions): each entry within 1e-5 of max|gbar| times its L's 1/R_L (1/R
+    spans decades, so the normalized output's own max would read float32
+    residue at L <= 1 scaled by 1/R_1). (d) Closure: phi from C^phiphi, T0
+    from the estimator's lensed TT, T = T0 +- grad_dot(phi, T0) + noise, S
+    = 16 sims in 4 calls of 4; then 16 Gaussian sims of ctot (phi = 0). In
+    bins of dL = 100 over L in [20, 1000]: the cross ratio r_b = sum (2L+1)
+    C^{phihat phi}_L / sum (2L+1) C^{phi phi}_L (sums over the bin and the
+    sims, phihat at +phi) and the +-phi ratio r_d, the same with (phihat(+)
+    - phihat(-)) / 2, in which the noise terms even in phi cancel, must each
+    equal the expectation e_b, and the auto ratio sum (2L+1) C^{phihat
+    phihat}_L / (S sum (2L+1) N0_L e_L^2) of the phi = 0 sims must be 1,
+    each within 5 sigma. N0_L is ``n0_tt``'s at every L and e_L = R_L /
+    R_interp(L) the exact response over the one the engine applies (1 at
+    its 112 sampled Ls, linear interpolation of 1/R between them; e_b its
+    mode average). sigma_G^2 = sum (2L+1) (C^phiphi_L + N_L) C^phiphi_L / (S
+    [sum (2L+1) C^phiphi_L]^2), the Gaussian scatter from the bin's modes,
+    where N_L is the reconstruction noise power these sims carry, the
+    power of (phihat(+) + phihat(-)) / 2: N0 with ctot's power, and more,
+    since first-order lensed T carries power that ctot lacks (at l ~ 2000
+    grad(phi) . grad(T) is not small). sigma_R^2 = sum X^2 / [sum (2L+1)
+    C^{phi phi}_L]^2 with X = Re([(phihat(+) - phihat(-)) / 2 - e_L phi]
+    phi*) per mode (m > 0 twice): the measured scatter of the response,
+    which a finite T0 couples to every phi mode (the term behind the N1
+    bias). r_b's sigma is sqrt(sigma_G^2 + sigma_R^2), r_d's sigma_R; the
+    auto's sigma'^2 = 2 sum (2L+1) (N0_L e_L^2)^2 / (S [sum (2L+1) N0_L
+    e_L^2]^2). With N0 in sigma_G and no sigma_R, card runs read pulls up
+    to 3.13 (PERF.md, section 6). T0 takes the lensed TT because the
+    first-order response to it is R with that spectrum in the coupling;
+    from the unlensed TT it would be R with the unlensed spectrum there,
+    which the engine does not compute. With the JAX function's sign on the
+    last two terms the ratios are negative. (e) Reconstructions/s of ``phi_from_alm`` on 4 sims (16
+    syntheses, 12 analyses a call), peak memory, device time by kernel.
+    (f) From counts at 0: exactly one B10s and one B10a launch, both on
+    layout "fold", per ``phi_from_alm`` call of 4 sims."""
+    from orphics_tpu_torch.models import curved_qe as cqe
+    from orphics_tpu_torch.models.theory import default_theory
+    from orphics_tpu_torch.ops import alm as almops
+    from orphics_tpu_torch.ops import legendre as leg
+    from orphics_tpu_torch.ops import sht
+
+    t20 = time.perf_counter()
+    lmax, nsims, nbatch = 2047, 4, 4
+    rings = sht.gauss_legendre_rings(3071)
+    check(rings.shape == (3072, 6144), f"20: rings {rings.shape}")
+    ells = np.arange(lmax + 1)
+    th = default_theory()
+    cl = np.asarray(th.lCl("TT", ells))
+    nl = (10.0 * math.pi / 10800.0) ** 2
+    ctot = cl + nl
+    clpp = np.zeros(lmax + 1)
+    clpp[1:] = 4.0 * np.asarray(th.gCl("kk", ells[1:])) / (
+        ells[1:] * (ells[1:] + 1.0)) ** 2
+
+    # (a) the engine, its sums on the card; three Ls against the CPU
+    t0 = time.perf_counter()
+    qe = cqe.CurvedQE(rings, lmax, cl, ctot, device=dev)
+    torch.cuda.synchronize()
+    dt_build = time.perf_counter() - t0
+    idx = [int(np.argmin(np.abs(qe.Ls - L))) for L in (10, 500, 1500)]
+    Ls3 = qe.Ls[idx]
+    t0 = time.perf_counter()
+    R3, N3 = cqe._qtt_sums(cl, ctot, lmax, Ls3, device="cpu")
+    dt_cpu = time.perf_counter() - t0
+    errR = float(np.max(np.abs(qe.R[idx] - R3) / np.abs(R3)))
+    errN = float(np.max(np.abs(qe.N0num[idx] - N3) / np.abs(N3)))
+    check(errR <= 1e-12 and errN <= 1e-12, f"20: sums card vs CPU at L "
+          f"{Ls3.tolist()}: R {errR:.3e}, N0num {errN:.3e}")
+    print(f"[20a] CurvedQE lmax {lmax}, {qe.Ls.size} Ls, sums in float64 on "
+          f"the card: {dt_build:.3f} s; at L {Ls3.tolist()} R "
+          f"{qe.R[idx].tolist()} vs the CPU's ({dt_cpu:.3f} s for the "
+          f"three) {errR:.3e}, N0num {errN:.3e} relative (<= 1e-12)")
+
+    # the exact sums at every L of the closure's range, (d)
+    t0 = time.perf_counter()
+    Ld = np.arange(20, 1001)
+    Rd, Nd = cqe._qtt_sums(cl, ctot, lmax, Ld, device=dev, chunk=lmax + 1)
+    dt_dense = time.perf_counter() - t0
+    e_L = Rd * qe._rinv_dense[Ld]
+    n0_L = Nd / Rd ** 2
+    ls_p, ms_p = almops.lm_indices(lmax)
+    e_dense = np.ones(lmax + 1)
+    e_dense[Ld] = e_L
+    e_p = torch.as_tensor(e_dense[ls_p], device=dev)
+    c_p = torch.as_tensor(np.where(ms_p == 0, 1.0, 2.0), device=dev)
+    l_p = torch.as_tensor(ls_p.astype(np.int64), device=dev)
+
+    # the sims, nbatch calls of nsims: phi ~ C^phiphi, T0 ~ cl (the
+    # engine's), noise ~ N, T = T0 +- grad_dot(phi, T0) + noise, and
+    # Gaussian sims of ctot (phi = 0). The first call is the main path's
+    # run (f): counts from 0, one B10s and one B10a launch, on folded
+    # tables; its kernels' inputs are recorded for (b)
+    gen = torch.Generator(device=dev).manual_seed(2020)
+    draw = lambda c: almops.synalm(gen, c, lmax, batch=(nsims,), device=dev)
+    c128 = lambda a: a.to(torch.complex128)
+    spec = {k: np.zeros(lmax + 1)
+            for k in ("cross", "cross_d", "phi", "even", "null", "X2")}
+    recorder = CallRecorder({leg.legendre_ana: "legendre_ana",
+                             leg.legendre_syn: "legendre_syn"},
+                            lambda k: getattr(leg, k).launches)
+    for i in range(nbatch):
+        phi = draw(clpp)
+        t0lm = draw(cl)
+        dT = cqe.grad_dot(phi, t0lm, rings, lmax)
+        nlm = draw(np.full(lmax + 1, nl))
+        tlm = t0lm + dT + nlm
+        check(bool(torch.isfinite(torch.view_as_real(tlm)).all()),
+              "20: lensed sims not finite")
+        if i == 0:
+            tlm_e = tlm                        # (e)'s input
+            reset_counts()
+            with recorder:
+                phihat = qe.phi_from_alm(tlm)
+                torch.cuda.synchronize()
+            counts = read_counts(("legendre_ana", "legendre_syn"), "20")
+        else:
+            phihat = qe.phi_from_alm(tlm)
+        phihat_m = qe.phi_from_alm(t0lm - dT + nlm)     # the same at -phi
+        phihat0 = qe.phi_from_alm(draw(ctot))
+        p = c128(phi)
+        d = 0.5 * (c128(phihat) - c128(phihat_m))
+        ev = 0.5 * (c128(phihat) + c128(phihat_m))
+        # per packed mode (m > 0 twice), the response term's share of the
+        # numerator: its squares sum to sigma_R's variance
+        X = c_p * ((d - e_p * p) * p.conj()).real
+        for k, v in (("cross", almops.alm2cl(c128(phihat), p)),
+                     ("cross_d", almops.alm2cl(d, p)),
+                     ("phi", almops.alm2cl(p)), ("even", almops.alm2cl(ev)),
+                     ("null", almops.alm2cl(c128(phihat0)))):
+            spec[k] += v.sum(0).cpu().numpy()
+        spec["X2"] += torch.zeros(lmax + 1, dtype=torch.float64,
+                                  device=dev).index_add_(
+            0, l_p, (X * X).sum(0)).cpu().numpy()
+    nsim_d = nsims * nbatch
+    del phi, t0lm, dT, nlm, tlm, phihat, phihat_m, phihat0, p, d, ev, X
+    recs = sorted(recorder.records.values(), key=lambda r: r["key"])
+    seen = [(r["key"], r["layout"], r["calls"], r["launches"]) for r in recs]
+    check((counts["legendre_ana"], counts["legendre_syn"]) == (1, 1)
+          and seen == [("legendre_ana", "fold", 1, 1),
+                       ("legendre_syn", "fold", 1, 1)],
+          f"20: one phi_from_alm call of {nsims} sims launched B10a "
+          f"{counts['legendre_ana']}, B10s {counts['legendre_syn']} times "
+          f"({seen}), not once each on layout fold")
+    print(f"[20f] one phi_from_alm call of {nsims} sims: "
+          + ", ".join(f"{r['sig']}: {r['launches']} launch" for r in recs))
+    ref_of = {"legendre_ana": leg.legendre_ana_ref,
+              "legendre_syn": leg.legendre_syn_ref}
+    for r in recs:
+        name, fn, (x, tab) = r["key"], r["fn"], r["args"][:2]
+        ktab = leg.kernel_tables(tab)
+        got = fn(x, tab)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ref = ref_of[name](x, tab)
+        stop.record()
+        torch.cuda.synchronize()
+        plain = start.elapsed_time(stop)
+        err, rel = rel_err((got,), (ref,))
+        check(rel <= 1e-6, f"20: {name} on the path's inputs {tuple(x.shape)}"
+                           f": {rel:.3e} of max|ref| > 1e-6")
+        ms = cuda_ms(lambda: fn(x, tab), 3, warmup=1)
+        nm, M1 = x.shape[0], lmax + 1
+        out_b = 8 * nm * (M1 * M1 if name == "legendre_ana"
+                          else tab["Tr"] * M1)
+        steps = b10_steps(tab, ktab)
+        work = b10_work(x, tab, ktab, out_b, nm, steps, False)
+        key = name + "_qe"
+        results[key] = kernel_entry(
+            key, "legendre.cu", "pallas_sht.py:1216,1230"
+            if name == "legendre_ana" else "pallas_sht.py:1260,1273", err,
+            (ms, plain, None), work)
+        r = results[key]
+        print(f"[20b] {name} on the path's input {tuple(x.shape)} (layout "
+              f"{tab['layout']}, {ktab['Tk']} kernel rings, {ktab['ng']} "
+              f"groups of 32, {steps:.6e} live steps): max abs err "
+              f"{err:.3e} = {rel:.3e} of max|ref| (<= 1e-6); kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}) on {card}")
+    del recorder, recs, r, x, got, ref
+
+    # (c) card vs CPU at lmax 255
+    lc = 255
+    rings_c = sht.gauss_legendre_rings(383)
+    qe_c = cqe.CurvedQE(rings_c, lc, cl[: lc + 1], ctot[: lc + 1],
+                        device=dev)
+    tc = almops.synalm(torch.Generator(device=dev).manual_seed(255),
+                       ctot[: lc + 1], lc, device=dev)
+    phi_card = qe_c.phi_from_alm(tc).cpu().numpy()
+    phi_cpu = qe_c.phi_from_alm(tc.cpu()).numpy()
+    gbar_cpu = cqe.qtt_bar(tc.cpu(), rings_c, lc, qe_c.fl,
+                           qe_c.wl).numpy()
+    ls_c = almops.lm_indices(lc)[0]
+    scale = np.max(np.abs(gbar_cpu)) * qe_c._rinv_dense[ls_c]
+    errc = float(np.max(np.abs(phi_card - phi_cpu) / scale))
+    errc_max = float(np.max(np.abs(phi_card - phi_cpu))
+                     / np.max(np.abs(phi_cpu)))
+    check(np.isfinite(phi_card).all() and errc <= 1e-5,
+          f"20: phi_from_alm card vs CPU at lmax {lc}: {errc:.3e}")
+    print(f"[20c] phi_from_alm lmax {lc} on {rings_c.ntheta} rings, one "
+          f"draw: card vs "
+          f"CPU {errc:.3e} of max|gbar| x 1/R_L (<= 1e-5); {errc_max:.3e} "
+          "of max|phi|")
+
+    # (d) closure: binned cross, +-phi and N0 ratios against expectations
+    edges = np.append(np.arange(20, 1000, 100), 1001)
+    worst = 0.0
+    nbins = 0
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        sel = (Ld >= lo) & (Ld < hi)
+        L, w = Ld[sel], 2.0 * Ld[sel] + 1.0
+        c, n0 = clpp[L], n0_L[sel]
+        den = np.sum(w * spec["phi"][L])
+        r = float(np.sum(w * spec["cross"][L]) / den)
+        r_d = float(np.sum(w * spec["cross_d"][L]) / den)
+        e = float(np.sum(w * c * e_L[sel]) / np.sum(w * c))
+        n_rec = spec["even"][L] / nsim_d
+        sig_g = math.sqrt(np.sum(w * (c + n_rec) * c) / nsim_d) / np.sum(
+            w * c)
+        sig_r = math.sqrt(np.sum(spec["X2"][L])) / den
+        sig = math.hypot(sig_g, sig_r)
+        ne = n0 * e_L[sel] ** 2
+        a = float(np.sum(w * spec["null"][L]) / (nsim_d * np.sum(w * ne)))
+        a_raw = float(np.sum(w * spec["null"][L])
+                      / (nsim_d * np.sum(w * n0)))
+        sig0 = math.sqrt(2.0 * np.sum(w * ne ** 2) / nsim_d) / np.sum(w * ne)
+        pull, pull_d = (r - e) / sig, (r_d - e) / sig_r
+        pull0 = (a - 1.0) / sig0
+        worst = max(worst, abs(pull), abs(pull_d), abs(pull0))
+        nbins += 1
+        print(f"[20d] L {lo}-{hi - 1}: expected {e:.5f}; cross r = "
+              f"{r:.5f}, sigma {sig:.5f} (Gaussian {sig_g:.5f} with the "
+              f"sims' noise power {np.sum(w * n_rec) / np.sum(w * ne):.3f} "
+              f"N0, response {sig_r:.5f}), pull {pull:+.2f}; +-phi r_d = "
+              f"{r_d:.5f}, pull {pull_d:+.2f}; N0 auto ratio {a:.5f} (to "
+              f"n0_tt alone {a_raw:.5f}), sigma {sig0:.5f}, pull "
+              f"{pull0:+.2f}")
+    check(worst <= 5.0, f"20: closure off by {worst:.2f} sigma")
+    print(f"[20d] closure over L 20-1000 in {nbins} bins, {nsim_d} lensed "
+          f"sims at +-phi and {nsim_d} phi = 0 sims: worst pull {worst:.2f} "
+          f"(<= 5); the exact sums at {Ld.size} Ls on the card "
+          f"{dt_dense:.3f} s")
+
+    # (e) throughput of phi_from_alm on 4 sims
+    def step():
+        return qe.phi_from_alm(tlm_e)
+    ms = throughput(step, nsims, 5, f"curved_qe_recons_per_sec_lmax{lmax}"
+                    f"_batch{nsims} (3072 GL rings x 6144, phi_from_alm)",
+                    "recons/s", card, "20e")
+    kern = profile_steps(step, 2, ms, "20e")
+    share = {k: sum(e.self_device_time_total for e in kern
+                    if any(p in e.key.lower() for p in pats)) / 2e3
+             for k, pats in (("fft", ("fft",)), ("ana", ("ana_kernel",)),
+                             ("syn", ("syn_kernel",)))}
+    print(f"[20e] one call of {nsims} sims: B10a {share['ana']:.4f} ms, "
+          f"B10s {share['syn']:.4f} ms, ring FFTs (cuFFT) "
+          f"{share['fft']:.4f} ms, of {ms:.4f} ms")
+    results["legendre_ana_qe"]["launches"] = counts["legendre_ana"]
+    results["legendre_syn_qe"]["launches"] = counts["legendre_syn"]
+    for k in ("legendre_ana", "legendre_syn"):
+        results[k].setdefault("launches_by_path", {})["curved_qe"] = \
+            counts[k]
+    del qe, qe_c, tlm_e
+    leg.clear_tables()
+    torch.cuda.empty_cache()
+    print(f"[20] the phase took {time.perf_counter() - t20:.3f} s on {card}")
 
 
 def card_line():
@@ -3965,6 +4255,10 @@ def main():
         results[k + "_full"].setdefault("launches_by_path", {})[
             "examples"] = v
 
+    # ---- 20. the curved-sky TT quadratic estimator at lmax 2047 on 3072
+    # Gauss-Legendre rings (models/curved_qe; B10s and B10a folded)
+    curved_qe_phase(dev, card, results, reset_counts, read_counts)
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for r in results.values():
@@ -3974,7 +4268,8 @@ def main():
                       + [results[k] for k in (
                           "bin_reduce_config5", "bin_reduce_pureb",
                           "bin_reduce_f64", "legendre_ana_full",
-                          "legendre_syn_full")]}))
+                          "legendre_syn_full", "legendre_ana_qe",
+                          "legendre_syn_qe")]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -76,8 +76,9 @@
 //   block runs the union of its groups' live chunks, a warp skips the chunks
 //   outside its own, and the lanes of a dead group hold no seed (their
 //   values stay zero: the dead-group skip).
-// * Instances: 1, 2, 4, 8 and 16 maps a launch (B10a folded: up to 8, the
-//   register budget of S0's and S1's fragments), one column tile per 4 maps;
+// * Instances: 1, 2, 4, 8 and 16 maps a launch (B10a folded: 9-16 maps as
+//   two groups of blocks, a grid layer each, since S0's and S1's fragments
+//   of 8 maps fill the registers), one column tile per 4 maps;
 //   RR = 2 in B10a where one column tile holds the maps and the grid has
 //   513-1024 rings. Every (l, m) or (ring, m) sum runs in an order that
 //   depends on the ring count only, so two runs, and a map alone or in a
@@ -360,14 +361,15 @@ __device__ inline void chunk_bounds(const Tabs& tb, int m, int g0, int gstep,
 // B10a. G: the maps' (nmaps, Tr, M1, 2) TI, Tr = T rings when folded, else
 // Tk; out: the maps' (nmaps, L1, M1, 2) TI when direct, else fp64 partials
 // (nsg, nmaps, L1, M1, 2), nsg = the grid's 512 RR-ring groups. Grid (M1,
-// nsg), 512 threads. Warp w, slot r holds the rings (sg RR + r) 512 + 32 w
-// + lane. The B columns are P cp, cp = 2 nmaps (re, im per map); folded
-// (P = 2) S0's then S1's: the even-l rows (0-7 of the warp buffer) keep
-// S0's, the odd-l rows (8-15) S1's.
+// nsg, map groups), 512 threads; block z takes the maps [z gmaps, z gmaps
+// + gmaps) (fewer in the last group). Warp w, slot r holds the rings (sg RR
+// + r) 512 + 32 w + lane. The B columns are P cp, cp = 2 (the group's maps)
+// (re, im per map); folded (P = 2) S0's then S1's: the even-l rows (0-7 of
+// the warp buffer) keep S0's, the odd-l rows (8-15) S1's.
 template <typename TI, typename R, bool FOLD, int NTB, int RR>
 __global__ void __launch_bounds__(ANA_NW * 32, 1)
 ana_kernel(Tabs tb, const TI* __restrict__ G, void* __restrict__ out,
-           int nmaps, int L1, int Tr, int T, int direct) {
+           int nmaps, int gmaps, int L1, int Tr, int T, int direct) {
   constexpr int P = FOLD ? 2 : 1;
   constexpr int NTH = ANA_NW * 32;
   constexpr int S = 32 * RR + 4;        // Lambda buffer row stride
@@ -383,13 +385,15 @@ ana_kernel(Tabs tb, const TI* __restrict__ G, void* __restrict__ out,
   const int m = blockIdx.x, sg = blockIdx.y;
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, q = lane & 3;
-  const int cp = 2 * nmaps, cb = P * cp;
+  const int b0 = blockIdx.z * gmaps;           // the group's first map
+  const int cp = 2 * min(gmaps, nmaps - b0), cb = P * cp;
   const int ring0 = sg * RR * NTH + 32 * w;   // slot r adds r * NTH
+  G += static_cast<int64_t>(b0) * Tr * tb.M1 * 2;
   // output element (map column c, l) of this m
-  const int64_t slab = static_cast<int64_t>(cp) * L1 * tb.M1;
+  const int64_t slab = static_cast<int64_t>(2 * nmaps) * L1 * tb.M1;
   auto put = [&](int c, int l, double v) {
-    const int64_t i = (static_cast<int64_t>(c >> 1) * L1 + l) * tb.M1 * 2
-        + 2 * m + (c & 1);
+    const int64_t i = (static_cast<int64_t>(b0 + (c >> 1)) * L1 + l)
+        * tb.M1 * 2 + 2 * m + (c & 1);
     if (direct)
       static_cast<TI*>(out)[i] = static_cast<TI>(v);
     else
@@ -812,7 +816,7 @@ int set_smem(K kernel, int bytes) {
 }
 
 struct AnaArgs {
-  int nmaps, L1, Tr, T, direct;
+  int nmaps, gmaps, L1, Tr, T, direct;
 };
 
 template <typename TI, typename R, bool FOLD, int NTB, int RR>
@@ -826,24 +830,33 @@ int launch_ana(const Tabs& tb, const void* G, void* out, const AnaArgs& g,
   static const int attr = set_smem(ana_kernel<TI, R, FOLD, NTB, RR>, smem);
   if (attr != 0) return attr;
   const int nsg = (tb.Tk + RR * ANA_NW * 32 - 1) / (RR * ANA_NW * 32);
-  ana_kernel<TI, R, FOLD, NTB, RR><<<dim3(tb.M1, nsg), ANA_NW * 32, smem,
-                                     st>>>(tb, static_cast<const TI*>(G),
-                                           out, g.nmaps, g.L1, g.Tr, g.T,
-                                           g.direct);
+  const int nz = (g.nmaps + g.gmaps - 1) / g.gmaps;
+  ana_kernel<TI, R, FOLD, NTB, RR><<<dim3(tb.M1, nsg, nz), ANA_NW * 32,
+                                     smem, st>>>(
+      tb, static_cast<const TI*>(G), out, g.nmaps, g.gmaps, g.L1, g.Tr, g.T,
+      g.direct);
   return static_cast<int>(cudaGetLastError());
 }
 
-// NTB column tiles of 8 for the P 2 nmaps columns: 1, 2 or 4 (folded: up
-// to 8 maps); RR = 2 with one tile only (the shared memory of two slots'
-// partials)
+// NTB column tiles of 8 for the P 2 gmaps columns of a map group: 1, 2 or
+// 4; RR = 2 with one tile only (the shared memory of two slots' partials)
 int ana_tiles(int nmaps, int fold) {
   return ((fold ? 4 : 2) * nmaps + 7) / 8;
+}
+
+// maps a block takes: all of them, or folded (S0's and S1's fragments fill
+// the registers at 8 maps) the launch's maps split into equal groups of up
+// to 8, one grid layer each
+int ana_group(int nmaps, int fold) {
+  const int cap = fold ? 8 : MAXB;
+  const int ngrp = (nmaps + cap - 1) / cap;
+  return (nmaps + ngrp - 1) / ngrp;
 }
 
 template <typename TI, typename R, bool FOLD>
 int ana_dispatch(const Tabs& tb, const void* G, void* out, const AnaArgs& g,
                  int rr, cudaStream_t st) {
-  const int ntb = ana_tiles(g.nmaps, FOLD);
+  const int ntb = ana_tiles(g.gmaps, FOLD);
   if (rr == 2) return launch_ana<TI, R, FOLD, 1, 2>(tb, G, out, g, st);
   if (ntb == 1) return launch_ana<TI, R, FOLD, 1, 1>(tb, G, out, g, st);
   if (ntb == 2) return launch_ana<TI, R, FOLD, 2, 1>(tb, G, out, g, st);
@@ -901,8 +914,9 @@ extern "C" {
 // else fp32; out, every element written: when direct, the maps' (nmaps,
 // L1, M1, 2) in G's type, else fp64 partials (nsg, nmaps, L1, M1, 2) with
 // nsg = ceil(Tk / (512 rr)) for the caller to sum in order. rr = 2 needs
-// one column tile (2 maps folded, 4 not) and Tk <= 1024; folded, nmaps <=
-// 8. fast is ignored for fp64 inputs.
+// one column tile (2 maps folded, 4 not) and Tk <= 1024; folded, more than
+// 8 maps run as two groups of blocks (ana_group). fast is ignored for fp64
+// inputs.
 int legendre_ana_launch(const void* A, const void* B, const void* C,
                         const void* x, const float* xlo, const void* s1,
                         const void* s0,
@@ -913,11 +927,11 @@ int legendre_ana_launch(const void* A, const void* B, const void* C,
                         void* stream) {
   if (bad_shape(M1, Lp, Tk, ng, nmaps) || L1 < 1 || L1 > Lp
       || (fold ? (Tr != T || Tk != (T + 1) / 2) : Tr != Tk)
-      || ana_tiles(nmaps, fold) > 4 || (rr != 1 && rr != 2)
+      || (rr != 1 && rr != 2)
       || (rr == 2 && (ana_tiles(nmaps, fold) != 1 || Tk > 1024)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Tabs tb{A, B, C, x, xlo, s1, s0, se, ls, bounds, M1, Lp, Tk, ng};
-  const AnaArgs g{nmaps, L1, Tr, T, direct};
+  const AnaArgs g{nmaps, ana_group(nmaps, fold), L1, Tr, T, direct};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (f64)
     return fold ? ana_dispatch<double, double, true>(tb, G, out, g, rr, st)

@@ -53,8 +53,7 @@ _INV = float(2.0 ** -_RESCALE_BITS)
 _TH = float(2.0 ** (_RESCALE_BITS // 2))
 _TG = 32       # rings per group of the loop bounds, csrc/legendre.cu TG
 _LC = 16       # l-steps per chunk, csrc/legendre.cu LC
-_MAXB = 16     # maps per launch
-_ANA_FOLD_MAXB = 8   # folded B10a: S0's and S1's fragments fill the registers
+_MAXB = 16     # maps per launch (folded B10a: two groups of blocks past 8)
 _ANA_RINGS = 512     # rings per B10a block and slot (16 warps of 32)
 
 
@@ -645,11 +644,10 @@ def legendre_ana(G, tab, fast: bool = False):
     Gk = torch.view_as_real(G.resolve_conj().contiguous())
     nb, Tr, M1 = G.shape
     L1, Tk = tab["lmax"] + 1, k["Tk"]
-    cap = _ANA_FOLD_MAXB if fold else _MAXB
     out = torch.empty((nb, L1, M1, 2), dtype=rdt, device=G.device)
     stream = torch.cuda.current_stream(G.device).cuda_stream
-    for b0 in range(0, nb, cap):
-        n = min(cap, nb - b0)
+    for b0 in range(0, nb, _MAXB):
+        n = min(_MAXB, nb - b0)
         # two rings a lane where one column tile holds the maps and one
         # block of 1024 rings then covers the grid; else one block per 512
         # rings, whose partial sums are added here in ring order (the

@@ -244,7 +244,7 @@ _SLICE_MODULES = ("ops.distance", "ops.matfft", "ops.algorithms",
                   "parallel.statistics", "parallel.runtime",
                   "parallel.fourier", "parallel.sht", "utils.fitting",
                   "utils.profiling", "models.catalogs", "utils.plot",
-                  "utils.io", "utils.fitsio")
+                  "utils.io", "utils.fitsio", "models.curved_qe")
 
 
 @pytest.mark.parametrize("path", _CORE_MODULES + _SLICE_MODULES)
@@ -281,7 +281,8 @@ def test_slice_names_resolve(path):
 # the JAX modules that define a class the port also has, by their path in
 # both packages (test_class_method_modules_are_listed keeps this whole)
 _CLASS_MODULES = ("geometry", "interfaces", "maps", "models.catalogs",
-                  "models.cosmology", "models.curved", "models.fastcl",
+                  "models.cosmology", "models.curved", "models.curved_qe",
+                  "models.fastcl",
                   "models.grf", "models.lensing", "models.lenspipe",
                   "models.mapstools", "models.qe", "models.shear",
                   "models.splitlens", "models.szhalo", "models.theory",
@@ -321,14 +322,14 @@ def test_class_methods_resolve(path):
 
 
 def test_class_method_modules_are_listed():
-    """``_CLASS_MODULES`` names every JAX module (but the Pallas kernels'
-    and the unported ``curved_qe``) that defines a class the port has."""
+    """``_CLASS_MODULES`` names every JAX module (but the Pallas kernels')
+    that defines a class the port has."""
     import pkgutil
     import orphics_tpu
     found = set()
     for m in pkgutil.walk_packages(orphics_tpu.__path__, "orphics_tpu."):
         leaf = m.name.rsplit(".", 1)[-1]
-        if leaf.startswith("pallas_") or leaf == "curved_qe":
+        if leaf.startswith("pallas_"):
             continue
         path = m.name[len("orphics_tpu."):]
         if _ported_classes(path):

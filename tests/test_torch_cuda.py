@@ -576,7 +576,7 @@ def _asym_rings(lmax):
 @pytest.mark.cuda
 @pytest.mark.parametrize("lmax,grid,ns,ni,B,mode", [
     (1023, "gl", (0,), 0, 3, "f32"),       # fold, 16 warps, dead groups
-    (1023, "gl", (0,), 0, 9, "fast"),      # B10a two launches (8 + 1)
+    (1023, "gl", (0,), 0, 9, "fast"),      # B10a: groups of 5 + 4 maps
     (300, "asym", (0,), 0, 2, "f32"),      # unfolded, 301 rings: ragged
     (300, "gl", (-2, 2), 1, 2, "f64"),     # spin column, northern rings
     (1023, "gl", (-2, 2), 0, 16, "f32"),   # config 8p: 16 maps, one launch
@@ -585,12 +585,16 @@ def _asym_rings(lmax):
     (1023, "gl", (0,), 0, 16, "fast"),     # the same, fast
     (700, "asym", (0,), 0, 3, "f32"),      # 701 rings: two per lane, ragged
     (1100, "asym", (0,), 0, 5, "f64"),     # 1101 rings: three B10a groups
+    (300, "over", (0,), 0, 12, "f32"),     # rings exact to 3 lmax: 451
+    (1023, "over", (0,), 0, 12, "f32"),    # 1535 rings, 12 maps, folded
 ])
 def test_legendre_kernels_match_ref(cuda_device, lmax, grid, ns, ni, B,
                                     mode):
     rings = {"gl": sht.gauss_legendre_rings, "asym": _asym_rings,
-             "cc": lambda L: sht.clenshaw_curtis_rings(2 * L + 1)}[grid](
-                 lmax)
+             "cc": lambda L: sht.clenshaw_curtis_rings(2 * L + 1),
+             # the curved-sky QE's grid: exact to degree 3 lmax
+             "over": lambda L: sht.gauss_legendre_rings(-(-3 * L // 2))}[
+                 grid](lmax)
     layout = ("full" if grid == "asym" else
               "half" if ns != (0,) else "fold")
     tab = leg.tables(lmax, rings, ns, ni, layout, cuda_device)
@@ -607,16 +611,15 @@ def test_legendre_kernels_match_ref(cuda_device, lmax, grid, ns, ni, B,
     fast = mode == "fast"
     G = cplx(B, tab["Tr"], lmax + 1)
     a = cplx(B, lmax + 1, lmax + 1)
-    ana_cap = 8 if layout == "fold" else 16     # maps per launch
-    for fn, ref_fn, x, cap in (
-            (leg.legendre_ana, leg.legendre_ana_ref, G, ana_cap),
-            (leg.legendre_syn, leg.legendre_syn_ref, a, 16)):
+    for fn, ref_fn, x in (
+            (leg.legendre_ana, leg.legendre_ana_ref, G),
+            (leg.legendre_syn, leg.legendre_syn_ref, a)):
         before = fn.launches
         got = fn(x, tab, fast)
         again = fn(x, tab, fast)
         one = fn(x[-1:], tab, fast)
         torch.cuda.synchronize()
-        assert fn.launches == before + 2 * (-(-B // cap)) + 1
+        assert fn.launches == before + 2 * (-(-B // 16)) + 1  # 16 a launch
         assert got.dtype == x.dtype
         ref = ref_fn(x, tab)
         err = (got - ref).abs().max().item() / ref.abs().max().item()

@@ -42,7 +42,7 @@ def test_package_reexports_resolve(pkg):
     jmod = importlib.import_module("orphics_tpu" + (pkg and "." + pkg))
     tmod = importlib.import_module("orphics_tpu_torch" + (pkg and "." + pkg))
     names = [n for n in vars(jmod) if not n.startswith("_")
-             and n not in PALLAS and n not in ("annotations", "curved_qe")]
+             and n not in PALLAS and n != "annotations"]
     assert names
     for n in names:
         if isinstance(getattr(jmod, n), types.ModuleType) \
