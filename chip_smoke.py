@@ -485,7 +485,9 @@ class CallRecorder:
         self.count = count
         self.code = {}
         for fn in entries:
-            co = fn.__code__
+            # a span wrapper's own code is shared and takes *args: watch
+            # the function it wraps
+            co = getattr(fn, "__wrapped__", fn).__code__
             check(co.co_kwonlyargcount == 0 and not co.co_flags & 0x0C,
                   f"{fn.__name__}: not a plain positional signature")
             self.code[co] = fn

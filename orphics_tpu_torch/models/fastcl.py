@@ -35,6 +35,7 @@ from ..ops import dft as D
 from ..ops.bin_reduce import bin2_reduce, bin_reduce
 from ..ops.mirror import _mirror_tables
 from ..ops.rowpower import qc_fields, rows_pp, rowqc_pp, s_field
+from ..utils.profiling import span, spanned
 from .grf import spec2flat
 
 __all__ = ["FastCl", "drop_edge_segments"]
@@ -135,23 +136,29 @@ class FastCl:
     def _pair_bandpowers(self, m1, m2):
         """Binned ``|F1|^2``, ``|F2|^2`` of packed real-map pairs: B3
         ``colfft``, then :meth:`_pair_bandpowers_y`."""
-        return self._pair_bandpowers_y(*D.colfft(m1, m2))
+        with span("orphics.fastcl.colfft"):
+            y = D.colfft(m1, m2)
+        return self._pair_bandpowers_y(*y)
 
     def _pair_bandpowers_y(self, yr, yi):
         """The same from the column intermediate ``Y`` (a synthesis passes
         its pre-column ``Y'`` directly)."""
         npairs = yr.shape[0]
-        qs, cc, zrow_r, zrow_i = rowqc_pp(yr, yi)
-        bqc, bcc = bin2_reduce(qs.reshape(npairs, -1),
-                               cc.reshape(npairs, -1), self._idc, self._nsg)
-        del qs, cc
-        bq0, bc0 = self._row_bins(zrow_r, zrow_i, 0, self._ids0)
-        bqn, bcn = self._row_bins(zrow_r, zrow_i, self._pnyq, self._idsn)
-        bq = (2.0 * bqc - bq0 + bqn)[:, 1:-1]
-        bc = (2.0 * bcc - bc0 + bcn)[:, 1:-1]
-        hn = float(np.float32(0.5) * np.float32(self._norm))
-        b1 = (bq + bc) * hn * self._icnt
-        b2 = (bq - bc) * hn * self._icnt
+        with span("orphics.fastcl.power"):
+            qs, cc, zrow_r, zrow_i = rowqc_pp(yr, yi)
+        with span("orphics.fastcl.bin"):
+            bqc, bcc = bin2_reduce(qs.reshape(npairs, -1),
+                                   cc.reshape(npairs, -1), self._idc,
+                                   self._nsg)
+            del qs, cc
+            bq0, bc0 = self._row_bins(zrow_r, zrow_i, 0, self._ids0)
+            bqn, bcn = self._row_bins(zrow_r, zrow_i, self._pnyq,
+                                      self._idsn)
+            bq = (2.0 * bqc - bq0 + bqn)[:, 1:-1]
+            bc = (2.0 * bcc - bc0 + bcn)[:, 1:-1]
+            hn = float(np.float32(0.5) * np.float32(self._norm))
+            b1 = (bq + bc) * hn * self._icnt
+            b2 = (bq - bc) * hn * self._icnt
         return b1, b2
 
     def _check_sim(self, batch):
@@ -160,6 +167,7 @@ class FastCl:
         if batch % 2:
             raise ValueError("batch must be even (pair-packed sims)")
 
+    @spanned("orphics.fastcl.sim_bandpowers")
     def sim_bandpowers(self, seed, batch: int):
         """``(batch, nbins)`` binned auto bandpowers of ``batch`` fresh GRF
         sims, two maps per complex synthesis (``batch`` must be even).
@@ -168,21 +176,25 @@ class FastCl:
         engine's device, which draws the two words there with no host
         round trip. The white noise is drawn inside B5."""
         self._check_sim(batch)
-        if isinstance(seed, torch.Generator):
-            seed = torch.randint(-2 ** 31, 2 ** 31, (2,), generator=seed,
-                                 dtype=torch.int64, device=self.device) \
-                .to(torch.int32)
-        yr, yi = D.rowifft_noise_y(self._covsqrt_pp, seed, batch // 2)
+        with span("orphics.fastcl.synth"):
+            if isinstance(seed, torch.Generator):
+                seed = torch.randint(-2 ** 31, 2 ** 31, (2,), generator=seed,
+                                     dtype=torch.int64, device=self.device) \
+                    .to(torch.int32)
+            yr, yi = D.rowifft_noise_y(self._covsqrt_pp, seed, batch // 2)
         return torch.cat(self._pair_bandpowers_y(yr, yi))
 
+    @spanned("orphics.fastcl.sim_bandpowers_from_noise")
     def sim_bandpowers_from_noise(self, er, ei):
         """:meth:`sim_bandpowers` from given white noise ``(npairs, n, n)``
         re/im planes in the doubly-permuted layout (B4
         ``rowifft_scaled_y``; the JAX method's key branch)."""
         self._check_sim(2 * er.shape[0])
-        yr, yi = D.rowifft_scaled_y(er, ei, self._covsqrt_pp)
+        with span("orphics.fastcl.synth"):
+            yr, yi = D.rowifft_scaled_y(er, ei, self._covsqrt_pp)
         return torch.cat(self._pair_bandpowers_y(yr, yi))
 
+    @spanned("orphics.fastcl.cross_bandpowers")
     def cross_bandpowers(self, maps1, maps2, window=None):
         """``(B, nbins)`` binned cross spectra ``Re(x_hat conj(y_hat))`` of
         two real map sets ``(B, n, n)``, one packed transform per pair: for
@@ -191,31 +203,38 @@ class FastCl:
         ``window`` is applied on the first transform's load (B3s; the
         windowed maps never reach device memory); debias the result by the
         window's ``w2`` yourself."""
-        m1 = torch.as_tensor(maps1, dtype=torch.float32, device=self.device)
-        m2 = torch.as_tensor(maps2, dtype=torch.float32, device=self.device)
-        if m1.ndim == 2:
-            m1, m2 = m1[None], m2[None]
-        if m1.shape != m2.shape:
-            raise ValueError(f"map sets must match: {tuple(m1.shape)} vs "
-                             f"{tuple(m2.shape)}")
-        m1, m2 = m1.contiguous(), m2.contiguous()
-        if window is not None:
-            w = torch.as_tensor(window, dtype=torch.float32,
-                                device=self.device).contiguous()
-            yr, yi = D.colfft_scaled(m1, m2, w)
-        else:
-            yr, yi = D.colfft(m1, m2)
-        s, zrow_r, zrow_i = rows_pp(yr, yi)
-        del yr, yi
-        bsh = bin_reduce(s.reshape(s.shape[0], -1), self._idc, self._nsg)
-        del s
-        (s0,) = self._row_bins(zrow_r, zrow_i, 0, self._ids0, s_field)
-        (sn,) = self._row_bins(zrow_r, zrow_i, self._pnyq, self._idsn,
-                               s_field)
-        bs = (2.0 * bsh - s0 + sn)[:, 1:-1]
-        hn = float(np.float32(0.5) * np.float32(self._norm))
-        return bs * hn * self._icnt
+        with span("orphics.fastcl.colfft"):
+            m1 = torch.as_tensor(maps1, dtype=torch.float32,
+                                 device=self.device)
+            m2 = torch.as_tensor(maps2, dtype=torch.float32,
+                                 device=self.device)
+            if m1.ndim == 2:
+                m1, m2 = m1[None], m2[None]
+            if m1.shape != m2.shape:
+                raise ValueError(f"map sets must match: {tuple(m1.shape)} "
+                                 f"vs {tuple(m2.shape)}")
+            m1, m2 = m1.contiguous(), m2.contiguous()
+            if window is not None:
+                w = torch.as_tensor(window, dtype=torch.float32,
+                                    device=self.device).contiguous()
+                yr, yi = D.colfft_scaled(m1, m2, w)
+            else:
+                yr, yi = D.colfft(m1, m2)
+        with span("orphics.fastcl.power"):
+            s, zrow_r, zrow_i = rows_pp(yr, yi)
+            del yr, yi
+        with span("orphics.fastcl.bin"):
+            bsh = bin_reduce(s.reshape(s.shape[0], -1), self._idc,
+                             self._nsg)
+            del s
+            (s0,) = self._row_bins(zrow_r, zrow_i, 0, self._ids0, s_field)
+            (sn,) = self._row_bins(zrow_r, zrow_i, self._pnyq, self._idsn,
+                                   s_field)
+            bs = (2.0 * bsh - s0 + sn)[:, 1:-1]
+            hn = float(np.float32(0.5) * np.float32(self._norm))
+            return bs * hn * self._icnt
 
+    @spanned("orphics.fastcl.map_bandpowers")
     def map_bandpowers(self, maps):
         """``(B, nbins)`` binned auto power spectra of real maps
         ``(B, n, n)``; odd ``B`` is padded with a zero map internally."""

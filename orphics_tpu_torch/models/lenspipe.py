@@ -39,6 +39,7 @@ from ..ops.binning import RfftBin2D
 from ..ops.lens import _bspline_freq_response, lens_map_kernel, supported
 from ..ops.mirror import mirror_pp
 from ..ops.noise_planes import noise_planes
+from ..utils.profiling import span, spanned
 from . import grf as _grf
 from . import qe as _qe
 
@@ -214,50 +215,56 @@ class LensedQEPipeline:
         and the B1 bin reduce.
         """
         (zkr, zki), (zcr, zci), (wr, wi) = zk, zc, w
-        # Hermitian split of the kappa pair -> per-map input kappa
-        zmr, zmi = mirror_pp(zkr, zki)
-        Zkr = self._interleave(0.5 * (zkr + zmr), 0.5 * (zki + zmi))
-        Zki = self._interleave(0.5 * (zki - zmi), 0.5 * (zmr - zkr))
-        del zmr, zmi
-        # CMB spline coefficients: two real maps per inverse
-        c1, c2 = D.ifft2pp(zcr, zci)
-        coeffs = self._interleave(c1, c2)
-        del c1, c2
-        # deflection: A = (i cy + i * i cx) Zk -> one inverse gives
-        # (alpha_y, alpha_x) as Re/Im of one complex map per map
-        ar = -self.cy_pp * Zki - self.cx_pp * Zkr
-        ai = self.cy_pp * Zkr - self.cx_pp * Zki
-        ay, ax = D.ifft2pp(ar, ai)
-        del ar, ai
-        alpha = torch.stack([ay, ax], dim=1)              # (B, 2, n, n)
-        del ay, ax
-        lensed = lens_map_kernel(coeffs[:, None], alpha, self.geom,
-                                 order=self.lens_order,
-                                 maxdisp_px=self.maxdisp_px,
-                                 prefiltered=True)[:, 0]
-        del coeffs, alpha
-        # observed spectra: pair-packed forward + spectral noise add
-        Zor, Zoi = D.fft2pp(lensed[0::2].contiguous(),
-                            lensed[1::2].contiguous())
-        del lensed
-        Zor = Zor + wr
-        Zoi = Zoi + wi
-        omr, omi = mirror_pp(Zor, Zoi)
-        Xr = self._interleave(0.5 * (Zor + omr), 0.5 * (Zoi + omi))
-        Xi = self._interleave(0.5 * (Zoi - omi), 0.5 * (omr - Zor))
-        del Zor, Zoi, omr, omi
+        with span("orphics.lenspipe.kappa"):
+            # Hermitian split of the kappa pair -> per-map input kappa
+            zmr, zmi = mirror_pp(zkr, zki)
+            Zkr = self._interleave(0.5 * (zkr + zmr), 0.5 * (zki + zmi))
+            Zki = self._interleave(0.5 * (zki - zmi), 0.5 * (zmr - zkr))
+            del zmr, zmi
+        with span("orphics.lenspipe.deflect"):
+            # CMB spline coefficients: two real maps per inverse
+            c1, c2 = D.ifft2pp(zcr, zci)
+            coeffs = self._interleave(c1, c2)
+            del c1, c2
+            # deflection: A = (i cy + i * i cx) Zk -> one inverse gives
+            # (alpha_y, alpha_x) as Re/Im of one complex map per map
+            ar = -self.cy_pp * Zki - self.cx_pp * Zkr
+            ai = self.cy_pp * Zkr - self.cx_pp * Zki
+            ay, ax = D.ifft2pp(ar, ai)
+            del ar, ai
+            alpha = torch.stack([ay, ax], dim=1)          # (B, 2, n, n)
+            del ay, ax
+        with span("orphics.lenspipe.lens"):
+            lensed = lens_map_kernel(coeffs[:, None], alpha, self.geom,
+                                     order=self.lens_order,
+                                     maxdisp_px=self.maxdisp_px,
+                                     prefiltered=True)[:, 0]
+            del coeffs, alpha
+        with span("orphics.lenspipe.observe"):
+            # observed spectra: pair-packed forward + spectral noise add
+            Zor, Zoi = D.fft2pp(lensed[0::2].contiguous(),
+                                lensed[1::2].contiguous())
+            del lensed
+            Zor = Zor + wr
+            Zoi = Zoi + wi
+            omr, omi = mirror_pp(Zor, Zoi)
+            Xr = self._interleave(0.5 * (Zor + omr), 0.5 * (Zoi + omi))
+            Xi = self._interleave(0.5 * (Zoi - omi), 0.5 * (omr - Zor))
+            del Zor, Zoi, omr, omi
         fkr, fki = self.qe.kappa_tt_pallas(Xr, Xi)
         del Xr, Xi
-        norm = self.norm
-        cross = (fkr * Zkr + fki * Zki) * norm
-        auto_in = (Zkr * Zkr + Zki * Zki) * norm
-        auto_rec = (fkr * fkr + fki * fki) * norm - self.n0_pp[None]
-        stacked = torch.stack([cross, auto_in, auto_rec], dim=1) \
-            .reshape(3 * batch, -1)
-        sums = bin_reduce(stacked, self._idc, self._nseg)
-        out = sums[:, 1:] * self._icnt
-        return out.reshape(batch, 3, out.shape[-1])
+        with span("orphics.lenspipe.spectra"):
+            norm = self.norm
+            cross = (fkr * Zkr + fki * Zki) * norm
+            auto_in = (Zkr * Zkr + Zki * Zki) * norm
+            auto_rec = (fkr * fkr + fki * fki) * norm - self.n0_pp[None]
+            stacked = torch.stack([cross, auto_in, auto_rec], dim=1) \
+                .reshape(3 * batch, -1)
+            sums = bin_reduce(stacked, self._idc, self._nseg)
+            out = sums[:, 1:] * self._icnt
+            return out.reshape(batch, 3, out.shape[-1])
 
+    @spanned("orphics.lenspipe.draw")
     def draw_noise_pp(self, batch: int, generator: torch.Generator):
         """The three pair-level noise plane sets of :meth:`_pp_core`, drawn
         by the B5n kernel (plain ``torch.randn`` on the CPU); the seed
@@ -280,29 +287,40 @@ class LensedQEPipeline:
         complex Hermitian noise sets (CMB coefficients, kappa, instrument
         noise) -> ``(B, 3, nbins)`` binned spectra."""
         geom = self.geom
-        coeffs = F.irfft2(self.csq_coeff * eta_c, geom)      # spline coeffs
-        kin_h = self.csq_kk * eta_k                           # input kappa
-        alpha = F.irfft2(self.alpha_filt[None] * kin_h[:, None], geom)
-        lensed = lens_map_kernel(coeffs[:, None].contiguous(),
-                                 alpha.contiguous(), geom,
-                                 order=self.lens_order,
-                                 maxdisp_px=self.maxdisp_px,
-                                 prefiltered=True)[:, 0]
-        kobs_h = self.kbeam_h * F.rfft2(lensed, geom) + self.ncov_h * eta_n
-        fk = self.qe.kappa_tt_rfft(kobs_h * self.inv_beam_h)
-        cross = (fk.conj() * kin_h).real * self.norm
-        auto_in = (kin_h.conj() * kin_h).real * self.norm
-        auto_rec = (fk.conj() * fk).real * self.norm - self.n0_h[None]
-        _, binned = self.binner.bin(torch.stack([cross, auto_in, auto_rec],
-                                                dim=1))
-        return binned
+        with span("orphics.lenspipe.deflect"):
+            coeffs = F.irfft2(self.csq_coeff * eta_c, geom)  # spline coeffs
+        with span("orphics.lenspipe.kappa"):
+            kin_h = self.csq_kk * eta_k                       # input kappa
+        with span("orphics.lenspipe.deflect"):
+            alpha = F.irfft2(self.alpha_filt[None] * kin_h[:, None], geom)
+        with span("orphics.lenspipe.lens"):
+            lensed = lens_map_kernel(coeffs[:, None].contiguous(),
+                                     alpha.contiguous(), geom,
+                                     order=self.lens_order,
+                                     maxdisp_px=self.maxdisp_px,
+                                     prefiltered=True)[:, 0]
+        with span("orphics.lenspipe.observe"):
+            kobs_h = (self.kbeam_h * F.rfft2(lensed, geom)
+                      + self.ncov_h * eta_n)
+            xh = kobs_h * self.inv_beam_h
+        fk = self.qe.kappa_tt_rfft(xh)
+        del xh
+        with span("orphics.lenspipe.spectra"):
+            cross = (fk.conj() * kin_h).real * self.norm
+            auto_in = (kin_h.conj() * kin_h).real * self.norm
+            auto_rec = (fk.conj() * fk).real * self.norm - self.n0_h[None]
+            _, binned = self.binner.bin(torch.stack([cross, auto_in,
+                                                     auto_rec], dim=1))
+            return binned
 
+    @spanned("orphics.lenspipe.draw")
     def draw_noise(self, batch: int, generator: torch.Generator):
         """The three Hermitian half-plane noise sets :meth:`core` takes."""
         return tuple(_grf.rand_hermitian_half(self.geom, generator, (batch,),
                                               self.dtype, self.device)
                      for _ in range(3))
 
+    @spanned("orphics.lenspipe.step")
     def step(self, batch: int, generator: torch.Generator):
         """Run ``batch`` independent sim + reconstruction pipelines on the
         path of ``self.impl`` (the full-plane path needs an even batch)."""

@@ -27,6 +27,7 @@ from ..ops import dft as D
 from ..ops import fourier as F
 from ..ops.binning import Bin2D
 from ..ops.mirror import mirror_pp
+from ..utils.profiling import span, spanned
 
 __all__ = ["QE", "lensing_noise_2d", "NlGenerator", "rdn0", "mcn0", "n1_tt"]
 
@@ -35,10 +36,12 @@ LEG_FIELDS = {"TT": ("T", "T"), "TE": ("T", "E"), "EE": ("E", "E"),
               "EB": ("E", "B"), "TB": ("T", "B")}
 
 
+@spanned("orphics.transforms.qe_ifft2")
 def _ifft(a):
     return torch.fft.ifft2(a, dim=(-2, -1))
 
 
+@spanned("orphics.transforms.qe_fft2")
 def _fft(a):
     return torch.fft.fft2(a, dim=(-2, -1))
 
@@ -323,33 +326,41 @@ class QE:
             self._cache[key] = [t for t in self._filter_terms(est)
                                 if not (self._is_zero(t[2])
                                         or self._is_zero(t[3]))]
-        X = kx * self._phys
-        Y = ky * self._phys
+        legs = "orphics.qe.kappa_from_map.legs"
+        with span(legs):
+            X = kx * self._phys
+            Y = ky * self._phys
         Li = (self.ly, self.lx)
         out = 0.0
         for (d, a, w1, w2) in self._cache[key]:
             for (u1, u2, c) in self._angle_pairs(a):
                 if a == "s":
                     c = -c
-                A1 = u1 * w1 * X
-                A2 = u2 * w2 * Y
+                with span(legs):
+                    A1 = u1 * w1 * X
+                    A2 = u2 * w2 * Y
                 for i in range(2):
-                    B1, B2 = A1, A2
-                    if d == 1:
-                        B1 = B1 * Li[i]
-                    else:
-                        B2 = B2 * Li[i]
-                    out = out + (c * Li[i]) * self._conv(B1, B2)
+                    with span(legs):
+                        B1, B2 = A1, A2
+                        if d == 1:
+                            B1 = B1 * Li[i]
+                        else:
+                            B2 = B2 * Li[i]
+                    with span("orphics.qe.kappa_from_map.conv"):
+                        out = out + (c * Li[i]) * self._conv(B1, B2)
         return out
 
+    @spanned("orphics.qe.kappa_from_map")
     def kappa_from_map(self, est, kx, ky=None, return_ft: bool = True):
         """Reconstruct kappa from raw-fft k-map legs; returns the raw-fft
         kappa (or the real map with ``return_ft=False``)."""
         if ky is None:
             ky = kx
         uphi = self.unnormalized_phi(est, kx, ky)
-        phi = self.A_L(est) * uphi * self.kmask * (float(self.geom.area) ** 0.5)
-        fkappa_raw = 0.5 * self.modlmap ** 2 * phi / self._phys
+        with span("orphics.qe.kappa_from_map.normalize"):
+            phi = (self.A_L(est) * uphi * self.kmask
+                   * (float(self.geom.area) ** 0.5))
+            fkappa_raw = 0.5 * self.modlmap ** 2 * phi / self._phys
         if return_ft:
             return fkappa_raw
         return _ifft(fkappa_raw).real
@@ -401,6 +412,7 @@ class QE:
         self._cache["_tt_half"] = plans
         return plans
 
+    @spanned("orphics.qe.kappa_tt_rfft")
     def kappa_tt_rfft(self, xh, yh=None):
         """Fused TT kappa reconstruction on the rfft half-plane.
 
@@ -481,6 +493,7 @@ class QE:
         self._cache["_tt_pp"] = plans
         return plans
 
+    @spanned("orphics.qe.kappa_tt_pallas")
     def kappa_tt_pallas(self, zr, zi):
         """Fused TT reconstruction in the doubly-permuted layout, on the
         port's DFT (B3/B4) and mirror (B7) kernels.
@@ -505,31 +518,34 @@ class QE:
         if B % 2:
             raise ValueError("kappa_tt_pallas packs maps in pairs: the batch "
                              f"must be even, got {B}")
-        # (a + i alpha_y) per map: one real filter, one inverse
-        m_r, m_i = D.ifft2pp(wA * zr, wA * zi)
-        # alpha_x legs packed across consecutive maps
-        xr = wX * zr
-        xi = wX * zi
-        pr = xi[0::2] + xr[1::2]
-        pi = xi[1::2] - xr[0::2]
-        del xr, xi
-        ax_r, ax_i = D.ifft2pp(pr, pi)
-        del pr, pi
-        ax = torch.stack([ax_r, ax_i], dim=1).reshape(zr.shape)
-        del ax_r, ax_i
-        Sy = 4.0 * m_r * m_i
-        Sx = 4.0 * m_r * ax
-        del m_r, m_i, ax
-        Nr, Ni = D.fft2pp(Sy, Sx)
-        del Sy, Sx
-        Nmr, Nmi = mirror_pp(Nr, Ni)
-        g1r = 0.5 * (Nr + Nmr)
-        g1i = 0.5 * (Ni - Nmi)
-        g2r = 0.5 * (Ni + Nmi)
-        g2i = 0.5 * (Nmr - Nr)
-        ur = -(Ly * g1i + Lx * g2i)
-        ui = Ly * g1r + Lx * g2r
-        return post * ur, post * ui
+        with span("orphics.qe.kappa_tt_pallas.legs"):
+            # (a + i alpha_y) per map: one real filter, one inverse
+            m_r, m_i = D.ifft2pp(wA * zr, wA * zi)
+            # alpha_x legs packed across consecutive maps
+            xr = wX * zr
+            xi = wX * zi
+            pr = xi[0::2] + xr[1::2]
+            pi = xi[1::2] - xr[0::2]
+            del xr, xi
+            ax_r, ax_i = D.ifft2pp(pr, pi)
+            del pr, pi
+            ax = torch.stack([ax_r, ax_i], dim=1).reshape(zr.shape)
+            del ax_r, ax_i
+        with span("orphics.qe.kappa_tt_pallas.source"):
+            Sy = 4.0 * m_r * m_i
+            Sx = 4.0 * m_r * ax
+            del m_r, m_i, ax
+            Nr, Ni = D.fft2pp(Sy, Sx)
+            del Sy, Sx
+        with span("orphics.qe.kappa_tt_pallas.post"):
+            Nmr, Nmi = mirror_pp(Nr, Ni)
+            g1r = 0.5 * (Nr + Nmr)
+            g1i = 0.5 * (Ni - Nmi)
+            g2r = 0.5 * (Ni + Nmi)
+            g2i = 0.5 * (Nmr - Nr)
+            ur = -(Ly * g1i + Lx * g2i)
+            ui = Ly * g1r + Lx * g2r
+            return post * ur, post * ui
 
 
 def lensing_noise_2d(geom: Geometry, theory, beam_arcmin, noise_t_uk_arcmin,

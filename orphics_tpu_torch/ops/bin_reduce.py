@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from ..utils.profiling import spanned
 
 __all__ = ["bin_reduce", "bin_reduce_ref", "bin2_reduce", "bin2_reduce_ref",
            "bin_pair_power", "bin_pair_power_ref"]
@@ -130,6 +131,7 @@ def _launch(inputs, ids, nseg, weights, what, sym=False):
     return out
 
 
+@spanned("orphics.binning.bin_reduce")
 def bin_reduce(data, ids, nseg: int, weights=None):
     """``(B, N)`` float32 or float64 data, ``(N,)`` int32 ids (those outside
     ``[0, nseg)`` dropped), optional ``(N,)`` weights of the data's dtype ->
@@ -146,6 +148,7 @@ def bin_reduce(data, ids, nseg: int, weights=None):
     return bin_reduce_ref(data, ids, nseg, weights)
 
 
+@spanned("orphics.binning.bin2_reduce")
 def bin2_reduce(d1, d2, ids, nseg: int):
     """``(bin(d1), bin(d2))``: two ``(B, N)`` float32 inputs over one
     ``(N,)`` int32 id table -> two ``(B, nseg)`` float32 sums (B2; the
@@ -162,6 +165,7 @@ def bin2_reduce(d1, d2, ids, nseg: int):
     return bin2_reduce_ref(d1, d2, ids, nseg)
 
 
+@spanned("orphics.binning.bin_pair_power")
 def bin_pair_power(zr, zi, zmr, zmi, ids, nseg: int, sym: bool = False):
     """``(bin(q), bin(c))``, each ``(B, nseg)`` float32, for ``Z = F1 + i F2``
     the transform of two packed real maps and ``Zm(k) = Z(-k)`` its mirror,

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .._device import resolve
+from ..utils.profiling import spanned
 from .bin_reduce import bin_reduce
 
 __all__ = ["Bin2D", "RfftBin2D", "bin1d", "bin1D", "bin_in_annuli"]
@@ -52,6 +53,7 @@ class Bin2D:
         out = bin_reduce(flat.contiguous(), self._ids, self._nseg)
         return out.reshape(lead + (self._nseg,))[..., 1:-1]
 
+    @spanned("orphics.binning.Bin2D.bin")
     def bin(self, data2d, weights=None):
         """``(centers, means)`` of a 2D (or batch of 2D) array."""
         if weights is None:
@@ -104,6 +106,7 @@ class RfftBin2D:
         self._inv_counts = torch.as_tensor(
             (1.0 / safe * (self.counts > 0)).astype(np.float32), device=device)
 
+    @spanned("orphics.binning.RfftBin2D.bin")
     def bin(self, data2d_half):
         """``(centers, full-plane-equivalent bin means)`` from half-plane
         data ``(..., ny, nx//2+1)``."""

@@ -49,6 +49,7 @@ import torch
 
 from .. import _build
 from .._device import resolve
+from ..utils.profiling import spanned
 from .noise_planes import noise_planes_ref, seed_words
 
 __all__ = [
@@ -425,6 +426,7 @@ def _launch(xre, xim, row, inverse, scale, what):
     return ore, oim
 
 
+@spanned("orphics.transforms.colfft")
 def colfft(xre, xim):
     """DFT along axis -2 of ``(batch, n, C)`` re/im float32 planes; output
     rows in :func:`row_perm` order (B3)."""
@@ -436,6 +438,7 @@ def colfft(xre, xim):
     return colfft_ref(xre, xim)
 
 
+@spanned("orphics.transforms.colfft_scaled")
 def colfft_scaled(xre, xim, scale):
     """``colfft(scale * xre, scale * xim)`` with the product taken on the
     kernel's load, so the scaled maps never reach device memory; ``scale``:
@@ -453,6 +456,7 @@ def colfft_scaled(xre, xim, scale):
     return colfft_scaled_ref(xre, xim, scale)
 
 
+@spanned("orphics.transforms.colifft")
 def colifft(xre, xim):
     """Inverse DFT along axis -2: :func:`row_perm`-ordered rows in,
     natural rows out, 1/n included (B3)."""
@@ -464,6 +468,7 @@ def colifft(xre, xim):
     return colifft_ref(xre, xim)
 
 
+@spanned("orphics.transforms.rowfft")
 def rowfft(xre, xim):
     """DFT along axis -1 of ``(batch, R, n)`` planes; output columns in
     :func:`row_perm` order (B4)."""
@@ -475,6 +480,7 @@ def rowfft(xre, xim):
     return rowfft_ref(xre, xim)
 
 
+@spanned("orphics.transforms.rowifft")
 def rowifft(xre, xim):
     """Inverse DFT along axis -1: permuted columns in, natural out, 1/n
     included (B4)."""
@@ -486,6 +492,7 @@ def rowifft(xre, xim):
     return rowifft_ref(xre, xim)
 
 
+@spanned("orphics.transforms.rowifft_scaled_y")
 def rowifft_scaled_y(kre, kim, scale):
     """``rowifft(scale * kre, scale * kim)`` with the product taken on the
     kernel's load; ``scale``: ``(R, n)`` float32 in the planes' layout
@@ -502,6 +509,7 @@ def rowifft_scaled_y(kre, kim, scale):
     return rowifft_scaled_y_ref(kre, kim, scale)
 
 
+@spanned("orphics.transforms.rowfft_blk0")
 def rowfft_blk0(yre, yim):
     """Lane chunk 0 (permuted columns ``[0, 128)``, k2 = 0) of the forward
     row DFT of every row: ``(b, rows, n)`` -> ``(b, rows, 128)`` re/im
@@ -523,6 +531,7 @@ def rowfft_blk0(yre, yim):
     return ore, oim
 
 
+@spanned("orphics.transforms.rowifft_noise_y")
 def rowifft_noise_y(scale, seed, batch: int):
     """``Y' = rowifft(scale * eta)``, ``(batch,) + scale.shape`` re/im,
     with eta standard complex white noise drawn in the kernel: the
@@ -572,6 +581,7 @@ rowifft_noise_y.launches = 0
 
 # ---- compositions -------------------------------------------------------
 
+@spanned("orphics.transforms.fft2p")
 def fft2p(zre, zim):
     """Full 2D DFT with axis -2 by B3 :func:`colfft` (rows left in
     :func:`row_perm` order) and axis -1 by ``torch.fft.fft`` (natural
@@ -583,6 +593,7 @@ def fft2p(zre, zim):
     return k.real.contiguous(), k.imag.contiguous()
 
 
+@spanned("orphics.transforms.ifft2p")
 def ifft2p(kre, kim):
     """Inverse of :func:`fft2p`: rows in permuted order in, natural order
     out (``pallas_fft.ifft2p``)."""
@@ -590,28 +601,33 @@ def ifft2p(kre, kim):
     return colifft(z.real.contiguous(), z.imag.contiguous())
 
 
+@spanned("orphics.transforms.fft2pp")
 def fft2pp(zre, zim):
     """Full 2D DFT, rows AND columns left in :func:`row_perm` order."""
     return rowfft(*colfft(zre, zim))
 
 
+@spanned("orphics.transforms.ifft2pp")
 def ifft2pp(kre, kim):
     """Inverse of :func:`fft2pp`: doubly-permuted input, natural output."""
     return colifft(*rowifft(kre, kim))
 
 
+@spanned("orphics.transforms.ifft2pp_scaled")
 def ifft2pp_scaled(kre, kim, scale):
     """``ifft2pp(scale * kre, scale * kim)``, the product on the first
     (row) pass's load; ``scale`` ``(n, n)`` doubly-permuted."""
     return colifft(*rowifft_scaled_y(kre, kim, scale))
 
 
+@spanned("orphics.transforms.ifft2pp_noise")
 def ifft2pp_noise(scale, seed, batch: int):
     """GRF synthesis with the white noise drawn in the kernel: the two real
     maps ``(batch, n, n)`` of ``ifft2pp(scale * eta)`` (B5, then B3)."""
     return colifft(*rowifft_noise_y(scale, seed, batch))
 
 
+@spanned("orphics.transforms.ifft2pp_noise_y")
 def ifft2pp_noise_y(scale, seed, batch: int):
     """:func:`ifft2pp_noise` that also returns the pre-column intermediate
     ``Y'``: since ``colfft(colifft(Y')) == Y'``, an analysis
@@ -622,6 +638,7 @@ def ifft2pp_noise_y(scale, seed, batch: int):
     return m1, m2, yre, yim
 
 
+@spanned("orphics.transforms.pfft2")
 def pfft2(z):
     """Natural-order 2D DFT of a real or complex ``(ny, nx)`` or
     ``(batch, ny, nx)`` tensor on 128*B-sized axes: :func:`fft2pp` and
@@ -640,6 +657,7 @@ def pfft2(z):
     return out[0] if squeeze else out
 
 
+@spanned("orphics.transforms.pifft2")
 def pifft2(k):
     """Natural-order inverse of :func:`pfft2` (complex output)."""
     kre = (k.real if k.is_complex() else k).to(torch.float32)

@@ -21,6 +21,7 @@ import torch
 
 from .._device import resolve
 from ..geometry import Geometry, arcmin
+from ..utils.profiling import spanned
 from .interp import interp
 
 __all__ = ["fft2", "ifft2", "rfft2", "irfft2", "queb_rotmat", "iqu2teb",
@@ -41,6 +42,7 @@ def _norm_factor(geom: Geometry, norm: str, inverse: bool):
     raise ValueError(f"unknown norm {norm!r}")
 
 
+@spanned("orphics.transforms.fft2")
 def fft2(x, geom: Geometry, norm: str = "raw"):
     """Forward 2D FFT over the trailing two axes."""
     k = torch.fft.fft2(x, dim=(-2, -1))
@@ -48,6 +50,7 @@ def fft2(x, geom: Geometry, norm: str = "raw"):
     return k if fac == 1.0 else k * fac
 
 
+@spanned("orphics.transforms.ifft2")
 def ifft2(k, geom: Geometry, norm: str = "raw"):
     """Inverse 2D FFT over the trailing two axes ('raw' is numpy's
     default inverse, which divides by npix)."""
@@ -56,12 +59,14 @@ def ifft2(k, geom: Geometry, norm: str = "raw"):
     return x if fac == 1.0 else x * fac
 
 
+@spanned("orphics.transforms.rfft2")
 def rfft2(x, geom: Geometry, norm: str = "raw"):
     k = torch.fft.rfft2(x, dim=(-2, -1))
     fac = _norm_factor(geom, norm, inverse=False)
     return k if fac == 1.0 else k * fac
 
 
+@spanned("orphics.transforms.irfft2")
 def irfft2(k, geom: Geometry, norm: str = "raw"):
     """Inverse of :func:`rfft2`; ``s=geom.shape`` keeps odd-nx grids right."""
     x = torch.fft.irfft2(k, s=geom.shape, dim=(-2, -1))

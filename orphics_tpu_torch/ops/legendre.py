@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils.profiling import spanned
 
 __all__ = ["tables", "kernel_tables", "clear_tables", "legendre_ana",
            "legendre_ana_ref", "legendre_syn", "legendre_syn_ref"]
@@ -628,6 +629,7 @@ def _check_in(x, tab, rows, what):
                          f"(B, {rows}, {M1})")
 
 
+@spanned("orphics.transforms.legendre_ana")
 def legendre_ana(G, tab, fast: bool = False):
     """Legendre analysis ``out[b, l, m] = sum_t Lambda_lm(theta_t) G[b, t,
     m]`` of ``G`` (B, Tr, M1) complex over the rings of ``tab`` (B10a;
@@ -676,6 +678,7 @@ def legendre_ana(G, tab, fast: bool = False):
 legendre_ana.launches = 0
 
 
+@spanned("orphics.transforms.legendre_syn")
 def legendre_syn(a, tab, fast: bool = False):
     """Legendre synthesis ``acc[b, t, m] = sum_l Lambda_lm(theta_t) a[b, l,
     m]`` of ``a`` (B, L1, M1) complex onto the rings of ``tab`` (B10s;

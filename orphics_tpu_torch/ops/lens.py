@@ -21,6 +21,7 @@ import torch
 
 from .. import _build
 from ..geometry import Geometry
+from ..utils.profiling import spanned
 from . import fourier as F
 
 __all__ = ["lens_map_kernel", "lens_map_ref", "spline_coeffs", "blocks",
@@ -219,6 +220,7 @@ def _launch(coeffs, alpha, geom, order, maxdisp_px):
     return out
 
 
+@spanned("orphics.lens.lens_map_kernel")
 def lens_map_kernel(imap, alpha, geom: Geometry, order: int = 5,
                     maxdisp_px: int = 8, prefiltered: bool = False):
     """Displace ``imap`` by the deflection ``alpha`` with periodic

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils.profiling import spanned
 from .dft import row_perm
 
 __all__ = ["mirror_pp", "mirror_pp_ref"]
@@ -41,6 +42,7 @@ def mirror_pp_ref(zr, zi):
             zi.index_select(-2, m).index_select(-1, m))
 
 
+@spanned("orphics.transforms.mirror_pp")
 def mirror_pp(zr, zi):
     """``(Zm_re, Zm_im)`` with ``Zm(k) = Z(-k)``, both in the
     doubly-permuted layout of ``fft2pp``. ``zr, zi``: ``(batch, n, n)``

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils.profiling import spanned
 
 __all__ = ["noise_planes", "noise_planes_ref", "seed_words"]
 
@@ -78,6 +79,7 @@ def noise_planes_ref(scale, seed, batch: int):
     return er * scale, ei * scale
 
 
+@spanned("orphics.transforms.noise_planes")
 def noise_planes(scale, seed, batch: int):
     """``(batch,) + scale.shape`` float32 re and im planes of
     ``scale * eta``, eta standard complex white noise (reproducible per

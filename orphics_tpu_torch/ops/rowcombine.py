@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils.profiling import spanned
 from .dft import _check, _tables, half_rows, rowfft_ref, rowfft_split_emul
 from .mirror import mirror_pp_ref
 from .rowpower import mirror_pos
@@ -118,6 +119,7 @@ def rowcombine_split_emul(yr, yi, alr, ali, ber, bei, nq: int):
     return out(cr), out(ci)
 
 
+@spanned("orphics.transforms.rowcombine_pp")
 def rowcombine_pp(yr, yi, alr, ali, ber, bei, nq: int):
     """``(Cr, Ci)``, each ``(ncoadds, n, n)`` float32 in the
     doubly-permuted layout, from ``(ncoadds nq, n, n)`` column-DFT

@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils.profiling import spanned
 from .dft import (_check, _tables, colfft, half_rows, rowfft_ref,
                   rowfft_split_emul)
 from .mirror import mirror_pp_ref
@@ -190,6 +191,7 @@ def _check_square(yr, yi, what):
                          f"{tuple(yr.shape)}")
 
 
+@spanned("orphics.transforms.rowqc_half")
 def rowqc_half(yr, yi):
     """``(qs, c)``, each ``(b, n/2, n)`` float32 over the half plane in
     :func:`half_rows` order, of ``Z = rowfft(Y)`` for ``(b, n, n)``
@@ -205,6 +207,7 @@ def rowqc_half(yr, yi):
     return out
 
 
+@spanned("orphics.transforms.rows_half")
 def rows_half(yr, yi):
     """``s``, ``(b, n/2, n)`` float32 over the half plane, of ``Z =
     rowfft(Y)`` (B6s; :func:`rowqc_half` with the cross field, the same
@@ -217,6 +220,7 @@ def rows_half(yr, yi):
     return out
 
 
+@spanned("orphics.transforms.qc_pp_half")
 def qc_pp_half(zr, zi):
     """``(qs, c)``, each ``(b, n/2, n)`` float32 over the half plane (rows
     ``half_rows(n)[0]``), of a transformed ``(b, n, n)`` float32 ``Z`` in
@@ -231,6 +235,7 @@ def qc_pp_half(zr, zi):
     return out
 
 
+@spanned("orphics.transforms.s_pp_half")
 def s_pp_half(zr, zi):
     """``s = Im(Z(k) Z(-k)) = zr zmi + zi zmr``, ``(b, n/2, n)`` float32 over
     the half plane of a transformed ``Z`` (B6h'; :func:`qc_pp_half` with the
@@ -249,6 +254,7 @@ qc_pp_half.launches = 0
 s_pp_half.launches = 0
 
 
+@spanned("orphics.transforms.rowqc_pp")
 def rowqc_pp(yr, yi):
     """``(qs, c, zrow_r, zrow_i)`` from the column-DFT intermediate ``Y``
     (``(b, n, n)`` float32): the half-plane fields of ``Z = rowfft(Y)``
@@ -264,6 +270,7 @@ def rowqc_pp(yr, yi):
     return out
 
 
+@spanned("orphics.transforms.rows_pp")
 def rows_pp(yr, yi):
     """``(s, zrow_r, zrow_i)``: the half-plane cross field of ``Z =
     rowfft(Y)`` and ``Z``'s rows ``[0, 128)`` (``pallas_fft.rows_pp``), from
@@ -276,12 +283,14 @@ def rows_pp(yr, yi):
     return out
 
 
+@spanned("orphics.transforms.fft2pp_qc")
 def fft2pp_qc(m1, m2):
     """Half-plane fields of ``fft2(m1 + i m2)`` without the Fourier plane:
     ``rowqc_pp(*colfft(m1, m2))`` (``pallas_fft.fft2pp_qc``)."""
     return rowqc_pp(*colfft(m1, m2))
 
 
+@spanned("orphics.transforms.fft2pp_s")
 def fft2pp_s(m1, m2):
     """Half-plane cross field of ``fft2(m1 + i m2)`` without the Fourier
     plane: ``rows_pp(*colfft(m1, m2))`` (``pallas_fft.fft2pp_s``)."""

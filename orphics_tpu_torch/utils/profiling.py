@@ -23,18 +23,29 @@ Usage::
 
     with prof.annotate("filter"):              # a named range in the trace
         y = filt(x)
+
+The port's own stage and layer boundaries carry :func:`span` /
+:func:`spanned` ranges named ``orphics.<stage or layer>.<name>``: the
+same ``record_function`` ranges as :func:`annotate`, entered only while a
+profiler runs, so that a trace ties each kernel to the stage that
+launched it and an untraced call pays one flag read.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from .fitting import _sync, timeit  # re-export: decorator form lives there
 
-__all__ = ["trace", "annotate", "show", "sync", "timeit"]
+__all__ = ["trace", "annotate", "span", "spanned", "show", "sync",
+           "timeit"]
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 def sync(out):
@@ -64,6 +75,30 @@ def annotate(name: str):
     """A named range (``torch.profiler.record_function``): the host calls
     and card kernels issued inside it group under ``name`` in a trace."""
     return torch.profiler.record_function(name)
+
+
+def span(name: str):
+    """:func:`annotate` while a profiler runs; otherwise a shared
+    ``nullcontext``, entered at the cost of one read of the profiler's
+    flag. Adds no synchronize, host read-back or allocation."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
+
+
+def spanned(name: str):
+    """Decorator: the call runs inside :func:`span` ``(name)``. The
+    wrapper keeps the function's attributes (``__wrapped__`` is the
+    function itself)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not _autograd_profiler._is_profiler_enabled:
+                return fn(*args, **kwargs)
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
 
 
 @contextlib.contextmanager
