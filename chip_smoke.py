@@ -252,13 +252,16 @@ def fft_flops(n, count):
 
 
 def kernel_entry(name, source, replaces, err, times, work):
-    """One kernel's record: ``times`` = (kernel, plain, library or None) ms,
+    """One kernel's record (``replaces`` None: no TPU kernel): ``times`` =
+    (kernel, plain, library or None) ms,
     ``work`` = (bytes, fp32 operations[, fp64 operations[, integer
     operations]]) of the timed call."""
     bound_ms, bound_by = bound(*work)
     return dict(name=name, route="cuda",
                 source="orphics_tpu_torch/csrc/" + source,
-                replaces="orphics_tpu/ops/" + replaces, max_abs_err=err,
+                replaces=(None if replaces is None
+                          else "orphics_tpu/ops/" + replaces),
+                max_abs_err=err,
                 ms=times[0], plain_ms=times[1], bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=times[2])
 
@@ -405,7 +408,8 @@ def cuda_ms(fn, reps, warmup=2):
 # must launch on the card (counter names); the last seven are the
 # deterministic forecasts, also run with --device cpu and compared
 EXAMPLES19 = (
-    ("tt_verification.py", ["512"], ("lens_map_kernel", "bin_reduce")),
+    ("tt_verification.py", ["512"], ("lens_map_kernel", "bin_reduce",
+                                      "qe_leg", "qe_pair", "qe_post")),
     ("fastcl_demo.py", [], ("rowifft_noise_y", "rowqc_half", "bin2_reduce",
                             "bin_reduce", "colfft", "colfft_scaled",
                             "rows_half")),
@@ -467,9 +471,29 @@ def describe(value):
                 + str(value.dtype).replace("torch.", ""))
     if isinstance(value, dict) and "layout" in value:
         return f"lmax {value['lmax']} {value['layout']}"
+    if isinstance(value, tuple):
+        if value and all(isinstance(v, torch.Tensor) for v in value):
+            return "(" + ", ".join(describe(v) for v in value) + ")"
+        return f"{len(value)}-tuple"
     if value is None or isinstance(value, (bool, int, float, str)):
         return repr(value)
     return type(value).__name__
+
+
+def on_card(value):
+    """A CUDA tensor, or a tuple holding one"""
+    if isinstance(value, tuple):
+        return any(on_card(v) for v in value)
+    return isinstance(value, torch.Tensor) and value.is_cuda
+
+
+def copied(value):
+    """A copy of a tensor, or of the tensors of a tuple; else the value"""
+    if isinstance(value, tuple):
+        return tuple(copied(v) for v in value)
+    if isinstance(value, torch.Tensor):
+        return value.detach().clone()
+    return value
 
 
 class CallRecorder:
@@ -478,7 +502,8 @@ class CallRecorder:
     shapes, a copy of the first call's arguments, the calls, and the
     launches of the function's counter during them (``count(name)`` reads
     it). ``sys.monitoring`` watches only those functions' code, so nothing
-    else runs slower; the copy is made before the function runs."""
+    else runs slower; the copy is made before the function runs. A tuple
+    of tensors (``qe_pair``'s legs) counts and is copied as its tensors."""
 
     def __init__(self, entries, count):
         self.entries = entries
@@ -499,7 +524,7 @@ class CallRecorder:
         fn = self.code[code]
         loc = sys._getframe(1).f_locals
         args = tuple(loc[n] for n in code.co_varnames[:code.co_argcount])
-        if not any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+        if not any(on_card(a) for a in args):
             self.stack.append((code, None, 0))
             return
         sig = f"{fn.__name__}({', '.join(describe(a) for a in args)})"
@@ -507,8 +532,7 @@ class CallRecorder:
         if rec is None:
             rec = self.records[(fn, sig)] = dict(
                 fn=fn, key=self.entries[fn], sig=sig, calls=0, launches=0,
-                args=tuple(a.detach().clone() if isinstance(a, torch.Tensor)
-                           else a for a in args),
+                args=copied(args),
                 layout=next((a["layout"] for a in args
                              if isinstance(a, dict) and "layout" in a), None))
         rec["calls"] += 1
@@ -545,6 +569,11 @@ class CallRecorder:
         return False
 
 
+# the QE's filter algebra (csrc/qe_conv.cu) against its plain versions:
+# the same float32 products, contracted into FMAs by the compiler (of max)
+QE_CONV_TOL = 1e-6
+
+
 def fft_tol(a):
     """phase 2's tolerance of the DFT kernels, of max|ref|"""
     return 1.5e-5 if max(a[0].shape[-2:]) >= 2048 else 2e-5
@@ -567,6 +596,7 @@ def plain_versions():
                                                   bin_reduce, bin_reduce_ref)
     from orphics_tpu_torch.ops.mirror import mirror_pp, mirror_pp_ref
     from orphics_tpu_torch.ops.noise_planes import noise_planes
+    from orphics_tpu_torch.ops import qe_conv as qc
     from orphics_tpu_torch.ops.rowcombine import (rowcombine_pp,
                                                   rowcombine_pp_ref)
     from orphics_tpu_torch.ops.rowpower import (qc_pp_half, qc_pp_half_ref,
@@ -614,6 +644,9 @@ def plain_versions():
         qc_pp_half: ("qc_pp_half", qc_pp_half_ref, 1e-6, None),
         s_pp_half: ("s_pp_half", s_pp_half_ref, 1e-6, None),
         rowcombine_pp: ("rowcombine_pp", rowcombine_pp_ref, 1e-5, None),
+        qc.qe_leg: ("qe_leg", qc.qe_leg_ref, QE_CONV_TOL, None),
+        qc.qe_pair: ("qe_pair", qc.qe_pair_ref, QE_CONV_TOL, None),
+        qc.qe_post: ("qe_post", qc.qe_post_ref, QE_CONV_TOL, None),
         leg.legendre_ana: ("legendre_ana", b10_plain(leg.legendre_ana_ref),
                            b10_tol, None),
         leg.legendre_syn: ("legendre_syn", b10_plain(leg.legendre_syn_ref),
@@ -972,6 +1005,7 @@ def main():
     from orphics_tpu_torch.ops.mirror import mirror_pp, mirror_pp_ref
     from orphics_tpu_torch.ops.noise_planes import (noise_planes,
                                                     noise_planes_ref)
+    from orphics_tpu_torch.ops import qe_conv as qc
     from orphics_tpu_torch.ops.rowcombine import (rowcombine_pp,
                                                   rowcombine_pp_ref)
     from orphics_tpu_torch.ops.rowpower import (qc_pp_half, qc_pp_half_ref,
@@ -1311,6 +1345,57 @@ def main():
         "mirror_pp", "mirror.cu", "pallas_fft.py:1078", 0.0,
         (ms, plain, None), (2 * nbytes(*z), 0.0))
     del x, z, got, ref
+    torch.cuda.empty_cache()
+
+    # the generic QE's filter algebra (csrc/qe_conv.cu) at the
+    # lensqe512.recon cell's shape, (64, 512, 512) complex64: the three
+    # legs of one k-map, S_y and S_x from them, the post of two spectra;
+    # against the plain versions on the same inputs. Work: bytes of each
+    # input read once and each output written once; fp32 operations 2 a
+    # leg element, 10 a product element, 6 a post element
+    k64 = torch.complex(*(torch.randn((64, 512, 512), generator=gen,
+                                      device=dev) for _ in range(2)))
+    planes3 = torch.randn((3, 512, 512), generator=gen, device=dev)
+    legs3 = qc.qe_leg(k64, planes3)
+    post2 = torch.randn((2, 512, 512), generator=gen, device=dev)
+    pairs2 = ((0, 2.0, 1, 0), (1, 2.0, 2, 0))
+    el = k64.numel()
+    for name, fn, ref_fn, args, work in (
+            ("qe_leg", qc.qe_leg, qc.qe_leg_ref, (k64, planes3),
+             (nbytes(k64, planes3) + 3 * nbytes(k64), 6.0 * el)),
+            ("qe_pair", qc.qe_pair, qc.qe_pair_ref, (legs3, pairs2, None),
+             (nbytes(*legs3) + 2 * nbytes(k64), 20.0 * el)),
+            ("qe_post", qc.qe_post, qc.qe_post_ref,
+             (legs3[0], legs3[1], post2),
+             (3 * nbytes(k64) + nbytes(post2), 6.0 * el))):
+        before = fn.launches
+        got = fn(*args)
+        again = fn(*args)
+        ref = ref_fn(*args)
+        torch.cuda.synchronize()
+        check(fn.launches == before + 2, f"{name}: {fn.launches - before} "
+                                         "launches for two calls")
+        got, again, ref = (t if isinstance(t, tuple) else (t,)
+                           for t in (got, again, ref))
+        err, rel = rel_err(got, ref)
+        check(rel <= QE_CONV_TOL, f"{name}: error {rel:.3e} of max|ref| > "
+                                  f"{QE_CONV_TOL}")
+        check(all(torch.equal(g, a) for g, a in zip(got, again)),
+              f"{name}: two runs differ")
+        del got, again, ref
+        ms = cuda_ms(lambda: fn(*args), 20)
+        plain = cuda_ms(lambda: ref_fn(*args), 5)
+        bms, bby = bound(*work)
+        print(f"[2] {name} (64, 512, 512) complex64: max abs err {err:.3e} "
+              f"= {rel:.3e} of max|ref| (<= {QE_CONV_TOL}), two runs "
+              f"bit-equal, {fn.launches - before} launches counted; kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms "
+              f"({bby})")
+        # no TPU kernel: XLA fuses this algebra on the TPU; no single
+        # PyTorch call computes it
+        results[name] = kernel_entry(name, "qe_conv.cu", None, err,
+                                     (ms, plain, None), work)
+    del k64, planes3, legs3, post2
     torch.cuda.empty_cache()
 
     # B5n: the law of z / scale over (32, 512, 512) re and im, where
@@ -2195,7 +2280,10 @@ def main():
                 "legendre_syn": (leg.legendre_syn,),
                 "qc_pp_half": (qc_pp_half,),
                 "s_pp_half": (s_pp_half,),
-                "bin_pair_power": (bin_pair_power,)}
+                "bin_pair_power": (bin_pair_power,),
+                "qe_leg": (qc.qe_leg,),
+                "qe_pair": (qc.qe_pair,),
+                "qe_post": (qc.qe_post,)}
 
     row_regs_at_reset = [0]
     b9_regs_at_reset = [0]
@@ -2248,7 +2336,14 @@ def main():
     print(f"[3] flagship entry() 512^2 2': 3 steps finite (3, 15) in "
           f"{time.perf_counter() - t0:.3f} s; cross[:4] "
           f"{out[0, :4].tolist()}")
-    read_counts(("bin_reduce",), "3")
+    counts3 = read_counts(("bin_reduce", "qe_leg", "qe_pair", "qe_post"),
+                          "3")
+    # the generic TT estimator of one k-map: one launch of each of the
+    # QE's kernels a step (its three distinct legs in one wave)
+    for name in ("qe_leg", "qe_pair", "qe_post"):
+        check(counts3[name] == 3, f"3: {counts3[name]} {name} launches in "
+                                  "3 steps")
+        results[name]["launches"] = counts3[name]
     batch = 64
 
     # ---- 4. half-plane pipeline (impl="xla") at bench config 6's settings
@@ -3200,9 +3295,20 @@ def main():
           "14: NlGenerator's N0 differs from the engine's")
     _, n0_mc = qemod.mcn0(q3, "TT", kmaps[1:], edges3)
     torch.cuda.synchronize()
+    ran14 = (q3.transforms_inverse, q3.transforms_forward, q3.legs_merged)
     t0 = time.perf_counter()
     _, rd, _ = qemod.rdn0(q3, "TT", kmaps[0], kmaps[1:], edges3)
     dt14 = time.perf_counter() - t0          # rdn0 returns host arrays
+    ran14 = [b - a for a, b in zip(ran14, (q3.transforms_inverse,
+                                           q3.transforms_forward,
+                                           q3.legs_merged))]
+    # two distinct legs a reconstruction: 6 inverse transforms (nothing
+    # merges) and one forward transform a component
+    check(ran14[1] == 2 * 16 and ran14[0] == 3 * ran14[1] and not ran14[2],
+          f"14: rdn0's 16 reconstructions ran (inverse, forward, merged) "
+          f"{ran14}, not 6, 2, 0 each")
+    print(f"[14] rdn0's 16 two-leg reconstructions: {ran14[0]} inverse and "
+          f"{ran14[1]} forward transforms, {ran14[2]} legs merged")
     sel = n0_th > 0
     r_mc, r_rd = n0_mc[sel] / n0_th[sel], rd[sel] / n0_th[sel]
     # tests/test_qe_mv.py's tolerances at 8 sims of 128^2: per-bin 35 % and
@@ -3267,7 +3373,11 @@ def main():
     print(f"[14] kappa_generic on {len(th14)} host angles (500000 samples "
           f"each, on the card) vs kappa_nfw_generic: {nfw_rel:.3e} relative "
           "(<= 1e-4: the quadrature stops at 2000 Mpc)")
-    read_counts(("lens_map_kernel", "bin_reduce"), "14")
+    counts14 = read_counts(("lens_map_kernel", "bin_reduce", "qe_leg",
+                            "qe_pair", "qe_post"), "14")
+    for name in ("qe_leg", "qe_pair", "qe_post"):
+        results[name].setdefault("launches_by_path", {})["debias"] = \
+            counts14[name]
     read_wide("14", False)
     del flp, fls, obs_p, ex, eta14, q3
     torch.cuda.empty_cache()

@@ -16,6 +16,7 @@ normalizations are computed eagerly there on first request.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import numpy as np
@@ -27,6 +28,7 @@ from ..ops import dft as D
 from ..ops import fourier as F
 from ..ops.binning import Bin2D
 from ..ops.mirror import mirror_pp
+from ..ops.qe_conv import MAX_LEGS, MAX_PRODUCTS, qe_leg, qe_pair, qe_post
 from ..utils.profiling import span, spanned
 
 __all__ = ["QE", "lensing_noise_2d", "NlGenerator", "rdn0", "mcn0", "n1_tt"]
@@ -41,9 +43,22 @@ def _ifft(a):
     return torch.fft.ifft2(a, dim=(-2, -1))
 
 
+@spanned("orphics.transforms.qe_ifft2")
+def _ifft_unscaled(a):
+    """The inverse without its 1/N, which the leg planes carry."""
+    return torch.fft.ifft2(a, dim=(-2, -1), norm="forward")
+
+
 @spanned("orphics.transforms.qe_fft2")
 def _fft(a):
     return torch.fft.fft2(a, dim=(-2, -1))
+
+
+# legs that one wave of the convolution schedule transforms and holds at
+# once (a connected set of legs with more goes in a wave of its own)
+WAVE_LEGS = 3
+_COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
+_REAL = {v: k for k, v in _COMPLEX.items()}
 
 
 class QE:
@@ -103,11 +118,11 @@ class QE:
         self._phys = float(geom.area) ** 0.5 / geom.npix
         self._conv_fac = geom.npix / float(geom.area)
         self._cache = {}
-
-    # -- mode-coupling integral ---------------------------------------
-    def _conv(self, A, B):
-        """integral d^2l1/(2pi)^2 A(l1) B(L - l1) on the grid."""
-        return _fft(_ifft(A) * _ifft(B)) * self._conv_fac
+        # what the reconstructions ran: inverse and forward transforms, and
+        # candidate legs merged into a proportional one (plain counts)
+        self.transforms_inverse = 0
+        self.transforms_forward = 0
+        self.legs_merged = 0
 
     # -- normalization -------------------------------------------------
     def A_L(self, est: str):
@@ -314,53 +329,218 @@ class QE:
         return (self.modlmap ** 4 / 4.0) * self.N0_phi_cross(estA, estB)
 
     # -- reconstruction --------------------------------------------------
+    # The estimator is sum_t sum_i c_t L_i fft(ifft(P1 X) ifft(P2 Y)) over
+    # the filter terms t and the components i = y, x, which equals
+    # sum_i L_i fft(sum_t c_t ifft(P1 X) ifft(P2 Y)): one forward transform
+    # a component. Its plan transforms each distinct leg once: legs of one
+    # source whose planes are proportional merge, the ratio going into the
+    # coefficients of their products.
+
+    def _conv_plan(self, est, shared, rdtype):
+        """The convolution schedule of ``est`` (cached): ``waves``, each
+        ``(launches, calls)`` with ``launches`` the leg-kernel calls ``(source,
+        planes, leg ids)`` and ``calls`` the pair-kernel calls ``(leg ids,
+        ((i, c, p, q), ...))``; the number of distinct legs and of
+        candidate legs merged. ``shared``: both legs are one source (``ky
+        is kx``). A leg plane is ``u w (L_i or 1) phys / npix``, built in
+        float64 and rounded once to ``rdtype``."""
+        key = ("conv", est, shared, rdtype)
+        if key in self._cache:
+            return self._cache[key]
+        fkey = ("F", est)
+        if fkey not in self._cache:
+            # the non-zero filter terms, found once: testing a plane for
+            # zero reads it back to the host
+            self._cache[fkey] = [t for t in self._filter_terms(est)
+                                 if not (self._is_zero(t[2])
+                                         or self._is_zero(t[3]))]
+        f64 = lambda t: torch.broadcast_to(t.to(torch.float64),
+                                           self.geom.shape)
+        Li = (f64(self.ly), f64(self.lx))
+        scale = self._phys / self.geom.npix
+        tol = 8.0 * torch.finfo(self.dtype).eps
+        legs, merged = [], 0
+
+        def leg(src, plane):
+            """(leg id, ratio) of a candidate plane: an earlier leg of the
+            source whose plane is proportional to it, else a new one; None
+            for a plane of zeros"""
+            nonlocal merged
+            nz = plane != 0
+            if not bool(nz.any()):
+                return None
+            for k, (s, P, Pnz) in enumerate(legs):
+                if s != src or not torch.equal(Pnz, nz):
+                    continue
+                at = int(torch.argmax(P.abs()))
+                r = float(plane.reshape(-1)[at] / P.reshape(-1)[at])
+                if bool(((plane - r * P).abs() <= tol * plane.abs()).all()):
+                    merged += 1
+                    return k, r
+            legs.append((src, plane, nz))
+            return len(legs) - 1, 1.0
+
+        prods = {}
+        for (d, a, w1, w2) in self._cache[fkey]:
+            for (u1, u2, c) in self._angle_pairs(a):
+                if a == "s":
+                    c = -c      # convention flip, see unnormalized_phi
+                base1 = f64(u1) * f64(w1) * scale
+                base2 = f64(u2) * f64(w2) * scale
+                # the leg without L_i is one candidate for both components
+                one1 = None if d == 1 else leg(0, base1)
+                one2 = None if d == 2 else leg(0 if shared else 1, base2)
+                for i in range(2):
+                    l1 = leg(0, base1 * Li[i]) if d == 1 else one1
+                    l2 = (leg(0 if shared else 1, base2 * Li[i]) if d == 2
+                          else one2)
+                    if l1 is None or l2 is None:
+                        continue
+                    (p, rp), (q, rq) = l1, l2
+                    k = (i, min(p, q), max(p, q))
+                    prods[k] = prods.get(k, 0.0) + c * rp * rq
+        prods = [(i, c, p, q) for (i, p, q), c in prods.items() if c != 0.0]
+        if not prods:
+            raise ValueError(f"{est}: the estimator's filters vanish")
+
+        # connected sets of legs (products join them), packed into waves of
+        # at most WAVE_LEGS legs; a larger set is a wave of its own
+        root = list(range(len(legs)))
+
+        def find(k):
+            while root[k] != k:
+                root[k] = root[root[k]]
+                k = root[k]
+            return k
+        for _, _, p, q in prods:
+            root[find(p)] = find(q)
+        sets = {}
+        for k in sorted({k for t in prods for k in t[2:]}):
+            sets.setdefault(find(k), []).append(k)
+        packs = []
+        for ids in sorted(sets.values()):
+            if packs and len(packs[-1]) + len(ids) <= WAVE_LEGS:
+                packs[-1] += ids
+            else:
+                packs.append(ids)
+        waves = []
+        for ids in packs:
+            launches = []
+            for src in (0, 1):
+                mine = [k for k in ids if legs[k][0] == src]
+                for j in range(0, len(mine), MAX_LEGS):
+                    part = mine[j:j + MAX_LEGS]
+                    planes = torch.stack([legs[k][1] for k in part]).to(
+                        rdtype).contiguous()
+                    launches.append((src, planes, tuple(part)))
+            # pair-kernel calls of at most MAX_LEGS legs and MAX_PRODUCTS
+            # products each
+            mine = {find(k) for k in ids}
+            calls, cur, used = [], [], []
+            for i, c, p, q in prods:
+                if find(p) not in mine:
+                    continue
+                new = [k for k in dict.fromkeys((p, q)) if k not in used]
+                if cur and (len(used) + len(new) > MAX_LEGS
+                            or len(cur) == MAX_PRODUCTS):
+                    calls.append((tuple(used), tuple(cur)))
+                    cur, used = [], []
+                    new = list(dict.fromkeys((p, q)))
+                used += new
+                cur.append((i, c, used.index(p), used.index(q)))
+            calls.append((tuple(used), tuple(cur)))
+            waves.append((launches, calls))
+        nlegs = sum(len(ids) for ids in packs)
+        plan = (waves, nlegs, merged)
+        self._cache[key] = plan
+        return plan
+
+    def _post_planes(self, est, kind, rdtype):
+        """The two real planes after the forward transforms (cached):
+        ``L_i npix/area`` for the unnormalized phi, times ``A_L kmask
+        sqrt(area) L^2 / (2 phys)`` for the raw-fft kappa; built in float64
+        and rounded once to ``rdtype``."""
+        key = ("post", est, kind, rdtype)
+        if key not in self._cache:
+            f64 = lambda t: t.to(torch.float64)
+            w = torch.full(self.geom.shape, self._conv_fac,
+                           dtype=torch.float64, device=self.device)
+            if kind == "kappa":
+                w = (w * f64(self.A_L(est)) * f64(self.kmask)
+                     * (float(self.geom.area) ** 0.5) * 0.5
+                     * f64(self.modlmap) ** 2 / self._phys)
+            post = torch.stack([f64(self.ly) * w, f64(self.lx) * w])
+            self._cache[key] = post.to(rdtype).contiguous()
+        return self._cache[key]
+
+    def _convolve(self, est, kx, ky):
+        """Run the schedule of :meth:`_conv_plan` on the k-maps: the spectra
+        ``(F_y, F_x)`` of the two source components, each ``(B, ny, nx)``,
+        and the k-maps' broadcast leading shape."""
+        shared = ky is None or ky is kx
+        ny, nx = self.geom.shape
+        for k in (kx,) if shared else (kx, ky):
+            if tuple(k.shape[-2:]) != (ny, nx):
+                raise ValueError(f"k-map of shape {tuple(k.shape)} on a "
+                                 f"{(ny, nx)} geometry")
+        ctype = torch.promote_types(kx.dtype, _COMPLEX[self.dtype])
+        if not shared:
+            ctype = torch.promote_types(ctype, ky.dtype)
+        rdtype = _REAL[ctype]
+        lead = (tuple(kx.shape[:-2]) if shared else tuple(
+            torch.broadcast_shapes(kx.shape[:-2], ky.shape[:-2])))
+
+        def rows(k):
+            """(B or 1, ny, nx) contiguous rows of ``ctype``; a k-map of
+            one row stays one row, which pairs with every row"""
+            k = k.to(ctype)
+            if tuple(k.shape[:-2]) != lead and math.prod(k.shape[:-2]) != 1:
+                k = k.expand(lead + (ny, nx))
+            return k.reshape(-1, ny, nx).contiguous()
+        srcs = [rows(kx)] if shared else [rows(kx), rows(ky)]
+        waves, nlegs, merged = self._conv_plan(est, shared, rdtype)
+        S = None
+        for w, (launches, calls) in enumerate(waves):
+            with span("orphics.qe.kappa_from_map.legs"):
+                spectra = {}
+                for src, planes, ids in launches:
+                    spectra.update(zip(ids, qe_leg(srcs[src], planes)))
+            with span("orphics.qe.kappa_from_map.conv"):
+                # one leg at a time, each spectrum freed once transformed
+                legs = {k: None for k in spectra}
+                for k in legs:
+                    legs[k] = _ifft_unscaled(spectra.pop(k))
+                for ids, pairs in calls:
+                    S = qe_pair(tuple(legs[k] for k in ids), pairs, S)
+                del legs
+                if w == len(waves) - 1:
+                    S = [_fft(s) for s in S]
+        self.transforms_inverse += nlegs
+        self.transforms_forward += 2
+        self.legs_merged += merged
+        return S, lead
+
     def unnormalized_phi(self, est, kx, ky):
         """integral F X Y as FFT products; ``kx, ky`` are raw-fft k-maps of
         the beam-deconvolved legs. Linear appearances of sin 2(phi1-phi2)
         carry an extra -1 (the JAX package's angle convention)."""
         est = est.upper()
-        key = ("F", est)
-        if key not in self._cache:
-            # the non-zero filter terms, found once: testing a plane for
-            # zero reads it back to the host
-            self._cache[key] = [t for t in self._filter_terms(est)
-                                if not (self._is_zero(t[2])
-                                        or self._is_zero(t[3]))]
-        legs = "orphics.qe.kappa_from_map.legs"
-        with span(legs):
-            X = kx * self._phys
-            Y = ky * self._phys
-        Li = (self.ly, self.lx)
-        out = 0.0
-        for (d, a, w1, w2) in self._cache[key]:
-            for (u1, u2, c) in self._angle_pairs(a):
-                if a == "s":
-                    c = -c
-                with span(legs):
-                    A1 = u1 * w1 * X
-                    A2 = u2 * w2 * Y
-                for i in range(2):
-                    with span(legs):
-                        B1, B2 = A1, A2
-                        if d == 1:
-                            B1 = B1 * Li[i]
-                        else:
-                            B2 = B2 * Li[i]
-                    with span("orphics.qe.kappa_from_map.conv"):
-                        out = out + (c * Li[i]) * self._conv(B1, B2)
-        return out
+        (fy, fx), lead = self._convolve(est, kx, ky)
+        post = self._post_planes(est, "phi", _REAL[fy.dtype])
+        return qe_post(fy, fx, post).reshape(lead + tuple(self.geom.shape))
 
     @spanned("orphics.qe.kappa_from_map")
     def kappa_from_map(self, est, kx, ky=None, return_ft: bool = True):
         """Reconstruct kappa from raw-fft k-map legs; returns the raw-fft
-        kappa (or the real map with ``return_ft=False``)."""
-        if ky is None:
-            ky = kx
-        uphi = self.unnormalized_phi(est, kx, ky)
+        kappa (or the real map with ``return_ft=False``). The k-maps'
+        leading shapes broadcast; a single map pairs with every map of the
+        other leg without being copied."""
+        est = est.upper()
+        (fy, fx), lead = self._convolve(est, kx, ky)
         with span("orphics.qe.kappa_from_map.normalize"):
-            phi = (self.A_L(est) * uphi * self.kmask
-                   * (float(self.geom.area) ** 0.5))
-            fkappa_raw = 0.5 * self.modlmap ** 2 * phi / self._phys
+            post = self._post_planes(est, "kappa", _REAL[fy.dtype])
+            fkappa_raw = qe_post(fy, fx, post).reshape(
+                lead + tuple(self.geom.shape))
         if return_ft:
             return fkappa_raw
         return _ifft(fkappa_raw).real

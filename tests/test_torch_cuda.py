@@ -1081,3 +1081,91 @@ def test_reconstruct_velocities_card_matches_cpu(cuda_device):
     assert got.is_cuda and got.dtype == torch.float64
     ref = cats.reconstruct_velocities(*cat, device="cpu", **kw)
     assert (got.cpu() - ref).abs().max() <= 1e-8 * ref.abs().max()
+
+
+# the QE's filter algebra: the kernels compute the plain versions' products
+# in the same order but contract them into fused multiply-adds: 1e-6 of max
+# (float32), 1e-13 (float64)
+TOL_QE_CONV = {torch.float32: 1e-6, torch.float64: 1e-13}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("real", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(3, 64, 64), (2, 37, 50), (9, 512, 512)])
+def test_qe_conv_kernels_match_ref(cuda_device, real, shape):
+    """The leg, pair and post kernels against their plain versions: a
+    ragged plane, a batch past the leg and post kernels' rows a block, a
+    leg of batch 1 against legs of the batch, self-products, earlier sums,
+    and the most legs and products a launch takes."""
+    from orphics_tpu_torch.ops import qe_conv as qc
+    lib = _build.library()
+    assert (lib.qe_conv_max_legs(), lib.qe_conv_max_products()) == \
+        (qc.MAX_LEGS, qc.MAX_PRODUCTS)
+    cplx = torch.complex64 if real == torch.float32 else torch.complex128
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    rnd = lambda *s, dt=real: torch.randn(s, generator=gen, dtype=dt,
+                                          device=cuda_device)
+    b = shape[0]
+    rel = lambda g, r: ((g - r).abs().max() / r.abs().max()).item()
+    tol = TOL_QE_CONV[real]
+    src = rnd(*shape, dt=cplx)
+    planes = rnd(qc.MAX_LEGS, *shape[1:])
+    before = qc.qe_leg.launches
+    got = qc.qe_leg(src, planes)
+    assert qc.qe_leg.launches == before + 1
+    for g, r in zip(got, qc.qe_leg_ref(src, planes)):
+        assert g.dtype == cplx and rel(g, r) <= tol
+    legs = (rnd(1, *shape[1:], dt=cplx),) + tuple(
+        rnd(*shape, dt=cplx) for _ in range(qc.MAX_LEGS - 1))
+    pairs = tuple((j % 2, 0.5 + j, j % qc.MAX_LEGS, (3 * j + 1) % qc.MAX_LEGS)
+                  for j in range(qc.MAX_PRODUCTS - 1)) + ((1, -2.0, 0, 0),)
+    prev = (rnd(*shape, dt=cplx), rnd(*shape, dt=cplx))
+    for p in (None, prev):
+        before = qc.qe_pair.launches
+        got = qc.qe_pair(legs, pairs, p)
+        assert qc.qe_pair.launches == before + 1
+        for g, r in zip(got, qc.qe_pair_ref(legs, pairs, p)):
+            assert g.shape == (b,) + shape[1:] and rel(g, r) <= tol
+    fy, fx = rnd(*shape, dt=cplx), rnd(*shape, dt=cplx)
+    post = rnd(2, *shape[1:])
+    before = qc.qe_post.launches
+    got = qc.qe_post(fy, fx, post)
+    assert qc.qe_post.launches == before + 1
+    assert rel(got, qc.qe_post_ref(fy, fx, post)) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("est", ["TT", "EB"])
+def test_kappa_from_map_card_matches_cpu(cuda_device, est):
+    """The generic reconstruction on the three kernels and cuFFT against
+    the same engine on the CPU, one leg and two; one launch of each kernel
+    a call for TT's one leg (three distinct legs, one wave)."""
+    from orphics_tpu_torch.models import qe as qemod
+    from orphics_tpu_torch.models.theory import default_theory
+    from orphics_tpu_torch.ops import fourier as F
+    from orphics_tpu_torch.ops import qe_conv as qc
+    geom = tp.rect_geometry(width_arcmin=128 * 2.0, px_res_arcmin=2.0)
+    th = default_theory()
+    engines = []
+    for dev in (cuda_device, "cpu"):
+        ct = qemod.lensing_noise_2d(geom, th, 1.4, 6.0, device=dev)
+        engines.append(qemod.QE(
+            geom, th, ct, xmask=F.mask_kspace(geom, lmin=100, lmax=3000,
+                                              device=dev),
+            kmask=F.mask_kspace(geom, lmin=40, lmax=2500, device=dev),
+            device=dev))
+    rng = np.random.default_rng(4)
+    kx, ky = (np.fft.fft2(rng.standard_normal((4, 128, 128))).astype(
+        np.complex64) for _ in range(2))
+    for legs in ((kx,), (kx, ky)):
+        counts = [f.launches for f in (qc.qe_leg, qc.qe_pair, qc.qe_post)]
+        got = engines[0].kappa_from_map(
+            est, *(torch.as_tensor(k, device=cuda_device) for k in legs))
+        ran = [f.launches - c for f, c in zip(
+            (qc.qe_leg, qc.qe_pair, qc.qe_post), counts)]
+        if est == "TT" and len(legs) == 1:
+            assert ran == [1, 1, 1]
+        ref = engines[1].kappa_from_map(est, *(torch.as_tensor(k)
+                                               for k in legs))
+        assert ((got.cpu() - ref).abs().max() / ref.abs().max()).item() \
+            <= 2e-5

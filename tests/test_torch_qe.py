@@ -13,6 +13,7 @@ from orphics_tpu.models import qe as jqe, theory as jtheory
 
 import orphics_tpu_torch as tp
 from orphics_tpu_torch.ops import fourier as TF
+from orphics_tpu_torch.ops import qe_conv as qconv
 from orphics_tpu_torch.models import qe as tqe, theory as ttheory
 
 torch.set_num_threads(1)
@@ -96,6 +97,170 @@ def test_kappa_from_map(engines):
     r_j = jq.kappa_from_map("TT", jnp.asarray(kx), return_ft=False)
     assert np.abs(r_t.numpy() - np.asarray(r_j)).max() \
         <= RTOL_QE * np.abs(np.asarray(r_j)).max()
+
+
+# the generic reconstruction of every estimator against the JAX engine:
+# one leg (ky omitted, one source), two distinct legs, TT with a gradient
+# cut (the two leg masks differ, so no leg merges), and one data map
+# against a batch of sims as rdn0 passes them; with the transforms the
+# planned schedule ran (inverse, forward) and the legs it merged
+GENERIC_CASES = ([(est, legs) for est in tqe.ESTIMATORS
+                  for legs in ("one", "two")]
+                 + [("TT", "grad_cut"), ("TT", "broadcast")])
+SCHEDULE = {("TT", "one"): (3, 2, 3), ("TT", "two"): (6, 2, 0),
+            ("TT", "grad_cut"): (6, 2, 0), ("TT", "broadcast"): (6, 2, 0)}
+
+
+@pytest.fixture(scope="module")
+def engines_grad_cut(engines):
+    jg, tg, jq, tq = engines
+    jth, tth = jtheory.default_theory(), ttheory.default_theory()
+    kw = dict(lmin=100, lmax=3000)
+    kk = dict(lmin=40, lmax=2500)
+    jct = {k: jnp.asarray(v.numpy()) for k, v in tq.ctot.items()}
+    jgc = jqe.QE(jg, jth, jct, xmask=JF.mask_kspace(jg, **kw),
+                 kmask=JF.mask_kspace(jg, **kk), dtype=jnp.float32,
+                 grad_cut=2000.0)
+    tgc = tqe.QE(tg, tth, tq.ctot, xmask=TF.mask_kspace(tg, **kw,
+                                                        device="cpu"),
+                 kmask=TF.mask_kspace(tg, **kk, device="cpu"), device="cpu",
+                 grad_cut=2000.0)
+    return jgc, tgc
+
+
+@pytest.mark.parametrize("est,legs", GENERIC_CASES,
+                         ids=[f"{e}-{g}" for e, g in GENERIC_CASES])
+def test_kappa_from_map_estimators(engines, engines_grad_cut, est, legs):
+    jg, tg, jq, tq = engines
+    if legs == "grad_cut":
+        jq, tq = engines_grad_cut
+    kx = np.fft.fft2(_observed(jg, 21, batch=(2,))).astype(np.complex64)
+    ky = np.fft.fft2(_observed(jg, 22, batch=(2,))).astype(np.complex64)
+    if legs == "broadcast":
+        kx = kx[:1]
+        ky = np.fft.fft2(_observed(jg, 23, batch=(3,))).astype(np.complex64)
+    before = (tq.transforms_inverse, tq.transforms_forward, tq.legs_merged)
+    if legs in ("one", "grad_cut"):
+        k_t = tq.kappa_from_map(est, torch.as_tensor(kx)).numpy()
+        k_j = np.asarray(jq.kappa_from_map(est, jnp.asarray(kx)))
+    else:
+        k_t = tq.kappa_from_map(est, torch.as_tensor(kx),
+                                torch.as_tensor(ky)).numpy()
+        jx = np.broadcast_to(kx, ky.shape) if legs == "broadcast" else kx
+        k_j = np.asarray(jq.kappa_from_map(est, jnp.asarray(jx),
+                                           jnp.asarray(ky)))
+    assert k_t.shape == k_j.shape == ky.shape and k_t.dtype == np.complex64
+    mask = np.broadcast_to(np.asarray(jq.kmask), k_j.shape)
+    assert _rel_in_mask(k_t, k_j, mask) <= RTOL_QE
+    ran = tuple(a - b for a, b in zip(
+        (tq.transforms_inverse, tq.transforms_forward, tq.legs_merged),
+        before))
+    assert ran[1] == 2
+    if (est, legs) in SCHEDULE:
+        assert ran == SCHEDULE[(est, legs)]
+    # never more inverses than the unfused loop's two a product
+    assert 0 < ran[0] <= 4 * len(tq._filter_terms(est)) * 2
+
+
+# ---- the three kernels' plain versions against the unfused algebra -------
+
+# float64 on both sides: the same sums in another order
+RTOL_F64 = 1e-12
+
+
+@pytest.fixture(scope="module")
+def engine64():
+    g = tp.rect_geometry(width_arcmin=32 * 3.0, px_res_arcmin=3.0)
+    th = ttheory.default_theory()
+    ct = tqe.lensing_noise_2d(g, th, 1.5, 6.0, dtype=torch.float64,
+                              device="cpu")
+    q = tqe.QE(g, th, ct, xmask=TF.mask_kspace(g, lmin=100, lmax=3000,
+                                               device="cpu"),
+               kmask=TF.mask_kspace(g, lmin=40, lmax=2500, device="cpu"),
+               dtype=torch.float64, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    rand = lambda *shape: torch.complex(
+        torch.randn(shape, generator=gen, dtype=torch.float64),
+        torch.randn(shape, generator=gen, dtype=torch.float64))
+    return q, rand
+
+
+def _unfused_kappa(q, est, kx, ky):
+    """The reconstruction as the engine ran it before its planned schedule:
+    every filter term, angle pair and component through its own two scaled
+    inverse transforms, product and forward transform."""
+    X, Y = kx * q._phys, ky * q._phys
+    Li = (q.ly, q.lx)
+    out = 0.0
+    for (d, a, w1, w2) in q._filter_terms(est):
+        for (u1, u2, c) in q._angle_pairs(a):
+            c = -c if a == "s" else c
+            A1, A2 = u1 * w1 * X, u2 * w2 * Y
+            for i in range(2):
+                B1 = A1 * Li[i] if d == 1 else A1
+                B2 = A2 * Li[i] if d == 2 else A2
+                out = out + (c * Li[i]) * torch.fft.fft2(
+                    torch.fft.ifft2(B1) * torch.fft.ifft2(B2)) * q._conv_fac
+    phi = q.A_L(est) * out * q.kmask * float(q.geom.area) ** 0.5
+    return 0.5 * q.modlmap ** 2 * phi / q._phys
+
+
+def _rel(a, b):
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+@pytest.mark.parametrize("what", ["leg", "pair", "post", "schedule"])
+def test_plain_kernels_match_unfused_algebra(engine64, what):
+    q, rand = engine64
+    n = q.geom.npix
+    kx = rand(2, *q.geom.shape)
+    (d, a, w1, w2) = q._filter_terms("TT")[0]
+    u1 = q._angle_pairs(a)[0][0]
+    if what == "leg":
+        # X phys, u w X, B L_i and the inverse's 1/N: one plane, unscaled
+        planes = torch.stack([u1 * w1 * Li * q._phys / n
+                              for Li in (q.ly, q.lx, q._one())])
+        got = [torch.fft.ifft2(g, norm="forward")
+               for g in qconv.qe_leg_ref(kx, planes)]
+        assert [tuple(g.shape) for g in got] == [tuple(kx.shape)] * 3
+        for g, Li in zip(got, (q.ly, q.lx, q._one())):
+            ref = torch.fft.ifft2(((kx * q._phys) * (u1 * w1)) * Li)
+            assert _rel(g, ref) <= RTOL_F64
+        assert all(torch.equal(g, r) for g, r in zip(
+            qconv.qe_leg(kx, planes), qconv.qe_leg_ref(kx, planes)))
+    elif what == "pair":
+        # sum over products before one forward transform per component,
+        # a leg of batch 1 against legs of batch 2, on top of earlier sums
+        A = [rand(1, *q.geom.shape)] + [rand(2, *q.geom.shape)
+                                        for _ in range(2)]
+        legs = tuple(torch.fft.ifft2(x) for x in A)
+        pairs = ((0, 2.0, 1, 0), (1, 2.0, 2, 0), (0, -0.5, 1, 1),
+                 (1, 0.25, 0, 0))
+        prev = (rand(2, *q.geom.shape), rand(2, *q.geom.shape))
+        S = qconv.qe_pair_ref(legs, pairs, prev)
+        for i in range(2):
+            ref = torch.fft.fft2(prev[i]) + sum(
+                c * torch.fft.fft2(torch.fft.ifft2(A[p]) * torch.fft.ifft2(
+                    A[r])) for j, c, p, r in pairs if j == i)
+            assert _rel(torch.fft.fft2(S[i]), ref) <= RTOL_F64
+        assert all(torch.equal(g, r) for g, r in zip(
+            qconv.qe_pair(legs, pairs, prev), S))
+    elif what == "post":
+        # L_i, npix/area, A_L, kmask, sqrt(area), L^2/2 and 1/phys
+        F = (rand(2, *q.geom.shape), rand(2, *q.geom.shape))
+        got = qconv.qe_post_ref(*F, q._post_planes("TT", "kappa",
+                                                   torch.float64))
+        uphi = (q.ly * F[0] + q.lx * F[1]) * q._conv_fac
+        phi = q.A_L("TT") * uphi * q.kmask * float(q.geom.area) ** 0.5
+        assert _rel(got, 0.5 * q.modlmap ** 2 * phi / q._phys) <= RTOL_F64
+    else:
+        # the whole planned schedule, every estimator, one and two legs
+        ky = rand(2, *q.geom.shape)
+        for est in tqe.ESTIMATORS:
+            assert _rel(q.kappa_from_map(est, kx),
+                        _unfused_kappa(q, est, kx, kx)) <= 1e-10
+            assert _rel(q.kappa_from_map(est, kx, ky),
+                        _unfused_kappa(q, est, kx, ky)) <= 1e-10
 
 
 def test_kappa_tt_rfft(engines):

@@ -119,9 +119,14 @@ def _tree(prof, path):
 
 IFFT = ("transforms.ifft2pp", ["transforms.rowifft", "transforms.colifft"])
 FFT = ("transforms.fft2pp", ["transforms.colfft", "transforms.rowfft"])
-LEGS = "qe.kappa_from_map.legs"
+# the generic TT estimator of one k-map with one leg mask: three distinct
+# legs (one leg kernel), each inverse unscaled, one pair kernel, one
+# forward transform a component, one post kernel
+LEGS = ("qe.kappa_from_map.legs", ["qe.qe_leg"])
 CONV = ("qe.kappa_from_map.conv",
-        ["transforms.qe_ifft2", "transforms.qe_ifft2", "transforms.qe_fft2"])
+        3 * ["transforms.qe_ifft2"] + ["qe.qe_pair"]
+        + 2 * ["transforms.qe_fft2"])
+NORMALIZE = ("qe.kappa_from_map.normalize", ["qe.qe_post"])
 ROW_BINS = ["binning.bin_reduce", "binning.bin_reduce"]
 
 TREES = {
@@ -159,9 +164,7 @@ TREES = {
         ("fastcl.colfft", ["transforms.colfft"]),
         ("fastcl.power", ["transforms.rowqc_pp"]),
         ("fastcl.bin", ["binning.bin2_reduce"] + ROW_BINS)])],
-    "qe_kappa_from_map": [("qe.kappa_from_map",
-                           [LEGS] + 2 * [LEGS, LEGS, CONV, LEGS, CONV]
-                           + ["qe.kappa_from_map.normalize"])],
+    "qe_kappa_from_map": [("qe.kappa_from_map", [LEGS, CONV, NORMALIZE])],
 }
 
 
