@@ -312,9 +312,10 @@ def profile_steps(step, nsteps, step_ms, tag):
             step()
             torch.cuda.synchronize()
             prof.step()
+    # the port's span ranges (orphics.*) carry their kernels' device time
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.key.startswith("ProfilerStep")]
+            and not e.key.startswith(("ProfilerStep", "orphics."))]
     kern.sort(key=lambda e: -e.self_device_time_total)
     dev_ms = sum(e.self_device_time_total for e in kern) / (nsteps * 1e3)
     print(f"[{tag}] device time {dev_ms:.4f} ms per step = "
@@ -730,7 +731,8 @@ def curved_qe_phase(dev, card, results, reset_counts, read_counts):
     from the unlensed TT it would be R with the unlensed spectrum there,
     which the engine does not compute. With the JAX function's sign on the
     last two terms the ratios are negative. (e) Reconstructions/s of ``phi_from_alm`` on 4 sims (16
-    syntheses, 12 analyses a call), peak memory, device time by kernel.
+    syntheses, 12 analyses a call), peak memory, device time by kernel, in
+    a smoke window; the benchmark cell ``curvedqe2047.recon`` measures it.
     (f) From counts at 0: exactly one B10s and one B10a launch, both on
     layout "fold", per ``phi_from_alm`` call of 4 sims."""
     from orphics_tpu_torch.models import curved_qe as cqe
@@ -941,11 +943,15 @@ def curved_qe_phase(dev, card, results, reset_counts, read_counts):
           f"(<= 5); the exact sums at {Ld.size} Ls on the card "
           f"{dt_dense:.3f} s")
 
-    # (e) throughput of phi_from_alm on 4 sims
+    # (e) throughput of phi_from_alm on 4 sims: a smoke window of 5 steps.
+    # The measured number is the benchmark cell curvedqe2047.recon
+    # (python3 -m cmbbench.run --workload curvedqe2047.recon --seed <n>
+    # --seconds 10 --trace <0|1>: kappa_from_alm on 4 held sims a step)
     def step():
         return qe.phi_from_alm(tlm_e)
     ms = throughput(step, nsims, 5, f"curved_qe_recons_per_sec_lmax{lmax}"
-                    f"_batch{nsims} (3072 GL rings x 6144, phi_from_alm)",
+                    f"_batch{nsims} (3072 GL rings x 6144, phi_from_alm; "
+                    "smoke: the cell curvedqe2047.recon measures it)",
                     "recons/s", card, "20e")
     kern = profile_steps(step, 2, ms, "20e")
     share = {k: sum(e.self_device_time_total for e in kern

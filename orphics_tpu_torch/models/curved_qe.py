@@ -60,6 +60,7 @@ import torch
 from .._device import as_tensor, resolve
 from ..ops import alm as almops
 from ..ops import sht
+from ..utils.profiling import span, spanned
 
 __all__ = ["qtt_bar", "qtt", "response_tt", "n0_tt", "CurvedQE",
            "grad_dot"]
@@ -230,17 +231,41 @@ def _leg(fl, like):
     return fl.to(device=like.device, dtype=like.real.dtype)
 
 
-def _products(a_alm, b_alm, rings, lmax, fast):
-    """The three analyses both estimators share: with A, B the maps of
-    ``a_alm``, ``b_alm`` and LapX the map of -l(l+1) X_lm, the alms of
-    (A B, A LapB, B LapA). One synthesis of the 4 B stacked alms, one
-    analysis of the 3 B products (B = the leading batch size)."""
+def _stack(a_alm, b_alm, lmax):
+    """(the 4 B stacked alms [a, b, -l(l+1) a, -l(l+1) b], l(l+1)): the
+    legs whose maps :func:`_products` multiplies."""
     llp1 = _llp1(lmax, a_alm.real.dtype, str(a_alm.device))
-    alms = torch.stack([a_alm, b_alm, almops.almxfl(a_alm, -llp1),
-                        almops.almxfl(b_alm, -llp1)])
-    m = sht.alm2map(alms, rings, lmax, fast=fast)
-    prods = torch.stack([m[0] * m[1], m[0] * m[3], m[1] * m[2]])
-    return sht.map2alm(prods, rings, lmax, fast=fast), llp1
+    return torch.stack([a_alm, b_alm, almops.almxfl(a_alm, -llp1),
+                        almops.almxfl(b_alm, -llp1)]), llp1
+
+
+def _products(alms, rings, lmax, fast):
+    """The three analyses both estimators share: with A, B the maps of the
+    first two of :func:`_stack`'s legs and LapX the map of -l(l+1) X_lm,
+    the alms of (A B, A LapB, B LapA). One synthesis of the 4 B stacked
+    alms, one analysis of the 3 B products (B = the leading batch size)."""
+    with span("orphics.curved_qe.synth"):
+        m = sht.alm2map(alms, rings, lmax, fast=fast)
+    with span("orphics.curved_qe.products"):
+        prods = torch.stack([m[0] * m[1], m[0] * m[3], m[1] * m[2]])
+    with span("orphics.curved_qe.analysis"):
+        return sht.map2alm(prods, rings, lmax, fast=fast)
+
+
+def _qtt_bar(talm, rings, lmax, fl, wl, fast, post=()):
+    """:func:`qtt_bar` of a tensor ``talm`` with the filters already in its
+    real dtype on its device, then the per-l factors ``post`` applied in
+    turn (the normalization, the kappa factor), in the estimator's stage
+    spans."""
+    with span("orphics.curved_qe.legs"):
+        alms, llp1 = _stack(almops.almxfl(talm, fl),
+                            almops.almxfl(talm, wl), lmax)
+    p = _products(alms, rings, lmax, fast)
+    with span("orphics.curved_qe.combine"):
+        out = 0.5 * (almops.almxfl(p[0], llp1) - p[1] + p[2])
+        for fl_post in post:
+            out = almops.almxfl(out, fl_post)
+        return out
 
 
 def qtt_bar(talm, rings, lmax, fl, wl, fast=False):
@@ -252,10 +277,7 @@ def qtt_bar(talm, rings, lmax, fl, wl, fast=False):
     one B10s launch of the 4 B stacked maps and one B10a launch of the
     3 B products, up to 16 maps a launch."""
     talm = torch.as_tensor(talm)
-    tbar = almops.almxfl(talm, _leg(fl, talm))
-    walm = almops.almxfl(talm, _leg(wl, talm))
-    p, llp1 = _products(tbar, walm, rings, lmax, fast)
-    return 0.5 * (almops.almxfl(p[0], llp1) - p[1] + p[2])
+    return _qtt_bar(talm, rings, lmax, _leg(fl, talm), _leg(wl, talm), fast)
 
 
 def qtt(talm, rings, lmax, cl, ctot, lmin=2, Ls=None, norm="phi",
@@ -294,9 +316,9 @@ def grad_dot(a_alm, b_alm, rings, lmax, fast=False):
     scalar identity the estimator uses: (Lap(ab) - a Lap b - b Lap a)/2.
     It is also the exact first-order lensing delta: deltaT =
     grad(phi) . grad(T). The rings must be exact to degree 3 lmax."""
-    a_alm = torch.as_tensor(a_alm)
-    b_alm = torch.as_tensor(b_alm)
-    p, llp1 = _products(a_alm, b_alm, rings, lmax, fast)
+    alms, llp1 = _stack(torch.as_tensor(a_alm), torch.as_tensor(b_alm),
+                        lmax)
+    p = _products(alms, rings, lmax, fast)
     return 0.5 * (almops.almxfl(p[0], -llp1) - p[1] - p[2])
 
 
@@ -326,16 +348,25 @@ class CurvedQE:
                 self.fl, self.wl, self._rinv_dense))
         return self._legs[key]
 
-    def phi_from_alm(self, talm, fast=False):
-        talm = as_tensor(talm, self.device)
-        fl, wl, rinv = self._filters_on(talm)
-        gbar = qtt_bar(talm, self.rings, self.lmax, fl, wl, fast=fast)
-        return almops.almxfl(gbar, rinv)
+    def _estimate(self, talm, fast, kappa):
+        """phi_LM, or kappa_LM = L(L+1)/2 phi_LM, in the span
+        ``orphics.curved_qe.phi_from_alm`` (the kappa factor applied last,
+        in the combine stage)."""
+        with span("orphics.curved_qe.phi_from_alm"):
+            talm = as_tensor(talm, self.device)
+            fl, wl, rinv = self._filters_on(talm)
+            post = (rinv,)
+            if kappa:
+                post += (0.5 * _llp1(self.lmax, talm.real.dtype,
+                                     str(talm.device)),)
+            return _qtt_bar(talm, self.rings, self.lmax, fl, wl, fast, post)
 
+    def phi_from_alm(self, talm, fast=False):
+        return self._estimate(talm, fast, kappa=False)
+
+    @spanned("orphics.curved_qe.kappa_from_alm")
     def kappa_from_alm(self, talm, fast=False):
-        phi = self.phi_from_alm(talm, fast=fast)
-        return almops.almxfl(phi, 0.5 * _llp1(self.lmax, phi.real.dtype,
-                                              str(phi.device)))
+        return self._estimate(talm, fast, kappa=True)
 
     def n0(self, norm="phi"):
         if norm == "phi":

@@ -668,14 +668,24 @@ def legendre_ana(G, tab, fast: bool = False):
         _build.check(err, "legendre_ana")
         legendre_ana.launches += 1
         if nsg > 1:
-            acc = part[0]
-            for i in range(1, nsg):
-                acc = acc + part[i]
-            dst.copy_(acc)
+            _sum_partials(part, dst)
     return torch.view_as_complex(out)
 
 
 legendre_ana.launches = 0
+legendre_ana.partial_planes = 0
+
+
+@spanned("orphics.transforms.legendre_ana.partials")
+def _sum_partials(part, dst):
+    """B10a's cross-group sum: the fp64 partial planes ``part`` (nsg, ...)
+    of one launch added in ring order into ``dst``, counted in
+    ``legendre_ana.partial_planes``."""
+    acc = part[0]
+    for i in range(1, part.shape[0]):
+        acc = acc + part[i]
+    dst.copy_(acc)
+    legendre_ana.partial_planes += part.shape[0]
 
 
 @spanned("orphics.transforms.legendre_syn")

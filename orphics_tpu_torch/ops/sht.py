@@ -23,6 +23,7 @@ from functools import lru_cache, partial
 import numpy as np
 import torch
 
+from ..utils.profiling import spanned
 from . import alm as almops
 from . import legendre as leg
 
@@ -165,6 +166,7 @@ def _phase(mmax, phi0, sign, dtype, device):
     return _phase_tensor(mmax, phi0, sign, dtype, str(device))
 
 
+@spanned("orphics.transforms.ring_fft")
 def _ring_analysis(maps, rings: RingGeom, mmax: int):
     """FFT each ring: ``F[..., T, M+1] = sum_j f e^{-i m phi_j}``."""
     nphi = rings.nphi
@@ -179,6 +181,7 @@ def _ring_analysis(maps, rings: RingGeom, mmax: int):
     return F * _phase(mmax, rings.phi0, -1, F.dtype, F.device)
 
 
+@spanned("orphics.transforms.ring_ifft")
 def _ring_synthesis(Fm, rings: RingGeom):
     """Inverse of :func:`_ring_analysis` for a real field:
     ``Fm[..., T, M+1] -> maps[..., T, nphi]``."""

@@ -1169,3 +1169,47 @@ def test_kappa_from_map_card_matches_cpu(cuda_device, est):
                                                for k in legs))
         assert ((got.cpu() - ref).abs().max() / ref.abs().max()).item() \
             <= 2e-5
+
+
+@pytest.mark.cuda
+def test_curved_kappa_partial_planes(cuda_device):
+    """One ``kappa_from_alm`` call of 4 sims at lmax 1023 on
+    ``gauss_legendre_rings(1535)`` (768 kernel rings, 12 folded product
+    maps: two groups of 512 rings) under the profiler: one B10s and one
+    B10a launch, B10a's partial planes summed once in their span, the
+    counter moved by the two planes, and the output equal to the untraced
+    call's."""
+    import json
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from orphics_tpu_torch.models.curved_qe import CurvedQE
+    from orphics_tpu_torch.ops import alm as almops
+    lmax = 1023
+    rings = sht.gauss_legendre_rings(1535)
+    cl = np.asarray(default_theory().lCl("TT", np.arange(lmax + 1)))
+    ctot = cl + (10.0 * np.pi / 10800.0) ** 2
+    qe = CurvedQE(rings, lmax, cl, ctot, lmin=100, device=cuda_device)
+    talm = almops.synalm(torch.Generator(device=cuda_device).manual_seed(9),
+                         ctot, lmax, batch=(4,), device=cuda_device)
+    plain = qe.kappa_from_alm(talm)
+    before = (leg.legendre_ana.launches, leg.legendre_syn.launches,
+              leg.legendre_ana.partial_planes)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced = qe.kappa_from_alm(talm)
+        torch.cuda.synchronize()
+    ran = [n - b for n, b in zip((leg.legendre_ana.launches,
+                                  leg.legendre_syn.launches,
+                                  leg.legendre_ana.partial_planes), before)]
+    assert ran == [1, 1, 2]
+    with tempfile.TemporaryDirectory() as d:
+        path = d + "/trace.json"
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            names = [e["name"] for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "user_annotation"]
+    assert names.count("orphics.transforms.legendre_ana.partials") == 1
+    assert names.count("orphics.curved_qe.kappa_from_alm") == 1
+    assert torch.equal(plain, traced)
