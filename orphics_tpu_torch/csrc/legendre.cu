@@ -48,20 +48,23 @@
 //   warp-private shared buffer (row stride 32 RR + 4 doubles, conflict-free
 //   fragment loads; folded, even l in rows 0-7 and odd l in rows 8-15),
 //   ordered by __syncwarp.
-//   - B10a: M = 16 l, K = 4 rings, N = 8 columns: G's fragments of the
-//     warp's rings stay in registers for the whole m column, read from the
+//   - B10a, one pass (ana_kernel_1p): folded grids of 1025-2048 kernel
+//     rings (legendre._ana_plan); see below.
+//   - B10a, ring groups (ana_kernel), every other grid: M = 16 l
+//     (folded: even l in rows 0-7, odd l in rows 8-15), K = 4 rings, N =
+//     8 columns of S0's then S1's, the even-l rows keeping S0's and the
+//     odd-l rows S1's (the other half of each product is discarded). G's
+//     fragments stay in registers for the whole m column, read from the
 //     caller's (map, ring, m) layout with the north-south fold formed on
-//     the way (no fold, stack or permute pass before the launch); folded,
-//     the B columns are S0's then S1's and the even-l rows keep S0's, the
-//     odd-l rows S1's. One block of 16 warps per m holds 512 RR rings. The
-//     warps' 16 x 8 partials go through shared memory (double-buffered) and
-//     are summed over the warps in a fixed order during the next chunk, so
-//     the sum overlaps the other warps' work; each (l, m) output is written
-//     once, in the caller's (map, l, m) layout, and the rows outside the
-//     block's live chunks as zeros: no read-modify-write, no zeroing pass.
-//     Grids of more rings (RR = 1) write one fp64 partial output per
-//     512-ring group, summed by the wrapper in group order, which is the
-//     order of the RR = 2 block's own sum.
+//     the way (both forms: no fold, stack or permute pass). One block of 16
+//     warps per (m, 512 RR rings); the warps' partials are summed in shared
+//     memory in a fixed order during the next chunk; each (l, m) output is
+//     written once (both forms: no read-modify-write, no zeroing pass), or
+//     past one block as one fp64 partial output per 512-ring group, summed
+//     by the wrapper in group order (the order of the RR = 2 block's own
+//     sum, RR = 2 where one column tile holds the maps on 513-1024 rings);
+//     folded, 9-16 maps as two grid layers (S0's and S1's fragments of 8
+//     maps fill the registers), each re-running the recurrence.
 //   - B10s: M = 16 rings, K = 4 l, N = 8 columns, Lambda transposed through
 //     the warp buffer, the a fragments from the chunk's rows (cp.async from
 //     the caller's (map, l, m) layout into padded rows), the sums in C
@@ -76,15 +79,51 @@
 //   block runs the union of its groups' live chunks, a warp skips the chunks
 //   outside its own, and the lanes of a dead group hold no seed (their
 //   values stay zero: the dead-group skip).
-// * Instances: 1, 2, 4, 8 and 16 maps a launch (B10a folded: 9-16 maps as
-//   two groups of blocks, a grid layer each, since S0's and S1's fragments
-//   of 8 maps fill the registers), one column tile per 4 maps;
-//   RR = 2 in B10a where one column tile holds the maps and the grid has
-//   513-1024 rings. Every (l, m) or (ring, m) sum runs in an order that
-//   depends on the ring count only, so two runs, and a map alone or in a
-//   packed launch, give the same bits.
+// * Instances: 1, 2, 4, 8 and 16 maps a launch; B10s and the ring-group
+//   B10a one column tile per 4 maps, the one-pass B10a one per 4 maps of
+//   a parity. Every (l, m) or (ring, m) sum runs in an order that depends
+//   on the ring count only (the B10a form too: legendre._ana_plan), so
+//   two runs, and a map alone or in a packed launch, give the same bits.
+//
+// B10a in one pass. At the curved-sky QE's launch (12 folded maps, 1536
+// kernel rings, lmax 2047) the bound is the fp64 tensor cores': 2 x 24
+// flops a live step, 1.58 ms. The ring-group form ran 10.3x that (16.2 ms
+// and the wrapper's 2.0 ms sum): it wrote three fp64 partial planes (2.4
+// GB) through device memory, ran the recurrence twice (two layers of 6
+// maps) and discarded half of every product, with 8 of 32 columns
+// padding. The one-pass form:
+// * every ring of an m is summed on chip: a cluster of ceil(Tk / 256)
+//   blocks (5-8), each block summing its 4 warp pairs' partials in
+//   shared memory in pair order, the cluster its blocks' sums in rank order
+//   over distributed shared memory (barrier.cluster, then each block pulls
+//   its share of the chunk's outputs from every live block); the output is
+//   written once, in the caller's type and (map, l, m) layout;
+// * one recurrence for all maps: a block holds G's fragments of all its
+//   maps in registers, in the caller's type, converted at the MMA;
+// * chunks of 32 l, so that an m16 tile is the 16 l of one parity: warp h
+//   of a pair contracts parity h over the pair's 64 rings against that
+//   fold's 2 nmaps columns only, 3 tiles at 12 maps, no padding; the pair
+//   shares its Lambda buffer (conflict-free by an XOR swizzle, no padding);
+// * blocks of 8 warps and 256 rings, ~110 KB of shared memory and at most
+//   128 registers, so that two blocks share an SM and one's barriers,
+//   cluster waits and remote loads overlap the other's work; the
+//   coefficients in 16-byte loads (the recurrence is bound by shared
+//   memory: its Lambda stores and coefficient loads);
+// * a block with no live ring (the polar rings at high m) leaves at once;
+//   the cluster's barriers count only the blocks still running.
+// Where the time goes (H100, the curved QE's launch, parts switched off in
+// turn before the last two steps above): the recurrence (1.6 ms) and the
+// MMAs (2.0 ms) add rather than overlap, and with both off the launch
+// still took 5.5 of 8.8 ms: a chunk's fixed cost (two block barriers, the
+// cluster barrier, the pull of the remote sums, the output stores). Where a
+// launch holds few maps that cost outweighs the saving: one folded map on
+// 1024 kernel rings takes 3.45 ms against the ring groups' 2.15, so folded
+// grids of up to 1024 kernel rings, where the ring groups write no partial
+// planes for such launches, and the unfolded layouts keep the ring-group
+// form.
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -531,6 +570,343 @@ ana_kernel(Tabs tb, const TI* __restrict__ G, void* __restrict__ out,
   reduce(bhi - 1);
 }
 
+// One-pass B10a (the header's design): chunks of LC1 l-steps, warp pairs,
+// two blocks an SM.
+constexpr int LC1 = 32;                  // l-steps per chunk
+constexpr int ANA1_NW = 8;               // warps per block
+constexpr int ANA1_NP = ANA1_NW / 2;     // warp pairs per block
+constexpr int ANA1_RINGS = ANA1_NW * 32; // rings per block (256)
+constexpr int MAXCL = 8;                 // blocks per cluster (portable)
+
+// The LC1 steps of chunk ch of the lane's ring, as recur_chunk, with each
+// table's coefficients of 16 / sizeof(R) steps in one 16-byte load (cf
+// 16-byte aligned; the loads stay in this body, where cf is __restrict__,
+// so that they may run ahead of the sink's stores)
+template <typename R, typename Sink>
+__device__ inline void recur_chunk1(Lane<R>& ln, const Seeds<R>& sd,
+                                    int slot, const R* __restrict__ cf,
+                                    int ch, Sink&& sink) {
+  constexpr int PER = 16 / static_cast<int>(sizeof(R));
+  using V = typename std::conditional<sizeof(R) == 8, double2, float4>::type;
+  const int l0 = ch * LC1;
+  const bool full = static_cast<unsigned>(ln.ls - l0) < LC1
+      || (sizeof(R) == 4 && ln.e > 0);
+  if (__any_sync(0xffffffffu, full)) {
+    const R s1 = sd.s1[slot], s0 = sd.s0[slot];
+    const int se = sd.se[slot];
+#pragma unroll
+    for (int j0 = 0; j0 < LC1; j0 += PER) {
+      const V va = *reinterpret_cast<const V*>(cf + j0);
+      const V vb = *reinterpret_cast<const V*>(cf + LC1 + j0);
+      const V vc = *reinterpret_cast<const V*>(cf + 2 * LC1 + j0);
+      const R* a = reinterpret_cast<const R*>(&va);
+      const R* b = reinterpret_cast<const R*>(&vb);
+      const R* c = reinterpret_cast<const R*>(&vc);
+#pragma unroll
+      for (int i = 0; i < PER; ++i)
+        sink(j0 + i, step_full(ln, a[i], b[i], c[i], l0 + j0 + i, s1, s0,
+                               se));
+    }
+  } else {
+#pragma unroll
+    for (int j0 = 0; j0 < LC1; j0 += PER) {
+      const V va = *reinterpret_cast<const V*>(cf + j0);
+      const V vb = *reinterpret_cast<const V*>(cf + LC1 + j0);
+      const V vc = *reinterpret_cast<const V*>(cf + 2 * LC1 + j0);
+      const R* a = reinterpret_cast<const R*>(&va);
+      const R* b = reinterpret_cast<const R*>(&vb);
+      const R* c = reinterpret_cast<const R*>(&vc);
+#pragma unroll
+      for (int i = 0; i < PER; ++i)
+        sink(j0 + i, step_plain(ln, a[i], b[i], c[i]));
+    }
+  }
+}
+
+// The coefficients of chunk ch of LC1 steps into buf, as Coef; zeros past
+// the tables' Lp columns (a multiple of LC, so a copy lies wholly on one
+// side)
+template <typename R>
+__device__ inline void coef_fetch1(const Tabs& tb, int m, int ch, R* buf,
+                                   int tid) {
+  constexpr int PER = 16 / sizeof(R);
+  if (tid >= 3 * LC1 / PER) return;
+  const int tab = tid / (LC1 / PER), off = (tid % (LC1 / PER)) * PER;
+  const int l = ch * LC1 + off;
+  R* dst = buf + tab * LC1 + off;
+  if (l >= tb.Lp) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) dst[i] = R(0);
+    return;
+  }
+  const R* T = static_cast<const R*>(tab == 0 ? tb.A
+                                     : (tab == 1 ? tb.B : tb.C));
+  cp_async<16>(dst, T + static_cast<int64_t>(m) * tb.Lp + l);
+}
+
+// Lambda of a pair's chunk: row r (even l in rows 0-15, odd l in 16-31),
+// ring column c (0-63) at r 64 + (c ^ 4 (r & 3)): the fragment
+// loads (rows g, g + 8, columns 4 ks + q) and the rows' stores are
+// conflict-free with no padding
+__device__ __forceinline__ int lam1(int r, int c) {
+  return r * 64 + (c ^ ((r & 3) << 2));
+}
+
+// fp32 -> fp64 at the use: volatile, so that G's fragments stay fp32 in
+// the registers rather than being converted once, out of the loop, into
+// twice the registers
+__device__ __forceinline__ double to_f64(float v) {
+  double d;
+  asm volatile("cvt.f64.f32 %0, %1;\n" : "=d"(d) : "f"(v));
+  return d;
+}
+__device__ __forceinline__ double to_f64(double v) { return v; }
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+// a double of the shared memory of the cluster's block `rank`, at the
+// offset of p in this block's
+__device__ __forceinline__ double ld_rank(const double* p, int rank) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  unsigned ra;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(ra) : "r"(a), "r"(rank));
+  double v;
+  asm volatile("ld.shared::cluster.f64 %0, [%1];\n"
+               : "=d"(v) : "r"(ra) : "memory");
+  return v;
+}
+
+// B10a, one pass, folded. G: the maps' (nmaps, T, M1, 2) TI; out: the
+// maps' (nmaps, L1, M1, 2) TI, every element written once. Grid (M1,
+// ncl) in clusters of (1, ncl): block `rank` of the m's cluster holds the
+// rings rank 256 + [0, 256), warp w the 32 rings rank 256 + 32 w + lane
+// (pair w / 2, role h = w % 2). A chunk: each warp runs its rings' LC1
+// steps into the pair's buffer; warp h of the pair contracts the chunk's l
+// of parity h against S_h's columns over the pair's 64 rings, k-steps in ring
+// order (a dead warp's 8 k-steps skipped: its Lambda is zero), NT column
+// tiles of 8 (2 nmaps columns), NH at a time; the block sums its pairs'
+// partials in pair order, the cluster its live blocks' sums in rank order
+// over distributed shared memory (each live block finishes its share of
+// the chunk's outputs). Two blocks share an SM, so that one's barriers and
+// waits overlap the other's work.
+template <typename TI, typename R, int NT>
+__global__ void __launch_bounds__(ANA1_NW * 32, 2)
+ana_kernel_1p(Tabs tb, const TI* __restrict__ G, TI* __restrict__ out,
+              int nmaps, int L1, int T, int ncl) {
+  constexpr int NTH = ANA1_NW * 32;
+  constexpr int NW = ANA1_NW;
+  constexpr int NH = NT > 3 ? 2 : NT;   // column tiles a pass (registers)
+  constexpr int PE = NT * 128;          // a warp's partial: NT 16 x 8 tiles
+  constexpr int XE = 2 * PE;            // a block's chunk sum: both m-tiles
+  extern __shared__ double smem[];
+  double* lam_all = smem;                            // [NP][LC1][64]
+  double* part = lam_all + ANA1_NP * LC1 * 64;       // [NW][PE]
+  double* xb = part + NW * PE;                       // [2][XE]
+  R* coef = reinterpret_cast<R*>(xb + 2 * XE);       // [3][3 LC1]
+  const Seeds<R> sd{coef + 9 * LC1, coef + 9 * LC1 + NTH,
+                    reinterpret_cast<int*>(coef + 9 * LC1 + 2 * NTH)};
+  __shared__ int sb[2 * NW + 3];
+  const int m = blockIdx.x, rank = blockIdx.y;
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int pr = w >> 1, h = w & 1;
+  const int cs = 2 * nmaps;                  // columns (of a parity)
+  const int pring0 = rank * NTH + 64 * pr;   // the pair's first ring
+  const int64_t plane = static_cast<int64_t>(tb.M1) * 2;
+  auto put = [&](int c, int l, double v) {
+    out[(static_cast<int64_t>(c >> 1) * L1 + l) * plane + 2 * m + (c & 1)] =
+        static_cast<TI>(v);
+  };
+  // output e of a block's chunk sum: m-tile e / PE, then the warp
+  // partial's (tile, fragment register, lane)
+  auto emit = [&](int ch, int e, double v) {
+    const int hh = e / PE, ep = e - hh * PE;
+    const int el = ep & 31, i = (ep >> 5) & 3, nt = ep >> 7;
+    const int row = (el >> 2) + 8 * (i >> 1);
+    const int col = nt * 8 + 2 * (el & 3) + (i & 1);
+    const int l = ch * LC1 + 2 * row + hh;
+    if (col < cs && l < L1) put(col, l, v);
+  };
+  // the live blocks of the cluster (a bit a rank), this block's index
+  // among them and their count; blocks with no live ring leave at once
+  unsigned live_mask = 0;
+  int kr = 0, nl = 1;
+  // the cluster's sum of chunk ch over the live blocks in rank order: this
+  // block's share (every remote load issued before the first add)
+  auto finish = [&](int ch) {
+    const int per = (XE + nl - 1) / nl;
+    const int e1 = min(XE, (kr + 1) * per);
+    const double* x = xb + (ch & 1) * XE;
+    for (int e = kr * per + tid; e < e1; e += NTH) {
+      double xr[MAXCL];
+#pragma unroll
+      for (int r = 0; r < MAXCL; ++r)
+        xr[r] = (live_mask >> r) & 1 ? ld_rank(x + e, r) : 0.0;
+      double v = 0.0;
+#pragma unroll
+      for (int r = 0; r < MAXCL; ++r)
+        if ((live_mask >> r) & 1) v += xr[r];
+      emit(ch, e, v);
+    }
+  };
+
+  // chunk bounds of LC1 steps: the warp's 32-ring group, and the union of
+  // every group of the m and its live blocks, the same in each block of
+  // the cluster
+  if (tid == 0) {
+    sb[2 * NW] = 1 << 30;
+    sb[2 * NW + 1] = 0;
+    sb[2 * NW + 2] = 0;
+  }
+  __syncthreads();
+  for (int gi = tid; gi < tb.ng; gi += NTH) {
+    const int lo = tb.bounds[m * tb.ng + gi];
+    const int hi = tb.bounds[(tb.M1 + m) * tb.ng + gi];
+    if (lo < hi) {
+      atomicMin(&sb[2 * NW], lo * LC / LC1);
+      atomicMax(&sb[2 * NW + 1], (hi * LC + LC1 - 1) / LC1);
+      atomicOr(&sb[2 * NW + 2], 1 << (gi / NW));
+    }
+  }
+  {
+    const int gi = rank * NW + w;
+    const int lo = gi < tb.ng ? tb.bounds[m * tb.ng + gi] : 0;
+    const int hi = gi < tb.ng ? tb.bounds[(tb.M1 + m) * tb.ng + gi] : 0;
+    if (lane == 0) {
+      sb[w] = lo < hi ? lo * LC / LC1 : 0;
+      sb[NW + w] = lo < hi ? (hi * LC + LC1 - 1) / LC1 : 0;
+    }
+  }
+  __syncthreads();
+  int clo = sb[2 * NW], chi = sb[2 * NW + 1];
+  if (clo >= chi) clo = chi = 0;
+  live_mask = static_cast<unsigned>(sb[2 * NW + 2]);
+  const int wlo = sb[w], whi = sb[NW + w];
+  // the live chunks of the pair's first and second warps (k-steps 0-7, 8-15)
+  const int lo0 = sb[2 * pr], hi0 = sb[NW + 2 * pr];
+  const int lo1 = sb[2 * pr + 1], hi1 = sb[NW + 2 * pr + 1];
+  if (clo < chi) {
+    // a block with no live ring leaves before any cluster barrier, and no
+    // block reads its memory: the live blocks' barriers count the others
+    // as arrived (barrier.cluster waits for the threads not exited)
+    if (!((live_mask >> rank) & 1)) return;
+    kr = __popc(live_mask & ((1u << rank) - 1));
+    nl = __popc(live_mask);
+  } else {
+    kr = rank;
+    nl = ncl;
+  }
+  {   // zeros outside the m's live chunks, shared over the live blocks
+    const int zlo = min(clo * LC1, L1), zhi = min(chi * LC1, L1);
+    const int nz = zlo + L1 - zhi;
+    for (int i = kr * NTH + tid; i < nz * cs; i += nl * NTH) {
+      const int c = i % cs, k = i / cs;
+      put(c, k < zlo ? k : zhi + k - zlo, 0.0);
+    }
+  }
+  if (clo >= chi) return;               // uniform over the cluster
+
+  auto fetch = [&](int ch) {
+    coef_fetch1(tb, m, ch, coef + (ch % 3) * 3 * LC1, tid);
+  };
+  fetch(clo);
+  cp_commit();
+  if (clo + 1 < chi) fetch(clo + 1);
+  cp_commit();
+  // G's fragments of the pair's rings for parity h: B[k = ring 4 ks + q][n
+  // = col g of tile nt], S_h of ring t formed from rings t and T - 1 - t in
+  // TI arithmetic, as the wrapper's plain _fold_G forms it
+  auto gval = [&](int t, int c) -> TI {
+    const TI* gt = G + ((static_cast<int64_t>(c >> 1) * T + t) * tb.M1 + m)
+        * 2 + (c & 1);
+    const TI n = gt[0];
+    const bool pair = t < T / 2;
+    const TI s = pair ? gt[static_cast<int64_t>(T - 1 - 2 * t) * plane]
+                      : TI(0);
+    const TI e = pair ? TI(n + s) : n, o = pair ? TI(n - s) : TI(0);
+    return ((m & 1) == 0) == (h == 0) ? e : o;
+  };
+  TI bf[16][NT];
+#pragma unroll
+  for (int ks = 0; ks < 16; ++ks) {
+    const int t = pring0 + 4 * ks + q;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int col = nt * 8 + g;
+      bf[ks][nt] = (t < tb.Tk && col < cs) ? gval(t, col) : TI(0);
+    }
+  }
+  Lane<R> ln;
+  lane_init(ln, tb, m, rank * NTH + 32 * w + lane, wlo < whi);
+  sd.stage(tb, ln, tid);
+  cp_wait_prev();
+  __syncthreads();
+  double* lam = lam_all + pr * LC1 * 64;
+  const int col0 = 32 * h + lane;       // the lane's ring in the pair
+  for (int ch = clo; ch < chi; ++ch) {
+    if (ch + 2 < chi) fetch(ch + 2);
+    cp_commit();
+    if (ch >= wlo && ch < whi)            // uniform over the warp
+      recur_chunk1(ln, sd, tid, coef + (ch % 3) * 3 * LC1, ch,
+                   [&](int j, double v) {
+        lam[lam1((j & 1) * 16 + (j >> 1), col0)] = v;
+      });
+    if (ch > clo) cluster_wait();   // chunk ch - 1's sums
+    __syncthreads();   // the pairs' Lambda written, the partials read
+    const bool on0 = ch >= lo0 && ch < hi0, on1 = ch >= lo1 && ch < hi1;
+#pragma unroll
+    for (int h0 = 0; h0 < NT; h0 += NH) {
+      double acc[NH][4];
+#pragma unroll
+      for (int nt = 0; nt < NH; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[nt][i] = 0.0;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        if (half == 0 ? on0 : on1) {      // uniform over the warp
+#pragma unroll
+          for (int kk = 0; kk < 8; ++kk) {
+            const int ks = 8 * half + kk;
+            const int r0 = 16 * h + g;
+            const double a0 = lam[lam1(r0, 4 * ks + q)];
+            const double a1 = lam[lam1(r0 + 8, 4 * ks + q)];
+#pragma unroll
+            for (int nt = 0; nt < NH; ++nt)
+              mma1684(acc[nt], a0, a1, to_f64(bf[ks][h0 + nt]));
+          }
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < NH; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          part[w * PE + ((h0 + nt) * 4 + i) * 32 + lane] = acc[nt][i];
+    }
+    if (ch > clo) finish(ch - 1);
+    cp_wait_prev();
+    __syncthreads();   // the partials written; chunk ch + 1's coefficients
+    for (int e = tid; e < XE; e += NTH) {
+      const int hh = e / PE, ep = e - hh * PE;
+      double v = 0.0;
+#pragma unroll
+      for (int p = 0; p < ANA1_NP; ++p) v += part[(2 * p + hh) * PE + ep];
+      xb[(ch & 1) * XE + e] = v;
+    }
+    cluster_arrive();
+    // xb[ch & 1] is rewritten at chunk ch + 2, after every block's wait for
+    // chunk ch + 1, which follows its reads of chunk ch
+  }
+  cluster_wait();
+  finish(chi - 1);
+  cluster_arrive();     // no block leaves while another reads its memory
+  cluster_wait();
+}
+
 // B10s. a: the maps' (nmaps, L1, M1, 2) TI; out: the maps' (nmaps, T', M1,
 // 2) TI, T' = T (every ring; folded: north ring t and south ring T - 1 - t)
 // or Tk. Grid (M1, ceil(Tk / 128 RR)), 128 threads; warp w, slot
@@ -863,6 +1239,50 @@ int ana_dispatch(const Tabs& tb, const void* G, void* out, const AnaArgs& g,
   return launch_ana<TI, R, FOLD, 4, 1>(tb, G, out, g, st);
 }
 
+template <typename TI, typename R, int NT>
+int launch_ana_1p(const Tabs& tb, const void* G, void* out, int nmaps,
+                  int L1, int T, int ncl, cudaStream_t st) {
+  constexpr int PE = NT * 128;
+  constexpr int smem = static_cast<int>(
+      sizeof(double) * (ANA1_NP * LC1 * 64 + ANA1_NW * PE + 4 * PE)
+      + sizeof(R) * (9 * LC1 + 2 * ANA1_RINGS) + sizeof(int) * ANA1_RINGS);
+  auto kernel = ana_kernel_1p<TI, R, NT>;
+  static const int attr = set_smem(kernel, smem);
+  if (attr != 0) return attr;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = 1;
+  at[0].val.clusterDim.y = ncl;
+  at[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tb.M1, ncl, 1);
+  cfg.blockDim = dim3(ANA1_NW * 32, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, tb, static_cast<const TI*>(G), static_cast<TI*>(out),
+      nmaps, L1, T, ncl);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// NT column tiles of 8 for the 2 nmaps columns of a parity: 1 to 4
+template <typename TI, typename R>
+int ana_1p_dispatch(const Tabs& tb, const void* G, void* out, int nmaps,
+                    int L1, int T, int ncl, cudaStream_t st) {
+  switch ((2 * nmaps + 7) / 8) {
+    case 1:
+      return launch_ana_1p<TI, R, 1>(tb, G, out, nmaps, L1, T, ncl, st);
+    case 2:
+      return launch_ana_1p<TI, R, 2>(tb, G, out, nmaps, L1, T, ncl, st);
+    case 3:
+      return launch_ana_1p<TI, R, 3>(tb, G, out, nmaps, L1, T, ncl, st);
+    default:
+      return launch_ana_1p<TI, R, 4>(tb, G, out, nmaps, L1, T, ncl, st);
+  }
+}
+
 template <typename TI, typename R, bool FOLD, int NT, int RR>
 int launch_syn(const Tabs& tb, const void* a, void* out, int nmaps, int L1,
                int T, cudaStream_t st) {
@@ -941,6 +1361,28 @@ int legendre_ana_launch(const void* A, const void* B, const void* C,
                 : ana_dispatch<float, float, false>(tb, G, out, g, rr, st);
   return fold ? ana_dispatch<float, double, true>(tb, G, out, g, rr, st)
               : ana_dispatch<float, double, false>(tb, G, out, g, rr, st);
+}
+
+// B10a in one pass on a folded grid: as legendre_ana_launch with fold = 1,
+// out always the maps' (nmaps, L1, M1, 2) in G's type, every element
+// written once; ncl = ceil(Tk / 256) blocks a cluster, at most 8.
+int legendre_ana1_launch(const void* A, const void* B, const void* C,
+                         const void* x, const float* xlo, const void* s1,
+                         const void* s0, const int* se, const int* ls,
+                         const int* bounds, const void* G, void* out, int M1,
+                         int Lp, int L1, int Tk, int T, int ng, int nmaps,
+                         int ncl, int fast, int f64, void* stream) {
+  if (bad_shape(M1, Lp, Tk, ng, nmaps) || L1 < 1 || L1 > Lp
+      || Tk != (T + 1) / 2
+      || ncl != (Tk + ANA1_RINGS - 1) / ANA1_RINGS || ncl > MAXCL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Tabs tb{A, B, C, x, xlo, s1, s0, se, ls, bounds, M1, Lp, Tk, ng};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (f64)
+    return ana_1p_dispatch<double, double>(tb, G, out, nmaps, L1, T, ncl, st);
+  if (fast)
+    return ana_1p_dispatch<float, float>(tb, G, out, nmaps, L1, T, ncl, st);
+  return ana_1p_dispatch<float, double>(tb, G, out, nmaps, L1, T, ncl, st);
 }
 
 // B10s. a: the maps' (nmaps, L1, M1, 2); out: the maps' (nmaps, fold ? T :

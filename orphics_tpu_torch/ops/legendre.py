@@ -12,7 +12,11 @@
   per-(ring, m) seeds captured at ``l_s`` (the first l whose value the
   weighting keeps), over per-(m, 32-ring group) loop bounds with the
   dead-group skip, and on north-south symmetric grids over the northern
-  rings only; the contractions run on the fp64 tensor cores.
+  rings only; the contractions run on the fp64 tensor cores. B10a takes
+  one of two forms by the grid (:func:`_ana_plan`): on folded grids of
+  1025-2048 kernel rings a cluster of blocks sums every ring of an m on
+  chip in one pass, elsewhere blocks of ring groups whose float64 partial
+  planes the wrapper sums.
 * :func:`legendre_ana_ref` / :func:`legendre_syn_ref`: the plain float64
   loop over l from the closed-form seeds at ``l0 = max(m, |n|)`` with the
   extended-exponent counter, over every ring, with no captured seeds and no
@@ -38,6 +42,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -54,8 +59,10 @@ _INV = float(2.0 ** -_RESCALE_BITS)
 _TH = float(2.0 ** (_RESCALE_BITS // 2))
 _TG = 32       # rings per group of the loop bounds, csrc/legendre.cu TG
 _LC = 16       # l-steps per chunk, csrc/legendre.cu LC
-_MAXB = 16     # maps per launch (folded B10a: two groups of blocks past 8)
+_MAXB = 16     # maps per launch
 _ANA_RINGS = 512     # rings per B10a block and slot (16 warps of 32)
+_ANA1_RINGS = 256    # rings per block of the one-pass B10a (8 warps of 32)
+_ANA_CLUSTER = 8     # blocks per cluster of the one-pass B10a, at most
 
 
 # ---------------------------------------------------------------------------
@@ -629,6 +636,43 @@ def _check_in(x, tab, rows, what):
                          f"(B, {rows}, {M1})")
 
 
+class _AnaPlan(NamedTuple):
+    """How B10a runs one launch (:func:`_ana_plan`)."""
+    form: str            # "one_pass" (folded) or "groups"
+    blocks: int          # blocks per m: the cluster, or the ring groups
+    rr: int              # rings a lane ("groups")
+    tiles: int           # column tiles of 8: of a parity ("one_pass"), of
+                         # a map group's S0 and S1 ("groups")
+    partial_planes: int  # float64 planes the wrapper sums (0: none)
+
+
+def _ana_plan(Tk, nmaps, layout):
+    """The launch of B10a over ``Tk`` kernel rings and ``nmaps`` maps (at
+    most 16) in ``layout``. On a folded grid of 1025-2048 kernel rings,
+    where the ring-group form writes partial planes whatever the map count,
+    the one-pass form: a cluster of ``ceil(Tk / 256)`` blocks sums every
+    ring of an m on chip, each l parity against its own fold's columns
+    (``2 nmaps`` a parity, in tiles of 8). Elsewhere the ring-group form:
+    one block of 512 rings each (1024, two a lane, where one column tile
+    holds the maps), whose float64 partial planes the wrapper sums in ring
+    order; folded, more than 8 maps as two grid layers. The one-pass form
+    is slower where a launch holds few maps and the ring-group form needs
+    no planes (one map at 1024 folded rings: 3.45 against 2.14 ms on the
+    H100), and on the unfolded layouts tried (16 maps "half" at 512 rings,
+    one map "full" at 2048). The form, and so every sum's order, depends on
+    ``Tk`` and ``layout`` alone: a map gives the same bits alone as in a
+    packed launch."""
+    blocks = -(-Tk // _ANA1_RINGS)
+    if layout == "fold" and 2 * _ANA_RINGS < Tk and blocks <= _ANA_CLUSTER:
+        return _AnaPlan("one_pass", blocks, 1, -(-2 * nmaps // 8), 0)
+    fold = layout == "fold"
+    gmaps = -(-nmaps // -(-nmaps // 8)) if fold else nmaps
+    tiles = -(-(2 if fold else 1) * 2 * gmaps // 8)
+    rr = 2 if tiles == 1 and _ANA_RINGS < Tk <= 2 * _ANA_RINGS else 1
+    nsg = -(-Tk // (_ANA_RINGS * rr))
+    return _AnaPlan("groups", nsg, rr, tiles, nsg if nsg > 1 else 0)
+
+
 @spanned("orphics.transforms.legendre_ana")
 def legendre_ana(G, tab, fast: bool = False):
     """Legendre analysis ``out[b, l, m] = sum_t Lambda_lm(theta_t) G[b, t,
@@ -650,30 +694,32 @@ def legendre_ana(G, tab, fast: bool = False):
     stream = torch.cuda.current_stream(G.device).cuda_stream
     for b0 in range(0, nb, _MAXB):
         n = min(_MAXB, nb - b0)
-        # two rings a lane where one column tile holds the maps and one
-        # block of 1024 rings then covers the grid; else one block per 512
-        # rings, whose partial sums are added here in ring order (the
-        # order of the two-ring block's own sum)
-        tiles = -(-(2 if fold else 1) * 2 * n // 8)
-        rr = 2 if tiles == 1 and _ANA_RINGS < Tk <= 2 * _ANA_RINGS else 1
-        nsg = -(-Tk // (_ANA_RINGS * rr))
+        plan = _ana_plan(Tk, n, tab["layout"])
         dst = out[b0:b0 + n]
-        part = dst if nsg == 1 else torch.empty(
-            (nsg, n, L1, M1, 2), dtype=torch.float64, device=G.device)
-        err = lib.legendre_ana_launch(*ptrs, Gk[b0:b0 + n].data_ptr(),
-                                      part.data_ptr(), M1, k["Lp"], L1, Tk,
-                                      Tr, tab["T"], k["ng"], n, rr,
-                                      int(nsg == 1), int(fold), fast_i, f64,
-                                      stream)
+        if plan.form == "one_pass":
+            err = lib.legendre_ana1_launch(
+                *ptrs, Gk[b0:b0 + n].data_ptr(), dst.data_ptr(), M1, k["Lp"],
+                L1, Tk, tab["T"], k["ng"], n, plan.blocks, fast_i, f64,
+                stream)
+        else:
+            part = dst if not plan.partial_planes else torch.empty(
+                (plan.blocks, n, L1, M1, 2), dtype=torch.float64,
+                device=G.device)
+            err = lib.legendre_ana_launch(
+                *ptrs, Gk[b0:b0 + n].data_ptr(), part.data_ptr(), M1,
+                k["Lp"], L1, Tk, Tr, tab["T"], k["ng"], n, plan.rr,
+                int(not plan.partial_planes), int(fold), fast_i, f64, stream)
         _build.check(err, "legendre_ana")
         legendre_ana.launches += 1
-        if nsg > 1:
+        legendre_ana.one_pass += plan.form == "one_pass"
+        if plan.partial_planes:
             _sum_partials(part, dst)
     return torch.view_as_complex(out)
 
 
 legendre_ana.launches = 0
 legendre_ana.partial_planes = 0
+legendre_ana.one_pass = 0
 
 
 @spanned("orphics.transforms.legendre_ana.partials")

@@ -3,10 +3,12 @@ B6s ``rows_half`` / ``rows_pp`` (``--kernel rowpower``), B3 ``colfft`` /
 ``colifft`` and B3s ``colfft_scaled`` (``--kernel colfft``), B4 ``rowfft``
 / ``rowifft`` / ``rowifft_scaled_y``, B5 ``rowifft_noise_y`` and B4b
 ``rowfft_blk0`` (``--kernel rowfft``), the Legendre kernels B10a
-``legendre_ana`` and B10s ``legendre_syn`` (``--kernel legendre``), the
-lensing displacement B8 ``lens_map_kernel`` (``--kernel lens``), the
-segment sums B1 ``bin_reduce``, B2 ``bin2_reduce`` and B2'
-``bin_pair_power`` (``--kernel binreduce``), the ILC coadd B9
+``legendre_ana`` and B10s ``legendre_syn`` (``--kernel legendre``; B10a
+alone, also at the curved-sky QE's shape, one map on its grid and layout
+"full", ``--kernel legendre_ana``), the lensing displacement B8
+``lens_map_kernel`` (``--kernel lens``), the segment sums B1
+``bin_reduce``, B2 ``bin2_reduce`` and B2' ``bin_pair_power`` (``--kernel
+binreduce``), the ILC coadd B9
 ``rowcombine_pp`` (``--kernel rowcombine``) and the noise draw B5n
 ``noise_planes`` (``--kernel noise``).
 
@@ -14,7 +16,8 @@ Run from the repository root on a machine with one NVIDIA Hopper GPU and
 nvcc:
 
     python3 scripts/bench_kernels.py --kernel
-        {rowpower,colfft,rowfft,legendre,lens,binreduce,rowcombine,noise}
+        {rowpower,colfft,rowfft,legendre,legendre_ana,lens,
+         binreduce,rowcombine,noise}
         [--tree DIR] [--quick]
 
 It imports ``orphics_tpu_torch`` from ``DIR`` (default: this checkout), so
@@ -78,11 +81,19 @@ def ops_s(flops, flops64=0.0, intops=0.0):
     t_fp32 = flops / FP32_FLOP_PER_S
     return max(t_fp32, flops64 / FP64_FLOP_PER_S, intops / INT32_OP_PER_S,
                t_fp32 + intops / ISSUE_LANES_PER_S)
-# B10: (label, lmax, maps, Wigner columns, layout, columns timed)
-LEGENDRE_SHAPES = (("config 8", 1023, 8, (0,), "fold", (0,)),
-                   ("16 folded maps", 1023, 16, (0,), "fold", (0,)),
-                   ("config 8p", 1023, 16, (-2, 2), "half", (0, 1)),
-                   ("config 7", 2047, 1, (0,), "fold", (0,)))
+# B10: (label, lmax, maps, Wigner columns, layout, columns timed,
+# Gauss-Legendre rings: None for lmax + 1)
+LEGENDRE_SHAPES = (("config 8", 1023, 8, (0,), "fold", (0,), None),
+                   ("16 folded maps", 1023, 16, (0,), "fold", (0,), None),
+                   ("config 8p", 1023, 16, (-2, 2), "half", (0, 1), None),
+                   ("config 7", 2047, 1, (0,), "fold", (0,), None))
+# B10a alone (--kernel legendre_ana): those, the curved-sky QE's folded
+# products (12 maps on the 3072 rings exact to degree 3 lmax), one map on
+# that grid, and layout "full" (a rank's 2048 rings, both hemispheres)
+LEGENDRE_ANA_SHAPES = LEGENDRE_SHAPES + (
+    ("curved QE", 2047, 12, (0,), "fold", (0,), 3071),
+    ("curved grid, one map", 2047, 1, (0,), "fold", (0,), 3071),
+    ("layout full", 2047, 1, (0,), "full", (0,), None))
 SHAPES = ((96, 2048), (64, 2048), (64, 512), (192, 1024), (16, 4096),
           (64, 256))
 
@@ -193,19 +204,21 @@ def rowfft_cases(x, gen):
     return cases, refs
 
 
-def legendre_bench(reps, quick):
-    """B10a / B10s at LEGENDRE_SHAPES (``quick``: config 8 only), dd and
+def legendre_bench(reps, quick, shapes=LEGENDRE_SHAPES, ana_only=False):
+    """B10a / B10s at ``shapes`` (``quick``: config 8 only), dd and
     fast: CUDA-event time, launches per call and the bound of
     ``chip_smoke.py`` phase 2 (5 operations a live step for the recurrence
     in fp64 in dd, 9 in fp32 in fast, 4 a map and step for the contraction at
-    the fp32 rate; the tables, the input and the output once)."""
+    the fp32 rate; the tables, the input and the output once). With
+    ``ana_only``, B10a alone, with the one-pass launches and partial planes
+    a call took where the tree counts them."""
     from orphics_tpu_torch.ops import legendre as leg
     from orphics_tpu_torch.ops import sht
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(10)
-    for label, lmax, nm, ns, layout, nis in (
-            LEGENDRE_SHAPES[:1] if quick else LEGENDRE_SHAPES):
-        rings = sht.gauss_legendre_rings(lmax)
+    for label, lmax, nm, ns, layout, nis, nrings in (
+            shapes[:1] if quick else shapes):
+        rings = sht.gauss_legendre_rings(nrings or lmax)
         M1 = lmax + 1
         for ni in nis:
             tab = leg.tables(lmax, rings, ns, ni, layout, dev)
@@ -222,13 +235,17 @@ def legendre_bench(reps, quick):
             for name, fn, x, out_b in (
                     ("legendre_ana", leg.legendre_ana, G, 8 * nm * M1 * M1),
                     ("legendre_syn", leg.legendre_syn, a,
-                     8 * nm * tab["Tr"] * M1)):
+                     8 * nm * tab["Tr"] * M1))[:1 if ana_only else 2]:
                 for mode in ("dd", "fast"):
                     fast = mode == "fast"
-                    before = fn.launches
+                    names = ("launches", "one_pass", "partial_planes")
+                    counts = [getattr(fn, c, 0) for c in names]
                     fn(x, tab, fast)
                     torch.cuda.synchronize()
-                    launches = fn.launches - before
+                    launches, one_pass, planes = (
+                        getattr(fn, c, 0) - b for c, b in zip(names, counts))
+                    how = (f" ({one_pass} one-pass, {planes} partial "
+                           f"planes)" if ana_only else "")
                     ms = cuda_ms(lambda: fn(x, tab, fast), reps)
                     rec = (9.0 if fast else 5.0) * steps
                     t_ops = ops_s((rec if fast else 0.0) + 4.0 * nm * steps,
@@ -238,7 +255,7 @@ def legendre_bench(reps, quick):
                     bound = max(t_ops, t_bytes) * 1e3
                     print(f"time {name} {label} lmax {lmax} x{nm} {layout} "
                           f"n={ns[ni]} {mode}: {ms:.4f} ms in {launches} "
-                          f"launch(es); bound {bound:.4f} ms "
+                          f"launch(es){how}; bound {bound:.4f} ms "
                           f"({'operations' if t_ops >= t_bytes else 'bytes'})"
                           f" = {bound / ms:.3f} of the time")
             del G, a
@@ -460,6 +477,10 @@ FAMILIES = {"rowpower": (rowpower_cases, ("rowpower.cu",), SHAPES, None),
             "rowfft": (rowfft_cases, ("rowfft.cu", "rowpower.cu"),
                        ((96, 2048), (64, 512)), "rowfft_regs_launches"),
             "legendre": (legendre_bench, ("legendre.cu",), (), None),
+            "legendre_ana": (
+                lambda reps, quick: legendre_bench(
+                    reps, quick, LEGENDRE_ANA_SHAPES, ana_only=True),
+                ("legendre.cu",), (), None),
             "lens": (lens_bench, ("lens_spline.cu",), (), None),
             "binreduce": (binreduce_bench, ("bin_reduce.cu",), (), None),
             "rowcombine": (rowcombine_cases, ("rowcombine.cu",),

@@ -587,13 +587,19 @@ def _asym_rings(lmax):
     (1100, "asym", (0,), 0, 5, "f64"),     # 1101 rings: three B10a groups
     (300, "over", (0,), 0, 12, "f32"),     # rings exact to 3 lmax: 451
     (1023, "over", (0,), 0, 12, "f32"),    # 1535 rings, 12 maps, folded
+    (2047, "over", (0,), 0, 12, "f32"),    # the curved-sky QE's B10a: 3072
+                                           # rings, one pass, a cluster of 6
+    (1023, "x2", (0,), 0, 9, "fast"),      # one pass, 2050 rings: 5 blocks
+    (1023, "x2", (0,), 0, 16, "f64"),      # one pass, 16 maps, float64
 ])
 def test_legendre_kernels_match_ref(cuda_device, lmax, grid, ns, ni, B,
                                     mode):
     rings = {"gl": sht.gauss_legendre_rings, "asym": _asym_rings,
              "cc": lambda L: sht.clenshaw_curtis_rings(2 * L + 1),
              # the curved-sky QE's grid: exact to degree 3 lmax
-             "over": lambda L: sht.gauss_legendre_rings(-(-3 * L // 2))}[
+             "over": lambda L: sht.gauss_legendre_rings(-(-3 * L // 2)),
+             # 1025 kernel rings: B10a's one-pass form
+             "x2": lambda L: sht.gauss_legendre_rings(2 * L + 3)}[
                  grid](lmax)
     layout = ("full" if grid == "asym" else
               "half" if ns != (0,) else "fold")
@@ -1172,13 +1178,15 @@ def test_kappa_from_map_card_matches_cpu(cuda_device, est):
 
 
 @pytest.mark.cuda
-def test_curved_kappa_partial_planes(cuda_device):
+@pytest.mark.parametrize("nrings,planes", [(1535, 2), (2303, 0)])
+def test_curved_kappa_partial_planes(cuda_device, nrings, planes):
     """One ``kappa_from_alm`` call of 4 sims at lmax 1023 on
-    ``gauss_legendre_rings(1535)`` (768 kernel rings, 12 folded product
-    maps: two groups of 512 rings) under the profiler: one B10s and one
-    B10a launch, B10a's partial planes summed once in their span, the
-    counter moved by the two planes, and the output equal to the untraced
-    call's."""
+    ``gauss_legendre_rings(nrings)`` (12 folded product maps) under the
+    profiler: one B10s and one B10a launch, and the output equal to the
+    untraced call's. On 768 kernel rings B10a runs two ring groups, whose
+    two partial planes the wrapper sums once in their span; on 1152 in one
+    pass (a cluster of 5 blocks sums every ring on chip): no partial planes
+    and no span of their sum."""
     import json
     import tempfile
 
@@ -1187,29 +1195,31 @@ def test_curved_kappa_partial_planes(cuda_device):
     from orphics_tpu_torch.models.curved_qe import CurvedQE
     from orphics_tpu_torch.ops import alm as almops
     lmax = 1023
-    rings = sht.gauss_legendre_rings(1535)
+    rings = sht.gauss_legendre_rings(nrings)
     cl = np.asarray(default_theory().lCl("TT", np.arange(lmax + 1)))
     ctot = cl + (10.0 * np.pi / 10800.0) ** 2
     qe = CurvedQE(rings, lmax, cl, ctot, lmin=100, device=cuda_device)
     talm = almops.synalm(torch.Generator(device=cuda_device).manual_seed(9),
                          ctot, lmax, batch=(4,), device=cuda_device)
     plain = qe.kappa_from_alm(talm)
-    before = (leg.legendre_ana.launches, leg.legendre_syn.launches,
-              leg.legendre_ana.partial_planes)
+    counters = lambda: (leg.legendre_ana.launches, leg.legendre_syn.launches,
+                        leg.legendre_ana.partial_planes,
+                        leg.legendre_ana.one_pass)
+    before = counters()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         traced = qe.kappa_from_alm(talm)
         torch.cuda.synchronize()
-    ran = [n - b for n, b in zip((leg.legendre_ana.launches,
-                                  leg.legendre_syn.launches,
-                                  leg.legendre_ana.partial_planes), before)]
-    assert ran == [1, 1, 2]
+    ran = [n - b for n, b in zip(counters(), before)]
+    assert ran == [1, 1, planes, int(planes == 0)]
     with tempfile.TemporaryDirectory() as d:
         path = d + "/trace.json"
         prof.export_chrome_trace(path)
         with open(path) as f:
             names = [e["name"] for e in json.load(f)["traceEvents"]
                      if e.get("cat") == "user_annotation"]
-    assert names.count("orphics.transforms.legendre_ana.partials") == 1
+    assert names.count("orphics.transforms.legendre_ana.partials") == \
+        int(planes > 0)
+    assert names.count("orphics.transforms.legendre_ana") == 1
     assert names.count("orphics.curved_qe.kappa_from_alm") == 1
     assert torch.equal(plain, traced)

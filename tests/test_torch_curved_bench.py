@@ -295,6 +295,49 @@ def test_kappa_from_alm_spans(small_qe, tmp_path):
         == "curved_qe.phi_from_alm"
 
 
+def _kernel_rings(nrings, layout):
+    """Tk of a Gauss-Legendre grid of ``nrings`` rings in ``layout``."""
+    return nrings if layout == "full" else (nrings + 1) // 2
+
+
+@pytest.mark.parametrize("case,nrings,nmaps,layout,want", [
+    # the curved-sky QE's B10a: lmax 2047 on 3072 rings, 12 folded maps
+    ("curved QE", 3072, 12, "fold", ("one_pass", 6, 3, 0)),
+    # ... and one map on the same grid: the form follows the rings
+    ("curved grid, one map", 3072, 1, "fold", ("one_pass", 6, 1, 0)),
+    # config 7: lmax 2047, one folded map: one block, two rings a lane
+    ("config 7", 2048, 1, "fold", ("groups", 1, 1, 0)),
+    # config 8: lmax 1023, 8 folded maps
+    ("config 8", 1024, 8, "fold", ("groups", 1, 4, 0)),
+    # config 8p: 16 spin maps on the northern rings
+    ("config 8p", 1024, 16, "half", ("groups", 1, 4, 0)),
+    # the distributed path: a rank's 2048 rings, both hemispheres
+    ("layout full", 2048, 1, "full", ("groups", 4, 1, 4)),
+    # the curved QE at lmax 1023 (768 kernel rings): two ring groups
+    ("curved QE, lmax 1023", 1536, 12, "fold", ("groups", 2, 3, 2)),
+    # past 8 blocks of 256 rings: the ring groups and their planes
+    ("groups past the cluster", 4098, 12, "fold", ("groups", 5, 3, 5)),
+])
+def test_ana_plan(case, nrings, nmaps, layout, want):
+    """B10a's launch plan: the form, the blocks per m (the cluster, or the
+    ring groups), the column tiles and the partial planes the wrapper sums:
+    none where every ring of an m is summed on chip. The form follows the
+    ring count and the layout alone, so a map alone sums in the order of a
+    packed launch."""
+    Tk = _kernel_rings(nrings, layout)
+    plan = leg._ana_plan(Tk, nmaps, layout)
+    assert (plan.form, plan.blocks, plan.tiles, plan.partial_planes) == want
+    for n in range(1, 17):
+        other = leg._ana_plan(Tk, n, layout)
+        assert other.form == plan.form
+        if plan.form == "one_pass":
+            assert other.blocks == plan.blocks
+    if plan.form == "one_pass":
+        assert plan.blocks <= leg._ANA_CLUSTER
+        assert plan.blocks * leg._ANA1_RINGS >= Tk
+        assert plan.tiles * 8 >= 2 * nmaps > (plan.tiles - 1) * 8
+
+
 def test_partial_planes_span_and_counter(tmp_path):
     """B10a's cross-group sum adds its partial planes in ring order in the
     span ``orphics.transforms.legendre_ana.partials`` and counts them."""
