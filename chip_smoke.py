@@ -1,93 +1,42 @@
-"""Card check of the PyTorch / CUDA port: build its kernels, hold each to
-its plain PyTorch version at the main path's shapes, drive the flagship
-step, both paths of the lensing pipeline, FastCl, the ILC coadd, the
-curved-sky SHT, the QE reconstruction-only step, the unfused pair spectra,
-the N0 debias, cluster stacking, pure-B bandpowers, the distributed layer,
-the galaxy-catalog slice and the user examples on the card, and check what
-comes out.
+"""Card check of the PyTorch / CUDA port: each kernel against its plain
+PyTorch version, and every path of the port driven on the card, what comes
+out held to the plain versions, the CPU or a known law. Kernels are timed
+alone by ``scripts/bench_kernels.py``, the benchmark cells by ``python3 -m
+cmbbench.run``.
 
-Run from the repository root on a machine with one NVIDIA Hopper GPU
-and nvcc:
+Run from the repository root on a machine with one NVIDIA Hopper GPU and
+nvcc:
 
     python3 chip_smoke.py
 
-Phases: 0 card, 1 build (the kernels, and the host HEALPix library by
-g++), 2 kernels vs plain versions (B1 also in float64 at phase 18's
-shape), 3 flagship step,
-4 half-plane pipeline, 5 full-plane pipeline (the path ``impl="auto"``
-takes at 512^2), 6 FastCl at the JAX package's bench config 1 (2048^2,
-0.5', batch 192, nseg 100), 7 ``FastCl.cross_bandpowers`` at bench config
-2 (2048^2, batch 128, the 12 % taper), 8 the fused ILC coadd at bench
-config 4 (512^2, six bands, tSZ deprojected, 32 coadds), 9 SHT roundtrips
-at bench config 7 (lmax 2047, dd and fast; the fast roundtrip also at lmax
-1023, each held to the reference's contract), 10 the curved-sky masked
-spectra at bench config 8 (lmax 1023, batch 8, dd and fast), 11 its spin-2
-leg, bench config 8p, 12 the TT QE reconstruction-only step at bench
-config 3 (512^2, batch 64; its full-plane and its half-plane branch), 13
-the unfused pair spectra at config 1's shape (fft2pp, then B6h + B2 or B7 +
-B2', beside FastCl's fused analysis), 14 the N0 debias at config 3's
-settings (lensed sims, mcn0, rdn0, NlGenerator, n1_tt, a polarized sim),
-15 cluster stacking at bench config 5 (10^4 stamps of 64^2: GRF stamps,
-the shared-geometry max-likelihood fill of a 5' hole, Bin2D profiles on
-B1, chi^2 over 16 NFW templates; card vs CPU on 256 stamps, the
-conditional-variance identity on 10^4 noisy stamps, and
-``nfwfit.lens_cov`` at 32^2 on B8), 16 pure-B bandpowers of masked
-polarization sims (1024^2 2', 16 lensed sims a step, ``mapstools.Purify``,
-one B1 launch a step; card vs CPU in float32 and float64, the E-only
-leakage gate at full size; untimed card checks of ``utils/healpix.
-smoothing`` at nside 512 on B10a/B10s, ``curved.MapRotatorEquator``,
-``mapstools.inpaint_cg`` and ``nfwfit.mass_estimate``), 17 the
-distributed layer (``parallel/``) on a one-rank NCCL group and a (1, 1)
-DeviceMesh: ``ensemble_stats`` of the flagship step at 512^2 (64 sims,
-chunk 16) against a plain loop, ``masked_bandpowers_dist`` at 4096^2 0.5'
-(B1 on the column block), the ring-split ``map2alm_dist`` /
-``alm2map_dist`` at lmax 2047 and ``map2alm_spin_dist`` at lmax 1023
-(B10a/B10s in layout "full") against the serial folded transforms,
-``lens_cov_dist`` at 32^2 (B8 on covariance rows), each beside its S = 4
-split run as four threads of this process (``parallel.runtime.emulate``),
-and ``entry.dryrun_multichip(1)``, 18 the galaxy-catalog slice at a
-2048^2 0.5' patch: ``Pow2Cat`` mocks from Limber spectra, 8 a step in
-float64, binned by one float64 B1 launch (mocks/s, the Poisson and
-recovery gates, card vs CPU on the same noise), ``binned_map`` and
-``healpix_binned_map`` of 10^7 sources, ``reconstruct_velocities`` of
-10^6 galaxies and 10^7 randoms at nmesh 256 (card vs CPU) and the JAX
-package's infall test, 19 the fifteen user examples of ``examples/torch/``
-run in this process as a user runs them (default size, ``--no-plot``, the
-card by default, ``tt_verification`` at 512 sims, the distributed pair on
-a one-rank NCCL group): each one's seconds, launches and check, the
-kernels each of the first seven must launch, every kernel call held to
-its plain version on that call's own inputs, and the seven forecasts'
-printed numbers against a ``--device cpu`` run, 20 the curved-sky TT
-quadratic estimator (``models/curved_qe``) at lmax 2047 on 3072 x 6144
-Gauss-Legendre rings: the exact sums on the card against the CPU, B10s and
-B10a held to their plain versions on the path's own inputs (16 and 12
-folded maps, one launch each), card vs CPU at lmax 255, the closure of the
-cross and N0 spectra on first-order lensed sims, reconstructions/s.
-Phases 3-20 each set the launch counts to 0 before they drive their path
-and check them after; 4-15 print throughput, peak memory, device time by
-kernel and a check of the output against the plain versions. Phases 2, 4,
-5 and 14 print B8's blocks whose deflection range exceeded its window
-(0 where the displacement is clipped to 8 pixels); phases 6 and 7 hold
-FastCl's bandpowers from its kept ids (edge segments dropped) to those
-from the full ids. Phases 2 and 8 check that B9 at 512^2 ran on its
-register-resident kernel (rowcombine_regs_launches) and phase 2 that B5
-and B4's inverse of B5n's draw agree bit for bit (one stream).
-The JSON object on a line before the last holds each kernel's launches
-(on the full-plane lensing path for the kernels it runs, on the FastCl
-path and the config-1 step body for B2/B3/B5/B6, on config 2's for
-B3s/B6s, on config 4's for B9, on
-configs 7, 8 and 8p together for B10a/B10s, on phase 13's paths for
-B6h/B6h'/B2' and for B4b, which no composition runs since B6 pairs every
-element through the exact mirror map; B1, B8 and B10a/B10s also by
-path, with config 5's, the pure-B path's, ``lens_cov``'s, the healpix
-bridge's and the distributed path's counts, B1 records at config 5's and
-the pure-B path's shapes, B1's float64 record at phase 18's shape (with
-its launches there), B10a/B10s records at layout "full", lmax
-2047, with the distributed path's launches, and at the curved-sky QE's
-folded shape, lmax 2047 on 3072 rings, with its launches), error, times
-and bound; the
-last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any
-failed check raises, so the exit code is non-zero and no result line is
+Phases:
+ 0 the card;
+ 1 the build: the kernels, and the host HEALPix library by g++;
+ 2 every kernel against its plain version at the main paths' shapes;
+ 3 the flagship step;
+ 4 the half-plane lensing pipeline (impl="xla");
+ 5 the full-plane lensing pipeline (what impl="auto" runs at 512^2);
+ 6 FastCl at bench config 1 (2048^2 0.5', batch 192, nseg 100);
+ 7 FastCl.cross_bandpowers at bench config 2 (the 12 % taper);
+ 8 the fused ILC coadd at bench config 4 (six bands, tSZ deprojected);
+ 9 SHT roundtrips at bench config 7 (lmax 2047, dd and fast);
+ 10, 11 curved-sky masked spectra at bench configs 8 and 8p (lmax 1023);
+ 12 the TT QE reconstruction-only step at bench config 3, both branches;
+ 13 the unfused pair spectra at config 1's shape (B6h + B2, B7 + B2');
+ 14 the N0 / N1 debias at config 3's settings;
+ 15 cluster stacking at bench config 5 (10^4 stamps of 64^2);
+ 16 pure-B bandpowers at 1024^2 2' and the map-tools slice;
+ 17 the distributed layer on a one-rank NCCL group and a (1, 1) mesh;
+ 18 the galaxy-catalog slice at a 2048^2 0.5' patch;
+ 19 the fifteen user examples of ``examples/torch/``, in this process;
+ 20 the curved-sky TT quadratic estimator at lmax 2047.
+
+Phases 3-20 set the launch counts to 0 before they drive their path and
+check them after; 4 and 8-18, whose paths no benchmark cell runs, print one
+throughput line each. The JSON object on a line before the last holds each
+kernel's record (its launches by path and its error against its plain
+version); the last is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+Any failed check raises, so the exit code is non-zero and no result line is
 printed. It imports nothing of JAX.
 """
 from __future__ import annotations
@@ -108,44 +57,49 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from orphics_tpu_torch import Geometry, _build, rect_geometry
+from orphics_tpu_torch._printed import text_gap
+from orphics_tpu_torch.entry import build_qe_pipeline, dryrun_multichip, entry
+from orphics_tpu_torch.geometry import arcmin
+from orphics_tpu_torch.models import catalogs as cats
+from orphics_tpu_torch.models import curved
+from orphics_tpu_torch.models import curved_qe as cqe
+from orphics_tpu_torch.models import foregrounds as fg
+from orphics_tpu_torch.models import grf, ilc, lensing, mapstools, nfwfit
+from orphics_tpu_torch.models import pixcov
+from orphics_tpu_torch.models import qe as qemod
+from orphics_tpu_torch.models.cosmology import Cosmology, LimberCosmology
+from orphics_tpu_torch.models.fastcl import FastCl, drop_edge_segments
+from orphics_tpu_torch.models.lenspipe import LensedQEPipeline
+from orphics_tpu_torch.models.theory import default_theory
+from orphics_tpu_torch.ops import alm as almops
+from orphics_tpu_torch.ops import dft, lens
+from orphics_tpu_torch.ops import legendre as leg
+from orphics_tpu_torch.ops import qe_conv as qc
+from orphics_tpu_torch.ops import sht
+from orphics_tpu_torch.ops.bin_reduce import (bin2_reduce, bin2_reduce_ref,
+                                              bin_pair_power,
+                                              bin_pair_power_ref, bin_reduce,
+                                              bin_reduce_ref)
+from orphics_tpu_torch.ops.binning import Bin2D, RfftBin2D
+from orphics_tpu_torch.ops.fourier import gauss_beam, kfilter, mask_kspace
+from orphics_tpu_torch.ops.lens import (lens_map_kernel, lens_map_ref,
+                                        spline_coeffs)
+from orphics_tpu_torch.ops.mirror import mirror_pp, mirror_pp_ref
+from orphics_tpu_torch.ops.noise_planes import noise_planes
+from orphics_tpu_torch.ops.rowcombine import rowcombine_pp, rowcombine_pp_ref
+from orphics_tpu_torch.ops.rowpower import (qc_pp_half, qc_pp_half_ref,
+                                            rowqc_half, rowqc_pp,
+                                            rowqc_pp_ref, rows_half, rows_pp,
+                                            rows_pp_ref, s_field, s_pp_half,
+                                            s_pp_half_ref)
+from orphics_tpu_torch.ops.windows import get_taper
+from orphics_tpu_torch.parallel import fourier as pfourier
+from orphics_tpu_torch.parallel import runtime as prt
+from orphics_tpu_torch.parallel import sht as psht
+from orphics_tpu_torch.parallel.statistics import SuffStats
+from orphics_tpu_torch.utils import healpix
 
-# NVIDIA's H100 SXM data sheet: HBM rate, and the fp32 and fp64 rates
-# outside the tensor cores (the kernels here are fp32 FFTs and sums, and
-# the fp64 Legendre recurrence); 32-bit integer instructions (B5's Philox)
-# at 64 lanes per SM and clock beside the 128 fp32 lanes, and 128 lanes of
-# instructions issued per SM and clock in all (four schedulers of one warp
-# each; CUDA C++ Programming Guide, arithmetic instruction throughput,
-# compute capability 9.0), 132 SMs, 1980 MHz (the data sheet's boost clock)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-FP64_FLOP_PER_S = 34e12
-INT32_OP_PER_S = 64 * 132 * 1.98e9
-ISSUE_LANES_PER_S = 128 * 132 * 1.98e9
-
-# B6 rowqc_half at (96, 2048, 2048) and B6s rows_half at (64, 2048, 2048) on
-# the shared-memory radix-2 core, alone and with the strip patches their
-# compositions then ran, in ms on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md
-# section 6): what phase 2 reads the register-resident kernel's times against
-B6_RADIX2_MS, B6_PATCHED_MS = 8.1179, 11.7650
-B6S_RADIX2_MS, B6S_PATCHED_MS = 5.4241, 7.4444
-# B3s colfft_scaled at (64, 2048, 2048) and B3 colfft / colifft at (64, 512,
-# 512) and (96, 2048, 2048) on the radix-2 core, in ms on the same card
-# (PERF.md section 6): what phase 2 reads the column kernel's times against
-B3S_RADIX2_MS = 12.3078
-B3_RADIX2_512_MS = (0.3281, 0.2857)
-B3_RADIX2_2048_MS = (17.8832, 16.2099)
-# B4 rowfft / rowifft at (64, 512, 512) and (96, 2048, 2048) and B5
-# rowifft_noise_y at (96, 2048, 2048) x 2 on the radix-2 core, in ms on the
-# same card (PERF.md section 6): what phase 2 reads the row kernels' times
-# against
-B4_RADIX2_512_MS = (0.2621, 0.2558)
-B4_RADIX2_2048_MS = (8.6547, 7.8047)
-B5_RADIX2_MS = 8.6917
-# B9 rowcombine_pp at (96, 512, 512), nq 3, on the shared-memory radix-2
-# core (one block per coadd and row pair), in ms on the same card (PERF.md
-# section 6): what phase 2 reads the register-resident kernel's time
-# against
-B9_RADIX2_MS = 0.4992
 # B10a / B10s fast mode (float32 recurrence). Against the fast mode's own
 # plain version (the same float32 recurrence emulated in torch, each FMA
 # rounded once: the same Lambda bit for bit): 2^-22, two float32 ulps of
@@ -160,71 +114,20 @@ B9_RADIX2_MS = 0.4992
 B10_FAST_SEEDS = 8
 B10_FAST_TOL = {1023: 3e-3, 2047: 3e-3}
 B10_FAST_PLAIN_TOL = 2.0 ** -22
-# Philox-4x32-10's integer instructions per pair of B5's draw (philox.cuh:
-# philox_pair): ten rounds of two 32 x 32 -> 64-bit multiplies, each two
-# instructions at the integer rate, and two three-way xors, plus four to
-# form the counter
-PHILOX_INT_OPS_PER_PAIR = 10 * (2 * 2 + 2) + 4
 
 # the galaxy-catalog path's bandpower edges (phase 18 and B1's float64
-# record in phase 2): ell 200 to 3000 by 200
+# check in phase 2): ell 200 to 3000 by 200
 CAT_EDGES = np.arange(200.0, 3001.0, 200.0)
+# bench config 3's bandpower edges (phases 2, 12 and 14)
+EDGES3 = np.arange(40, 2000, 80.0)
 
 
-def ops_ms(flops, flops64=0.0, intops=0.0):
-    """The least time the card could take for ``flops`` fp32, ``flops64``
-    fp64 and ``intops`` 32-bit integer operations: the pipes run side by
-    side, so the longest pipe, or the issue of the fp32 instructions (an
-    FMA, two operations, a lane) and the integer ones (leaving out the
-    fp64 ones only lowers it), whichever is longer."""
-    t_fp32 = flops / FP32_FLOP_PER_S
-    return max(t_fp32, flops64 / FP64_FLOP_PER_S, intops / INT32_OP_PER_S,
-               t_fp32 + intops / ISSUE_LANES_PER_S) * 1e3
-
-
-def bound(nbytes, flops, flops64=0.0, intops=0.0):
-    """``(ms, "bytes" or "operations")``: the least time the card could take
-    for work that moves ``nbytes`` (each input read once, each output
-    written once) and does the operations of :func:`ops_ms`."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops_ms(flops, flops64, intops)
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def bound_parts(work):
-    """The terms of ``bound(*work)`` for a draw's printout: bytes, the fp32
-    and integer pipes, and their issue, in ms."""
-    nb, flops, _, intops = work
-    return (f"bytes {nb / HBM_BYTES_PER_S * 1e3:.4f}, fp32 "
-            f"{flops / FP32_FLOP_PER_S * 1e3:.4f}, integer "
-            f"{intops / INT32_OP_PER_S * 1e3:.4f}, their issue "
-            f"{(flops / FP32_FLOP_PER_S + intops / ISSUE_LANES_PER_S) * 1e3:.4f}")
-
-
-def nbytes(*tensors):
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def live_sectors(ids, nseg):
-    """The 32-byte sectors of a float32 row (8 elements, the unit the
-    memory moves) that hold an id in ``[0, nseg)``: the sectors a segment
-    sum that drops the other ids must read."""
-    kept = (ids >= 0) & (ids < nseg)
-    pad = (-kept.numel()) % 8
-    kept = torch.nn.functional.pad(kept, (0, pad))
-    return int(kept.view(-1, 8).any(1).sum().item())
-
-
-def bin_bytes(ids, nseg, planes, *outs):
-    """Bytes a segment sum of ``planes`` (each (B, N) float32) over ``ids``
-    must move: where every id is kept, each plane once; else the 32-byte
-    sectors of each row that hold a kept id. The ids and the outputs
-    once."""
-    B, N = planes[0].shape
-    sectors = live_sectors(ids, nseg)
-    data = (nbytes(*planes) if sectors * 8 >= N
-            else sectors * 32 * B * len(planes))
-    return data + nbytes(ids, *outs)
+def config1(th):
+    """Bench config 1's sky: the 2048^2 0.5' geometry, the ells and lensed
+    TT of ``th``, and the edges arange(80, 8000, 80) (nseg 100)."""
+    ells = np.arange(th.lpad + 1)
+    return (rect_geometry(width_arcmin=2048 * 0.5, px_res_arcmin=0.5), ells,
+            np.asarray(th.lCl("TT", ells)), np.arange(80, 8000, 80.0))
 
 
 def with_full_ids(fc, edges):
@@ -232,7 +135,6 @@ def with_full_ids(fc, edges):
     digitized tables (the edge segments 0 and nseg - 1 kept, as the JAX
     package's FastCl bins), for the kept-vs-full checks of phases 6 and 7."""
     import copy
-    from orphics_tpu_torch.ops import dft
     perm, _ = dft.row_perm(fc.n)
     dig = np.digitize(fc.geom.modlmap_np()[perm][:, perm], edges,
                       right=True).astype(np.int32)
@@ -245,46 +147,14 @@ def with_full_ids(fc, edges):
     return full
 
 
-def fft_flops(n, count):
-    """Operations of ``count`` complex ``n``-point transforms (5 n log2 n
-    each)."""
-    return 5.0 * n * math.log2(n) * count
-
-
-def kernel_entry(name, source, replaces, err, times, work):
-    """One kernel's record (``replaces`` None: no TPU kernel): ``times`` =
-    (kernel, plain, library or None) ms,
-    ``work`` = (bytes, fp32 operations[, fp64 operations[, integer
-    operations]]) of the timed call."""
-    bound_ms, bound_by = bound(*work)
+def kernel_entry(name, source, replaces, err):
+    """One kernel's record (``replaces`` None: no TPU kernel); the phases
+    that drive its paths add its launches."""
     return dict(name=name, route="cuda",
                 source="orphics_tpu_torch/csrc/" + source,
                 replaces=(None if replaces is None
                           else "orphics_tpu/ops/" + replaces),
-                max_abs_err=err,
-                ms=times[0], plain_ms=times[1], bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=times[2])
-
-
-def b10_steps(tab, ktab):
-    """The live (ring, m, l) steps of a B10 call: from each (ring, m)'s
-    captured seed l_s to lmax, none where it has no seed."""
-    ls = ktab["ls"]
-    return float(((tab["lmax"] + 1 - ls) * (ls >= 0)).sum().item())
-
-
-def b10_work(x, tab, ktab, out_b, nm, steps, fast):
-    """(bytes, fp32, fp64 operations) of one B10a / B10s call on ``nm`` maps
-    of ``x``: bytes x in, the output (``out_b``), the tables once.
-    Operations per live step: the recurrence's two FMAs and a multiply (5,
-    in fp64; fp32 in fast, with two FMAs more for the factor's low parts:
-    9), and per map the complex contraction's two FMAs (4), counted at the
-    fp32 rate (67 TFLOP/s), which is also the fp64 tensor cores' rate that
-    B10a and B10s contract at."""
-    rec = (9.0 if fast else 5.0) * steps
-    return (nbytes(x, tab["A"], tab["B"], tab["C"], ktab["s1"], ktab["s0"],
-                   ktab["ls"]) + out_b,
-            (rec if fast else 0.0) + 4.0 * nm * steps, 0.0 if fast else rec)
+                max_abs_err=err)
 
 
 def check(cond, msg):
@@ -299,52 +169,9 @@ def rel_err(got, ref):
     return err, err / scale
 
 
-def profile_steps(step, nsteps, step_ms, tag):
-    """Device time by kernel over ``nsteps`` steps (torch.profiler), and
-    the busy share against the unprofiled step time. One step more runs
-    first as the profiler's warm-up and is not counted: the tracer drops
-    the first kernels after it starts (seen on 18 ms kernels)."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=nsteps,
-                                   repeat=1)) as prof:
-        for _ in range(nsteps + 1):
-            step()
-            torch.cuda.synchronize()
-            prof.step()
-    # the port's span ranges (orphics.*) carry their kernels' device time
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.key.startswith(("ProfilerStep", "orphics."))]
-    kern.sort(key=lambda e: -e.self_device_time_total)
-    dev_ms = sum(e.self_device_time_total for e in kern) / (nsteps * 1e3)
-    print(f"[{tag}] device time {dev_ms:.4f} ms per step = "
-          f"{dev_ms / step_ms:.3f} of the unprofiled step time; top kernels "
-          "(ms per step):")
-    for e in kern[:12]:
-        print(f"[{tag}]   {e.self_device_time_total / (nsteps * 1e3):9.4f}  "
-              f"{e.count // nsteps:4d}x  {e.key[:90]}")
-    return kern
-
-
-def host_ops(step, nsteps, tag):
-    """The host calls that take a step's host time (torch.profiler, CPU
-    activity, ``nsteps`` steps): the six largest by self time, in us per
-    step."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        for _ in range(nsteps):
-            step()
-        torch.cuda.synchronize()
-    ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
-    print(f"[{tag}] host calls by self time (us per step): "
-          + ", ".join(f"{e.key} {e.self_cpu_time_total / nsteps:.1f} "
-                      f"({e.count // nsteps}x)" for e in ops[:6]))
-
-
 def throughput(step, batch, nsteps, label, unit, card, tag):
     """Rate of ``step()`` after two warm-up steps (host clock around steps
-    ending in a synchronize), with the peak memory; returns ms per step."""
+    ending in a synchronize), with the peak memory."""
     for _ in range(2):
         step()
     torch.cuda.synchronize()
@@ -358,14 +185,6 @@ def throughput(step, batch, nsteps, label, unit, card, tag):
     print(f"[{tag}] {label}: {nsteps * batch / dt:.2f} {unit} "
           f"({dt / nsteps * 1e3:.3f} ms/step over {nsteps} steps, peak "
           f"{peak:.3f} GiB) on {card}")
-    return dt / nsteps * 1e3
-
-
-def pipeline_rate(pipe, batch, gen, nsteps, card, tag):
-    """Throughput of ``pipe.step``."""
-    return throughput(lambda: pipe.step(batch, gen), batch, nsteps,
-                      f"pipeline impl={pipe.impl} 512^2 2' beam 1.4' 6 uK' "
-                      f"order 5 batch {batch}", "sims/s", card, tag)
 
 
 def ratio_gate(pipe, batch, gen, tag):
@@ -389,19 +208,75 @@ def spectra_err(got, ref):
     return float(np.max(np.abs(got - ref) / scale))
 
 
-def cuda_ms(fn, reps, warmup=2):
-    """Mean milliseconds per call of ``fn`` on the card (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+class Launches:
+    """The launch counters of the kernels' entry points, by record name.
+    ``reset()`` sets them to 0; ``read(names, tag)`` prints them and checks
+    that each of ``names`` launched since."""
+
+    def __init__(self):
+        self.lib = _build.library()
+        self.counters = {
+            "bin_reduce": (bin_reduce,),
+            "lens_map_kernel": (lens_map_kernel,),
+            "colfft": (dft.colfft, dft.colifft),
+            "rowfft": (dft.rowfft, dft.rowifft, dft.rowifft_scaled_y),
+            "noise_planes": (noise_planes,),
+            "mirror_pp": (mirror_pp,),
+            "bin2_reduce": (bin2_reduce,),
+            "rowfft_blk0": (dft.rowfft_blk0,),
+            "rowifft_noise_y": (dft.rowifft_noise_y,),
+            "rowqc_half": (rowqc_half,),
+            "colfft_scaled": (dft.colfft_scaled,),
+            "rows_half": (rows_half,),
+            "rowcombine_pp": (rowcombine_pp,),
+            "legendre_ana": (leg.legendre_ana,),
+            "legendre_syn": (leg.legendre_syn,),
+            "qc_pp_half": (qc_pp_half,),
+            "s_pp_half": (s_pp_half,),
+            "bin_pair_power": (bin_pair_power,),
+            "qe_leg": (qc.qe_leg,),
+            "qe_pair": (qc.qe_pair,),
+            "qe_post": (qc.qe_post,)}
+        self.row_regs = self.b9_regs = 0
+
+    def reset(self):
+        for fns in self.counters.values():
+            for fn in fns:
+                fn.launches = 0
+        bin_reduce.launches_f64 = 0
+        self.row_regs = self.lib.rowfft_regs_launches()
+        self.b9_regs = self.lib.rowcombine_regs_launches()
+        lens_map_kernel.wide_blocks(reset=True)
+
+    def count(self, key):
+        return sum(fn.launches for fn in self.counters[key])
+
+    def read(self, names, tag):
+        counts = {k: self.count(k) for k in self.counters}
+        print(f"[{tag}] launches on this path: {counts}")
+        for name in names:
+            check(counts[name] > 0, f"{tag}: {name} was not launched")
+        return counts
+
+    def read_wide(self, tag, must_be_zero):
+        """B8's blocks since reset() whose deflection range exceeded the
+        shared-memory window (their taps came from device memory)"""
+        wide = lens_map_kernel.wide_blocks()
+        print(f"[{tag}] B8 blocks with taps from device memory: {wide}"
+              + (" (must be 0 at the pipeline's cap D = 8)" if must_be_zero
+                 else ""))
+        if must_be_zero:
+            check(wide == 0, f"{tag}: {wide} B8 blocks wider than the window")
+
+    def check_row_route(self, counts, tag):
+        """Every B4 and B5 launch of the path since reset() took the
+        register-resident row kernel (its transforms are 128 * 2^k long)"""
+        regs = self.lib.rowfft_regs_launches() - self.row_regs
+        rows = counts["rowfft"] + counts["rowifft_noise_y"]
+        check(regs == rows, f"{tag}: {regs} of {rows} B4/B5 launches on the "
+                            "register-resident row kernel")
+        print(f"[{tag}] B4/B5 launches on the register-resident row kernel: "
+              f"{regs} of {rows}")
 
 
 # phase 19: the port's user examples (examples/torch/), in the order of
@@ -588,23 +463,6 @@ def plain_versions():
     2 holds each kernel. B5 is held to the plain inverse of B5n's planes on
     the same words, the stream both kernels draw (phase 2); B5n itself has
     no elementwise plain version and no entry here."""
-    from orphics_tpu_torch.ops import dft, lens
-    from orphics_tpu_torch.ops import legendre as leg
-    from orphics_tpu_torch.ops.bin_reduce import (bin2_reduce,
-                                                  bin2_reduce_ref,
-                                                  bin_pair_power,
-                                                  bin_pair_power_ref,
-                                                  bin_reduce, bin_reduce_ref)
-    from orphics_tpu_torch.ops.mirror import mirror_pp, mirror_pp_ref
-    from orphics_tpu_torch.ops.noise_planes import noise_planes
-    from orphics_tpu_torch.ops import qe_conv as qc
-    from orphics_tpu_torch.ops.rowcombine import (rowcombine_pp,
-                                                  rowcombine_pp_ref)
-    from orphics_tpu_torch.ops.rowpower import (qc_pp_half, qc_pp_half_ref,
-                                                rowqc_half, rowqc_pp,
-                                                rowqc_pp_ref, rows_half,
-                                                rows_pp, rows_pp_ref,
-                                                s_pp_half, s_pp_half_ref)
 
     def b10_plain(ref):
         return lambda x, tab, fast: ref(x, tab, True) if fast else ref(x, tab)
@@ -697,8 +555,8 @@ def curved_qe_phase(dev, card, results, reset_counts, read_counts):
     with ``device="cpu"`` (1e-12 relative). (b) The B10s input of one
     ``phi_from_alm`` call on 4 sims (16 stacked alms) and its B10a input
     (12 weighted product rings) against ``legendre_syn_ref`` /
-    ``legendre_ana_ref`` on the same tensors (phase 2's 1e-6 of max|ref|),
-    with their times and bound. (c) ``phi_from_alm`` of one draw at lmax
+    ``legendre_ana_ref`` on the same tensors (phase 2's 1e-6 of max|ref|).
+    (c) ``phi_from_alm`` of one draw at lmax
     255 on ``gauss_legendre_rings(383)``, card (kernels) against CPU (plain
     versions): each entry within 1e-5 of max|gbar| times its L's 1/R_L (1/R
     spans decades, so the normalized output's own max would read float32
@@ -730,17 +588,9 @@ def curved_qe_phase(dev, card, results, reset_counts, read_counts):
     first-order response to it is R with that spectrum in the coupling;
     from the unlensed TT it would be R with the unlensed spectrum there,
     which the engine does not compute. With the JAX function's sign on the
-    last two terms the ratios are negative. (e) Reconstructions/s of ``phi_from_alm`` on 4 sims (16
-    syntheses, 12 analyses a call), peak memory, device time by kernel, in
-    a smoke window; the benchmark cell ``curvedqe2047.recon`` measures it.
-    (f) From counts at 0: exactly one B10s and one B10a launch, both on
-    layout "fold", per ``phi_from_alm`` call of 4 sims."""
-    from orphics_tpu_torch.models import curved_qe as cqe
-    from orphics_tpu_torch.models.theory import default_theory
-    from orphics_tpu_torch.ops import alm as almops
-    from orphics_tpu_torch.ops import legendre as leg
-    from orphics_tpu_torch.ops import sht
-
+    last two terms the ratios are negative. (f) From counts at 0: exactly
+    one B10s and one B10a launch, both on layout "fold", per
+    ``phi_from_alm`` call of 4 sims."""
     t20 = time.perf_counter()
     lmax, nsims, nbatch = 2047, 4, 4
     rings = sht.gauss_legendre_rings(3071)
@@ -809,7 +659,6 @@ def curved_qe_phase(dev, card, results, reset_counts, read_counts):
         check(bool(torch.isfinite(torch.view_as_real(tlm)).all()),
               "20: lensed sims not finite")
         if i == 0:
-            tlm_e = tlm                        # (e)'s input
             reset_counts()
             with recorder:
                 phihat = qe.phi_from_alm(tlm)
@@ -850,36 +699,18 @@ def curved_qe_phase(dev, card, results, reset_counts, read_counts):
     for r in recs:
         name, fn, (x, tab) = r["key"], r["fn"], r["args"][:2]
         ktab = leg.kernel_tables(tab)
-        got = fn(x, tab)
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        ref = ref_of[name](x, tab)
-        stop.record()
-        torch.cuda.synchronize()
-        plain = start.elapsed_time(stop)
-        err, rel = rel_err((got,), (ref,))
+        err, rel = rel_err((fn(x, tab),), (ref_of[name](x, tab),))
         check(rel <= 1e-6, f"20: {name} on the path's inputs {tuple(x.shape)}"
                            f": {rel:.3e} of max|ref| > 1e-6")
-        ms = cuda_ms(lambda: fn(x, tab), 3, warmup=1)
-        nm, M1 = x.shape[0], lmax + 1
-        out_b = 8 * nm * (M1 * M1 if name == "legendre_ana"
-                          else tab["Tr"] * M1)
-        steps = b10_steps(tab, ktab)
-        work = b10_work(x, tab, ktab, out_b, nm, steps, False)
         key = name + "_qe"
         results[key] = kernel_entry(
             key, "legendre.cu", "pallas_sht.py:1216,1230"
-            if name == "legendre_ana" else "pallas_sht.py:1260,1273", err,
-            (ms, plain, None), work)
-        r = results[key]
+            if name == "legendre_ana" else "pallas_sht.py:1260,1273", err)
         print(f"[20b] {name} on the path's input {tuple(x.shape)} (layout "
               f"{tab['layout']}, {ktab['Tk']} kernel rings, {ktab['ng']} "
-              f"groups of 32, {steps:.6e} live steps): max abs err "
-              f"{err:.3e} = {rel:.3e} of max|ref| (<= 1e-6); kernel "
-              f"{ms:.4f} ms, plain {plain:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}) on {card}")
-    del recorder, recs, r, x, got, ref
+              f"groups of 32): max abs err {err:.3e} = {rel:.3e} of max|ref| "
+              f"(<= 1e-6)")
+    del recorder, recs, r, x
 
     # (c) card vs CPU at lmax 255
     lc = 255
@@ -943,30 +774,12 @@ def curved_qe_phase(dev, card, results, reset_counts, read_counts):
           f"(<= 5); the exact sums at {Ld.size} Ls on the card "
           f"{dt_dense:.3f} s")
 
-    # (e) throughput of phi_from_alm on 4 sims: a smoke window of 5 steps.
-    # The measured number is the benchmark cell curvedqe2047.recon
-    # (python3 -m cmbbench.run --workload curvedqe2047.recon --seed <n>
-    # --seconds 10 --trace <0|1>: kappa_from_alm on 4 held sims a step)
-    def step():
-        return qe.phi_from_alm(tlm_e)
-    ms = throughput(step, nsims, 5, f"curved_qe_recons_per_sec_lmax{lmax}"
-                    f"_batch{nsims} (3072 GL rings x 6144, phi_from_alm; "
-                    "smoke: the cell curvedqe2047.recon measures it)",
-                    "recons/s", card, "20e")
-    kern = profile_steps(step, 2, ms, "20e")
-    share = {k: sum(e.self_device_time_total for e in kern
-                    if any(p in e.key.lower() for p in pats)) / 2e3
-             for k, pats in (("fft", ("fft",)), ("ana", ("ana_kernel",)),
-                             ("syn", ("syn_kernel",)))}
-    print(f"[20e] one call of {nsims} sims: B10a {share['ana']:.4f} ms, "
-          f"B10s {share['syn']:.4f} ms, ring FFTs (cuFFT) "
-          f"{share['fft']:.4f} ms, of {ms:.4f} ms")
     results["legendre_ana_qe"]["launches"] = counts["legendre_ana"]
     results["legendre_syn_qe"]["launches"] = counts["legendre_syn"]
     for k in ("legendre_ana", "legendre_syn"):
         results[k].setdefault("launches_by_path", {})["curved_qe"] = \
             counts[k]
-    del qe, qe_c, tlm_e
+    del qe, qe_c
     leg.clear_tables()
     torch.cuda.empty_cache()
     print(f"[20] the phase took {time.perf_counter() - t20:.3f} s on {card}")
@@ -979,91 +792,13 @@ def card_line():
     return res.stdout.strip().splitlines()[0]
 
 
-def main():
-    # ---- 0. card
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
-              "False)", file=sys.stderr)
-        return 1
-    from orphics_tpu_torch import Geometry, _build, rect_geometry
-    from orphics_tpu_torch._printed import text_gap
-    from orphics_tpu_torch.entry import entry
-    from orphics_tpu_torch.geometry import arcmin
-    from orphics_tpu_torch.models import foregrounds as fg
-    from orphics_tpu_torch.models import grf, ilc, lensing
-    from orphics_tpu_torch.models import nfwfit, pixcov
-    from orphics_tpu_torch.models.cosmology import Cosmology
-    from orphics_tpu_torch.ops.fourier import gauss_beam
-    from orphics_tpu_torch.models.lenspipe import LensedQEPipeline
-    from orphics_tpu_torch.models.theory import default_theory
-    from orphics_tpu_torch.models.fastcl import FastCl, drop_edge_segments
-    from orphics_tpu_torch.ops import dft
-    from orphics_tpu_torch.models import qe as qemod
-    from orphics_tpu_torch.ops.fourier import kfilter, mask_kspace
-    from orphics_tpu_torch.ops.bin_reduce import (bin2_reduce,
-                                                  bin2_reduce_ref,
-                                                  bin_pair_power,
-                                                  bin_pair_power_ref,
-                                                  bin_reduce, bin_reduce_ref)
-    from orphics_tpu_torch.ops.binning import Bin2D, RfftBin2D
-    from orphics_tpu_torch.ops.lens import (lens_map_kernel, lens_map_ref,
-                                            spline_coeffs)
-    from orphics_tpu_torch.ops.mirror import mirror_pp, mirror_pp_ref
-    from orphics_tpu_torch.ops.noise_planes import (noise_planes,
-                                                    noise_planes_ref)
-    from orphics_tpu_torch.ops import qe_conv as qc
-    from orphics_tpu_torch.ops.rowcombine import (rowcombine_pp,
-                                                  rowcombine_pp_ref)
-    from orphics_tpu_torch.ops.rowpower import (qc_pp_half, qc_pp_half_ref,
-                                                rowqc_half, rowqc_pp,
-                                                rowqc_pp_ref, rows_half,
-                                                rows_pp, rows_pp_ref,
-                                                s_field, s_pp_half,
-                                                s_pp_half_ref)
-    from orphics_tpu_torch.ops.windows import get_taper
-    from orphics_tpu_torch.models import mapstools
-    from orphics_tpu_torch.utils import healpix
-    from orphics_tpu_torch.models import curved
-    from orphics_tpu_torch.ops import alm as almops
-    from orphics_tpu_torch.ops import legendre as leg
-    from orphics_tpu_torch.ops import sht
-    from orphics_tpu_torch.entry import build_qe_pipeline, dryrun_multichip
-    from orphics_tpu_torch.parallel import fourier as pfourier
-    from orphics_tpu_torch.parallel import runtime as prt
-    from orphics_tpu_torch.parallel import sht as psht
-    from orphics_tpu_torch.parallel.statistics import SuffStats
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-    card = card_line()
-    kind = torch.cuda.get_device_name(0)
-    print(f"[0] card: {card}")
-    print(f"[0] device: {kind}; torch {torch.__version__}, CUDA "
-          f"{torch.version.cuda}; devices visible: {torch.cuda.device_count()}")
 
-    # ---- 1. build
-    t0 = time.perf_counter()
-    _build.library()
-    print(f"[1] build: {time.perf_counter() - t0:.3f} s (nvcc "
-          f"{' '.join(_build.NVCC_FLAGS)}, one process per source)")
-    for line in _build.build_log().splitlines():
-        if ("registers" in line or "spill" in line or "Compiling" in line
-                or line.startswith("==")):
-            print("[1]   " + line.strip())
-    t0 = time.perf_counter()
-    check(_build.healpix_library() is not None, "the native HEALPix "
-          "library did not build: " + _build.healpix_build_log())
-    print(f"[1] host library csrc/healpix.cpp: {time.perf_counter() - t0:.3f}"
-          f" s (g++ {' '.join(_build.HOST_FLAGS)})")
-
-    # ---- 2. kernels vs plain versions at the main path's shapes
-    geom = rect_geometry(width_arcmin=512 * 2.0, px_res_arcmin=2.0)
-    th = default_theory()
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(1234)
+def kernels_phase(dev, results, gen, geom, th):
+    """Phase 2: every kernel against its plain version at the main paths'
+    shapes, two runs bit-equal, the kernel each shape takes; a record of
+    each kernel in ``results``."""
     lmax_grid = geom.ellmax_safe()
-    results = {}
 
     # B1: RfftBin2D of the pipeline (3 spectra x batch 64, weights 2/1,
     # 36 bins) and Bin2D of the flagship step (one plane, 15 bins)
@@ -1072,7 +807,6 @@ def main():
     flag_edges = np.arange(40, min(1000, int(lmax_grid * 0.8)), 60.0)
     fb = Bin2D(geom.modlmap_np(), flag_edges, device=dev)
     b1_err = 0.0
-    b1_times = None
     for label, B, ids, nseg, w in (
             ("rfft", 192, rb._ids, rb._nseg, rb._w),
             ("full", 1, fb._ids, fb._nseg, None)):
@@ -1089,22 +823,10 @@ def main():
                            "> 1e-6")
         check(torch.equal(out, again), f"B1 {label}: two runs differ")
         b1_err = max(b1_err, err.max().item())
-        ms = cuda_ms(lambda: bin_reduce(data, ids, nseg, w), 50)
-        plain = cuda_ms(lambda: bin_reduce_ref(data, ids, nseg, w), 10)
         print(f"[2] B1 bin_reduce {label} ({B}, {n}) nseg={nseg}: max rel err "
-              f"{rel:.3e} of binned |data|, reproducible; kernel {ms:.4f} ms,"
-              f" plain {plain:.4f} ms")
-        if b1_times is None:
-            # library: one index_add_ of the pre-weighted data
-            ids64, dw = ids.long(), data * w
-            acc = torch.zeros((B, nseg), device=dev)
-            lib = cuda_ms(lambda: acc.index_add_(1, ids64, dw), 50)
-            b1_times = (ms, plain, lib)
-            b1_work = (nbytes(data, ids, w, out), 2.0 * data.numel())
-            del ids64, dw, acc
+              f"{rel:.3e} of binned |data|, reproducible")
     results["bin_reduce"] = kernel_entry(
-        "bin_reduce", "bin_reduce.cu", "pallas_kernels.py:94", b1_err,
-        b1_times, b1_work)
+        "bin_reduce", "bin_reduce.cu", "pallas_kernels.py:94", b1_err)
 
     # B8: the pipeline's displacement, (64, 1, 512, 512), alpha from a
     # kappa GRF, D = 8
@@ -1119,7 +841,6 @@ def main():
     check(amax < 8.0, f"B8: max|alpha|/dy = {amax:.3f} not inside the cap")
     cmb = cgen.get_map(gen, batch=(64,))[:, None]
     b8_err = 0.0
-    b8_times = None
     for order in (5, 3):
         coeffs = spline_coeffs(cmb, geom, order).contiguous()
         lens_map_kernel.wide_blocks(reset=True)
@@ -1141,34 +862,19 @@ def main():
                          "from device memory at config 6's deflection")
         del again
         b8_err = max(b8_err, err)
-        # ten warm-up calls: one run read 0.43 against 0.28 ms at order 5
-        # after two (the profiles of the same run read 0.28)
-        ms = cuda_ms(lambda: lens_map_kernel(coeffs, alpha, geom, order=order,
-                                             maxdisp_px=8, prefiltered=True),
-                     20, warmup=10)
-        plain = cuda_ms(lambda: lens_map_ref(coeffs, alpha, geom, order, 8),
-                        3, warmup=1)
         print(f"[2] B8 lens_map_kernel order {order} (64, 1, 512, 512) D=8: "
               f"max|alpha|/dy {amax:.3f}, max abs err {err:.3e} "
               f"(max|ref| {scale:.3e}), reproducible, wide blocks {wide} "
-              f"(must be 0); kernel {ms:.4f} ms, plain {plain:.4f} ms")
-        if b8_times is None:
-            # no PyTorch call evaluates a quintic spline; operations: the
-            # (order + 1)^2 taps' multiply-adds and ~8 per weight
-            b8_times = (ms, plain, None)
-            b8_work = (nbytes(coeffs, alpha, out), out.numel()
-                       * (2.0 * (order + 1) ** 2 + 16.0 * (order + 1)))
+              f"(must be 0)")
         del coeffs, out, ref
     results["lens_map_kernel"] = kernel_entry(
-        "lens_map_kernel", "lens_spline.cu", "pallas_lens.py:263", b8_err,
-        b8_times, b8_work)
+        "lens_map_kernel", "lens_spline.cu", "pallas_lens.py:263", b8_err)
     del kappa, alpha, cmb
     torch.cuda.empty_cache()
 
     # B3 (colfft/colifft) and B4 (rowfft/rowifft/rowifft_scaled_y): the
     # path's (64, 512, 512) and (32, 512, 512) planes at 2e-5 of max|ref|;
-    # n = 384 (B = 3, mixed radix) at 2e-5; n = 2048 at the 1.5e-5 contract.
-    # B3's and B4's records are timed at config 1's (96, 2048, 2048) below
+    # n = 384 (B = 3, mixed radix) at 2e-5; n = 2048 at the 1.5e-5 contract
     def planes(shape):
         return tuple(torch.randn(shape, generator=gen, device=dev)
                      for _ in range(2))
@@ -1178,15 +884,8 @@ def main():
                  ("B4", "rowfft", dft.rowfft, dft.rowfft_ref),
                  ("B4", "rowifft", dft.rowifft, dft.rowifft_ref))
     dft_err = {"B3": 0.0, "B4": 0.0}
-    dft_times = {}
-    torch_fft = {"colfft": lambda z: torch.fft.fft(z, dim=-2),
-                 "colifft": lambda z: torch.fft.ifft(z, dim=-2),
-                 "rowfft": lambda z: torch.fft.fft(z, dim=-1),
-                 "rowifft": lambda z: torch.fft.ifft(z, dim=-1)}
-    for shape, tol, timed in (((64, 512, 512), 2e-5, True),
-                              ((32, 512, 512), 2e-5, False),
-                              ((64, 384, 384), 2e-5, False),
-                              ((4, 2048, 2048), 1.5e-5, False)):
+    for shape, tol in (((64, 512, 512), 2e-5), ((32, 512, 512), 2e-5),
+                       ((64, 384, 384), 2e-5), ((4, 2048, 2048), 1.5e-5)):
         x = planes(shape)
         for kid, name, fn, ref_fn in dft_cases:
             err, rel = rel_err(fn(*x), ref_fn(*x))
@@ -1194,20 +893,8 @@ def main():
             check(rel <= tol, f"{kid} {name} {shape}: error {rel:.3e} of "
                               f"max|ref| > {tol}")
             dft_err[kid] = max(dft_err[kid], err)
-            line = (f"[2] {kid} {name} {shape}: max abs err {err:.3e} = "
-                    f"{rel:.3e} of max|ref| (<= {tol})")
-            if timed:
-                ms = cuda_ms(lambda: fn(*x), 20)
-                plain = cuda_ms(lambda: ref_fn(*x), 20)
-                xc = torch.complex(*x)
-                lib = cuda_ms(lambda: torch_fft[name](xc), 20)
-                del xc
-                dft_times[name] = (ms, plain, lib)
-                dft_work = (2 * nbytes(*x), fft_flops(shape[-1],
-                                                      shape[0] * shape[-1]))
-                line += (f"; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                         f"torch.fft {lib:.4f} ms")
-            print(line)
+            print(f"[2] {kid} {name} {shape}: max abs err {err:.3e} = "
+                  f"{rel:.3e} of max|ref| (<= {tol})")
         del x
     x = planes((64, 512, 512))
     sc = torch.rand((512, 512), generator=gen, device=dev) + 0.5
@@ -1215,25 +902,9 @@ def main():
                        dft.rowifft_scaled_y_ref(*x, sc))
     check(rel <= 2e-5, f"B4 rowifft_scaled_y: error {rel:.3e} of max|ref|")
     dft_err["B4"] = max(dft_err["B4"], err)
-    ms = cuda_ms(lambda: dft.rowifft_scaled_y(*x, sc), 20)
-    plain = cuda_ms(lambda: dft.rowifft_scaled_y_ref(*x, sc), 20)
     print(f"[2] B4 rowifft_scaled_y (64, 512, 512): max abs err {err:.3e} = "
-          f"{rel:.3e} of max|ref| (<= 2e-5); kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms")
-    # the 2D composition the pipeline runs, for the record
-    ms = cuda_ms(lambda: dft.fft2pp(*x), 20)
-    plain = cuda_ms(lambda: torch.fft.fft2(torch.complex(*x)), 20)
-    print(f"[2] fft2pp (64, 512, 512) on B3+B4: {ms:.4f} ms; torch.fft.fft2 "
-          f"(cuFFT, natural order, no split planes): {plain:.4f} ms")
-    for kid, names, radix2, axis in (
-            ("B3", ("colfft", "colifft"), B3_RADIX2_512_MS, "columns"),
-            ("B4", ("rowfft", "rowifft"), B4_RADIX2_512_MS, "rows")):
-        print(f"[2] {kid} (64, 512, 512): kernel {names[0]} "
-              f"{dft_times[names[0]][0]:.4f} ms, {names[1]} "
-              f"{dft_times[names[1]][0]:.4f} ms (the radix-2 core's "
-              f"{radix2[0]} and {radix2[1]} ms); torch.fft along the {axis} "
-              f"{dft_times[names[0]][2]:.4f} / {dft_times[names[1]][2]:.4f} "
-              f"ms; bound {bound(*dft_work)[0]:.4f} ms")
+          f"{rel:.3e} of max|ref| (<= 2e-5)")
+    del x
 
     # B4 on the register-resident row kernel at n = 256 .. 4096 and at row
     # counts that fill no block (7, 130), n = 384 and 640 on the radix-2
@@ -1340,40 +1011,28 @@ def main():
         torch.cuda.synchronize()
         check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
               f"B7 mirror_pp {shape}: not bit-exact")
-    z = planes((32, 512, 512))
-    ms = cuda_ms(lambda: mirror_pp(*z), 20)
-    plain = cuda_ms(lambda: mirror_pp_ref(*z), 20)
-    print(f"[2] B7 mirror_pp (32, 512, 512), (64, 512, 512), (4, 384, 384): "
-          f"bit-exact; (32, 512, 512) kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms")
-    # no single PyTorch call gathers Z(-k) in the permuted layout
+    print("[2] B7 mirror_pp (32, 512, 512), (64, 512, 512), (4, 384, 384): "
+          "bit-exact")
     results["mirror_pp"] = kernel_entry(
-        "mirror_pp", "mirror.cu", "pallas_fft.py:1078", 0.0,
-        (ms, plain, None), (2 * nbytes(*z), 0.0))
-    del x, z, got, ref
+        "mirror_pp", "mirror.cu", "pallas_fft.py:1078", 0.0)
+    del z, got, ref
     torch.cuda.empty_cache()
 
     # the generic QE's filter algebra (csrc/qe_conv.cu) at the
     # lensqe512.recon cell's shape, (64, 512, 512) complex64: the three
     # legs of one k-map, S_y and S_x from them, the post of two spectra;
-    # against the plain versions on the same inputs. Work: bytes of each
-    # input read once and each output written once; fp32 operations 2 a
-    # leg element, 10 a product element, 6 a post element
+    # against the plain versions on the same inputs
     k64 = torch.complex(*(torch.randn((64, 512, 512), generator=gen,
                                       device=dev) for _ in range(2)))
     planes3 = torch.randn((3, 512, 512), generator=gen, device=dev)
     legs3 = qc.qe_leg(k64, planes3)
     post2 = torch.randn((2, 512, 512), generator=gen, device=dev)
     pairs2 = ((0, 2.0, 1, 0), (1, 2.0, 2, 0))
-    el = k64.numel()
-    for name, fn, ref_fn, args, work in (
-            ("qe_leg", qc.qe_leg, qc.qe_leg_ref, (k64, planes3),
-             (nbytes(k64, planes3) + 3 * nbytes(k64), 6.0 * el)),
-            ("qe_pair", qc.qe_pair, qc.qe_pair_ref, (legs3, pairs2, None),
-             (nbytes(*legs3) + 2 * nbytes(k64), 20.0 * el)),
+    for name, fn, ref_fn, args in (
+            ("qe_leg", qc.qe_leg, qc.qe_leg_ref, (k64, planes3)),
+            ("qe_pair", qc.qe_pair, qc.qe_pair_ref, (legs3, pairs2, None)),
             ("qe_post", qc.qe_post, qc.qe_post_ref,
-             (legs3[0], legs3[1], post2),
-             (3 * nbytes(k64) + nbytes(post2), 6.0 * el))):
+             (legs3[0], legs3[1], post2))):
         before = fn.launches
         got = fn(*args)
         again = fn(*args)
@@ -1389,18 +1048,11 @@ def main():
         check(all(torch.equal(g, a) for g, a in zip(got, again)),
               f"{name}: two runs differ")
         del got, again, ref
-        ms = cuda_ms(lambda: fn(*args), 20)
-        plain = cuda_ms(lambda: ref_fn(*args), 5)
-        bms, bby = bound(*work)
         print(f"[2] {name} (64, 512, 512) complex64: max abs err {err:.3e} "
               f"= {rel:.3e} of max|ref| (<= {QE_CONV_TOL}), two runs "
-              f"bit-equal, {fn.launches - before} launches counted; kernel "
-              f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms "
-              f"({bby})")
-        # no TPU kernel: XLA fuses this algebra on the TPU; no single
-        # PyTorch call computes it
-        results[name] = kernel_entry(name, "qe_conv.cu", None, err,
-                                     (ms, plain, None), work)
+              f"bit-equal, {fn.launches - before} launches counted")
+        # no TPU kernel: XLA fuses this algebra on the TPU
+        results[name] = kernel_entry(name, "qe_conv.cu", None, err)
     del k64, planes3, legs3, post2
     torch.cuda.empty_cache()
 
@@ -1435,44 +1087,25 @@ def main():
     check(abs(tail / p4 - 1.0) < 0.3, f"B5n: share beyond 4 sigma {tail:.3e}"
                                       f" vs {p4:.3e}")
     check(abs(corr) < 1e-3, f"B5n: corr(re, im) {corr:.3e}")
-    ms = cuda_ms(lambda: noise_planes(scale, words, 32), 20)
-    plain = cuda_ms(lambda: noise_planes_ref(scale, words, 32), 20)
-    # the draw alone: one torch.randn of the same 2 x 32 x 512^2 values
-    lib = cuda_ms(lambda: torch.randn((2,) + tuple(zr.shape), device=dev),
-                  20)
-    # operations: ~25 fp32 per value (erfinvf, the uniform, the scale) and
-    # Philox's integer instructions per pair, as B5's entry counts them
-    b5n_work = (nbytes(scale, words, zr, zi), 25.0 * 2 * zr.numel(), 0.0,
-                PHILOX_INT_OPS_PER_PAIR * zr.numel() / 2)
     print(f"[2] B5n noise_planes (32, 512, 512) x 2: {N} values finite, "
           f"mean {mean:.3e} (5 sigma {5.0 / math.sqrt(N):.3e}), |std-1| "
           f"{abs(std - 1.0):.3e} (< 2e-3), share beyond 4 sigma {tail:.4e} vs "
-          f"{p4:.4e}, corr(re, im) {corr:.3e}, reproducible; kernel "
-          f"{ms:.4f} ms (bound {bound(*b5n_work)[0]:.4f} ms by "
-          f"{bound(*b5n_work)[1]}; {bound_parts(b5n_work)}), plain "
-          f"(torch.randn x "
-          f"scale) {plain:.4f} ms, torch.randn of the same values (the draw "
-          f"alone) {lib:.4f} ms")
+          f"{p4:.4e}, corr(re, im) {corr:.3e}, reproducible")
     results["noise_planes"] = kernel_entry(
-        "noise_planes", "noise.cu", "pallas_fft.py:737", abs(std - 1.0),
-        (ms, plain, lib), b5n_work)
+        "noise_planes", "noise.cu", "pallas_fft.py:737", abs(std - 1.0))
     del zr, zi, zr2, zi2, zr3, er, ei, e
     torch.cuda.empty_cache()
 
     # FastCl's kernels at bench config 1's shapes: 2048^2 at 0.5', edges
     # arange(80, 8000, 80) (nseg 100), 96 packed pairs
-    geom1 = rect_geometry(width_arcmin=2048 * 0.5, px_res_arcmin=0.5)
-    ells_th = np.arange(th.lpad + 1)
-    cltt = np.asarray(th.lCl("TT", ells_th))
-    edges1 = np.arange(80, 8000, 80.0)
+    geom1, ells_th, cltt, edges1 = config1(th)
     fc1 = FastCl(geom1, ells_th, cltt, bin_edges=edges1, device=dev)
     P1, P2, n1 = 96, 64, 2048
 
     # B1 at the half plane's (96, 2097152) over FastCl's ids: the full
     # digitized table (nseg 100) and the kept one FastCl bins with (edge
     # segments -1, drop_edge_segments), and over dl = 20 edges out to
-    # l = 8000 (nseg 400, two segment tiles). Each beside its bound: the
-    # kept table's counts only the 32-byte sectors that hold a kept id
+    # l = 8000 (nseg 400, two segment tiles)
     perm1, _ = dft.row_perm(n1)
     ml_half = geom1.modlmap_np()[perm1][:, perm1][dft.half_rows(n1)[0]]
     ids400 = torch.as_tensor(np.digitize(
@@ -1493,9 +1126,8 @@ def main():
         - 0.5
     data2 = torch.randn((P1, n1 * n1 // 2), generator=gen, device=dev) ** 2 \
         - 0.5
-    sector_share = live_sectors(ids_kept, fc1._nsg) / (ids_kept.numel() / 8)
     print(f"[2] FastCl's half-plane ids: {kept_share:.4f} of the elements "
-          f"kept, {sector_share:.4f} of the 32-byte sectors hold a kept id")
+          "kept")
     b2_cases = (("full ids", ids_full, fc1._nsg),
                 ("kept ids", ids_kept, fc1._nsg))
     for tag, ids, nseg in b2_cases + (("nseg 400", ids400, 400),):
@@ -1510,12 +1142,8 @@ def main():
                            "1e-6")
         check(torch.equal(out, again), f"B1 {tag}: two runs differ")
         b1_err = max(b1_err, err.max().item())
-        ms = cuda_ms(lambda: bin_reduce(data, ids, nseg), 10)
-        plain = cuda_ms(lambda: bin_reduce_ref(data, ids, nseg), 3, warmup=1)
-        bnd, by = bound(bin_bytes(ids, nseg, (data,), out), data.numel())
         print(f"[2] B1 bin_reduce ({P1}, {n1 * n1 // 2}) {tag} nseg={nseg}: "
-              f"max rel err {rel:.3e} of binned |data|, reproducible; kernel "
-              f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by})")
+              f"max rel err {rel:.3e} of binned |data|, reproducible")
     results["bin_reduce"]["max_abs_err"] = b1_err
 
     # B1 at bench config 5's profile binning: 10^4 stamps of 64^2 at 0.5'
@@ -1538,22 +1166,14 @@ def main():
     check(rel <= 1e-6, f"B1 config 5: error {rel:.3e} of binned |data| > "
                        "1e-6")
     check(torch.equal(out, again), "B1 config 5: two runs differ")
-    ms = cuda_ms(lambda: bin_reduce(data5, ids5, nseg5), 50)
-    plain = cuda_ms(lambda: bin_reduce_ref(data5, ids5, nseg5), 5)
-    ids5l = ids5.long()
-    acc5 = torch.zeros((10_000, nseg5), device=dev)
-    lib = cuda_ms(lambda: acc5.index_add_(1, ids5l, data5), 20)
-    work5 = (nbytes(data5, ids5, out), data5.numel())
-    bnd, by = bound(*work5)
     print(f"[2] B1 bin_reduce config 5 (10000, 4096) nseg={nseg5}: "
           f"{beyond5:.4f} of the pixels lie beyond 9' (the last segment, "
           f"summed and cut off); max rel err {rel:.3e} of binned |data|, "
-          f"reproducible; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-          f"index_add_ {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+          f"reproducible")
     results["bin_reduce_config5"] = kernel_entry(
         "bin_reduce_config5", "bin_reduce.cu", "pallas_kernels.py:94",
-        err.max().item(), (ms, plain, lib), work5)
-    del data5, out, again, ref, absref, err, ids5l, acc5
+        err.max().item())
+    del data5, out, again, ref, absref, err
     torch.cuda.empty_cache()
 
     # B1's float64 instance at the galaxy-catalog path's shape (phase 18):
@@ -1576,24 +1196,12 @@ def main():
     check(rel <= 1e-12, f"B1 float64: error {rel:.3e} of binned |data| > "
                         "1e-12")
     check(torch.equal(out, again), "B1 float64: two runs differ")
-    ms = cuda_ms(lambda: bin_reduce(data64, ids64, nseg64), 20)
-    plain = cuda_ms(lambda: bin_reduce_ref(data64, ids64, nseg64), 3,
-                    warmup=1)
-    ids64l = ids64.long()
-    acc64 = torch.zeros((24, nseg64), dtype=torch.float64, device=dev)
-    lib = cuda_ms(lambda: acc64.index_add_(1, ids64l, data64), 5)
-    # bytes: the float64 data once (twice the float32 bytes), ids, output;
-    # operations: one fp64 add an element
-    work64 = (nbytes(data64, ids64, out), 0.0, float(data64.numel()))
-    bnd, by = bound(*work64)
     print(f"[2] B1 bin_reduce float64 (24, {ids64.numel()}) nseg={nseg64}: "
-          f"max rel err {rel:.3e} of binned |data| (<= 1e-12), "
-          f"reproducible; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-          f"index_add_ {lib:.4f} ms, bound {bnd:.4f} ms ({by}) on {card}")
+          f"max rel err {rel:.3e} of binned |data| (<= 1e-12), reproducible")
     results["bin_reduce_f64"] = kernel_entry(
         "bin_reduce_f64", "bin_reduce.cu", "pallas_kernels.py:94",
-        err.max().item(), (ms, plain, lib), work64)
-    del data64, out, again, ref, absref, err, ids64l, acc64, b64, ids64
+        err.max().item())
+    del data64, out, again, ref, absref, err, b64, ids64
     torch.cuda.empty_cache()
 
     # B2: the two half-plane fields of 96 pairs over FastCl's kept ids (its
@@ -1612,27 +1220,11 @@ def main():
                                "binned |data| > 1e-6")
             check(torch.equal(o, a), f"B2 {tag} output {k}: two runs differ")
             b2_err = max(b2_err, err.max().item())
-        ms = cuda_ms(lambda: bin2_reduce(data, data2, ids, nseg), 10)
-        plain = cuda_ms(lambda: bin2_reduce_ref(data, data2, ids, nseg), 3,
-                        warmup=1)
-        # library: one index_add_ over both inputs stacked (the dropped ids
-        # into a column that is cut off)
-        idx = torch.where(ids >= 0, ids, nseg).long()
-        both = torch.cat([data, data2])
-        acc = torch.zeros((2 * P1, nseg + 1), device=dev)
-        lib = cuda_ms(lambda: acc.index_add_(1, idx, both), 5)
-        del idx, both, acc
-        work = (bin_bytes(ids, nseg, (data, data2), *out),
-                2.0 * data.numel())
-        bnd, by = bound(*work)
         print(f"[2] B2 bin2_reduce ({P1}, {n1 * n1 // 2}) x 2 {tag} "
               f"nseg={nseg}: each output within 1e-6 of binned |data| (max "
-              f"abs err {b2_err:.3e}), reproducible; kernel {ms:.4f} ms, "
-              f"plain {plain:.4f} ms, index_add_ {lib:.4f} ms, bound "
-              f"{bnd:.4f} ms ({by})")
+              f"abs err {b2_err:.3e}), reproducible")
     results["bin2_reduce"] = kernel_entry(
-        "bin2_reduce", "bin_reduce.cu", "pallas_kernels.py:163", b2_err,
-        (ms, plain, lib), work)
+        "bin2_reduce", "bin_reduce.cu", "pallas_kernels.py:163", b2_err)
     del data, data2, out, again, ref, absref, err, ids, ids400, o, a, r, x
     del ids_full
     torch.cuda.empty_cache()
@@ -1649,38 +1241,18 @@ def main():
         blk_err = max(blk_err, err)
         print(f"[2] B4b rowfft_blk0 {tag}: max abs err {err:.3e} = "
               f"{rel:.3e} of max|ref| (<= 1.5e-5)")
-    ms = cuda_ms(lambda: dft.rowfft_blk0(*y), 10)
-    plain = cuda_ms(lambda: dft.rowfft_blk0_ref(*y), 3, warmup=1)
-    # library for the 2048-point row passes (B4b, B6, B5): one torch.fft
-    # call along the rows of the same planes, natural order
-    yc = torch.complex(*y)
-    row_fft_lib = cuda_ms(lambda: torch.fft.fft(yc, dim=-1), 5)
-    row_ifft_lib = cuda_ms(lambda: torch.fft.ifft(yc, dim=-1), 5)
-    del yc
-    print(f"[2] B4b rowfft_blk0 ({P1}, {n1}, {n1}): kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms; torch.fft.fft / ifft along the rows "
-          f"{row_fft_lib:.4f} / {row_ifft_lib:.4f} ms")
-    rows1 = P1 * n1
     results["rowfft_blk0"] = kernel_entry(
-        "rowfft_blk0", "rowpower.cu", "pallas_fft.py:1301", blk_err,
-        (ms, plain, row_fft_lib),
-        (nbytes(*y) + 2 * 4 * rows1 * 128,
-         rows1 * (2.0 * (n1 - 128) + fft_flops(128, 1))))
+        "rowfft_blk0", "rowpower.cu", "pallas_fft.py:1301", blk_err)
     # B4 at the same shape: rowfft (phase 13's fft2pp), rowifft and
     # rowifft_scaled_y (an (n, n) scale from B4's generator), held to the
     # plain versions at 1.5e-5 of max|ref| with two runs bit-equal on the
-    # register-resident row kernel, then timed beside torch.fft along the
-    # rows and the radix-2 core's times
+    # register-resident row kernel
     w96 = torch.rand((n1, n1), generator=gen4, device=dev) + 0.5
-    b4_times = {}
     tag = f"({P1}, {n1}, {n1})"
-    for fn, ref_fn, args, lib_ms, radix2 in (
-            (dft.rowfft, dft.rowfft_ref, y, row_fft_lib,
-             B4_RADIX2_2048_MS[0]),
-            (dft.rowifft, dft.rowifft_ref, y, row_ifft_lib,
-             B4_RADIX2_2048_MS[1]),
-            (dft.rowifft_scaled_y, dft.rowifft_scaled_y_ref, y + (w96,),
-             None, None)):
+    for fn, ref_fn, args in (
+            (dft.rowfft, dft.rowfft_ref, y),
+            (dft.rowifft, dft.rowifft_ref, y),
+            (dft.rowifft_scaled_y, dft.rowifft_scaled_y_ref, y + (w96,))):
         got = row_route("B4", fn, args, n1, tag)
         err, rel = rel_err(got, ref_fn(*args))
         check(rel <= 1.5e-5, f"B4 {fn.__name__} {tag}: error {rel:.3e} of "
@@ -1688,35 +1260,19 @@ def main():
         dft_err["B4"] = max(dft_err["B4"], err)
         del got
         torch.cuda.empty_cache()
-        ms = cuda_ms(lambda: fn(*args), 10)
-        plain = cuda_ms(lambda: ref_fn(*args), 3, warmup=1)
-        b4_times[fn.__name__] = (ms, plain, lib_ms)
-        work = (2 * nbytes(*y) + nbytes(*args[2:]), fft_flops(n1, rows1))
-        line = (f"[2] B4 {fn.__name__} {tag}: max abs err {err:.3e} = "
-                f"{rel:.3e} of max|ref| (<= 1.5e-5), two runs bit-equal on "
-                f"the register-resident row kernel; kernel {ms:.4f} ms "
-                f"({work[0] / ms / 1e9:.3f} TB/s, bound "
-                f"{bound(*work)[0]:.4f} ms)")
-        if radix2 is not None:
-            line += (f", {radix2 / ms:.2f}x the radix-2 core's {radix2} ms; "
-                     f"torch.fft along the rows {lib_ms:.4f} ms")
-        print(line + f"; plain {plain:.4f} ms")
+        print(f"[2] B4 {fn.__name__} {tag}: max abs err {err:.3e} = "
+              f"{rel:.3e} of max|ref| (<= 1.5e-5), two runs bit-equal on "
+              f"the register-resident row kernel")
     del w96
     results["rowfft"] = kernel_entry(
-        "rowfft", "rowfft.cu", "pallas_fft.py:791", dft_err["B4"],
-        b4_times["rowfft"], (2 * nbytes(*y), fft_flops(n1, rows1)))
+        "rowfft", "rowfft.cu", "pallas_fft.py:791", dft_err["B4"])
     # B3 at the same shape: colfft (FastCl's map analysis, phase 13's fused
     # analysis) and colifft (the config-1 step body), held to the plain
     # versions at 1.5e-5 of max|ref| with two runs bit-equal on the
     # register-resident kernel, at config 1's 96 planes and at config 2's 64
-    # (its cross spectra's colifft); then timed at 96 beside torch.fft along
-    # the columns
-    b3_times = {}
-    for name, fn, ref_fn, lib_fn, radix2 in (
-            ("colfft", dft.colfft, dft.colfft_ref, torch.fft.fft,
-             B3_RADIX2_2048_MS[0]),
-            ("colifft", dft.colifft, dft.colifft_ref, torch.fft.ifft,
-             B3_RADIX2_2048_MS[1])):
+    # (its cross spectra's colifft)
+    for name, fn, ref_fn in (("colfft", dft.colfft, dft.colfft_ref),
+                             ("colifft", dft.colifft, dft.colifft_ref)):
         for planes_n in (P1, P2):
             yy = tuple(t[:planes_n] for t in y)
             tag = f"({planes_n}, {n1}, {n1})"
@@ -1739,18 +1295,8 @@ def main():
                   "register-resident kernel")
             del got, yy
         torch.cuda.empty_cache()
-        ms = cuda_ms(lambda: fn(*y), 10)
-        plain = cuda_ms(lambda: ref_fn(*y), 3, warmup=1)
-        yc = torch.complex(*y)
-        lib_ms = cuda_ms(lambda: lib_fn(yc, dim=-2), 5)
-        del yc
-        b3_times[name] = (ms, plain, lib_ms)
-        print(f"[2] B3 {name} ({P1}, {n1}, {n1}): kernel {ms:.4f} ms "
-              f"({radix2 / ms:.2f}x the radix-2 core's {radix2} ms), plain "
-              f"{plain:.4f} ms, torch.fft along the columns {lib_ms:.4f} ms")
     results["colfft"] = kernel_entry(
-        "colfft", "colfft.cu", "pallas_fft.py:288", dft_err["B3"],
-        b3_times["colfft"], (2 * nbytes(*y), fft_flops(n1, P1 * n1)))
+        "colfft", "colfft.cu", "pallas_fft.py:288", dft_err["B3"])
     # B6: the fields and Z's rows [0, 128) from one launch (no B4, no B4b,
     # no strip patch); n = 2048 takes the register-resident kernel, n = 384
     # (Bk = 3) the one on the radix-2 core; two runs bit-equal
@@ -1784,21 +1330,8 @@ def main():
         del got, ref, g, r
     del yy
     torch.cuda.empty_cache()
-    ms = cuda_ms(lambda: rowqc_half(*y), 10)
-    ms_pp = cuda_ms(lambda: rowqc_pp(*y), 10)
-    plain = cuda_ms(lambda: rowqc_pp_ref(*y), 3, warmup=1)
-    print(f"[2] B6 ({P1}, {n1}, {n1}): kernel rowqc_half {ms:.4f} ms "
-          f"({B6_RADIX2_MS / ms:.2f}x the radix-2 core's {B6_RADIX2_MS} ms); "
-          f"rowqc_pp (B6 writing zrow too; no B4, B4b or strip patch) "
-          f"{ms_pp:.4f} ms ({B6_PATCHED_MS / ms_pp:.2f}x the patched "
-          f"composition's {B6_PATCHED_MS} ms); plain rowqc_pp_ref "
-          f"{plain:.4f} ms; torch.fft.fft along the rows (the transform "
-          f"alone) {row_fft_lib:.4f} ms")
     results["rowqc_half"] = kernel_entry(
-        "rowqc_half", "rowpower.cu", "pallas_fft.py:1344", qc_err,
-        (ms, plain, row_fft_lib),
-        (nbytes(*y) + 2 * 4 * rows1 * n1 // 2,
-         fft_flops(n1, rows1) + 8.0 * rows1 * n1 // 2))
+        "rowqc_half", "rowpower.cu", "pallas_fft.py:1344", qc_err)
 
     # B6h (qc_pp_half) and B6h' (s_pp_half) on the stored Z = rowfft(Y): 96
     # pairs at 2048^2 (config 1's) and 64 (config 2's), and n = 384. Each
@@ -1806,20 +1339,17 @@ def main():
     # compiler contracts to fused multiply-adds: 1e-6 of max|ref|), two
     # runs bit-equal, and against B6 / B6s, which transform Y's rows
     # themselves, on the same Y (1e-6 of max; the share of bit-equal
-    # values is printed). No one PyTorch call computes these fields.
-    P2_HALF = 64        # config 2's pairs: the batch B6h' is timed at
+    # values is printed)
     y384 = planes((4, 384, 384))
     half_err = {"qc_pp_half": 0.0, "s_pp_half": 0.0}
-    half_rec = {}
-    for yy, timed in ((y, True), (y384, False)):
-        z = dft.rowfft(*yy)
-        for name, fn, ref_fn, fused_fn, nb_, nout, flop in (
+    z1 = dft.rowfft(*y)
+    for z, yy in ((z1, y), (dft.rowfft(*y384), y384)):
+        for name, fn, ref_fn, fused_fn, nb_ in (
                 ("qc_pp_half", qc_pp_half, qc_pp_half_ref, rowqc_half,
-                 yy[0].shape[0], 2, 10.0),
+                 yy[0].shape[0]),
                 ("s_pp_half", lambda a, b: (s_pp_half(a, b),),
                  lambda a, b: (s_pp_half_ref(a, b),),
-                 lambda a, b: (rows_half(a, b),),
-                 min(yy[0].shape[0], P2_HALF), 1, 3.0)):
+                 lambda a, b: (rows_half(a, b),), min(yy[0].shape[0], P2))):
             zz = tuple(a[:nb_] for a in z)
             tag = f"({nb_}, {zz[0].shape[1]}, {zz[0].shape[2]})"
             got = fn(*zz)
@@ -1843,29 +1373,18 @@ def main():
             check(frel <= 1e-6, f"{name} {tag} vs the fused kernel: "
                                 f"{frel:.3e} of max > 1e-6")
             half_err[name] = max(half_err[name], err)
-            line = (f"[2] {name} {tag}: max abs err {err:.3e} = {rel:.3e} of "
-                    f"max|ref| (<= 1e-6), reproducible; vs the fused row "
-                    f"pass on the same Y {frel:.3e} of max (<= 1e-6), "
-                    f"{same:.6f} of the values bit-equal")
-            del fused
-            if timed:
-                ms = cuda_ms(lambda: fn(*zz), 10)
-                plain = cuda_ms(lambda: ref_fn(*zz), 3, warmup=1)
-                half_rec[name] = ((ms, plain, None),
-                                  (nbytes(*zz, *got), flop * got[0].numel()))
-                line += f"; kernel {ms:.4f} ms, plain {plain:.4f} ms"
-            print(line)
-            del got, zz
-        if timed:
-            z1 = z
-        del z
-    del y384
+            print(f"[2] {name} {tag}: max abs err {err:.3e} = {rel:.3e} of "
+                  f"max|ref| (<= 1e-6), reproducible; vs the fused row pass "
+                  f"on the same Y {frel:.3e} of max (<= 1e-6), {same:.6f} "
+                  "of the values bit-equal")
+            del fused, got, zz
+    del z, y384
     results["qc_pp_half"] = kernel_entry(
         "qc_pp_half", "rowpower.cu", "pallas_fft.py:1006",
-        half_err["qc_pp_half"], *half_rec["qc_pp_half"])
+        half_err["qc_pp_half"])
     results["s_pp_half"] = kernel_entry(
         "s_pp_half", "rowpower.cu", "pallas_fft.py:934",
-        half_err["s_pp_half"], *half_rec["s_pp_half"])
+        half_err["s_pp_half"])
     del y
     torch.cuda.empty_cache()
 
@@ -1874,8 +1393,7 @@ def main():
     # over the same ids with the edge segments dropped, and 32 pairs at
     # 512^2 over config 3's permuted_bin_tables ids; sym False and True.
     # bin(q) within 1e-6 of itself, bin(c), which cancels, within 1e-6 of
-    # bin(|c|); two runs bit-equal. Library: four elementwise passes and
-    # two index_add_.
+    # bin(|c|); two runs bit-equal
     full_np = np.digitize(geom1.modlmap_np()[perm1][:, perm1].ravel(),
                           edges1, right=True).astype(np.int32)
     ids_full1 = torch.as_tensor(full_np, device=dev)
@@ -1883,15 +1401,14 @@ def main():
                                 device=dev)
     del full_np
     perm3, _ = dft.row_perm(512)
-    edges3 = np.arange(40, 2000, 80.0)
-    ids3, _, nseg3 = dft.permuted_bin_tables(geom.modlmap_np(), perm3, edges3,
+    ids3, _, nseg3 = dft.permuted_bin_tables(geom.modlmap_np(), perm3, EDGES3,
                                              device=dev)
     z3 = planes((32, 512, 512))
     pp_err = 0.0
-    for zz, ids, nseg, timed, what in (
-            (z3, ids3, nseg3, False, ""),
-            (z1, ids_full1, len(edges1) + 1, True, " full ids"),
-            (z1, ids_kept1, len(edges1) + 1, False, " kept ids")):
+    for zz, ids, nseg, what in (
+            (z3, ids3, nseg3, ""),
+            (z1, ids_full1, len(edges1) + 1, " full ids"),
+            (z1, ids_kept1, len(edges1) + 1, " kept ids")):
         B = zz[0].shape[0]
         four = tuple(a.reshape(B, -1)
                      for a in tuple(zz) + tuple(mirror_pp(*zz)))
@@ -1914,40 +1431,13 @@ def main():
                   and torch.equal(got[1], again[1]),
                   f"B2' {tag} sym={sym}: two runs differ")
             pp_err = max(pp_err, rel_err(got, ref)[0])
-            line = (f"[2] B2' bin_pair_power {tag} sym={sym}: bin(q) "
-                    f"{rel_q:.3e}, bin(c) {rel_c:.3e} of binned |field| "
-                    "(<= 1e-6), reproducible")
-            del again, ref
-            ms = cuda_ms(lambda: bin_pair_power(*four, ids, nseg, sym=sym),
-                         10)
-            bnd, by = bound(bin_bytes(ids, nseg, four, *got),
-                            12.0 * four[0].numel())
-            line += f"; kernel {ms:.4f} ms, bound {bnd:.4f} ms ({by})"
-            if timed and not sym:
-                plain = cuda_ms(lambda: bin_pair_power_ref(*four, ids, nseg),
-                                2, warmup=1)
-                ids64 = ids.long()
-                acc = torch.zeros((2, B, nseg), device=dev)
-
-                def lib_pair():
-                    q = four[0] * four[0]
-                    q.addcmul_(four[1], four[1])
-                    c = four[0] * four[2]
-                    c.addcmul_(four[1], four[3], value=-1.0)
-                    acc[0].index_add_(1, ids64, q)
-                    acc[1].index_add_(1, ids64, c)
-                lib = cuda_ms(lib_pair, 2, warmup=1)
-                del ids64, acc
-                pp_rec = ((ms, plain, lib),
-                          (nbytes(*four, ids, *got), 12.0 * four[0].numel()))
-                line += (f", plain {plain:.4f} ms, four elementwise passes "
-                         f"and two index_add_ {lib:.4f} ms")
-            print(line)
-            del got
+            print(f"[2] B2' bin_pair_power {tag} sym={sym}: bin(q) "
+                  f"{rel_q:.3e}, bin(c) {rel_c:.3e} of binned |field| "
+                  "(<= 1e-6), reproducible")
+            del got, again, ref
         del four, absc
     results["bin_pair_power"] = kernel_entry(
-        "bin_pair_power", "bin_reduce.cu", "pallas_kernels.py:262", pp_err,
-        *pp_rec)
+        "bin_pair_power", "bin_reduce.cu", "pallas_kernels.py:262", pp_err)
     del z1, z3, zz, ids_full1, ids_kept1, ids3
     torch.cuda.empty_cache()
 
@@ -1980,27 +1470,14 @@ def main():
           f"B5: n var(Y') = {var_r:.6f}, {var_i:.6f}")
     check(abs(corr) < 1e-3, f"B5: n E[re im] = {corr:.3e}")
     del ur, ui
-    ms = cuda_ms(lambda: dft.rowifft_noise_y(sc1, w, P1), 10)
-    plain = cuda_ms(lambda: dft.rowifft_noise_y_ref(sc1, w, P1), 3, warmup=1)
-    # operations: the transform, ~25 fp32 per normal (erfinvf, the
-    # uniform, the scale) and Philox's integer instructions per pair
-    b5_work = (nbytes(sc1, w) + 2 * 4 * rows1 * n1,
-               fft_flops(n1, rows1) + 25.0 * 2 * rows1 * n1, 0.0,
-               PHILOX_INT_OPS_PER_PAIR * rows1 * n1 / 2)
     print(f"[2] B5 rowifft_noise_y ({P1}, {n1}, {n1}) x 2: vs "
           f"rowifft(noise_planes) on the same words {rel:.3e} of max|ref| "
           f"(<= 1.5e-5; bit-equal: {exact}); two runs bit-equal on the "
           f"register-resident row kernel; unit scale: n var(Y') "
           f"{var_r:.6f} (re), {var_i:.6f} (im) (within 2e-3 of 1), "
-          f"n E[re im] {corr:.3e}; kernel {ms:.4f} ms "
-          f"({B5_RADIX2_MS / ms:.2f}x the radix-2 core's {B5_RADIX2_MS} ms; "
-          f"bound {bound(*b5_work)[0]:.4f} ms by {bound(*b5_work)[1]}; "
-          f"{bound_parts(b5_work)}), plain "
-          f"(torch.randn, then torch.fft.ifft) {plain:.4f} ms, "
-          f"torch.fft.ifft along the rows {row_ifft_lib:.4f} ms")
+          f"n E[re im] {corr:.3e}")
     results["rowifft_noise_y"] = kernel_entry(
-        "rowifft_noise_y", "rowfft.cu", "pallas_fft.py:658", b5_err,
-        (ms, plain, row_ifft_lib), b5_work)
+        "rowifft_noise_y", "rowfft.cu", "pallas_fft.py:658", b5_err)
     del fc1, sc1
     torch.cuda.empty_cache()
 
@@ -2029,21 +1506,8 @@ def main():
         print(f"[2] B3s colfft_scaled {tag}: max abs err {err:.3e} = "
               f"{rel:.3e} of max|ref| (<= 1.5e-5), two runs bit-equal")
         del got, again
-    ms = cuda_ms(lambda: dft.colfft_scaled(*x, taper1), 10)
-    ms_b3 = cuda_ms(lambda: dft.colfft(*x), 10)
-    plain = cuda_ms(lambda: dft.colfft_scaled_ref(*x, taper1), 3, warmup=1)
-    xc = torch.complex(*x)
-    lib = cuda_ms(lambda: torch.fft.fft(xc, dim=-2), 5)
-    del xc
-    print(f"[2] B3s ({P2}, {n1}, {n1}) with the 12 % taper: kernel {ms:.4f} "
-          f"ms ({B3S_RADIX2_MS / ms:.2f}x the radix-2 core's {B3S_RADIX2_MS} "
-          f"ms; B3 colfft unscaled {ms_b3:.4f} ms), plain {plain:.4f} ms, "
-          f"torch.fft.fft along the columns {lib:.4f} ms")
-    rows2 = P2 * n1
     results["colfft_scaled"] = kernel_entry(
-        "colfft_scaled", "colfft.cu", "pallas_fft.py:325", b3s_err,
-        (ms, plain, lib), (2 * nbytes(*x) + nbytes(taper1),
-                           fft_flops(n1, rows2) + 2.0 * 2 * rows2 * n1))
+        "colfft_scaled", "colfft.cu", "pallas_fft.py:325", b3s_err)
     s_err = 0.0
     for yy, tag in ((x, f"({P2}, {n1}, {n1})"), (x384, "(4, 384, 384)")):
         before = (rows_half.launches, dft.rowfft.launches,
@@ -2073,23 +1537,8 @@ def main():
         del got, ref, g, r
     del yy
     torch.cuda.empty_cache()
-    ms = cuda_ms(lambda: rows_half(*x), 10)
-    ms_pp = cuda_ms(lambda: rows_pp(*x), 10)
-    plain = cuda_ms(lambda: rows_pp_ref(*x), 3, warmup=1)
-    xc = torch.complex(*x)
-    lib = cuda_ms(lambda: torch.fft.fft(xc, dim=-1), 5)
-    del xc
-    print(f"[2] B6s ({P2}, {n1}, {n1}): kernel rows_half {ms:.4f} ms "
-          f"({B6S_RADIX2_MS / ms:.2f}x the radix-2 core's {B6S_RADIX2_MS} "
-          f"ms); rows_pp (B6s writing zrow too; no B4, B4b or strip patch) "
-          f"{ms_pp:.4f} ms ({B6S_PATCHED_MS / ms_pp:.2f}x the patched "
-          f"composition's {B6S_PATCHED_MS} ms); plain rows_pp_ref "
-          f"{plain:.4f} ms; torch.fft.fft along the rows (the transform "
-          f"alone) {lib:.4f} ms")
     results["rows_half"] = kernel_entry(
-        "rows_half", "rowpower.cu", "pallas_fft.py:1456", s_err,
-        (ms, plain, lib), (nbytes(*x) + 4 * rows2 * n1 // 2,
-                           fft_flops(n1, rows2) + 3.0 * rows2 * n1 // 2))
+        "rows_half", "rowpower.cu", "pallas_fft.py:1456", s_err)
     del x, x384, taper1, t384
     torch.cuda.empty_cache()
 
@@ -2121,24 +1570,8 @@ def main():
               f"max|ref| (<= 1e-5); two runs bit-equal on the "
               + ("register-resident" if regs else "radix-2") + " kernel")
         del got, again
-        if n9 == 512:
-            ms = cuda_ms(lambda: rowcombine_pp(*y9, *w9, nq), 20)
-            plain = cuda_ms(lambda: rowcombine_pp_ref(*y9, *w9, nq), 5)
-            # the row transform alone: torch.fft.fft along the rows of Y
-            yc = torch.complex(*y9)
-            lib = cuda_ms(lambda: torch.fft.fft(yc, dim=-1), 20)
-            del yc
-            b9_work = (nbytes(*y9, *w9) + 2 * 4 * (npt // nq) * n9 * n9,
-                       fft_flops(n9, npt * n9) + 16.0 * npt * n9 * n9)
-            print(f"[2] B9 ({npt}, {n9}, {n9}) nq {nq}: kernel {ms:.4f} ms "
-                  f"({B9_RADIX2_MS / ms:.2f}x the radix-2 kernel's "
-                  f"{B9_RADIX2_MS} ms; bound {bound(*b9_work)[0]:.4f} ms), "
-                  f"plain {plain:.4f} ms, torch.fft.fft along the rows of "
-                  f"Y (the row transform alone) {lib:.4f} ms")
-            b9_times = (ms, plain, lib)
     results["rowcombine_pp"] = kernel_entry(
-        "rowcombine_pp", "rowcombine.cu", "pallas_fft.py:1603", b9_err,
-        b9_times, b9_work)
+        "rowcombine_pp", "rowcombine.cu", "pallas_fft.py:1603", b9_err)
     del y9, w9
     torch.cuda.empty_cache()
     # B10a/B10s against their plain fp64 loops (no captured seeds, no group
@@ -2148,7 +1581,7 @@ def main():
     # map, folded), dd and fast; fast also against its own plain version,
     # the kernels' float32 recurrence emulated in torch (legendre_*_ref with
     # fast=True)
-    b10 = {}
+    b10_err = {}
     b10_gen = torch.Generator(device=dev).manual_seed(10)
     for lmax, nm, ns, layout in ((1023, 8, (0,), "fold"),
                                  (1023, 16, (-2, 2), "half"),
@@ -2157,26 +1590,21 @@ def main():
         M1 = lmax + 1
         for ni in range(len(ns)):
             shape = f"lmax {lmax} x{nm} {layout} n={ns[ni]}"
-            t0 = time.perf_counter()
             tab = leg.tables(lmax, rings, ns, ni, layout, dev)
             ktab = leg.kernel_tables(tab)
-            torch.cuda.synchronize()
-            steps = b10_steps(tab, ktab)
             dead = int((ktab["bounds"][M1:2 * M1] == 0).sum().item())
-            print(f"[2] B10 tables {shape}: capture pass and bounds "
-                  f"{time.perf_counter() - t0:.3f} s; {ktab['Tk']} kernel "
-                  f"rings, {steps:.6e} live (ring, m, l) steps, {dead} dead "
-                  "(m, 32-ring group) pairs")
+            print(f"[2] B10 tables {shape}: {ktab['Tk']} kernel rings, {dead} "
+                  "dead (m, 32-ring group) pairs")
             G = torch.complex(*(torch.randn((nm, tab["Tr"], M1),
                                             generator=b10_gen, device=dev)
                                 for _ in range(2)))
             a = torch.complex(*(torch.randn((nm, M1, M1), generator=b10_gen,
                                             device=dev) for _ in range(2)))
-            for name, fn, ref_fn, x, out_b in (
+            for name, fn, ref_fn, x in (
                     ("legendre_ana", leg.legendre_ana, leg.legendre_ana_ref,
-                     G, 8 * nm * M1 * M1),
+                     G),
                     ("legendre_syn", leg.legendre_syn, leg.legendre_syn_ref,
-                     a, 8 * nm * tab["Tr"] * M1)):
+                     a)):
                 ref = ref_fn(x, tab)
                 for mode in ("dd", "fast"):
                     fast = mode == "fast"
@@ -2201,17 +1629,10 @@ def main():
                               f"plain version > {B10_FAST_PLAIN_TOL}")
                         own = (f"; {rel32:.3e} of its fp32 plain version "
                                f"(<= {B10_FAST_PLAIN_TOL})")
-                    ms = cuda_ms(lambda: fn(x, tab, fast), 5, warmup=1)
-                    plain = cuda_ms(lambda: ref_fn(x, tab), 1, warmup=0)
-                    work = b10_work(x, tab, ktab, out_b, nm, steps, fast)
-                    bms, bby = bound(*work)
                     print(f"[2] {name} {shape} {mode}: max abs err "
                           f"{err:.3e} = {rel:.3e} of max|ref| (<= {tol})"
-                          f"{own}, reproducible, a map alone = packed; "
-                          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-                          f"{bms:.4f} ms ({bby})")
-                    b10[(name, lmax, ns[ni], mode)] = (err, (ms, plain, None),
-                                                      work)
+                          f"{own}, reproducible, a map alone = packed")
+                    b10_err[(name, lmax, ns[ni], mode)] = err
             del G, a, got, again, one, ref
     # the fast gate over seeds, at config 8's shape: the fast kernel and its
     # fp32 plain version against the fp64 loop, and against each other
@@ -2254,87 +1675,20 @@ def main():
     del tab, ktab
     leg.clear_tables()
     torch.cuda.empty_cache()
-    # each record's error, times and bound from config 7's shape
+    # each record's error at config 7's shape
     for name, sites in (("legendre_ana", "pallas_sht.py:1216,1230,1310,1325"),
                         ("legendre_syn",
                          "pallas_sht.py:1260,1273,1364,1379")):
         results[name] = kernel_entry(name, "legendre.cu", sites,
-                                     *b10[(name, 2047, 0, "dd")])
+                                     b10_err[(name, 2047, 0, "dd")])
 
-    for r in results.values():
-        print(f"[2] {r['name']}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library "
-              + ("none" if r["library_ms"] is None
-                 else f"{r['library_ms']:.4f} ms")
-              + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}) on "
-              f"{card}")
 
-    counters = {"bin_reduce": (bin_reduce,),
-                "lens_map_kernel": (lens_map_kernel,),
-                "colfft": (dft.colfft, dft.colifft),
-                "rowfft": (dft.rowfft, dft.rowifft, dft.rowifft_scaled_y),
-                "noise_planes": (noise_planes,),
-                "mirror_pp": (mirror_pp,),
-                "bin2_reduce": (bin2_reduce,),
-                "rowfft_blk0": (dft.rowfft_blk0,),
-                "rowifft_noise_y": (dft.rowifft_noise_y,),
-                "rowqc_half": (rowqc_half,),
-                "colfft_scaled": (dft.colfft_scaled,),
-                "rows_half": (rows_half,),
-                "rowcombine_pp": (rowcombine_pp,),
-                "legendre_ana": (leg.legendre_ana,),
-                "legendre_syn": (leg.legendre_syn,),
-                "qc_pp_half": (qc_pp_half,),
-                "s_pp_half": (s_pp_half,),
-                "bin_pair_power": (bin_pair_power,),
-                "qe_leg": (qc.qe_leg,),
-                "qe_pair": (qc.qe_pair,),
-                "qe_post": (qc.qe_post,)}
-
-    row_regs_at_reset = [0]
-    b9_regs_at_reset = [0]
-
-    def reset_counts():
-        for fns in counters.values():
-            for fn in fns:
-                fn.launches = 0
-        bin_reduce.launches_f64 = 0
-        row_regs_at_reset[0] = klib.rowfft_regs_launches()
-        b9_regs_at_reset[0] = klib.rowcombine_regs_launches()
-        lens_map_kernel.wide_blocks(reset=True)
-
-    def read_wide(tag, must_be_zero):
-        """B8's blocks since reset_counts() whose deflection range exceeded
-        the shared-memory window (their taps came from device memory)"""
-        wide = lens_map_kernel.wide_blocks()
-        print(f"[{tag}] B8 blocks with taps from device memory: {wide}"
-              + (" (must be 0 at the pipeline's cap D = 8)" if must_be_zero
-                 else ""))
-        if must_be_zero:
-            check(wide == 0, f"{tag}: {wide} B8 blocks wider than the window")
-
-    def check_row_route(counts, tag):
-        """Every B4 and B5 launch of the path since reset_counts() took the
-        register-resident row kernel (its transforms are 128 * 2^k long)"""
-        regs = klib.rowfft_regs_launches() - row_regs_at_reset[0]
-        rows = counts["rowfft"] + counts["rowifft_noise_y"]
-        check(regs == rows, f"{tag}: {regs} of {rows} B4/B5 launches on the "
-                            "register-resident row kernel")
-        print(f"[{tag}] B4/B5 launches on the register-resident row kernel: "
-              f"{regs} of {rows}")
-
-    def read_counts(names, tag):
-        counts = {k: sum(fn.launches for fn in counters[k]) for k in counters}
-        print(f"[{tag}] launches on this path: {counts}")
-        for name in names:
-            check(counts[name] > 0, f"{tag}: {name} was not launched")
-        return counts
-
-    # ---- 3. flagship step (counts from 0)
-    reset_counts()
+def flagship_phase(dev, results, launches):
+    """Phase 3: the flagship step, its launches from 0."""
+    launches.reset()
     fn, fargs = entry(device=dev)
     t0 = time.perf_counter()
-    for i in range(3):
+    for _ in range(3):
         out = fn(*fargs)
         torch.cuda.synchronize()
         check(tuple(out.shape) == (3, 15), f"flagship shape {tuple(out.shape)}")
@@ -2342,7 +1696,7 @@ def main():
     print(f"[3] flagship entry() 512^2 2': 3 steps finite (3, 15) in "
           f"{time.perf_counter() - t0:.3f} s; cross[:4] "
           f"{out[0, :4].tolist()}")
-    counts3 = read_counts(("bin_reduce", "qe_leg", "qe_pair", "qe_post"),
+    counts3 = launches.read(("bin_reduce", "qe_leg", "qe_pair", "qe_post"),
                           "3")
     # the generic TT estimator of one k-map: one launch of each of the
     # QE's kernels a step (its three distinct legs in one wave)
@@ -2350,17 +1704,22 @@ def main():
         check(counts3[name] == 3, f"3: {counts3[name]} {name} launches in "
                                   "3 steps")
         results[name]["launches"] = counts3[name]
-    batch = 64
 
-    # ---- 4. half-plane pipeline (impl="xla") at bench config 6's settings
-    reset_counts()
+
+def half_plane_phase(dev, card, launches, gen, geom, th):
+    """Phase 4: the half-plane lensing pipeline (impl="xla") at bench config
+    6's settings, batch 64."""
+    launches.reset()
     pipe = LensedQEPipeline(geom, th, beam_arcmin=1.4, noise_uk_arcmin=6.0,
                             lens_order=5, device=dev, impl="xla")
     check(pipe.impl == "xla", "impl='xla' did not select the half-plane path")
-    step_ms = pipeline_rate(pipe, batch, gen, 5, card, "4")
+    batch = 64
+    throughput(lambda: pipe.step(batch, gen), batch, 5,
+               f"pipeline impl={pipe.impl} 512^2 2' beam 1.4' 6 uK' order 5 "
+               f"batch {batch}", "sims/s", card, "4")
     ratio_gate(pipe, batch, gen, "4")
-    read_counts(("bin_reduce", "lens_map_kernel"), "4")
-    read_wide("4", True)
+    launches.read(("bin_reduce", "lens_map_kernel"), "4")
+    launches.read_wide("4", True)
     # the kernel path agrees with the plain path on a small input
     small = rect_geometry(width_arcmin=128 * 2.0, px_res_arcmin=2.0)
     p_gpu = LensedQEPipeline(small, th, lens_order=5, device=dev)
@@ -2374,23 +1733,24 @@ def main():
                              " of each spectrum's max > 2e-4")
     print(f"[4] 128^2 card (kernels) vs CPU (plain versions), same draws: "
           f"{small_err:.3e} of each spectrum's max (<= 2e-4)")
-    profile_steps(lambda: pipe.step(batch, gen), 3, step_ms, "4")
     del pipe, p_gpu, p_cpu
     torch.cuda.empty_cache()
 
-    # ---- 5. full-plane pipeline: what impl="auto" runs at 512^2
-    reset_counts()
+
+def full_plane_phase(dev, results, launches, gen, geom, th):
+    """Phase 5: the full-plane lensing pipeline, what impl="auto" runs at
+    512^2, batch 64 (the cell lensqe512.sim times it)."""
+    launches.reset()
     pipe = LensedQEPipeline(geom, th, beam_arcmin=1.4, noise_uk_arcmin=6.0,
                             lens_order=5, device=dev)
     check(pipe.impl == "pallas", "impl='auto' did not select the full-plane "
                                  "path at 512^2")
-    step_ms = pipeline_rate(pipe, batch, gen, 10, card, "5")
-    ratio_gate(pipe, batch, gen, "5")
+    ratio_gate(pipe, 64, gen, "5")
     lens_path = ("bin_reduce", "lens_map_kernel", "colfft", "rowfft",
                  "noise_planes", "mirror_pp")
-    counts = read_counts(lens_path, "5")
-    read_wide("5", True)
-    check_row_route(counts, "5")
+    counts = launches.read(lens_path, "5")
+    launches.read_wide("5", True)
+    launches.check_row_route(counts, "5")
     for name in lens_path:
         results[name]["launches"] = counts[name]
     # card (kernels) vs CPU (plain versions) on the same injected planes
@@ -2408,13 +1768,17 @@ def main():
                            "of each spectrum's max > 2e-4")
     print(f"[5] 256^2 _pp_core card (kernels) vs CPU (plain versions), same "
           f"planes: {mid_err:.3e} of each spectrum's max (<= 2e-4)")
-    profile_steps(lambda: pipe.step(batch, gen), 3, step_ms, "5")
     del pipe, p_gpu, p_cpu, planes_cpu
     torch.cuda.empty_cache()
 
-    # ---- 6. FastCl at bench config 1's settings: 2048^2 0.5', lensed TT,
-    # edges arange(80, 8000, 80), batch 192 (96 packed pairs)
-    reset_counts()
+
+def fastcl_phase(dev, results, launches, th):
+    """Phase 6: FastCl at bench config 1's settings: 2048^2 0.5', lensed
+    TT, edges arange(80, 8000, 80), batch 192 (96 packed pairs); the
+    512-sim recovery gate at 512^2; card vs CPU at 256^2."""
+    launches.reset()
+    geom1, ells_th, cltt, edges1 = config1(th)
+    n1 = 2048
     fc = FastCl(geom1, ells_th, cltt, bin_edges=edges1, device=dev)
     nb = len(edges1) - 1
     batch6 = 192
@@ -2423,11 +1787,6 @@ def main():
     check(tuple(out.shape) == (batch6, nb), f"sim_bandpowers shape "
                                        f"{tuple(out.shape)}")
     check(bool(torch.isfinite(out).all()), "sim_bandpowers not finite")
-    gen6 = torch.Generator(device=dev).manual_seed(6)
-    cell = f"2048^2 0.5' nseg {fc._nsg} batch {batch6}"
-    sim_ms = throughput(lambda: fc.sim_bandpowers(gen6, batch6), batch6, 10,
-                        f"FastCl.sim_bandpowers(generator, 192) {cell}",
-                        "sims/s", card, "6")
 
     def config1_step(seed):
         """bench.py config 1's step body: synthesis with the maps
@@ -2437,10 +1796,6 @@ def main():
         b1, b2 = fc._pair_bandpowers_y(yr, yi)
         return torch.cat([b1, b2]), m1, m2
 
-    step1_ms = throughput(
-        lambda: config1_step(1), batch6, 10, "config-1 step body (port's "
-        f"grf_fft_bin_pipelines_per_sec_2048x2048_fp32) {cell}",
-        "pipelines/s", card, "6")
     # map_bandpowers on the step's own maps gives the step's bandpowers:
     # colfft(colifft(Y')) = Y' up to rounding
     bp, m1, m2 = config1_step(123)
@@ -2459,11 +1814,11 @@ def main():
     print(f"[6] map_bandpowers of the step's {batch6} maps ({batch6}, {nb}) "
           f"vs the step's bandpowers: max {mrel:.3e} relative per bin "
           "(<= 1e-3)")
-    counts6 = read_counts(("bin_reduce", "bin2_reduce", "colfft",
-                           "rowifft_noise_y", "rowqc_half"), "6")
+    counts6 = launches.read(("bin_reduce", "bin2_reduce", "colfft",
+                             "rowifft_noise_y", "rowqc_half"), "6")
     check(counts6["rowfft"] == counts6["rowfft_blk0"] == 0,
           "6: FastCl's analysis launched B4 or B4b beside B6")
-    check_row_route(counts6, "6")
+    launches.check_row_route(counts6, "6")
     for name in ("bin2_reduce", "colfft", "rowifft_noise_y", "rowqc_half"):
         results[name]["launches"] = counts6[name]
     # FastCl bins with the edge segments dropped (-1 ids): its bandpowers
@@ -2479,8 +1834,6 @@ def main():
           f"ids: {krel:.3e} relative per bin (<= 1e-6), bit-equal: "
           f"{torch.equal(kept_bp, full_bp)}")
     del fc_full, kept_bp, full_bp
-    profile_steps(lambda: fc.sim_bandpowers(gen6, batch6), 3, sim_ms, "6")
-    profile_steps(lambda: config1_step(7), 3, step1_ms, "6 config-1")
     del fc, bp, mbp, ordered, out
     torch.cuda.empty_cache()
 
@@ -2535,11 +1888,16 @@ def main():
           f"same maps: max {worst:.3e} relative per bin (<= 5e-5)")
     torch.cuda.empty_cache()
 
-    # ---- 7. FastCl.cross_bandpowers at bench config 2's settings: 2048^2
-    # 0.5', lensed TT, edges arange(80, 8000, 80), batch 128 (64 pairs of
-    # independent sims), the 12 % taper on the analysis transform's load,
-    # debiased by w2, Knox errors (bench.py:239-298)
-    reset_counts()
+
+def cross_spectra_phase(dev, results, launches, th):
+    """Phase 7: FastCl.cross_bandpowers at bench config 2's settings:
+    2048^2 0.5', lensed TT, edges arange(80, 8000, 80), batch 128 (64 pairs
+    of independent sims), the 12 % taper on the analysis transform's load,
+    debiased by w2, Knox errors (bench.py:239-298); card vs CPU at
+    256^2."""
+    launches.reset()
+    geom1, ells_th, cltt, edges1 = config1(th)
+    nb = len(edges1) - 1
     fc = FastCl(geom1, ells_th, cltt, bin_edges=edges1)
     check(fc.device == torch.device("cuda"), f"FastCl built with no device "
                                              f"lives on {fc.device}")
@@ -2564,24 +1922,16 @@ def main():
           f"config 2 output shape {tuple(bs.shape)}")
     check(bool(torch.isfinite(bs).all() and torch.isfinite(errs).all()),
           "config 2 output not finite")
-    seeds = itertools.count(1)
-    cell7 = f"2048^2 0.5' nseg {fc._nsg} batch 128 taper 12 %"
-    step7_ms = throughput(
-        lambda: config2_step(next(seeds)), pairs7, 10, "config-2 step "
-        f"(port's masked_cross_spectra_per_sec_2048x2048_fp32) {cell7}",
-        "cross-spectra/s", card, "7")
-    counts7 = read_counts(("bin_reduce", "colfft", "colfft_scaled",
-                           "rowifft_noise_y", "rows_half"), "7")
+    counts7 = launches.read(("bin_reduce", "colfft", "colfft_scaled",
+                             "rowifft_noise_y", "rows_half"), "7")
     check(counts7["rowfft"] == counts7["rowfft_blk0"] == 0,
           "7: cross_bandpowers launched B4 or B4b beside B6s")
-    print(f"[7] 13 steps (1 check, 2 warm-up, 10 timed): "
-          f"{counts7['rows_half'] / 13:.0f} B6s, "
-          f"{counts7['colfft_scaled'] / 13:.0f} B3s, "
-          f"{counts7['bin_reduce'] / 13:.0f} B1 launches per step")
+    print(f"[7] one step: {counts7['rows_half']} B6s, "
+          f"{counts7['colfft_scaled']} B3s, {counts7['bin_reduce']} B1 "
+          "launches")
     for name in ("colfft_scaled", "rows_half"):
         results[name]["launches"] = counts7[name]
-    profile_steps(lambda: config2_step(next(seeds)), 3, step7_ms, "7")
-    # the timed step's own output at its own shape (64 pairs at 2048^2):
+    # the step's own output at its own shape (64 pairs at 2048^2):
     # card (kernels) vs a CPU FastCl (plain versions) on the same maps.
     # The cross spectrum of independent maps sums terms of scale
     # sqrt(P11 P22) that cancel to ~1/sqrt(modes) of it, so its error is
@@ -2642,6 +1992,13 @@ def main():
     torch.cuda.empty_cache()
     # card (kernels) vs CPU (plain versions) at 256^2, same maps, with and
     # without the taper
+    g256 = rect_geometry(width_arcmin=256 * 2.0, px_res_arcmin=2.0)
+    f_gpu, f_cpu = (FastCl(g256, ells_th, cltt,
+                           bin_edges=np.arange(80, 4000, 160.0), device=d)
+                    for d in (dev, "cpu"))
+    rng = np.random.default_rng(256)
+    mp = torch.as_tensor(rng.standard_normal((3, 256, 256))
+                         .astype(np.float32))
     mp2 = mp + 0.5 * torch.as_tensor(rng.standard_normal((3, 256, 256))
                                      .astype(np.float32))
     t_gpu, _ = get_taper(g256, taper_percent=12.0, device=dev)
@@ -2660,10 +2017,13 @@ def main():
           "per bin (<= 5e-5)")
     del f_gpu, f_cpu
 
-    # ---- 8. the fused ILC coadd at bench config 4's settings: 512^2 2',
-    # six bands 39-350 GHz, ilc_cinv with tSZ, CIB-C and kSZ, cilc_weights
-    # deprojecting tSZ, 32 coadds per step (bench.py:461-578)
-    reset_counts()
+
+def ilc_phase(dev, card, results, launches, geom, th):
+    """Phase 8: the fused ILC coadd at bench config 4's settings: 512^2 2',
+    six bands 39-350 GHz, ilc_cinv with tSZ, CIB-C and kSZ, cilc_weights
+    deprojecting tSZ, 32 coadds per step (bench.py:461-578)."""
+    launches.reset()
+    _, _, cltt, _ = config1(th)
     freqs = np.array([39.0, 93.0, 145.0, 225.0, 280.0, 350.0])
     beams = np.array([5.1, 2.2, 1.4, 1.0, 0.9, 0.8])
     noises = np.array([36.0, 8.0, 10.0, 22.0, 54.0, 100.0])
@@ -2713,66 +2073,25 @@ def main():
           and bool(torch.isfinite(out8).all()), "config 4 output: shape "
           f"{tuple(out8.shape)} or not finite")
     seeds = itertools.count(1)
-    step8_ms = throughput(
-        lambda: config4_step(next(seeds)), batch8, 50, "config-4 step "
-        "(port's ilc_6band_deproj_coadds_per_sec_512x512_fp32) 512^2 2' "
-        f"{nf} bands tSZ deprojected batch {batch8}", "coadds/s", card, "8")
-    # the host's time to queue a step (no synchronize inside the window):
-    # where it exceeds the device time, the step is host-bound
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(20):
-        config4_step(next(seeds))
-    host8_ms = (time.perf_counter() - t0) / 20 * 1e3
-    torch.cuda.synchronize()
-    print(f"[8] the host queues a config-4 step in {host8_ms:.3f} ms")
-    host_ops(lambda: config4_step(next(seeds)), 10, "8")
-    counts8 = read_counts(("colfft", "rowfft", "rowifft_noise_y",
-                           "rowcombine_pp"), "8")
-    check_row_route(counts8, "8")
-    b9_regs = klib.rowcombine_regs_launches() - b9_regs_at_reset[0]
+    throughput(lambda: config4_step(next(seeds)), batch8, 50, "config-4 step "
+               "(port's ilc_6band_deproj_coadds_per_sec_512x512_fp32) 512^2 "
+               f"2' {nf} bands tSZ deprojected batch {batch8}", "coadds/s",
+               card, "8")
+    counts8 = launches.read(("colfft", "rowfft", "rowifft_noise_y",
+                             "rowcombine_pp"), "8")
+    launches.check_row_route(counts8, "8")
+    b9_regs = launches.lib.rowcombine_regs_launches() - launches.b9_regs
     check(b9_regs == counts8["rowcombine_pp"],
           f"8: {b9_regs} of {counts8['rowcombine_pp']} B9 launches on the "
           "register-resident kernel")
     print(f"[8] B9 launches on the register-resident kernel: {b9_regs} of "
           f"{counts8['rowcombine_pp']}")
-    print(f"[8] 83 steps (1 check, 2 warm-up, 50 timed, 20 queued, 10 "
-          f"traced): {counts8['rowcombine_pp'] / 83:.0f} B9, "
-          f"{counts8['rowifft_noise_y'] / 83:.0f} B5, "
-          f"{counts8['colfft'] / 83:.0f} B3, {counts8['rowfft'] / 83:.0f} B4 "
+    print(f"[8] 53 steps (1 check, 2 warm-up, 50 timed): "
+          f"{counts8['rowcombine_pp'] / 53:.0f} B9, "
+          f"{counts8['rowifft_noise_y'] / 53:.0f} B5, "
+          f"{counts8['colfft'] / 53:.0f} B3, {counts8['rowfft'] / 53:.0f} B4 "
           "launches per step")
     results["rowcombine_pp"]["launches"] = counts8["rowcombine_pp"]
-    profile_steps(lambda: config4_step(next(seeds)), 10, step8_ms, "8")
-    # the seed words' route into the same step, in this phase's context:
-    # a Python int (two fills on the card, the path above), a copy from
-    # pageable memory (as seed_words made them before it used fills; it
-    # synchronizes the stream), and a non-blocking copy from pinned memory; each twice, in
-    # turn, 50 steps timed and 20 queued without a synchronize
-    routes8 = {
-        "int seed (two fills)": lambda s: s,
-        "pageable copy": lambda s: torch.as_tensor(
-            np.array([s, 0], np.int32), device=dev),
-        "pinned copy": lambda s: torch.tensor(
-            [s, 0], dtype=torch.int32).pin_memory().to(dev,
-                                                       non_blocking=True)}
-    for name, words_of in list(routes8.items()) * 2:
-        def routed():
-            return config4_step(words_of(next(seeds)))
-        for _ in range(2):
-            routed()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(50):
-            routed()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        for _ in range(20):
-            routed()
-        t2 = time.perf_counter()
-        torch.cuda.synchronize()
-        print(f"[8] seed words by {name}: {(t1 - t0) / 50 * 1e3:.4f} "
-              f"ms/step; with no synchronize of the caller's, the host "
-              f"takes {(t2 - t1) / 20 * 1e3:.4f} ms a step")
     # the timed step's own output at its own shape (32 coadds, 96 pairs at
     # 512^2): card (B5 -> B9 -> packed ifft2pp) vs the CPU's plain versions
     # on the same noise, which B5n draws as B5 does (phase 2)
@@ -2820,6 +2139,7 @@ def main():
           "(<= 1e-4)")
     # cilc_coadd_fused vs ifft2(cilc(fft2(maps))).real on the card, and
     # card vs CPU, at 256^2 on the config's Cinv
+    g256 = rect_geometry(width_arcmin=256 * 2.0, px_res_arcmin=2.0)
     maps = np.random.default_rng(44).standard_normal(
         (4, nf, 256, 256)).astype(np.float32)
     ci_gpu = cinv_2d(g256, dev)
@@ -2840,16 +2160,13 @@ def main():
           f" on the card {drel:.3e} of max (<= 1e-5); card (kernels) vs CPU "
           f"(plain versions) {crel:.3e} of max (<= 1e-5)")
 
-    # ---- 9. bench config 7: SHT roundtrips map2alm(alm2map(a)) at lmax
-    # 2047 on Gauss-Legendre rings, one unit-variance complex64 alm
-    # (bench.py:659-721), in dd and in fast
-    b10_launches = {"legendre_ana": 0, "legendre_syn": 0}
 
-    def add_b10(counts):
-        for name in b10_launches:
-            b10_launches[name] += counts[name]
-
-    reset_counts()
+def sht_roundtrip_phase(dev, card, results, launches):
+    """Phase 9: bench config 7's SHT roundtrips map2alm(alm2map(a)) at lmax
+    2047 on Gauss-Legendre rings, one unit-variance complex64 alm
+    (bench.py:659-721), in dd and in fast; the fast roundtrip also at lmax
+    1023. B10a's and B10s's launches start their records' counts."""
+    launches.reset()
     lmax7 = 2047
     rings7 = sht.gauss_legendre_rings(lmax7)
     n7 = almops.nalm(lmax7)
@@ -2872,24 +2189,12 @@ def main():
 
         def step(roundtrip=roundtrip, state=state):
             state["a"] = roundtrip(state["a"])
-        ms9 = throughput(step, 1, 10, f"sht_roundtrips_per_sec_lmax{lmax7}"
-                         f"{tag} (GL rings, one map)", "roundtrips/s", card,
-                         "9")
+        throughput(step, 1, 10, f"sht_roundtrips_per_sec_lmax{lmax7}{tag} "
+                   "(GL rings, one map)", "roundtrips/s", card, "9")
         check(bool(torch.isfinite(state["a"]).all()), "config 7: not finite")
-        if not fast:
-            kern = profile_steps(step, 1, ms9, "9")
-            # B10s at one map is the CUDA-core form, syn_cc_kernel
-            share = {k: sum(e.self_device_time_total for e in kern
-                            if any(p in e.key.lower() for p in pats)) / 1e3
-                     for k, pats in (("fft", ("fft",)),
-                                     ("ana", ("ana_kernel",)),
-                                     ("syn", ("syn_kernel",
-                                              "syn_cc_kernel")))}
-            print(f"[9] one dd roundtrip: ring FFTs (cuFFT) "
-                  f"{share['fft']:.4f} ms against B10a {share['ana']:.4f}"
-                  f" ms and B10s {share['syn']:.4f} ms")
-    counts9 = read_counts(("legendre_ana", "legendre_syn"), "9")
-    add_b10(counts9)
+    counts9 = launches.read(("legendre_ana", "legendre_syn"), "9")
+    for name in ("legendre_ana", "legendre_syn"):
+        results[name]["launches"] = counts9[name]
     del a0, state
     # the fast roundtrip at lmax 1023 against the reference's 1.8e-3
     # (pallas_sht.py:146-147), one unit-variance complex64 alm as bench.py
@@ -2914,9 +2219,13 @@ def main():
     del a0, a2, rings7b
     torch.cuda.empty_cache()
 
-    # ---- 10. bench config 8: curved-sky masked-spectrum Monte Carlo at
-    # lmax 1023, batch 8: synalm -> 10' beam -> alm2map -> galactic strip
-    # 76-104 deg (equatorial) -> map2alm -> alm2cl / w2 (bench.py:724-786)
+
+def curved_spectra_phase(dev, card, results, launches):
+    """Phases 10 and 11: bench config 8's curved-sky masked-spectrum Monte
+    Carlo at lmax 1023, batch 8 (synalm -> 10' beam -> alm2map -> galactic
+    strip 76-104 deg (equatorial) -> map2alm -> alm2cl / w2,
+    bench.py:724-786), dd and fast; then its spin-2 leg, config 8p. Each
+    step held to the plain Legendre loops on the card's tensors."""
     lmax8, batch8s = 1023, 8
     rings8 = sht.gauss_legendre_rings(lmax8)
     ells8 = np.arange(lmax8 + 1)
@@ -2953,7 +2262,7 @@ def main():
         return rel
 
     for spin in (0, 2):
-        reset_counts()
+        launches.reset()
         if spin == 0:
             cl8 = np.asarray(th8.lCl("TT", ells8))
             want8 = (cl8 * bl8 ** 2)[sel8]
@@ -3006,10 +2315,10 @@ def main():
             check(tuple(cls.shape) == (batch8s, lmax8 + 1),
                   f"config 8 spin {spin}: shape {tuple(cls.shape)}")
             ratio = spectra_gate(cls, want8, f"config 8 spin {spin}{tag}")
-            ms8 = throughput(step, batch8s, 10,
-                             f"{name8}_lmax{lmax8}_batch{batch8s}{tag} "
-                             "(GL rings, 10' beam, galactic strip "
-                             "76-104 deg)", "sims/s", card, tag8)
+            throughput(step, batch8s, 10,
+                       f"{name8}_lmax{lmax8}_batch{batch8s}{tag} (GL rings, "
+                       "10' beam, galactic strip 76-104 deg)", "sims/s", card,
+                       tag8)
             re = torch.randn(shape8, generator=g8, device=dev)
             im = torch.randn(shape8, generator=g8, device=dev)
             rel = plain_gate(step_from_noise, re, im, fast,
@@ -3020,7 +2329,6 @@ def main():
                   f"normals: {rel:.3e} of each spectrum's max "
                   f"(<= {2e-3 if fast else 1e-5})")
             if not fast:
-                profile_steps(step, 2, ms8, tag8)
                 # one step: each Legendre kernel once per Wigner column
                 # (spin 2: n = -2 and +2, all 16 paired maps a launch)
                 before = (leg.legendre_ana.launches,
@@ -3034,19 +2342,24 @@ def main():
                                    f"B10a / B10s {per}, expected {want}")
                 print(f"[{tag8}] one step launches B10a {per[0]} and B10s "
                       f"{per[1]} times")
-        counts = read_counts(("legendre_ana", "legendre_syn"), tag8)
-        add_b10(counts)
+        counts = launches.read(("legendre_ana", "legendre_syn"), tag8)
+        for name in ("legendre_ana", "legendre_syn"):
+            results[name]["launches"] += counts[name]
         torch.cuda.empty_cache()
-    for name, count in b10_launches.items():
-        results[name]["launches"] = count
 
-    # ---- 12. bench config 3: the TT QE reconstruction-only rate at 512^2
-    # 2', beam 1.4', noise 6 uK', batch 64, edges arange(40, 2000, 80), both
-    # branches of bench.py:347-424. Full-plane: B5n draws 32 packed pairs,
-    # B7 mirrors them, the Hermitian split gives 64 fields, kappa_tt_pallas
-    # (B3/B4/B7) reconstructs, the N0-debiased power is binned by B1.
-    # Half-plane: rand_hermitian_half -> kappa_tt_rfft (cuFFT) -> RfftBin2D.
-    reset_counts()
+
+def qe_recon_phase(dev, card, launches, geom, th):
+    """Phase 12: bench config 3's TT QE reconstruction-only step at 512^2
+    2', beam 1.4', noise 6 uK', batch 64, edges arange(40, 2000, 80), both
+    branches of bench.py:347-424. Full-plane: B5n draws 32 packed pairs,
+    B7 mirrors them, the Hermitian split gives 64 fields, kappa_tt_pallas
+    (B3/B4/B7) reconstructs, the N0-debiased power is binned by B1.
+    Half-plane: rand_hermitian_half -> kappa_tt_rfft (cuFFT) -> RfftBin2D.
+    Returns the engine, for phase 14."""
+    launches.reset()
+    _, ells_th, cltt, _ = config1(th)
+    lmax_grid = geom.ellmax_safe()
+    perm3, _ = dft.row_perm(geom.ny)
     n3, batch3 = geom.ny, 64
     q3 = qemod.QE(
         geom, th, qemod.lensing_noise_2d(geom, th, 1.4, 6.0),
@@ -3066,7 +2379,7 @@ def main():
         scale = torch.as_tensor(np.ascontiguousarray(
             amp3[perm3][:, perm3].astype(np.float32)), device=device)
         n0_pp = n0.index_select(0, ip).index_select(1, ip).contiguous()
-        return (scale, n0_pp) + dft.permuted_bin_tables(ml3, perm3, edges3,
+        return (scale, n0_pp) + dft.permuted_bin_tables(ml3, perm3, EDGES3,
                                                         device=device)
 
     def full_from_planes(engine, zr, zi, n0_pp, idc, icnt, nseg):
@@ -3086,7 +2399,7 @@ def main():
                                 *tabs3)
 
     covsqrt_h3 = grf.covsqrt_half(geom, ells_th, cltt)
-    binner3 = RfftBin2D(geom, edges3)
+    binner3 = RfftBin2D(geom, EDGES3)
     check(covsqrt_h3.is_cuda and binner3._ids.is_cuda, "covsqrt_half / "
           "RfftBin2D built with no device are not on the card")
     n0_h3 = q3.N_L_kk("TT")[:, :geom.nx // 2 + 1]
@@ -3097,7 +2410,7 @@ def main():
         fk = q3.kappa_tt_rfft(covsqrt_h3 * eta)
         return binner3.bin((fk.conj() * fk).real * norm3 - n0_h3)[1]
 
-    nb3 = len(edges3) - 1
+    nb3 = len(EDGES3) - 1
     for out in (full_step(0), half_step()):
         torch.cuda.synchronize()
         check(tuple(out.shape) == (batch3, nb3)
@@ -3105,24 +2418,18 @@ def main():
               f"{tuple(out.shape)} or not finite")
     seeds = itertools.count(1)
     cell12 = f"512^2 2' beam 1.4' 6 uK' batch {batch3} {nb3} bins"
-    full_ms = throughput(
-        lambda: full_step(next(seeds)), batch3, 20, "config-3 full-plane "
-        f"step (port's qe_tt_recon_only_per_sec_512x512_fp32) {cell12}",
-        "recons/s", card, "12")
-    counts12 = read_counts(("noise_planes", "mirror_pp", "colfft", "rowfft",
-                            "bin_reduce"), "12")
-    check_row_route(counts12, "12")
+    throughput(lambda: full_step(next(seeds)), batch3, 20, "config-3 "
+               "full-plane step (port's qe_tt_recon_only_per_sec_512x512_"
+               f"fp32) {cell12}", "recons/s", card, "12")
+    counts12 = launches.read(("noise_planes", "mirror_pp", "colfft", "rowfft",
+                              "bin_reduce"), "12")
+    launches.check_row_route(counts12, "12")
     print("[12] 23 full-plane steps and 1 half-plane step (1 check, 2 "
           "warm-up, 20 timed): "
           + ", ".join(f"{counts12[k] / 23:.1f} {k}" for k in
                       ("noise_planes", "mirror_pp", "colfft", "rowfft"))
           + f", {(counts12['bin_reduce'] - 1) / 23:.1f} bin_reduce launches "
           "per full-plane step")
-    half_ms = throughput(
-        half_step, batch3, 20, f"config-3 half-plane step {cell12}",
-        "recons/s", card, "12")
-    profile_steps(lambda: full_step(next(seeds)), 3, full_ms, "12 full")
-    profile_steps(half_step, 3, half_ms, "12 half")
     # the timed full-plane step's own output at its own shape, card
     # (kernels) vs CPU (plain versions) on B5n's identical noise
     out12 = full_step(5)
@@ -3167,13 +2474,19 @@ def main():
           f"(< 5); |mean debiased| <= {bias:.4f} of the binned N0")
     del full, half, covsqrt_h3, binner3, scale3, tabs3
     torch.cuda.empty_cache()
+    return q3
 
-    # ---- 13. the unfused pair spectra at bench config 1's shape: 96 packed
-    # pairs at 2048^2 0.5', nseg 100. (a) fft2pp -> B6h qc_pp_half -> B2 on
-    # the half plane + the two boundary rows (B1); (b) fft2pp -> B7
-    # mirror_pp -> B2' bin_pair_power on the full plane. Both are held to
-    # FastCl's fused analysis of the same maps and timed beside it.
-    reset_counts()
+
+def pair_spectra_phase(dev, card, results, launches, th):
+    """Phase 13: the unfused pair spectra at bench config 1's shape: 96
+    packed pairs at 2048^2 0.5', nseg 100. (a) fft2pp -> B6h qc_pp_half ->
+    B2 on the half plane + the two boundary rows (B1); (b) fft2pp -> B7
+    mirror_pp -> B2' bin_pair_power on the full plane. Both are held to
+    FastCl's fused analysis of the same maps."""
+    launches.reset()
+    geom1, ells_th, cltt, edges1 = config1(th)
+    P1, n1 = 96, 2048
+    perm1, _ = dft.row_perm(n1)
     fc = FastCl(geom1, ells_th, cltt, bin_edges=edges1)
     m1, m2 = dft.ifft2pp_noise(fc._covsqrt_pp, 13, P1)
     ids_full = torch.as_tensor(np.digitize(
@@ -3221,21 +2534,17 @@ def main():
               f"the same maps: {rel:.3e} of each spectrum's max (<= 1e-5)")
         del got
         torch.cuda.empty_cache()
-        ms13 = throughput(path, 2 * P1, 3, f"unfused pair spectra {tag} "
-                          f"{cell13}", "spectra/s", card, "13")
-        profile_steps(path, 3, ms13, "13 " + tag[:3])
+        throughput(path, 2 * P1, 3, f"unfused pair spectra {tag} {cell13}",
+                   "spectra/s", card, "13")
         torch.cuda.empty_cache()
-    ms13 = throughput(fused, 2 * P1, 3, "FastCl's fused analysis (B3, B6, "
-                      f"B2, B1) {cell13}", "spectra/s", card, "13")
-    profile_steps(fused, 3, ms13, "13 fused")
-    counts13 = read_counts(("qc_pp_half", "bin_pair_power", "bin2_reduce",
-                            "mirror_pp", "colfft", "rowfft", "bin_reduce"),
-                           "13")
-    check_row_route(counts13, "13")
-    print(f"[13] 10 runs of each path (1 check, 2 warm-up, 3 timed, 4 "
-          f"profiled): {counts13['qc_pp_half'] / 10:.0f} B6h, "
-          f"{counts13['bin_pair_power'] / 10:.0f} B2', "
-          f"{counts13['mirror_pp'] / 10:.0f} B7 launches per run")
+    counts13 = launches.read(("qc_pp_half", "bin_pair_power", "bin2_reduce",
+                              "mirror_pp", "colfft", "rowfft", "bin_reduce"),
+                             "13")
+    launches.check_row_route(counts13, "13")
+    print(f"[13] 6 runs of each unfused path (1 check, 2 warm-up, 3 timed): "
+          f"{counts13['qc_pp_half'] / 6:.0f} B6h, "
+          f"{counts13['bin_pair_power'] / 6:.0f} B2', "
+          f"{counts13['mirror_pp'] / 6:.0f} B7 launches per run")
     for name in ("qc_pp_half", "bin_pair_power"):
         results[name]["launches"] = counts13[name]
     # B6h' on the same planes: the cross spectrum of each pair from the
@@ -3256,8 +2565,8 @@ def main():
     print(f"[13] B6h' s_pp_half: {P1} cross spectra from the stored Z vs "
           f"FastCl.cross_bandpowers of the same maps: {xrel:.3e} of "
           "sqrt(P11 P22) per bin (<= 5e-5)")
-    results["s_pp_half"]["launches"] = read_counts(("s_pp_half",),
-                                                   "13")["s_pp_half"]
+    results["s_pp_half"]["launches"] = launches.read(("s_pp_half",),
+                                                     "13")["s_pp_half"]
     del ids_full, ref13, cross, xref, p12
     # B4b at config 1's width: lane chunk 0 of the row pass of the same
     # maps' column intermediate equals B4's first 128 columns bit for bit
@@ -3272,16 +2581,21 @@ def main():
           "13: rowfft_blk0(Y) differs from rowfft(Y)[..., :128]")
     print(f"[13] B4b rowfft_blk0 on the ({P1}, {n1}, {n1}) column "
           "intermediate: equal to B4 rowfft's columns [0, 128) bit for bit")
-    results["rowfft_blk0"]["launches"] = read_counts(("rowfft_blk0",),
-                                                     "13")["rowfft_blk0"]
+    results["rowfft_blk0"]["launches"] = launches.read(("rowfft_blk0",),
+                                                       "13")["rowfft_blk0"]
     del fc, y13, blk, z13
     torch.cuda.empty_cache()
 
-    # ---- 14. N0 debias on the card at config 3's settings: 64 lensed sims
-    # from FlatLensingSims (B8) -> fft2 / kbeam -> mcn0 and rdn0 (sim 0 as
-    # data) beside NlGenerator's binned analytic N0; one n1_tt call; one
-    # polarized get_sim
-    reset_counts()
+
+def debias_phase(dev, card, results, launches, geom, th, q3):
+    """Phase 14: the N0 debias on the card at config 3's settings, on phase
+    12's engine ``q3``: 64 lensed sims from FlatLensingSims (B8) -> fft2 /
+    kbeam -> mcn0 and rdn0 (sim 0 as data) beside NlGenerator's binned
+    analytic N0; one n1_tt call; one polarized get_sim."""
+    launches.reset()
+    _, ells_th, _, _ = config1(th)
+    lmax_grid = geom.ellmax_safe()
+    n3, ml3 = geom.ny, geom.modlmap_np()
     fls = lensing.FlatLensingSims(geom, th, 1.4, 6.0)
     check(fls.kbeam.is_cuda, "FlatLensingSims built with no device is not "
                              "on the card")
@@ -3292,18 +2606,18 @@ def main():
           f"14: sims {tuple(obs.shape)} or not finite")
     kmaps = torch.fft.fft2(obs) / fls.kbeam
     del obs
-    nlg = qemod.NlGenerator(geom, th, edges3).update_noise(
+    nlg = qemod.NlGenerator(geom, th, EDGES3).update_noise(
         1.4, 6.0, tellmin=100, tellmax=min(3000, lmax_grid - 1), kmin=40,
         kmax=min(3000, lmax_grid * 0.8))
     cents14, n0_nlg = nlg.get_nl("TT")
-    n0_th = Bin2D(ml3, edges3).bin(q3.N_L_kk("TT"))[1].cpu().numpy()
+    n0_th = Bin2D(ml3, EDGES3).bin(q3.N_L_kk("TT"))[1].cpu().numpy()
     check(np.allclose(n0_nlg, n0_th, rtol=1e-5),
           "14: NlGenerator's N0 differs from the engine's")
-    _, n0_mc = qemod.mcn0(q3, "TT", kmaps[1:], edges3)
+    _, n0_mc = qemod.mcn0(q3, "TT", kmaps[1:], EDGES3)
     torch.cuda.synchronize()
     ran14 = (q3.transforms_inverse, q3.transforms_forward, q3.legs_merged)
     t0 = time.perf_counter()
-    _, rd, _ = qemod.rdn0(q3, "TT", kmaps[0], kmaps[1:], edges3)
+    _, rd, _ = qemod.rdn0(q3, "TT", kmaps[0], kmaps[1:], EDGES3)
     dt14 = time.perf_counter() - t0          # rdn0 returns host arrays
     ran14 = [b - a for a, b in zip(ran14, (q3.transforms_inverse,
                                            q3.transforms_forward,
@@ -3323,7 +2637,7 @@ def main():
                                                        < 0.35)),
           f"14: MCN0 / N0 = {r_mc}")
     check(abs(r_rd.mean() - 1.0) < 0.2, f"14: RDN0 / N0 = {r_rd}")
-    print(f"[14] 63 lensed sims at {cell12}: MCN0 / N0 mean {r_mc.mean():.4f}"
+    print(f"[14] 63 lensed sims at 512^2 2': MCN0 / N0 mean {r_mc.mean():.4f}"
           f" (within 0.1 of 1), per bin within {np.abs(r_mc - 1).max():.4f} "
           f"(< 0.35); RDN0 / N0 mean {r_rd.mean():.4f} (within 0.2 of 1), per "
           f"bin within {np.abs(r_rd - 1).max():.4f}; NlGenerator.get_nl('TT') "
@@ -3334,17 +2648,12 @@ def main():
     torch.cuda.empty_cache()
     Ls14 = np.array([100.0, 300.0, 500.0, 700.0, 900.0])
     clkk = np.asarray(th.gCl("kk", ells_th))
-    qemod.n1_tt(q3, Ls14[:1], clkk)                         # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     _, n1 = qemod.n1_tt(q3, Ls14, clkk, pad=2)
-    dt_n1 = time.perf_counter() - t0
     n0_at = np.interp(Ls14, cents14, n0_th)
     check(bool(np.all(n1 > 0) and np.all(n1 < n0_at)),
           f"14: N1 {n1} not inside (0, N0 {n0_at})")
     print(f"[14] n1_tt at L = {Ls14.tolist()}, pad 2 (a 1024^2 lattice): "
-          f"{dt_n1 / len(Ls14) * 1e3:.1f} ms per L; N1 / N0 = "
-          f"{(n1 / n0_at).tolist()} (each inside (0, 1))")
+          f"N1 / N0 = {(n1 / n0_at).tolist()} (each inside (0, 1))")
     # one polarized get_sim at batch 16: finite (16, 3, 512, 512); its T leg
     # is the scalar chain (B8 with one component, beam, noise) applied to
     # the polarized sim's own unlensed T, kappa and T noise
@@ -3379,21 +2688,27 @@ def main():
     print(f"[14] kappa_generic on {len(th14)} host angles (500000 samples "
           f"each, on the card) vs kappa_nfw_generic: {nfw_rel:.3e} relative "
           "(<= 1e-4: the quadrature stops at 2000 Mpc)")
-    counts14 = read_counts(("lens_map_kernel", "bin_reduce", "qe_leg",
+    counts14 = launches.read(("lens_map_kernel", "bin_reduce", "qe_leg",
                             "qe_pair", "qe_post"), "14")
     for name in ("qe_leg", "qe_pair", "qe_post"):
         results[name].setdefault("launches_by_path", {})["debias"] = \
             counts14[name]
-    read_wide("14", False)
+    launches.read_wide("14", False)
     del flp, fls, obs_p, ex, eta14, q3
     torch.cuda.empty_cache()
 
-    # ---- 15. bench config 5 (bench.py:581-656): cluster stacking, 10^4
-    # stamps of 64^2 at 0.5', beam 1.4'; a 5' hole filled by the shared
-    # max-likelihood geometry (10 uK' white noise in pcov); Bin2D profiles
-    # on edges arange(0, 10, 1)' (B1); chi^2 against 16 NFW templates,
-    # masses geomspace(5e13, 8e14), cinv = 1e4 I; argmin
+
+def stacking_phase(dev, card, results, launches, th):
+    """Phase 15: bench config 5's cluster stacking (bench.py:581-656), 10^4
+    stamps of 64^2 at 0.5', beam 1.4'; a 5' hole filled by the shared
+    max-likelihood geometry (10 uK' white noise in pcov); Bin2D profiles on
+    edges arange(0, 10, 1)' (B1); chi^2 against 16 NFW templates, masses
+    geomspace(5e13, 8e14), cinv = 1e4 I; argmin. Then nfwfit.lens_cov at
+    32^2 on B8."""
     nst5, n5 = 10_000, 64
+    g5 = Geometry(n5, n5, 0.5 * arcmin, 0.5 * arcmin)
+    pbin5 = Bin2D(g5.modrmap_np(), np.arange(0.0, 10.0, 1.0) * arcmin,
+                  device=dev)
     # memory the earlier phases still hold: the step's footprint is read
     # above it, as a process running config 5 alone would see it
     base15 = torch.cuda.memory_allocated()
@@ -3448,18 +2763,18 @@ def main():
 
     cell5 = (f"{nst5} stamps of {n5}^2 0.5' beam 1.4' 5' hole, 16 masses, "
              f"{nb5} profile bins")
-    reset_counts()
+    launches.reset()
     best5 = step5()
     torch.cuda.synchronize()
     check(tuple(best5.shape) == (nst5,) and int(best5.min()) >= 0
           and int(best5.max()) < 16, "15: argmin out of range")
-    step5_ms = throughput(step5, nst5, 5, "config-5 step (port's "
-                          f"stack_inpaint_nfwfit_stamps_per_sec_64x64) "
-                          f"{cell5}", "stamps/s", card, "15")
+    throughput(step5, nst5, 5, "config-5 step (port's "
+               f"stack_inpaint_nfwfit_stamps_per_sec_64x64) {cell5}",
+               "stamps/s", card, "15")
     peak_all = torch.cuda.max_memory_allocated()
     peak5 = (peak_all - base15) / 1e9
     check(peak5 <= 4.0, f"15: the step's peak memory {peak5:.3f} GB > 4 GB")
-    counts15 = read_counts(("bin_reduce",), "15")
+    counts15 = launches.read(("bin_reduce",), "15")
     check(counts15["bin_reduce"] == 8, f"15: {counts15['bin_reduce']} B1 "
           "launches in 8 steps (1 check, 2 warm-up, 5 timed)")
     print(f"[15] peak memory {peak5:.3f} GB above the {base15 / 1e9:.3f} GB "
@@ -3467,7 +2782,6 @@ def main():
           f"4 GB; a (B, nh, nc) meanmul would take "
           f"{nst5 * len(m1) * len(m2) * 4 / 1e9:.1f} GB in float32); B1 "
           f"launches: {counts15['bin_reduce']} in 8 steps")
-    profile_steps(step5, 3, step5_ms, "15")
     # card (kernels) against the CPU (plain versions): 256 stamps on the
     # same injected noise, the same float32 geometry and templates
     eta5 = grf.rand_kmap(g5, torch.Generator().manual_seed(55), 1,
@@ -3531,10 +2845,10 @@ def main():
                                    dtype=torch.float32)
     kap32 = nfwfit.nfw_kappa(1e15, g32.modrmap_np(), cc5).to(torch.float32)
     alpha32 = lensing.alpha_from_kappa(kap32, g32).contiguous()
-    reset_counts()
+    launches.reset()
     lc_g = nfwfit.lens_cov(ucov, alpha32, g32, lens_order=5)
     torch.cuda.synchronize()
-    counts_lc = read_counts(("lens_map_kernel",), "15")
+    counts_lc = launches.read(("lens_map_kernel",), "15")
     check(counts_lc["lens_map_kernel"] == 2, f"15: lens_cov launched B8 "
           f"{counts_lc['lens_map_kernel']} times (one a side)")
     lc_c = nfwfit.lens_cov(ucov.cpu(), alpha32.cpu(), g32, lens_order=5)
@@ -3553,13 +2867,15 @@ def main():
     del ucov, lc_g, lc_c, cs5, mm5, cs64, mm64, temps5
     torch.cuda.empty_cache()
 
-    # ---- 16. pure-B bandpowers of masked polarization sims (the Smith 2006
-    # estimator of BB analyses: mapstools.Purify) at a ground-based BB
-    # field's size: 1024^2 at 2' (34 deg, ~1165 deg^2), 16 lensed TT/EE/
-    # BB/TE sims a step from MapGen (3 x 3 ps), the 18 % taper, the pure
-    # (T, E, B) transforms, the TT, EE and BB auto powers x area / npix^2,
-    # and one Bin2D over all 48 planes on edges arange(300, 2500, 200): one
-    # B1 launch a step
+
+def pure_b_phase(dev, card, results, launches, th):
+    """Phase 16: pure-B bandpowers of masked polarization sims (the Smith
+    2006 estimator of BB analyses: mapstools.Purify) at a ground-based BB
+    field's size: 1024^2 at 2' (34 deg, ~1165 deg^2), 16 lensed TT/EE/BB/TE
+    sims a step from MapGen (3 x 3 ps), the 18 % taper, the pure (T, E, B)
+    transforms, the TT, EE and BB auto powers x area / npix^2, and one
+    Bin2D over all 48 planes on edges arange(300, 2500, 200): one B1 launch
+    a step. Then the map-tools slice's card checks against the CPU."""
     n16, nsim16 = 1024, 16
     g16 = rect_geometry(width_arcmin=n16 * 2.0, px_res_arcmin=2.0)
     ps16 = grf.cmb_ps(th)
@@ -3588,17 +2904,16 @@ def main():
 
     cell16 = (f"{n16}^2 2' ({n16 * 2 / 60:.1f} deg), {nsim16} lensed IQU "
               f"sims, 18 % taper, pure TEB, {len(edges16) - 1} bins")
-    reset_counts()
-    ms16 = throughput(step16, nsim16, 5, f"pure-B bandpowers {cell16}",
-                      "sims/s", card, "16")
+    launches.reset()
+    throughput(step16, nsim16, 5, f"pure-B bandpowers {cell16}", "sims/s",
+               card, "16")
     peak16 = (torch.cuda.max_memory_allocated() - base16) / 1e9
-    counts16 = read_counts(("bin_reduce",), "16")
+    counts16 = launches.read(("bin_reduce",), "16")
     check(counts16["bin_reduce"] == 7, f"16: {counts16['bin_reduce']} B1 "
           "launches in 7 steps (2 warm-up, 5 timed)")
     print(f"[16] peak memory {peak16:.3f} GB above the {base16 / 1e9:.3f} GB "
           f"that phases 2-15 still hold; B1 launches: "
           f"{counts16['bin_reduce']} in 7 steps (one a step)")
-    profile_steps(step16, 3, ms16, "16")
     # gate 1: card against the CPU on the same noise, 2 sims: float32 on
     # both (cuFFT vs pocketfft, B1 vs its plain version), then the CPU in
     # float64 (the window's derivatives are float64-built on both)
@@ -3653,41 +2968,29 @@ def main():
     check(rel <= 1e-6 and torch.equal(out, again),
           f"B1 pure-B shape: error {rel:.3e} of binned |data|, or two runs "
           "differ")
-    ms = cuda_ms(lambda: bin_reduce(data16, ids16, nseg16), 20)
-    plain = cuda_ms(lambda: bin_reduce_ref(data16, ids16, nseg16), 3)
-    ids16l = ids16.long()
-    acc16 = torch.zeros((3 * nsim16, nseg16), device=dev)
-    lib = cuda_ms(lambda: acc16.index_add_(1, ids16l, data16), 10)
-    work16 = (nbytes(data16, ids16, out), data16.numel())
-    bnd, by = bound(*work16)
-    kept = torch.where((ids16 > 0) & (ids16 < nseg16 - 1), ids16, -1)
-    kbnd, _ = bound(bin_bytes(kept, nseg16, (data16,), out), data16.numel())
     print(f"[16] B1 bin_reduce ({3 * nsim16}, {g16.npix}) nseg={nseg16}: "
           f"{edge16:.4f} of the pixels in the two edge segments Bin2D cuts "
-          f"off; max rel err {rel:.3e} of binned |data|, reproducible; kernel "
-          f"{ms:.4f} ms, plain {plain:.4f} ms, index_add_ {lib:.4f} ms, bound "
-          f"{bnd:.4f} ms ({by}; {kbnd:.4f} ms for the sectors of kept ids) "
-          f"on {card}")
+          f"off; max rel err {rel:.3e} of binned |data|, reproducible")
     results["bin_reduce_pureb"] = kernel_entry(
         "bin_reduce_pureb", "bin_reduce.cu", "pallas_kernels.py:94",
-        err.max().item(), (ms, plain, lib), work16)
+        err.max().item())
     results["bin_reduce_pureb"]["launches"] = counts16["bin_reduce"]
     results["bin_reduce"]["launches_by_path"]["pureb"] = \
         counts16["bin_reduce"]
-    del data16, out, again, ref, absref, err, ids16l, acc16, kept
+    del data16, out, again, ref, absref, err
     del mg16, pur16, win16
     torch.cuda.empty_cache()
     # untimed card checks of the slice, each against the CPU
     # utils/healpix.smoothing of an nside-512 float64 map at lmax 1024
     # through the ring bridge: B10a and B10s on the card, the plain fp64
     # loop on the CPU
-    reset_counts()
+    launches.reset()
     nside16 = 512
     hmap16 = np.random.default_rng(512).standard_normal(12 * nside16 ** 2)
     t0 = time.perf_counter()
     sm_g = healpix.smoothing(hmap16, np.deg2rad(0.5), lmax=1024)
     dt_g = time.perf_counter() - t0
-    counts_hp = read_counts(("legendre_ana", "legendre_syn"), "16")
+    counts_hp = launches.read(("legendre_ana", "legendre_syn"), "16")
     t0 = time.perf_counter()
     sm_c = healpix.smoothing(hmap16, np.deg2rad(0.5), lmax=1024,
                              device="cpu")
@@ -3750,7 +3053,8 @@ def main():
     # nfwfit.mass_estimate on a 64^2 0.5' stamp: a 3e14 halo in white
     # noise from a 2e14 guess
     g16m = Geometry(64, 64, 0.5 * arcmin, 0.5 * arcmin)
-    kap16 = nfwfit.nfw_kappa(3e14, g16m.modrmap_np(), cc5, device="cpu") \
+    kap16 = nfwfit.nfw_kappa(3e14, g16m.modrmap_np(), Cosmology(),
+                             device="cpu") \
         + 1e-3 * torch.randn(g16m.shape, generator=gci, dtype=torch.float64)
     n2d16 = np.full(g16m.shape, 1e-9)
     m_g = nfwfit.mass_estimate(kap16.to(dev), n2d16, g16m, 2e14, 3.2, 0.5)
@@ -3760,22 +3064,24 @@ def main():
     print(f"[16] nfwfit.mass_estimate 64^2: mass {m_g[0]:.6e} (card), "
           f"{m_c[0]:.6e} (CPU), {m_err:.3e} relative (<= 1e-4)")
 
-    # ---- 17. the distributed layer (parallel/) on a one-rank NCCL group
-    # and a (1, 1) mesh: each leg at a size users run, timed, held to the
-    # serial path; the S = 4 split of each run as four threads of this
-    # process (runtime.emulate) on the same inputs. Launches count only
-    # in the mesh runs (dist_run)
+
+def distributed_phase(dev, card, results, launches, geom, th):
+    """Phase 17: the distributed layer (parallel/) on a one-rank NCCL group
+    and a (1, 1) mesh: each leg at a size users run, held to the serial
+    path; the S = 4 split of each run as four threads of this process
+    (runtime.emulate) on the same inputs. Launches count only in the mesh
+    runs (dist_run)."""
     tally17 = {k: 0 for k in ("bin_reduce", "lens_map_kernel",
                               "legendre_ana", "legendre_syn")}
 
     def dist_run(fn):
         """``fn()`` with the launch counts from 0; its launches join the
         phase's"""
-        reset_counts()
+        launches.reset()
         out = fn()
         torch.cuda.synchronize()
         for k in tally17:
-            tally17[k] += sum(f.launches for f in counters[k])
+            tally17[k] += launches.count(k)
         return out
 
     t17 = time.perf_counter()
@@ -3836,7 +3142,7 @@ def main():
     # (b) masked bandpowers at 4096^2, 0.5' (34 deg), 12 % taper, edges
     # arange(80, 8000, 400) (tests/test_parallel.py:330), against the
     # serial power (torch.fft.fft2, |Z|^2) binned by B1's plain version
-    # (float64 index_add_); the serial path on B1 is timed beside it
+    # (float64 index_add_)
     n17 = 4096
     g17 = rect_geometry(width_arcmin=n17 * 0.5, px_res_arcmin=0.5)
     gen17 = torch.Generator(device=dev).manual_seed(170)
@@ -3862,10 +3168,6 @@ def main():
         return ((z.real * z.real + z.imag * z.imag) * norm17).reshape(
             1, -1).contiguous()
 
-    def bp_serial():
-        s = bin_reduce(power17(), ids17, nb17)[0]
-        return (s.double() / cnt17.clamp_min(1)).float()
-
     bp_d = dist_run(lambda: bp_dist(mesh17))
     bp_s = (bin_reduce_ref(power17(), ids17, nb17)[0].double()
             / cnt17.clamp_min(1)).float()
@@ -3877,16 +3179,11 @@ def main():
     bp_eerr = max(((b - bp_s).abs() / bp_s.abs()).max().item() for b in bp_e)
     check(bp_err <= 1e-5 and bp_eerr <= 1e-5, f"17: masked bandpowers "
           f"{bp_err:.3e}, S = 4 {bp_eerr:.3e} of the plain binning")
-    ms_bpd = cuda_ms(lambda: bp_dist(mesh17), 5)
-    ms_bps = cuda_ms(bp_serial, 5)
-    print(f"[17b] masked_bandpowers_dist 4096^2 0.5' ({nb17} bins): "
-          f"{ms_bpd:.4f} ms on the (1, 1) mesh (B1 also counting the bins' "
-          f"pixels), serial fft2 + B1 {ms_bps:.4f} ms (counts known), the "
-          f"S = 4 split in one process {dt_emul:.3f} s "
-          f"(host clock, first call); max relative error per bin vs the "
-          f"serial power binned in float64 (plain version) {bp_err:.3e}, "
-          f"S = 4 {bp_eerr:.3e} (<= 1e-5)")
-    profile_steps(lambda: bp_dist(mesh17), 3, ms_bpd, "17b")
+    print(f"[17b] masked_bandpowers_dist 4096^2 0.5' ({nb17} bins) on the "
+          f"(1, 1) mesh (B1 also counting the bins' pixels), the S = 4 split "
+          f"in one process {dt_emul:.3f} s (host clock, first call); max "
+          f"relative error per bin vs the serial power binned in float64 "
+          f"(plain version) {bp_err:.3e}, S = 4 {bp_eerr:.3e} (<= 1e-5)")
     del m17, taper17, dig17, ids17, bp_e
     torch.cuda.empty_cache()
     # (c) the ring-split SHT at lmax 2047 (bench config 7's size) and the
@@ -3918,56 +3215,31 @@ def main():
             "map2alm S=4": max(rel_err((a,), (a_ser,))[1] for a in a_em),
             "alm2map S=4": max(rel_err((m,), (map17,))[1] for m in m_em)}
     check(max(errs.values()) <= 3.2e-6, f"17: ring-split SHT {errs}")
-    ms17 = {"map2alm_dist": cuda_ms(lambda: psht.map2alm_dist(
-                map17, rings17, lmax17, mesh17), 3, warmup=1),
-            "map2alm": cuda_ms(lambda: sht.map2alm(map17, rings17, lmax17),
-                               3, warmup=1),
-            "alm2map_dist": cuda_ms(lambda: psht.alm2map_dist(
-                a17, rings17, lmax17, mesh17), 3, warmup=1),
-            "alm2map": cuda_ms(lambda: sht.alm2map(a17, rings17, lmax17), 3,
-                               warmup=1)}
     print(f"[17c] ring-split SHT lmax {lmax17}, one map, dd, layout full: "
-          f"map2alm_dist {ms17['map2alm_dist']:.4f} ms (serial folded "
-          f"{ms17['map2alm']:.4f}), alm2map_dist {ms17['alm2map_dist']:.4f} "
-          f"ms (serial folded {ms17['alm2map']:.4f}); first calls with the "
-          f"capture passes {dt_first:.3f} s, the S = 4 split {dt_emul:.3f} s;"
-          " error of max vs serial: "
+          f"first calls with the capture passes {dt_first:.3f} s, the S = 4 "
+          f"split {dt_emul:.3f} s; error of max vs serial: "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
           + " (<= 3.2e-6)")
-    profile_steps(lambda: psht.map2alm_dist(map17, rings17, lmax17, mesh17),
-                  3, ms17["map2alm_dist"], "17c")
     # the B10a/B10s record at layout "full", lmax 2047, one map: the
-    # kernel vs its plain version, its time, bound and the plain time
+    # kernel vs its plain version
     tab17 = leg.tables(lmax17, rings17, (0,), 0, "full", dev)
-    ktab17 = leg.kernel_tables(tab17)
-    steps17 = b10_steps(tab17, ktab17)
     M17 = lmax17 + 1
     G17 = torch.complex(*(torch.randn((1, tab17["Tr"], M17), generator=gen17,
                                       device=dev) for _ in range(2)))
     A17 = torch.complex(*(torch.randn((1, M17, M17), generator=gen17,
                                       device=dev) for _ in range(2)))
-    for name, fn, ref_fn, x, out_b in (
-            ("legendre_ana", leg.legendre_ana, leg.legendre_ana_ref, G17,
-             8 * M17 * M17),
-            ("legendre_syn", leg.legendre_syn, leg.legendre_syn_ref, A17,
-             8 * tab17["Tr"] * M17)):
-        got = fn(x, tab17)
-        err, rel = rel_err((got,), (ref_fn(x, tab17),))
+    for name, fn, ref_fn, x in (
+            ("legendre_ana", leg.legendre_ana, leg.legendre_ana_ref, G17),
+            ("legendre_syn", leg.legendre_syn, leg.legendre_syn_ref, A17)):
+        err, rel = rel_err((fn(x, tab17),), (ref_fn(x, tab17),))
         check(rel <= 1e-6, f"17: {name} full lmax {lmax17}: {rel:.3e} of "
                            "max|ref|")
-        ms = cuda_ms(lambda: fn(x, tab17), 5, warmup=1)
-        plain = cuda_ms(lambda: ref_fn(x, tab17), 1, warmup=0)
-        work = b10_work(x, tab17, ktab17, out_b, 1, steps17, False)
         results[name + "_full"] = kernel_entry(
             name + "_full", "legendre.cu", "pallas_sht.py:1230,1325"
-            if name == "legendre_ana" else "pallas_sht.py:1273,1379", err,
-            (ms, plain, None), work)
-        r = results[name + "_full"]
-        print(f"[17c] {name} layout full lmax {lmax17} x1 dd ({steps17:.6e} "
-              f"live steps): max abs err {err:.3e} = {rel:.3e} of max|ref| "
-              f"(<= 1e-6); kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}) on {card}")
-    del G17, A17, got, a_em, m_em, a_dist, m_dist, a_ser, map17, a17
+            if name == "legendre_ana" else "pallas_sht.py:1273,1379", err)
+        print(f"[17c] {name} layout full lmax {lmax17} x1 dd: max abs err "
+              f"{err:.3e} = {rel:.3e} of max|ref| (<= 1e-6)")
+    del G17, A17, a_em, m_em, a_dist, m_dist, a_ser, map17, a17
     # the spin analysis at lmax 1023 (bench config 8p's size)
     lmax17s = 1023
     rings17s = sht.gauss_legendre_rings(lmax17s)
@@ -3985,24 +3257,19 @@ def main():
     sp_eerr = max(rel_err(eb, eb_ser)[1] for eb in eb_em)
     check(max(sp_err, sp_eerr) <= 3.2e-6, f"17: map2alm_spin_dist "
           f"{sp_err:.3e}, S = 4 {sp_eerr:.3e}")
-    ms_sd = cuda_ms(lambda: psht.map2alm_spin_dist(q17, u17, rings17s,
-                                                   lmax17s, mesh17), 3,
-                    warmup=1)
-    ms_ss = cuda_ms(lambda: sht.map2alm_spin(q17, u17, rings17s, lmax17s),
-                    3, warmup=1)
-    print(f"[17c] map2alm_spin_dist lmax {lmax17s}: {ms_sd:.4f} ms (serial "
-          f"spin fold {ms_ss:.4f} ms); error of max vs serial {sp_err:.3e}, "
-          f"S = 4 {sp_eerr:.3e} (<= 3.2e-6)")
+    print(f"[17c] map2alm_spin_dist lmax {lmax17s}: error of max vs serial "
+          f"{sp_err:.3e}, S = 4 {sp_eerr:.3e} (<= 3.2e-6)")
     del e17, b17, q17, u17, eb_dist, eb_ser, eb_em
     leg.clear_tables()
     torch.cuda.empty_cache()
     # (d) the row-split lensed covariance at 32^2 (npix 1024, phase 15's
     # lens_cov), B8 on each rank's rows, against nfwfit.lens_cov
     g17c = Geometry(32, 32, 0.5 * arcmin, 0.5 * arcmin)
-    ucov17 = pixcov.scov_from_theory(g17c, th, beam5, ncomp=1,
-                                     dtype=torch.float32)
+    ucov17 = pixcov.scov_from_theory(g17c, th, lambda l: gauss_beam(l, 1.4),
+                                     ncomp=1, dtype=torch.float32)
     alpha17 = lensing.alpha_from_kappa(nfwfit.nfw_kappa(
-        1e15, g17c.modrmap_np(), cc5).to(torch.float32), g17c).contiguous()
+        1e15, g17c.modrmap_np(), Cosmology()).to(torch.float32),
+        g17c).contiguous()
     lc_d = dist_run(lambda: pfourier.lens_cov_dist(ucov17, alpha17, g17c,
                                                    mesh17, lens_order=5))
     lc_s = nfwfit.lens_cov(ucov17, alpha17, g17c, lens_order=5)
@@ -4043,19 +3310,18 @@ def main():
         results[k + "_full"]["launches"] = tally17[k]
     torch.cuda.empty_cache()
 
-    # ---- 18. the galaxy-catalog slice (models/catalogs) at a survey's
-    # size: a 2048^2 0.5' patch (17 deg square, ~291 deg^2, a DES/HSC-size
-    # field). (a) Pow2Cat mocks at 3 galaxies/arcmin^2 in float64, 8 a
-    # step, as tests/test_facade.py:68-100 runs them: correlated
-    # (delta_g, kappa) from Limber spectra (LimberCosmology with
-    # catalogs.dndz, bias 1.5), Poisson counts, delta_g from the counts,
-    # fft2 of both, the three power planes, one Bin2D of all of them (one
-    # float64 B1 launch a step); (b) binned_map of 10^7 weighted sources;
-    # (c) healpix_binned_map of the same at nside 2048; (d)
-    # reconstruct_velocities of 10^6 galaxies and 10^7 randoms at nmesh
-    # 256 (a BOSS-CMASS-size run)
-    from orphics_tpu_torch.models import catalogs as cats
-    from orphics_tpu_torch.models.cosmology import LimberCosmology
+
+def catalog_phase(dev, card, results, launches):
+    """Phase 18: the galaxy-catalog slice (models/catalogs) at a survey's
+    size: a 2048^2 0.5' patch (17 deg square, ~291 deg^2, a DES/HSC-size
+    field). (a) Pow2Cat mocks at 3 galaxies/arcmin^2 in float64, 8 a step,
+    as tests/test_facade.py:68-100 runs them: correlated (delta_g, kappa)
+    from Limber spectra (LimberCosmology with catalogs.dndz, bias 1.5),
+    Poisson counts, delta_g from the counts, fft2 of both, the three power
+    planes, one Bin2D of all of them (one float64 B1 launch a step); (b)
+    binned_map of 10^7 weighted sources; (c) healpix_binned_map of the same
+    at nside 2048; (d) reconstruct_velocities of 10^6 galaxies and 10^7
+    randoms at nmesh 256 (a BOSS-CMASS-size run)."""
     t18 = time.perf_counter()
     g18 = rect_geometry(width_arcmin=2048 * 0.5, px_res_arcmin=0.5)
     t0 = time.perf_counter()
@@ -4096,12 +3362,12 @@ def main():
 
     cell18 = (f"2048^2 0.5' (~291 deg^2), 3 gal/arcmin^2, float64, "
               f"{nmock} mocks a step, {len(CAT_EDGES) - 1} bins")
-    reset_counts()
+    launches.reset()
     base18 = torch.cuda.memory_allocated()
-    ms18 = throughput(step18, nmock, 4, f"Pow2Cat mocks -> binned "
-                      f"spectra {cell18}", "mocks/s", card, "18")
+    throughput(step18, nmock, 4, f"Pow2Cat mocks -> binned spectra {cell18}",
+               "mocks/s", card, "18")
     peak18 = (torch.cuda.max_memory_allocated() - base18) / 1e9
-    counts18 = read_counts(("bin_reduce",), "18")
+    counts18 = launches.read(("bin_reduce",), "18")
     f64_18 = bin_reduce.launches_f64
     check(counts18["bin_reduce"] == 6 and f64_18 == 6,
           f"18: {counts18['bin_reduce']} B1 launches ({f64_18} float64) in "
@@ -4109,7 +3375,6 @@ def main():
     print(f"[18] peak memory {peak18:.3f} GB above the {base18 / 1e9:.3f} GB "
           f"held before; B1 launches {counts18['bin_reduce']} in 6 steps, "
           f"all {f64_18} on float64 data")
-    profile_steps(step18, 2, ms18, "18")
     # gate: Poisson counts by statistics, counts - lambda over the pixels
     # of 8 mocks: mean 0 and variance <lambda> within 5 sigma
     delta, kappa = p2c.get_maps(gen18, batch=(nmock,))
@@ -4131,7 +3396,7 @@ def main():
     # gate: the recovery of <delta_g kappa> over 32 mocks, each bin within
     # 5 sigma (the mocks' scatter / sqrt(32)) of the same Bin2D of clkg
     # painted on the l-plane
-    reset_counts()
+    launches.reset()
     sp18 = torch.cat([step18() for _ in range(4)]).cpu().numpy()
     check(bin_reduce.launches_f64 == 4, "18: the recovery's 4 B1 launches "
                                         "were not all float64")
@@ -4164,7 +3429,6 @@ def main():
     decs18, ras18 = cats.random_catalog_flat(gen18, g18, nsrc, device=dev)
     w18 = torch.rand(nsrc, generator=gen18, device=dev,
                      dtype=torch.float64) + 0.5
-    ms_bm = cuda_ms(lambda: cats.binned_map(decs18, ras18, g18, w18), 10)
     cnt_g = cats.binned_map(decs18, ras18, g18)
     wm_g = cats.binned_map(decs18, ras18, g18, w18)
     cnt_c = cats.binned_map(decs18.cpu(), ras18.cpu(), g18)
@@ -4174,25 +3438,20 @@ def main():
     _, bm_err = rel_err((wm_g.cpu(),), (wm_c,))
     check(bm_err <= 1e-12, f"18: weighted binned_map card vs CPU "
                            f"{bm_err:.3e} > 1e-12")
-    print(f"[18] binned_map of {nsrc} weighted sources into 2048^2: "
-          f"{ms_bm:.4f} ms = {nsrc / ms_bm * 1e3:.4e} sources/s on {card}; "
-          f"card vs CPU: counts equal ({int(cnt_g.sum().item())} in the "
+    print(f"[18] binned_map of {nsrc} weighted sources into 2048^2, card vs "
+          f"CPU: counts equal ({int(cnt_g.sum().item())} in the "
           f"map), weighted {bm_err:.3e} of max (<= 1e-12)")
     del cnt_g, wm_g, cnt_c, wm_c
     # (c) healpix_binned_map of the same sources at nside 2048: ang2pix on
     # the host (the native library, built in phase 1), the counts by
     # index_add_ on the card
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     hp_g = cats.healpix_binned_map(decs18, ras18, 2048)
-    torch.cuda.synchronize()
-    dt_hp = time.perf_counter() - t0
     hp_c = cats.healpix_binned_map(decs18.cpu(), ras18.cpu(), 2048)
     check(torch.equal(hp_g.cpu(), hp_c) and int(hp_c.sum().item()) == nsrc,
           "18: healpix_binned_map card vs CPU")
     print(f"[18] healpix_binned_map of {nsrc} sources at nside 2048 "
-          f"(native library: {healpix.have_native()}): {dt_hp:.3f} s "
-          f"(host ang2pix, copies, index_add_), equal to the CPU's")
+          f"(native library: {healpix.have_native()}; host ang2pix, copies, "
+          "index_add_): equal to the CPU's")
     del hp_g, hp_c, decs18, ras18, w18
     torch.cuda.empty_cache()
     # (d) reconstruct_velocities: 10^6 galaxies (uniform, and 10 % in a
@@ -4215,15 +3474,8 @@ def main():
                                                       ra_r, dec_r, z_r)]
     kw18 = dict(zeff=0.55, nmesh=256, smoothing_radius=10.0)
     v_g = cats.reconstruct_velocities(*cat_g, **kw18)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    v_g = cats.reconstruct_velocities(*cat_g, **kw18)
-    torch.cuda.synchronize()
-    ms_v = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
     v_c = cats.reconstruct_velocities(ra_g, dec_g, z_g, ra_r, dec_r, z_r,
                                       device="cpu", **kw18)
-    dt_vc = time.perf_counter() - t0
     _, v_err = rel_err((v_g.cpu(),), (v_c,))
     check(bool(torch.isfinite(v_g).all()) and v_err <= 1e-8,
           f"18: reconstruct_velocities card vs CPU {v_err:.3e} > 1e-8")
@@ -4232,8 +3484,8 @@ def main():
     front = vc[(zc > 0.52) & (zc < 0.545)].mean()
     behind = vc[(zc > 0.555) & (zc < 0.58)].mean()
     print(f"[18] reconstruct_velocities {ng18} galaxies, {nr18} randoms, "
-          f"nmesh 256: {ms_v:.3f} ms on {card} (CPU {dt_vc:.3f} s); card vs "
-          f"CPU {v_err:.3e} of max |v| (<= 1e-8); the clump's mean LOS "
+          f"nmesh 256: card vs CPU {v_err:.3e} of max |v| (<= 1e-8); the "
+          "clump's mean LOS "
           f"velocity in front {front:.2f}, behind {behind:.2f} km/s")
     del cat_g, v_g, v_c
     # JAX's infall sign test (tests/test_surveys.py:122-150) on the card
@@ -4266,14 +3518,16 @@ def main():
     print(f"[18] the phase took {time.perf_counter() - t18:.3f} s")
     torch.cuda.empty_cache()
 
-    # ---- 19. the user examples (examples/torch/) on the card, in this
-    # process as a user runs them: each at its default (not quick) size
-    # with --no-plot, device None (the card), tt_verification at 512
-    # sims; the distributed pair on a one-rank NCCL group set up here as
-    # phase 17 sets up its own. Each example's launches from 0, its wall
-    # seconds and its check line; the seven forecasts also with --device
-    # cpu, their printed numbers held to the card's (QUICK_CMP19: both
-    # sides at the quick size)
+
+def examples_phase(dev, card, results, launches):
+    """Phase 19: the user examples (examples/torch/) on the card, in this
+    process as a user runs them: each at its default (not quick) size with
+    --no-plot, device None (the card), tt_verification at 512 sims; the
+    distributed pair on a one-rank NCCL group set up here as phase 17 sets
+    up its own. Each example's launches from 0, its wall seconds and its
+    check line; every kernel call held to its plain version; the seven
+    forecasts also with --device cpu, their printed numbers held to the
+    card's (QUICK_CMP19: both sides at the quick size)."""
     t19 = time.perf_counter()
     ex_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "examples", "torch")
@@ -4284,9 +3538,9 @@ def main():
 
     plain19 = plain_versions()
     recorder = CallRecorder({fn: v[0] for fn, v in plain19.items()},
-                            lambda k: sum(f.launches for f in counters[k]))
+                            launches.count)
     store19 = tempfile.TemporaryDirectory()
-    tally19 = {k: 0 for k in counters}
+    tally19 = {k: 0 for k in launches.counters}
     full19 = {"legendre_ana": 0, "legendre_syn": 0}
     rows19 = []
     for name, argv, need in EXAMPLES19:
@@ -4298,11 +3552,10 @@ def main():
                 world_size=1, rank=0, local_rank=torch.cuda.current_device(),
                 device=dev, timeout=300) == (0, 1), "19: init_multihost")
             check(dist.get_backend() == "nccl", "19: not a NCCL group")
-        reset_counts()
+        launches.reset()
         with recorder:
             out, code, secs = run_example(path, argv + ["--no-plot"])
-        counts = {k: sum(fn.launches for fn in counters[k])
-                  for k in counters}
+        counts = {k: launches.count(k) for k in launches.counters}
         recs = list(recorder.records.values())
         recorder.records = {}
         if group:
@@ -4373,16 +3626,67 @@ def main():
         results[k + "_full"].setdefault("launches_by_path", {})[
             "examples"] = v
 
-    # ---- 20. the curved-sky TT quadratic estimator at lmax 2047 on 3072
-    # Gauss-Legendre rings (models/curved_qe; B10s and B10a folded)
-    curved_qe_phase(dev, card, results, reset_counts, read_counts)
 
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(f"[0] card: {card}")
+    print(f"[0] device: {kind}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}; devices visible: {torch.cuda.device_count()}")
+
+    t0 = time.perf_counter()
+    _build.library()
+    print(f"[1] build: {time.perf_counter() - t0:.3f} s (nvcc "
+          f"{' '.join(_build.NVCC_FLAGS)}, one process per source)")
+    for line in _build.build_log().splitlines():
+        if ("registers" in line or "spill" in line or "Compiling" in line
+                or line.startswith("==")):
+            print("[1]   " + line.strip())
+    t0 = time.perf_counter()
+    check(_build.healpix_library() is not None, "the native HEALPix "
+          "library did not build: " + _build.healpix_build_log())
+    print(f"[1] host library csrc/healpix.cpp: {time.perf_counter() - t0:.3f}"
+          f" s (g++ {' '.join(_build.HOST_FLAGS)})")
+
+    # the records of phase 2, the launch counters and the 512^2 2'
+    # geometry, theory and generator that phases 2, 4 and 5 draw from
+    results = {}
+    launches = Launches()
+    geom = rect_geometry(width_arcmin=512 * 2.0, px_res_arcmin=2.0)
+    th = default_theory()
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    kernels_phase(dev, results, gen, geom, th)
+    flagship_phase(dev, results, launches)
+    half_plane_phase(dev, card, launches, gen, geom, th)
+    full_plane_phase(dev, results, launches, gen, geom, th)
+    fastcl_phase(dev, results, launches, th)
+    cross_spectra_phase(dev, results, launches, th)
+    ilc_phase(dev, card, results, launches, geom, th)
+    sht_roundtrip_phase(dev, card, results, launches)
+    curved_spectra_phase(dev, card, results, launches)
+    q3 = qe_recon_phase(dev, card, launches, geom, th)
+    pair_spectra_phase(dev, card, results, launches, th)
+    debias_phase(dev, card, results, launches, geom, th, q3)
+    del q3
+    stacking_phase(dev, card, results, launches, th)
+    pure_b_phase(dev, card, results, launches, th)
+    distributed_phase(dev, card, results, launches, geom, th)
+    catalog_phase(dev, card, results, launches)
+    examples_phase(dev, card, results, launches)
+    curved_qe_phase(dev, card, results, launches.reset, launches.read)
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err")
     for r in results.values():
         check(all(k in r for k in keys), f"{r['name']}: record lacks "
               f"{[k for k in keys if k not in r]}")
-    print(json.dumps({"kernels": [results[k] for k in counters]
+    print(json.dumps({"kernels": [results[k] for k in launches.counters]
                       + [results[k] for k in (
                           "bin_reduce_config5", "bin_reduce_pureb",
                           "bin_reduce_f64", "legendre_ana_full",

@@ -1,60 +1,65 @@
-"""Timing of the redesigned kernels: B6 ``rowqc_half`` / ``rowqc_pp`` and
-B6s ``rows_half`` / ``rows_pp`` (``--kernel rowpower``), B3 ``colfft`` /
-``colifft`` and B3s ``colfft_scaled`` (``--kernel colfft``), B4 ``rowfft``
-/ ``rowifft`` / ``rowifft_scaled_y``, B5 ``rowifft_noise_y`` and B4b
-``rowfft_blk0`` (``--kernel rowfft``), the Legendre kernels B10a
-``legendre_ana`` and B10s ``legendre_syn`` (``--kernel legendre``; B10a
-alone, also at the curved-sky QE's shape, one map on its grid and layout
-"full", ``--kernel legendre_ana``), the lensing displacement B8
-``lens_map_kernel`` (``--kernel lens``), the segment sums B1
-``bin_reduce``, B2 ``bin2_reduce`` and B2' ``bin_pair_power`` (``--kernel
-binreduce``), the ILC coadd B9
-``rowcombine_pp`` (``--kernel rowcombine``) and the noise draw B5n
-``noise_planes`` (``--kernel noise``).
+"""The port's kernels timed alone, one family a run: at the main paths'
+shapes, each function's CUDA-event time, achieved device-memory rate and
+least time (its bound, by ``cmbbench/work.py``), its error against its
+plain version, and the library call beside it.
+
+    rowpower      B6 ``rowqc_half`` / ``rowqc_pp``, B6s ``rows_half`` /
+                  ``rows_pp``, B6h ``qc_pp_half`` and B6h' ``s_pp_half`` on
+                  the stored transform; ``torch.fft`` along the rows
+    colfft        B3 ``colfft`` / ``colifft``, B3s ``colfft_scaled``;
+                  ``torch.fft`` along the columns
+    rowfft        B4 ``rowfft`` / ``rowifft`` / ``rowifft_scaled_y``, B5
+                  ``rowifft_noise_y``, B4b ``rowfft_blk0``; ``torch.fft``
+                  along the rows
+    mirror        B7 ``mirror_pp`` at the lensing pipeline's (32, 512^2)
+    qeconv        Q1-Q3 ``qe_leg``, ``qe_pair``, ``qe_post`` at the cell
+                  lensqe512.recon's (64, 512^2) complex64
+    legendre      B10a ``legendre_ana`` and B10s ``legendre_syn``, dd and
+                  fast, at bench configs 8, 8p (n = -2, 2, 16 maps) and 7,
+                  16 folded maps, layout "full" (a rank's 2048 rings) and
+                  the curved-sky QE's 16 syntheses on 3072 rings
+    legendre_ana  B10a alone at those shapes, the curved-sky QE's 12
+                  folded products and one map on its grid, with the
+                  one-pass launches and partial planes a call took
+    lens          B8 ``lens_map_kernel`` at (64, 1, 512^2) with config 6's
+                  deflection (a kappa GRF, D = 8), orders 5 and 3, three
+                  components, and phase 14's unclipped D
+    binreduce     B1 ``bin_reduce``, B2 ``bin2_reduce`` and B2'
+                  ``bin_pair_power`` over FastCl's full and kept ids (edge
+                  segments -1) at bench config 1, B1 at 400 segments, at
+                  the lensing pipeline's RfftBin2D and over Bin2D's ids at
+                  the flagship step, bench config 5, the pure-B path and,
+                  in float64, the galaxy-catalog path (beside one
+                  ``index_add_``)
+    rowcombine    B9 ``rowcombine_pp`` at bench config 4's (96, 512^2), nq
+                  3, and at (6, 384^2); the row transform alone beside
+    noise         B5n ``noise_planes`` at (32, 512^2) and (3, 5, 7), its
+                  device time in a profiler trace, ``torch.randn`` of the
+                  same values beside; first the digests of a few draws of
+                  B5n and B5 on fixed words, equal on two trees where the
+                  stream is
 
 Run from the repository root on a machine with one NVIDIA Hopper GPU and
 nvcc:
 
-    python3 scripts/bench_kernels.py --kernel
-        {rowpower,colfft,rowfft,legendre,legendre_ana,lens,
-         binreduce,rowcombine,noise}
-        [--tree DIR] [--quick]
+    python3 scripts/bench_kernels.py --kernel FAMILY [--tree DIR] [--quick]
 
-It imports ``orphics_tpu_torch`` from ``DIR`` (default: this checkout), so
-two commits are compared on one card by unpacking the other with ``git
-archive`` into a git-ignored directory and running parent, change, change,
-parent in one job. It prints the compiler's resource report of the family's
-kernels (registers and spills, from the ``-Xptxas -v`` build log) and, at
-the main paths' shapes, each function's CUDA-event time, achieved
-device-memory rate and bound, its error against the plain version, the
-library call (``torch.fft`` along the same axis) and, for ``colfft`` and
-``rowfft``, the kernel each call took where the library counts it. The bound
-printed is the bytes' alone (B5's, which its Philox and erfinvf work sets,
-is ``chip_smoke.py``'s). ``--quick`` times one small shape. ``legendre``
-times B10a and B10s, dd and fast, at ``chip_smoke.py`` phase 2's shapes
-(bench configs 8, 8p and 7) and at 16 folded maps, with the launches each
-call took and the bound from phase 2's operation count. ``lens`` times
-B8 at ``chip_smoke.py`` phase 2's (64, 1, 512^2) with config 6's
-deflection (a kappa GRF, D = 8), orders 5 and 3, three components, and
-phase 14's unclipped D, with the blocks that took their taps from device
-memory where the tree counts them. ``binreduce`` times B1, B2 and B2' at
-bench config 1's half plane (96 rows of 2048^2 / 2) over FastCl's full
-digitized ids and over the kept ones (edge segments -1), B1 at the
-lensing pipeline's (192, 131,584) weighted, and B2' at phase 13's full
-plane; each bound counts the 32-byte sectors that hold a kept id, the ids
-and the outputs once, and each error is read against float64 sums of
-|data| made here, so that a tree whose plain versions predate dropped ids
-is timed the same way. ``rowcombine`` times B9 at bench config 4's
-(96, 512^2) with nq 3 (32 coadds) and at (6, 384^2), with the kernel
-each call took where the tree counts it, beside ``torch.fft.fft`` along
-the rows of the same Y (the row transform alone). ``noise`` times B5n at
-the lensing pipeline's (32, 512^2) and at an odd (3, 5, 7), its kernel's
-device time in a ``torch.profiler`` trace beside, with the bound
-of ``chip_smoke.py`` phase 2 (the bytes, or the longer of the fp32 and
-Philox's integer pipes and their issue), beside one ``torch.randn`` of the same values (the draw
-alone), and first the digests of a few draws of B5n and B5 on fixed
-words, equal on two trees where the stream is. The correctness checks (every n, ragged shapes,
-two runs bit-equal) are ``chip_smoke.py``'s and
+It imports ``orphics_tpu_torch`` from ``DIR`` (default: this checkout) and
+the roofline from this checkout's ``cmbbench/work.py``, so two commits are
+compared on one card against one yardstick: unpack the other with ``git
+archive`` into a git-ignored directory and run parent, change, change,
+parent in one job. It prints the compiler's resource report of the
+family's kernels (registers and spills, from the ``-Xptxas -v`` build log)
+and, for ``colfft``, ``rowfft`` and ``rowcombine``, the kernel each call
+took where the tree counts it. A bound counts each input byte read once and
+each output byte written once; B5's is printed with its operations beside
+the bytes' (its transform, ~25 fp32 operations a normal and Philox's
+integer instructions). B10's counts the live (ring, m,
+l) steps of the captured seeds (:func:`b10_steps`), where the benchmark's
+``cmbbench/work_sht.py`` counts them from the reference's underflow
+threshold. A segment sum's counts the 32-byte sectors that hold a kept id.
+``--quick`` times one small shape. The correctness checks (every n, ragged
+shapes, two runs bit-equal, the route) are ``chip_smoke.py``'s and
 ``tests/test_torch_cuda.py``'s.
 """
 from __future__ import annotations
@@ -66,34 +71,29 @@ from pathlib import Path
 
 import torch
 
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-FP64_FLOP_PER_S = 34e12
-# chip_smoke.py: INT32_OP_PER_S, ISSUE_LANES_PER_S, PHILOX_INT_OPS_PER_PAIR
-INT32_OP_PER_S = 64 * 132 * 1.98e9
-ISSUE_LANES_PER_S = 128 * 132 * 1.98e9
-PHILOX_INT_OPS_PER_PAIR = 10 * (2 * 2 + 2) + 4
+# the roofline comes from this checkout, before --tree puts another tree's
+# packages first on the path
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from cmbbench.work import (FP32_FLOP_PER_S, FP64_FLOP_PER_S,  # noqa: E402
+                           HBM_BYTES_PER_S, NORMAL_FP32_OPS,
+                           PHILOX_INT_OPS_PER_PAIR, bin_bytes, bound,
+                           fft_flops, live_sectors, ops_ms)
 
-
-def ops_s(flops, flops64=0.0, intops=0.0):
-    """chip_smoke.py's ``ops_ms`` in seconds: the longest pipe, or the
-    issue of the fp32 and integer instructions."""
-    t_fp32 = flops / FP32_FLOP_PER_S
-    return max(t_fp32, flops64 / FP64_FLOP_PER_S, intops / INT32_OP_PER_S,
-               t_fp32 + intops / ISSUE_LANES_PER_S)
 # B10: (label, lmax, maps, Wigner columns, layout, columns timed,
 # Gauss-Legendre rings: None for lmax + 1)
 LEGENDRE_SHAPES = (("config 8", 1023, 8, (0,), "fold", (0,), None),
                    ("16 folded maps", 1023, 16, (0,), "fold", (0,), None),
                    ("config 8p", 1023, 16, (-2, 2), "half", (0, 1), None),
-                   ("config 7", 2047, 1, (0,), "fold", (0,), None))
+                   ("config 7", 2047, 1, (0,), "fold", (0,), None),
+                   ("layout full", 2047, 1, (0,), "full", (0,), None),
+                   ("curved QE syntheses", 2047, 16, (0,), "fold", (0,),
+                    3071))
 # B10a alone (--kernel legendre_ana): those, the curved-sky QE's folded
-# products (12 maps on the 3072 rings exact to degree 3 lmax), one map on
-# that grid, and layout "full" (a rank's 2048 rings, both hemispheres)
+# products (12 maps on the 3072 rings exact to degree 3 lmax) and one map
+# on that grid
 LEGENDRE_ANA_SHAPES = LEGENDRE_SHAPES + (
     ("curved QE", 2047, 12, (0,), "fold", (0,), 3071),
-    ("curved grid, one map", 2047, 1, (0,), "fold", (0,), 3071),
-    ("layout full", 2047, 1, (0,), "full", (0,), None))
+    ("curved grid, one map", 2047, 1, (0,), "fold", (0,), 3071))
 SHAPES = ((96, 2048), (64, 2048), (64, 512), (192, 1024), (16, 4096),
           (64, 256))
 
@@ -127,18 +127,45 @@ def device_ms(fn, reps):
         / reps / 1e3
 
 
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def rel(got, ref):
+    as_tuple = lambda t: t if isinstance(t, tuple) else (t,)
     return max(((g - r).abs().max() / r.abs().max()).item()
-               for g, r in zip(got, ref))
+               for g, r in zip(as_tuple(got), as_tuple(ref)))
+
+
+def b10_steps(tab, ktab):
+    """The live (ring, m, l) steps of a B10 call: from each (ring, m)'s
+    captured seed l_s to lmax, none where it has no seed."""
+    ls = ktab["ls"]
+    return float(((tab["lmax"] + 1 - ls) * (ls >= 0)).sum().item())
+
+
+def b10_work(x, tab, ktab, out_b, nm, steps, fast):
+    """(bytes, fp32, fp64 operations) of one B10a / B10s call on ``nm`` maps
+    of ``x``: bytes x in, the output (``out_b``), the tables once.
+    Operations per live step: the recurrence's two FMAs and a multiply (5,
+    in fp64; fp32 in fast, with two FMAs more for the factor's low parts:
+    9), and per map the complex contraction's two FMAs (4), counted at the
+    fp32 rate (67 TFLOP/s), which is also the fp64 tensor cores' rate that
+    B10a and B10s contract at."""
+    rec = (9.0 if fast else 5.0) * steps
+    return (nbytes(x, tab["A"], tab["B"], tab["C"], ktab["s1"], ktab["s0"],
+                   ktab["ls"]) + out_b,
+            (rec if fast else 0.0) + 4.0 * nm * steps, 0.0 if fast else rec)
 
 
 def rowpower_cases(y, gen):
-    """(name, call, plain call, bytes moved) of B6 / B6s on planes y, and
-    the library call and a streaming pass that moves B6's bytes"""
+    """(name, call, plain call, bytes moved) of B6 / B6s on planes y and of
+    B6h / B6h' on their stored transform z, and the library call"""
     from orphics_tpu_torch.ops import dft
     from orphics_tpu_torch.ops import rowpower as rp
     b, n, _ = y[0].shape
     field = 4 * b * n * n
+    z = dft.rowfft(*y)
     cases = (("rowqc_half", lambda: rp.rowqc_half(*y),
               lambda: rp.rowqc_pp_ref(*y)[:2], 3 * field),
              ("rows_half", lambda: (rp.rows_half(*y),),
@@ -146,12 +173,15 @@ def rowpower_cases(y, gen):
              ("rowqc_pp", lambda: rp.rowqc_pp(*y), lambda: rp.rowqc_pp_ref(*y),
               3 * field),
              ("rows_pp", lambda: rp.rows_pp(*y), lambda: rp.rows_pp_ref(*y),
-              2.5 * field))
+              2.5 * field),
+             # the stored transform in, the half-plane fields out
+             ("qc_pp_half", lambda: rp.qc_pp_half(*z),
+              lambda: rp.qc_pp_half_ref(*z), 3 * field),
+             ("s_pp_half", lambda: rp.s_pp_half(*z),
+              lambda: rp.s_pp_half_ref(*z), 2.5 * field))
     yc = torch.complex(*y)
-    z = dft.rowfft(*y)
-    refs = (("torch.fft.fft along the rows", lambda: torch.fft.fft(yc, dim=-1)),
-            ("B6h qc_pp_half of the stored transform",
-             lambda: rp.qc_pp_half(*z)))
+    refs = (("torch.fft.fft along the rows",
+             lambda: torch.fft.fft(yc, dim=-1)),)
     return cases, refs
 
 
@@ -177,8 +207,9 @@ def colfft_cases(x, gen):
 
 
 def rowfft_cases(x, gen):
-    """(name, call, plain call, bytes moved) of B4 and B5 on planes x (B5
-    draws planes of x's shape), and the library calls and B4b"""
+    """(name, call, plain call, bytes moved[, operations]) of B4 and B5 on
+    planes x (B5 draws planes of x's shape), and the library calls and
+    B4b"""
     from orphics_tpu_torch.ops import dft
     from orphics_tpu_torch.ops.noise_planes import noise_planes
     b, r, n = x[0].shape
@@ -186,16 +217,20 @@ def rowfft_cases(x, gen):
     words = torch.tensor([20260512, -77], dtype=torch.int32,
                          device=x[0].device)
     planes = 16 * b * r * n
+    values = b * r * n
     cases = (("rowfft", lambda: dft.rowfft(*x), lambda: dft.rowfft_ref(*x),
               planes),
              ("rowifft", lambda: dft.rowifft(*x), lambda: dft.rowifft_ref(*x),
               planes),
              ("rowifft_scaled_y", lambda: dft.rowifft_scaled_y(*x, w),
               lambda: dft.rowifft_scaled_y_ref(*x, w), planes + 4 * r * n),
-             # against B4's inverse of B5n's identical draw
+             # against B4's inverse of B5n's identical draw; operations: the
+             # transform, a normal's and Philox's a pair
              ("rowifft_noise_y", lambda: dft.rowifft_noise_y(w, words, b),
               lambda: dft.rowifft(*noise_planes(w, words, b)),
-              planes // 2 + 4 * r * n))
+              planes // 2 + 4 * r * n,
+              (fft_flops(n, b * r) + NORMAL_FP32_OPS * 2 * values, 0.0,
+               PHILOX_INT_OPS_PER_PAIR * values / 2)))
     xc = torch.complex(*x)
     refs = (("torch.fft.fft along the rows", lambda: torch.fft.fft(xc, dim=-1)),
             ("torch.fft.ifft along the rows",
@@ -204,14 +239,43 @@ def rowfft_cases(x, gen):
     return cases, refs
 
 
+def mirror_cases(z, gen):
+    """(name, call, plain call, bytes moved) of B7 on planes z; no PyTorch
+    call gathers Z(-k) in the permuted layout"""
+    from orphics_tpu_torch.ops.mirror import mirror_pp, mirror_pp_ref
+    b, n, _ = z[0].shape
+    return (("mirror_pp", lambda: mirror_pp(*z), lambda: mirror_pp_ref(*z),
+             16 * b * n * n),), ()
+
+
+def qeconv_cases(x, gen):
+    """(name, call, plain call, bytes moved) of Q1-Q3 on the k-map x[0] +
+    i x[1]: its three legs, S_y and S_x from them, the post of two spectra.
+    No PyTorch call computes this algebra"""
+    from orphics_tpu_torch.ops import qe_conv as qc
+    _, n, _ = x[0].shape
+    dev = x[0].device
+    k = torch.complex(*x)
+    planes3 = torch.randn((3, n, n), generator=gen, device=dev)
+    legs3 = qc.qe_leg(k, planes3)
+    post2 = torch.randn((2, n, n), generator=gen, device=dev)
+    pairs2 = ((0, 2.0, 1, 0), (1, 2.0, 2, 0))
+    return (("qe_leg", lambda: qc.qe_leg(k, planes3),
+             lambda: qc.qe_leg_ref(k, planes3),
+             nbytes(k, planes3) + 3 * nbytes(k)),
+            ("qe_pair", lambda: qc.qe_pair(legs3, pairs2, None),
+             lambda: qc.qe_pair_ref(legs3, pairs2, None),
+             nbytes(*legs3) + 2 * nbytes(k)),
+            ("qe_post", lambda: qc.qe_post(legs3[0], legs3[1], post2),
+             lambda: qc.qe_post_ref(legs3[0], legs3[1], post2),
+             3 * nbytes(k) + nbytes(post2))), ()
+
+
 def legendre_bench(reps, quick, shapes=LEGENDRE_SHAPES, ana_only=False):
     """B10a / B10s at ``shapes`` (``quick``: config 8 only), dd and
     fast: CUDA-event time, launches per call and the bound of
-    ``chip_smoke.py`` phase 2 (5 operations a live step for the recurrence
-    in fp64 in dd, 9 in fp32 in fast, 4 a map and step for the contraction at
-    the fp32 rate; the tables, the input and the output once). With
-    ``ana_only``, B10a alone, with the one-pass launches and partial planes
-    a call took where the tree counts them."""
+    :func:`b10_work`. With ``ana_only``, B10a alone, with the one-pass
+    launches and partial planes a call took where the tree counts them."""
     from orphics_tpu_torch.ops import legendre as leg
     from orphics_tpu_torch.ops import sht
     dev = torch.device("cuda")
@@ -223,15 +287,12 @@ def legendre_bench(reps, quick, shapes=LEGENDRE_SHAPES, ana_only=False):
         for ni in nis:
             tab = leg.tables(lmax, rings, ns, ni, layout, dev)
             k = leg.kernel_tables(tab)
-            ls = k["ls"]
-            steps = float(((M1 - ls) * (ls >= 0)).sum().item())
+            steps = b10_steps(tab, k)
             G = torch.complex(*(torch.randn((nm, tab["Tr"], M1),
                                             generator=gen, device=dev)
                                 for _ in range(2)))
             a = torch.complex(*(torch.randn((nm, M1, M1), generator=gen,
                                             device=dev) for _ in range(2)))
-            tabb = sum(t.numel() * t.element_size() for t in
-                       (tab["A"], tab["B"], tab["C"], k["s1"], k["s0"], ls))
             for name, fn, x, out_b in (
                     ("legendre_ana", leg.legendre_ana, G, 8 * nm * M1 * M1),
                     ("legendre_syn", leg.legendre_syn, a,
@@ -247,24 +308,20 @@ def legendre_bench(reps, quick, shapes=LEGENDRE_SHAPES, ana_only=False):
                     how = (f" ({one_pass} one-pass, {planes} partial "
                            f"planes)" if ana_only else "")
                     ms = cuda_ms(lambda: fn(x, tab, fast), reps)
-                    rec = (9.0 if fast else 5.0) * steps
-                    t_ops = ops_s((rec if fast else 0.0) + 4.0 * nm * steps,
-                                  0.0 if fast else rec)
-                    t_bytes = (x.numel() * x.element_size() + tabb + out_b) \
-                        / HBM_BYTES_PER_S
-                    bound = max(t_ops, t_bytes) * 1e3
+                    bms, by = bound(*b10_work(x, tab, k, out_b, nm, steps,
+                                              fast))
                     print(f"time {name} {label} lmax {lmax} x{nm} {layout} "
                           f"n={ns[ni]} {mode}: {ms:.4f} ms in {launches} "
-                          f"launch(es){how}; bound {bound:.4f} ms "
-                          f"({'operations' if t_ops >= t_bytes else 'bytes'})"
-                          f" = {bound / ms:.3f} of the time")
+                          f"launch(es){how}; bound {bms:.4f} ms ({by}; "
+                          f"{steps:.6e} live steps) = {bms / ms:.3f} of the "
+                          "time")
             del G, a
         leg.clear_tables()
         torch.cuda.empty_cache()
 
 
 def lens_bench(reps, quick):
-    """B8 at phase 2's shape with config 6's deflection: CUDA-event time,
+    """B8 at (64, 1, 512^2) with config 6's deflection: CUDA-event time,
     bytes bound, error against ``lens_map_ref`` and, where the tree counts
     them, the blocks that took their taps from device memory."""
     import numpy as np
@@ -303,25 +360,29 @@ def lens_bench(reps, quick):
         ms = cuda_ms(lambda: lens_map_kernel(coeffs, alpha, geom, order=order,
                                              maxdisp_px=D, prefiltered=True),
                      reps)
-        nbytes = 4.0 * alpha[:, 0].numel() * (2 + 2 * C)
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        nb = 4.0 * alpha[:, 0].numel() * (2 + 2 * C)
+        bms = bound(nb)[0]
         print(f"time lens_map_kernel ({batch}, {C}, 512, 512) order {order} "
-              f"D={D}: {ms:.4f} ms; {nbytes / ms / 1e9:.3f} TB/s, bound "
-              f"{bound:.4f} ms = {bound / ms:.3f} of the time; error "
+              f"D={D}: {ms:.4f} ms; {nb / ms / 1e9:.3f} TB/s, bound "
+              f"{bms:.4f} ms = {bms / ms:.3f} of the time; error "
               f"{err:.3e} of max|ref|{nwide}")
         del coeffs, out, ref
         torch.cuda.empty_cache()
 
 
 def binreduce_bench(reps, quick):
-    """B1, B2 and B2' over bench config 1's full and kept ids: CUDA-event
-    time, the bound of ``chip_smoke.py`` phase 2 (the 32-byte sectors that
-    hold a kept id, the ids and the outputs), error against float64 sums
-    made here."""
+    """B1, B2 and B2' over bench config 1's full and kept ids, B1 at 400
+    segments and at the lensing pipeline's RfftBin2D: CUDA-event time, the
+    bound of the 32-byte sectors that hold a kept id, the ids and the
+    outputs, error against float64 sums made here. Then B1 over Bin2D's ids
+    (every pixel an id, the edge segments summed and cut off) at the
+    flagship step, bench config 5, the pure-B path and, in float64, the
+    galaxy-catalog path, beside one ``index_add_`` of the same data."""
     import numpy as np
-    from orphics_tpu_torch import rect_geometry
+    from orphics_tpu_torch import Geometry, rect_geometry
+    from orphics_tpu_torch.geometry import arcmin
     from orphics_tpu_torch.ops import dft
-    from orphics_tpu_torch.ops.binning import RfftBin2D
+    from orphics_tpu_torch.ops.binning import Bin2D, RfftBin2D
     from orphics_tpu_torch.ops.bin_reduce import (bin2_reduce, bin_pair_power,
                                                   bin_reduce)
     dev = torch.device("cuda")
@@ -351,20 +412,20 @@ def binreduce_bench(reps, quick):
         a.index_add_(1, idx, xd.abs())
         return s[:, :-1], a[:, :-1]
 
+    def error(outs, refs):
+        return max(((o.double() - s).abs() / a.clamp_min(1e-300)).max().item()
+                   for o, (s, a) in zip(outs, refs))
+
     def report(name, tag, ms, outs, refs, planes, ids, nseg):
-        kept = (ids >= 0) & (ids < nseg)
-        kept = torch.nn.functional.pad(kept, (0, (-kept.numel()) % 8))
-        sectors = kept.view(-1, 8).any(1).sum().item()
-        nbytes = (sectors * 32 * planes[0].shape[0] * len(planes)
-                  + 4 * ids.numel() + sum(4 * o.numel() for o in outs))
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
-        err = max(((o.double() - s).abs() / a.clamp_min(1e-300)).max().item()
-                  for o, (s, a) in zip(outs, refs))
-        print(f"time {name} {tag}: {ms:.4f} ms; bound {bound:.4f} ms (bytes "
+        ids_np = ids.cpu().numpy()
+        sectors = live_sectors(ids_np, nseg)
+        B, N = planes[0].shape
+        bms = bound(bin_bytes(ids_np, nseg, (B, N, len(planes)),
+                              sum(4 * o.numel() for o in outs)))[0]
+        print(f"time {name} {tag}: {ms:.4f} ms; bound {bms:.4f} ms (bytes "
               f"of the {sectors} live 32-byte sectors of "
-              f"{kept.numel() // 8})"
-              f" = {bound / ms:.3f} of the time; error {err:.3e} of the "
-              "binned |data|")
+              f"{-(-ids_np.size // 8)}) = {bms / ms:.3f} of the time; error "
+              f"{error(outs, refs):.3e} of the binned |data|")
 
     rows = 8 if quick else 96
     d1, d2 = (torch.randn((rows, n * n // 2), generator=gen, device=dev)
@@ -380,7 +441,14 @@ def binreduce_bench(reps, quick):
         ms = cuda_ms(lambda: bin_reduce(d1, ids, nseg), reps)
         report("bin_reduce", tag, ms, (out,), (exact(d1, ids, nseg),),
                (d1,), ids, nseg)
-    del d1, d2
+    # B1 over dl = 20 edges out to l = 8000 (400 segments, two tiles)
+    ids400 = as_ids(np.digitize(geom.modlmap_np()[perm][:, perm][
+        dft.half_rows(n)[0]].ravel(), np.arange(20, 8000, 20.0), right=True))
+    out = bin_reduce(d1, ids400, 400)
+    ms = cuda_ms(lambda: bin_reduce(d1, ids400, 400), reps)
+    report("bin_reduce", f"({rows}, {n * n // 2}) nseg 400", ms, (out,),
+           (exact(d1, ids400, 400),), (d1,), ids400, 400)
+    del d1, d2, ids400
     # B1 at the lensing pipeline's RfftBin2D (3 spectra x 64, weighted)
     g512 = rect_geometry(width_arcmin=512 * 2.0, px_res_arcmin=2.0)
     rb = RfftBin2D(g512, np.arange(40, 3000, 80.0), device=dev)
@@ -402,21 +470,67 @@ def binreduce_bench(reps, quick):
         report("bin_pair_power", f"({rows}, {n * n}) x 4 {tag} nseg {nseg}",
                ms, out, (exact(q, ids, nseg), exact(c, ids, nseg)), four, ids,
                nseg)
+    del four, zr, zi, mr, mi, q, c
+    torch.cuda.empty_cache()
+    # B1 over Bin2D's ids; bound: the data, ids and output once, one add an
+    # element (fp64 for float64 data)
+    g64 = Geometry(64, 64, 0.5 * arcmin, 0.5 * arcmin)
+    g1024 = rect_geometry(width_arcmin=1024 * 2.0, px_res_arcmin=2.0)
+    for tag, ml, bins, b, dtype in (
+            ("flagship", g512.modlmap_np(),
+             np.arange(40, min(1000, int(g512.ellmax_safe() * 0.8)), 60.0),
+             1, torch.float32),
+            ("config 5", g64.modrmap_np(),
+             np.arange(0.0, 10.0, 1.0) * arcmin, 10_000, torch.float32),
+            ("pure-B", g1024.modlmap_np(), np.arange(300, 2500, 200.0), 48,
+             torch.float32),
+            ("galaxy catalogs, float64", geom.modlmap_np(),
+             np.arange(200.0, 3001.0, 200.0), 24, torch.float64)):
+        bins2d = Bin2D(ml, bins, device=dev)
+        ids, ns = bins2d._ids, bins2d._nseg
+        b = min(b, 8) if quick else b
+        x = torch.randn((b, ids.numel()), generator=gen, device=dev,
+                        dtype=dtype)
+        out = bin_reduce(x, ids, ns)
+        err = error((out,), (exact(x, ids, ns),))
+        ms = cuda_ms(lambda: bin_reduce(x, ids, ns), reps)
+        acc = torch.zeros((b, ns), dtype=dtype, device=dev)
+        ids_l = ids.long()
+        lib = cuda_ms(lambda: acc.index_add_(1, ids_l, x), reps)
+        f64 = dtype == torch.float64
+        bms, by = bound(nbytes(x, ids, out), 0.0 if f64 else x.numel(),
+                        x.numel() if f64 else 0.0)
+        kept = ""
+        if tag == "pure-B":
+            # the sectors of kept ids, had Bin2D dropped its edge segments
+            ids_np = ids.cpu().numpy()
+            ids_np = np.where((ids_np > 0) & (ids_np < ns - 1), ids_np, -1)
+            kb = bound(bin_bytes(ids_np, ns, (b, ids.numel(), 1),
+                                 4 * out.numel()))[0]
+            kept = f"; {kb:.4f} ms for the sectors of kept ids"
+        print(f"time bin_reduce {tag} ({b}, {ids.numel()}) "
+              f"{str(dtype).replace('torch.', '')} nseg {ns}: {ms:.4f} ms; "
+              f"bound {bms:.4f} ms ({by}{kept}) = {bms / ms:.3f} of the "
+              f"time; error {err:.3e} of the binned |data|; index_add_ "
+              f"{lib:.4f} ms")
+        del x, out, acc, ids_l
+        torch.cuda.empty_cache()
 
 
 def rowcombine_cases(y, gen):
     """(name, call, plain call, bytes moved) of B9 on pair planes y with
-    nq 3 (1 where the pairs are not a multiple of 3; Y, the weights and the coadd planes once each), and the library
-    call: the row transform alone"""
+    nq 3 (1 where the pairs are not a multiple of 3; Y, the weights and the
+    coadd planes once each), and the library call: the row transform
+    alone"""
     from orphics_tpu_torch.ops.rowcombine import (rowcombine_pp,
                                                   rowcombine_pp_ref)
     npt, n, _ = y[0].shape
     nq = 3 if npt % 3 == 0 else 1
     w = tuple(torch.randn((nq, n, n), generator=gen, device=y[0].device)
               for _ in range(4))
-    nbytes = 8 * npt * n * n + 16 * nq * n * n + 8 * (npt // nq) * n * n
+    nb = 8 * npt * n * n + 16 * nq * n * n + 8 * (npt // nq) * n * n
     cases = (("rowcombine_pp", lambda: rowcombine_pp(*y, *w, nq),
-              lambda: rowcombine_pp_ref(*y, *w, nq), nbytes),)
+              lambda: rowcombine_pp_ref(*y, *w, nq), nb),)
     yc = torch.complex(*y)
     refs = (("torch.fft.fft along the rows (the row transform alone)",
              lambda: torch.fft.fft(yc, dim=-1)),)
@@ -425,10 +539,10 @@ def rowcombine_cases(y, gen):
 
 def noise_bench(reps, quick):
     """B5n at the lensing pipeline's (32, 512^2) and at (3, 5, 7): CUDA-event
-    time, the bound of ``chip_smoke.py`` phase 2 (bytes: the scale, the
-    words and the two outputs once; operations: ~25 fp32 a value and
-    Philox's integer instructions a pair), and one ``torch.randn`` of the
-    same values (the draw alone)."""
+    time, the bound (bytes: the scale, the words and the two outputs once;
+    operations: a normal's fp32 operations a value and Philox's integer
+    instructions a pair), and one ``torch.randn`` of the same values (the
+    draw alone)."""
     import hashlib
     from orphics_tpu_torch.ops import dft
     from orphics_tpu_torch.ops.noise_planes import noise_planes
@@ -456,16 +570,15 @@ def noise_bench(reps, quick):
         dev_ms = device_ms(lambda: noise_planes(scale, words, batch), reps)
         draw = cuda_ms(lambda: torch.randn((2, batch) + shape, device=dev),
                        reps)
-        t_bytes = (4 * scale.numel() + 8 + 8 * values) / HBM_BYTES_PER_S
-        t_ops = ops_s(25.0 * 2 * values, 0.0,
-                      PHILOX_INT_OPS_PER_PAIR * values / 2)
-        bound = max(t_bytes, t_ops) * 1e3
+        nb = 4 * scale.numel() + 8 + 8 * values
+        ops = (NORMAL_FP32_OPS * 2 * values, 0.0,
+               PHILOX_INT_OPS_PER_PAIR * values / 2)
+        bms, by = bound(nb, *ops)
         print(f"time noise_planes ({batch}, {shape[0]}, {shape[1]}) x 2: "
               f"{ms:.4f} ms (device time in a profiler trace {dev_ms:.4f} "
-              f"ms); bound {bound:.4f} ms "
-              f"({'operations' if t_ops >= t_bytes else 'bytes'}: bytes "
-              f"{t_bytes * 1e3:.4f}, operations {t_ops * 1e3:.4f}) = "
-              f"{bound / ms:.3f} of the time; torch.randn of the same "
+              f"ms); bound {bms:.4f} ms ({by}: bytes "
+              f"{bound(nb)[0]:.4f}, operations {ops_ms(*ops):.4f}) = "
+              f"{bms / ms:.3f} of the time; torch.randn of the same "
               f"values (the draw alone) {draw:.4f} ms")
 
 
@@ -476,6 +589,8 @@ FAMILIES = {"rowpower": (rowpower_cases, ("rowpower.cu",), SHAPES, None),
                        "colfft_regs_launches"),
             "rowfft": (rowfft_cases, ("rowfft.cu", "rowpower.cu"),
                        ((96, 2048), (64, 512)), "rowfft_regs_launches"),
+            "mirror": (mirror_cases, ("mirror.cu",), ((32, 512),), None),
+            "qeconv": (qeconv_cases, ("qe_conv.cu",), ((64, 512),), None),
             "legendre": (legendre_bench, ("legendre.cu",), (), None),
             "legendre_ana": (
                 lambda reps, quick: legendre_bench(
@@ -506,6 +621,9 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"tree: {opts.tree}; kernel family {opts.kernel}")
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print(f"peaks (cmbbench/work.py): HBM {HBM_BYTES_PER_S / 1e12} TB/s, fp32 "
+          f"{FP32_FLOP_PER_S / 1e12} and fp64 {FP64_FLOP_PER_S / 1e12} "
+          "TFLOP/s")
     lib = _build.library()
     keep = False
     for line in _build.build_log().splitlines():
@@ -532,7 +650,7 @@ def main():
         cases, refs = cases_of(x, gen)
         for name, fn in refs:
             print(f"time {tag} {name}: {cuda_ms(fn, reps):.4f} ms")
-        for name, fn, ref_fn, nbytes in cases:
+        for name, fn, ref_fn, nb, *ops in cases:
             before = counter() if counter else 0
             err = rel(fn(), ref_fn())
             route = ""
@@ -540,10 +658,14 @@ def main():
                 route = ("; register-resident kernel" if counter() > before
                          else "; radix-2 kernel")
             ms = cuda_ms(fn, reps)
-            bound = nbytes / HBM_BYTES_PER_S * 1e3
-            print(f"time {name} {tag}: {ms:.4f} ms; {nbytes / ms / 1e9:.3f} "
-                  f"TB/s, bound {bound:.4f} ms = {bound / ms:.3f} of the time;"
-                  f" error {err:.3e} of max|ref|{route}")
+            bms = bound(nb)[0]
+            line = (f"time {name} {tag}: {ms:.4f} ms; {nb / ms / 1e9:.3f} "
+                    f"TB/s, bound {bms:.4f} ms = {bms / ms:.3f} of the time")
+            if ops:
+                full, by = bound(nb, *ops[0])
+                line += (f"; with its operations {full:.4f} ms ({by}) = "
+                         f"{full / ms:.3f}")
+            print(f"{line}; error {err:.3e} of max|ref|{route}")
         del x, cases, refs
         torch.cuda.empty_cache()
     print(f"card: {card}")
