@@ -244,6 +244,7 @@ class Launches:
             for fn in fns:
                 fn.launches = 0
         bin_reduce.launches_f64 = 0
+        leg.legendre_ana.ring_io = leg.legendre_syn.ring_io = 0
         self.row_regs = self.lib.rowfft_regs_launches()
         self.b9_regs = self.lib.rowcombine_regs_launches()
         lens_map_kernel.wide_blocks(reset=True)
@@ -465,7 +466,8 @@ def plain_versions():
     no elementwise plain version and no entry here."""
 
     def b10_plain(ref):
-        return lambda x, tab, fast: ref(x, tab, True) if fast else ref(x, tab)
+        # the call's layouts (phase, weights, packed alms) passed on
+        return lambda x, tab, fast, *io: ref(x, tab, bool(fast), *io)
 
     def b10_tol(a):
         return B10_FAST_PLAIN_TOL if a[2] else 1e-6
@@ -664,6 +666,7 @@ def curved_qe_phase(dev, card, results, reset_counts, read_counts):
                 phihat = qe.phi_from_alm(tlm)
                 torch.cuda.synchronize()
             counts = read_counts(("legendre_ana", "legendre_syn"), "20")
+            ring_io = (leg.legendre_ana.ring_io, leg.legendre_syn.ring_io)
         else:
             phihat = qe.phi_from_alm(tlm)
         phihat_m = qe.phi_from_alm(t0lm - dT + nlm)     # the same at -phi
@@ -696,10 +699,15 @@ def curved_qe_phase(dev, card, results, reset_counts, read_counts):
           + ", ".join(f"{r['sig']}: {r['launches']} launch" for r in recs))
     ref_of = {"legendre_ana": leg.legendre_ana_ref,
               "legendre_syn": leg.legendre_syn_ref}
+    check(ring_io == (1, 1), f"20: {ring_io} B10a/B10s launches on the "
+                             "scalar SHT's layouts, not (1, 1)")
+    print(f"[20f] both launches on the scalar SHT's layouts (ring_io "
+          f"{ring_io})")
     for r in recs:
-        name, fn, (x, tab) = r["key"], r["fn"], r["args"][:2]
+        name, fn, args = r["key"], r["fn"], r["args"]
+        x, tab = args[:2]
         ktab = leg.kernel_tables(tab)
-        err, rel = rel_err((fn(x, tab),), (ref_of[name](x, tab),))
+        err, rel = rel_err((fn(*args),), (ref_of[name](*args),))
         check(rel <= 1e-6, f"20: {name} on the path's inputs {tuple(x.shape)}"
                            f": {rel:.3e} of max|ref| > 1e-6")
         key = name + "_qe"
@@ -2195,6 +2203,12 @@ def sht_roundtrip_phase(dev, card, results, launches):
     counts9 = launches.read(("legendre_ana", "legendre_syn"), "9")
     for name in ("legendre_ana", "legendre_syn"):
         results[name]["launches"] = counts9[name]
+        ring_io = getattr(leg, name).ring_io
+        check(ring_io == counts9[name], f"9: {ring_io} of {counts9[name]} "
+                                        f"{name} launches on the scalar "
+                                        "SHT's layouts")
+        print(f"[9] {name}: {ring_io} of {counts9[name]} launches on the "
+              "scalar SHT's layouts")
     del a0, state
     # the fast roundtrip at lmax 1023 against the reference's 1.8e-3
     # (pallas_sht.py:146-147), one unit-variance complex64 alm as bench.py

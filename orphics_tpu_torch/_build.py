@@ -74,9 +74,12 @@ _SIGNATURES = {
     "rowfft_blk0_launch": ([_VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP], _INT),
     "noise_planes_launch": ([_VP, _VP, _VP, _VP, _INT, _I64, _VP], _INT),
     "mirror_launch": ([_VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP], _INT),
-    "legendre_ana_launch": ([_VP] * 12 + [_INT] * 13 + [_VP], _INT),
-    "legendre_ana1_launch": ([_VP] * 12 + [_INT] * 10 + [_VP], _INT),
-    "legendre_syn_launch": ([_VP] * 12 + [_INT] * 10 + [_VP], _INT),
+    "legendre_ana_launch": ([_VP] * 12 + [_INT] * 13
+                            + [_I64, _I64, _INT, _VP, _VP, _VP], _INT),
+    "legendre_ana1_launch": ([_VP] * 12 + [_INT] * 10
+                             + [_I64, _I64, _INT, _VP, _VP, _VP], _INT),
+    "legendre_syn_launch": ([_VP] * 12 + [_INT] * 11
+                            + [_I64, _I64, _INT, _VP, _VP], _INT),
     "qe_leg_launch": ([_VP] * 3 + [_INT, _INT, _I64, _INT, _VP], _INT),
     "qe_pair_launch": ([_VP] * 2 + [_INT] + [_VP] * 4 + [_INT] + [_VP] * 4
                        + [_INT, _I64, _INT, _VP], _INT),

@@ -55,7 +55,7 @@
 //     8 columns of S0's then S1's, the even-l rows keeping S0's and the
 //     odd-l rows S1's (the other half of each product is discarded). G's
 //     fragments stay in registers for the whole m column, read from the
-//     caller's (map, ring, m) layout with the north-south fold formed on
+//     caller's ring side (Layouts) with the north-south fold formed on
 //     the way (both forms: no fold, stack or permute pass). One block of 16
 //     warps per (m, 512 RR rings); the warps' partials are summed in shared
 //     memory in a fixed order during the next chunk; each (l, m) output is
@@ -67,7 +67,7 @@
 //     maps fill the registers), each re-running the recurrence.
 //   - B10s: M = 16 rings, K = 4 l, N = 8 columns, Lambda transposed through
 //     the warp buffer, the a fragments from the chunk's rows (cp.async from
-//     the caller's (map, l, m) layout into padded rows), the sums in C
+//     the caller's alm side into padded rows), the sums in C
 //     fragments over the whole l loop (even-l and odd-l accumulators when
 //     folded: north = E + O, south = (-1)^m (E - O)). One block per (m, 128
 //     RR rings).
@@ -97,7 +97,7 @@
 //   shared memory in pair order, the cluster its blocks' sums in rank order
 //   over distributed shared memory (barrier.cluster, then each block pulls
 //   its share of the chunk's outputs from every live block); the output is
-//   written once, in the caller's type and (map, l, m) layout;
+//   written once, in the caller's type on its alm side;
 // * one recurrence for all maps: a block holds G's fragments of all its
 //   maps in registers, in the caller's type, converted at the MMA;
 // * chunks of 32 l, so that an m16 tile is the 16 l of one parity: warp h
@@ -121,6 +121,23 @@
 // grids of up to 1024 kernel rings, where the ring groups write no partial
 // planes for such launches, and the unfolded layouts keep the ring-group
 // form.
+//
+// Layouts (Io). Every kernel reads and writes through one description of
+// its two sides, so that the scalar SHT runs no pass between an alm, a
+// Legendre kernel and cuFFT. The alm side (B10a's output, B10s's input) is
+// the maps' (L1, M1) matrices, or their healpy-packed alms, whose column m
+// is contiguous from m (2 L1 - 1 - m) / 2 and holds the l >= m only (B10s
+// reads zeros below, B10a writes nothing there). The ring side (B10a's
+// input, B10s's output) is element (map, ring t, m) at map stride, ring
+// stride and m: B10a reads the ring FFT's half spectrum in place, B10s
+// writes the one the inverse FFT reads, whose columns past M1 the launch
+// zeroes with one memset. The ring phase exp(-+ i m phi0) (null where phi0
+// = 0) and B10a's ring weights w_t 2 pi / nphi (null: none) are applied in
+// fp64 on the ring side, each ring weighted before the fold forms w_N G_N
+// +- w_S G_S, and the ring values are then rounded to the input type as
+// the matrix layout's were. Without phase and weights every value is
+// bit-equal to the matrix layout's: an fp64 sum of two fp32 values rounds
+// to fp32 as the fp32 sum does.
 #include <cuda_runtime.h>
 #include <cstdint>
 #include <type_traits>
@@ -148,6 +165,83 @@ struct Tabs {
   const int* bounds;    // (3 M1, ng) first chunk, one past the last, -
   int M1, Lp, Tk, ng;
 };
+
+// The launch's layouts (the header's Layouts), in complex elements
+struct Io {
+  int64_t amap;         // alm side: one map's alms
+  int64_t rmap, rrow;   // ring side: one map, one ring
+  int L1, M1, packed;
+  const double* phase;  // (M1, 2) exp(-+ i m phi0), or null
+  const double* w;      // (rings) B10a's ring weights, or null
+  __device__ int64_t alm(int b, int l, int m) const {
+    const int64_t col = packed
+        ? static_cast<int64_t>(m) * (2 * L1 - 1 - m) / 2 + l
+        : static_cast<int64_t>(l) * M1 + m;
+    return b * amap + col;
+  }
+  __device__ int lmin(int m) const { return packed ? m : 0; }
+  __device__ int64_t ring(int b, int t, int m) const {
+    return b * rmap + t * rrow + m;
+  }
+};
+
+template <typename TI>
+using Vec2 = typename std::conditional<sizeof(TI) == 4, float2,
+                                       double2>::type;
+
+// (re, im) times the ring phase of m, in fp64
+__device__ inline void rotate(const Io& io, int m, double& re, double& im) {
+  if (!io.phase) return;
+  const double2 ph = reinterpret_cast<const double2*>(io.phase)[m];
+  const double r = re * ph.x - im * ph.y;
+  im = re * ph.y + im * ph.x;
+  re = r;
+}
+
+// B10a's ring value of (map b, ring t, m), its real (h = 0) or imaginary
+// part, in fp64: the phase (the complex where there is one, else the part
+// alone is read), then the weight
+template <typename TI>
+__device__ inline double ring_in(const TI* G, const Io& io, int b, int t,
+                                 int m, int h) {
+  const TI* p = G + 2 * io.ring(b, t, m);
+  double v;
+  if (io.phase) {
+    const Vec2<TI> z = *reinterpret_cast<const Vec2<TI>*>(p);
+    double re = z.x, im = z.y;
+    rotate(io, m, re, im);
+    v = h ? im : re;
+  } else {
+    v = p[h];
+  }
+  return io.w ? v * io.w[t] : v;
+}
+
+// B10a's input column c (map c / 2, its real or imaginary part h) of ring
+// t: folded, the even or odd combination of rings t and T - 1 - t that
+// parity p contracts (the equator's partner a zero), as the wrapper's plain
+// _fold_G forms it; rounded to TI
+template <typename TI, bool FOLD>
+__device__ inline TI fold_in(const TI* G, const Io& io, int b, int t, int m,
+                             int T, int p, int h) {
+  const double nv = ring_in(G, io, b, t, m, h);
+  if (!FOLD) return static_cast<TI>(nv);
+  const bool pair = t < T / 2;
+  const double sv = pair ? ring_in(G, io, b, T - 1 - t, m, h) : 0.0;
+  const double e = pair ? nv + sv : nv, o = pair ? nv - sv : 0.0;
+  return static_cast<TI>(((m & 1) == 0) == (p == 0) ? e : o);
+}
+
+// B10s's store of (map b, ring t, m): phase in fp64, then TI
+template <typename TI>
+__device__ inline void ring_out(TI* out, const Io& io, int b, int t, int m,
+                                double re, double im) {
+  rotate(io, m, re, im);
+  Vec2<TI> v;
+  v.x = static_cast<TI>(re);
+  v.y = static_cast<TI>(im);
+  *reinterpret_cast<Vec2<TI>*>(out + 2 * io.ring(b, t, m)) = v;
+}
 
 // d += a b on the fp64 tensor cores, m16n8k4 (the full-rate fp64 shape on
 // sm_90; m8n8k4 issues at half the rate): A 16x4 (a0 row g = lane/4, a1 row
@@ -397,9 +491,10 @@ __device__ inline void chunk_bounds(const Tabs& tb, int m, int g0, int gstep,
   if (blo >= bhi) blo = bhi = 0;
 }
 
-// B10a. G: the maps' (nmaps, Tr, M1, 2) TI, Tr = T rings when folded, else
-// Tk; out: the maps' (nmaps, L1, M1, 2) TI when direct, else fp64 partials
-// (nsg, nmaps, L1, M1, 2), nsg = the grid's 512 RR-ring groups. Grid (M1,
+// B10a. G: the maps' Tr rings of TI on the ring side of io, Tr = T rings
+// when folded, else Tk; out: the maps' alms of TI on the alm side of io
+// when direct, else fp64 partials (nsg, nmaps, L1, M1, 2), nsg = the
+// grid's 512 RR-ring groups. Grid (M1,
 // nsg, map groups), 512 threads; block z takes the maps [z gmaps, z gmaps
 // + gmaps) (fewer in the last group). Warp w, slot r holds the rings (sg RR
 // + r) 512 + 32 w + lane. The B columns are P cp, cp = 2 (the group's maps)
@@ -408,7 +503,7 @@ __device__ inline void chunk_bounds(const Tabs& tb, int m, int g0, int gstep,
 template <typename TI, typename R, bool FOLD, int NTB, int RR>
 __global__ void __launch_bounds__(ANA_NW * 32, 1)
 ana_kernel(Tabs tb, const TI* __restrict__ G, void* __restrict__ out,
-           int nmaps, int gmaps, int L1, int Tr, int T, int direct) {
+           int nmaps, int gmaps, int L1, int T, int direct, Io io) {
   constexpr int P = FOLD ? 2 : 1;
   constexpr int NTH = ANA_NW * 32;
   constexpr int S = 32 * RR + 4;        // Lambda buffer row stride
@@ -427,16 +522,18 @@ ana_kernel(Tabs tb, const TI* __restrict__ G, void* __restrict__ out,
   const int b0 = blockIdx.z * gmaps;           // the group's first map
   const int cp = 2 * min(gmaps, nmaps - b0), cb = P * cp;
   const int ring0 = sg * RR * NTH + 32 * w;   // slot r adds r * NTH
-  G += static_cast<int64_t>(b0) * Tr * tb.M1 * 2;
   // output element (map column c, l) of this m
   const int64_t slab = static_cast<int64_t>(2 * nmaps) * L1 * tb.M1;
   auto put = [&](int c, int l, double v) {
-    const int64_t i = (static_cast<int64_t>(b0 + (c >> 1)) * L1 + l)
-        * tb.M1 * 2 + 2 * m + (c & 1);
-    if (direct)
-      static_cast<TI*>(out)[i] = static_cast<TI>(v);
-    else
-      static_cast<double*>(out)[sg * slab + i] = v;
+    const int b = b0 + (c >> 1);
+    if (direct) {
+      if (l >= io.lmin(m))
+        static_cast<TI*>(out)[2 * io.alm(b, l, m) + (c & 1)] =
+            static_cast<TI>(v);
+    } else {
+      static_cast<double*>(out)[sg * slab + (static_cast<int64_t>(b) * L1
+          + l) * tb.M1 * 2 + 2 * m + (c & 1)] = v;
+    }
   };
   // the warps' partials of chunk ch, summed in a fixed order, written once
   auto reduce = [&](int ch) {
@@ -481,19 +578,11 @@ ana_kernel(Tabs tb, const TI* __restrict__ G, void* __restrict__ out,
     Coef<R>::fetch(tb, m, blo + 1, coef + ((blo + 1) % 3) * 3 * LC, tid);
   cp_commit();
   // G's fragments of the warp's rings: B[k = ring 4 ks + q][n = col];
-  // folded, S0 and S1 of ring t are formed from rings t and T - 1 - t in
-  // TI arithmetic, as the wrapper's plain _fold_G forms them
+  // folded, S0's then S1's columns (fold_in)
   auto gval = [&](int t, int col) -> double {
     const int p = FOLD ? col / cp : 0, c = col - p * cp;
-    const TI* gt = G + ((static_cast<int64_t>(c >> 1) * Tr + t) * tb.M1 + m)
-        * 2 + (c & 1);
-    if (!FOLD) return static_cast<double>(gt[0]);
-    const TI n = gt[0];
-    const bool pair = t < T / 2;
-    const TI s = pair ? gt[static_cast<int64_t>(T - 1 - 2 * t) * tb.M1 * 2]
-                      : TI(0);
-    const TI e = pair ? TI(n + s) : n, o = pair ? TI(n - s) : TI(0);
-    return static_cast<double>(((m & 1) == 0) == (p == 0) ? e : o);
+    return static_cast<double>(
+        fold_in<TI, FOLD>(G, io, b0 + (c >> 1), t, m, T, p, c & 1));
   };
   double bf[RR][8][NTB];
 #pragma unroll
@@ -681,8 +770,9 @@ __device__ __forceinline__ double ld_rank(const double* p, int rank) {
   return v;
 }
 
-// B10a, one pass, folded. G: the maps' (nmaps, T, M1, 2) TI; out: the
-// maps' (nmaps, L1, M1, 2) TI, every element written once. Grid (M1,
+// B10a, one pass, folded. G: the maps' T rings of TI on the ring side of
+// io; out: the maps' alms of TI on the alm side, every element written
+// once. Grid (M1,
 // ncl) in clusters of (1, ncl): block `rank` of the m's cluster holds the
 // rings rank 256 + [0, 256), warp w the 32 rings rank 256 + 32 w + lane
 // (pair w / 2, role h = w % 2). A chunk: each warp runs its rings' LC1
@@ -697,7 +787,7 @@ __device__ __forceinline__ double ld_rank(const double* p, int rank) {
 template <typename TI, typename R, int NT>
 __global__ void __launch_bounds__(ANA1_NW * 32, 2)
 ana_kernel_1p(Tabs tb, const TI* __restrict__ G, TI* __restrict__ out,
-              int nmaps, int L1, int T, int ncl) {
+              int nmaps, int L1, int T, int ncl, Io io) {
   constexpr int NTH = ANA1_NW * 32;
   constexpr int NW = ANA1_NW;
   constexpr int NH = NT > 3 ? 2 : NT;   // column tiles a pass (registers)
@@ -717,10 +807,10 @@ ana_kernel_1p(Tabs tb, const TI* __restrict__ G, TI* __restrict__ out,
   const int pr = w >> 1, h = w & 1;
   const int cs = 2 * nmaps;                  // columns (of a parity)
   const int pring0 = rank * NTH + 64 * pr;   // the pair's first ring
-  const int64_t plane = static_cast<int64_t>(tb.M1) * 2;
+  const int lmin = io.lmin(m);
   auto put = [&](int c, int l, double v) {
-    out[(static_cast<int64_t>(c >> 1) * L1 + l) * plane + 2 * m + (c & 1)] =
-        static_cast<TI>(v);
+    if (l >= lmin)
+      out[2 * io.alm(c >> 1, l, m) + (c & 1)] = static_cast<TI>(v);
   };
   // output e of a block's chunk sum: m-tile e / PE, then the warp
   // partial's (tile, fragment register, lane)
@@ -819,18 +909,7 @@ ana_kernel_1p(Tabs tb, const TI* __restrict__ G, TI* __restrict__ out,
   if (clo + 1 < chi) fetch(clo + 1);
   cp_commit();
   // G's fragments of the pair's rings for parity h: B[k = ring 4 ks + q][n
-  // = col g of tile nt], S_h of ring t formed from rings t and T - 1 - t in
-  // TI arithmetic, as the wrapper's plain _fold_G forms it
-  auto gval = [&](int t, int c) -> TI {
-    const TI* gt = G + ((static_cast<int64_t>(c >> 1) * T + t) * tb.M1 + m)
-        * 2 + (c & 1);
-    const TI n = gt[0];
-    const bool pair = t < T / 2;
-    const TI s = pair ? gt[static_cast<int64_t>(T - 1 - 2 * t) * plane]
-                      : TI(0);
-    const TI e = pair ? TI(n + s) : n, o = pair ? TI(n - s) : TI(0);
-    return ((m & 1) == 0) == (h == 0) ? e : o;
-  };
+  // = col g of tile nt], S_h of ring t (fold_in)
   TI bf[16][NT];
 #pragma unroll
   for (int ks = 0; ks < 16; ++ks) {
@@ -838,7 +917,8 @@ ana_kernel_1p(Tabs tb, const TI* __restrict__ G, TI* __restrict__ out,
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       const int col = nt * 8 + g;
-      bf[ks][nt] = (t < tb.Tk && col < cs) ? gval(t, col) : TI(0);
+      bf[ks][nt] = (t < tb.Tk && col < cs)
+          ? fold_in<TI, true>(G, io, col >> 1, t, m, T, h, col & 1) : TI(0);
     }
   }
   Lane<R> ln;
@@ -907,14 +987,14 @@ ana_kernel_1p(Tabs tb, const TI* __restrict__ G, TI* __restrict__ out,
   cluster_wait();
 }
 
-// B10s. a: the maps' (nmaps, L1, M1, 2) TI; out: the maps' (nmaps, T', M1,
-// 2) TI, T' = T (every ring; folded: north ring t and south ring T - 1 - t)
-// or Tk. Grid (M1, ceil(Tk / 128 RR)), 128 threads; warp w, slot
-// r holds the rings 128 RR y + 32 (RR w + r) + lane.
+// B10s. a: the maps' alms of TI on the alm side of io; out: the maps' T'
+// rings of TI on the ring side, T' = T (every ring; folded: north ring t
+// and south ring T - 1 - t) or Tk. Grid (M1, ceil(Tk / 128 RR)), 128
+// threads; warp w, slot r holds the rings 128 RR y + 32 (RR w + r) + lane.
 template <typename TI, typename R, bool FOLD, int NT, int RR>
 __global__ void __launch_bounds__(SYN_NW * 32)
 syn_kernel(Tabs tb, const TI* __restrict__ a, TI* __restrict__ out,
-           int nmaps, int L1, int T) {
+           int nmaps, int L1, int T, Io io) {
   constexpr int P = FOLD ? 2 : 1;
   constexpr int NTH = SYN_NW * 32;
   constexpr int MT = 2 * RR;            // ring tiles of 16 per warp
@@ -957,9 +1037,10 @@ syn_kernel(Tabs tb, const TI* __restrict__ a, TI* __restrict__ out,
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[p][mt][nt][i] = 0.0;
 
-  // a chunk's rows (each map's re, im: one copy of 2 TI; zeros past L1),
-  // chunk row j at buffer row FOLD ? (j & 1) 8 + j / 2 : j; columns past
-  // cs stay zero
+  // a chunk's rows (each map's re, im: one copy of 2 TI; zeros outside
+  // the alm side's l of this m), chunk row j at buffer row FOLD ? (j & 1) 8
+  // + j / 2 : j; columns past cs stay zero
+  const int lmin = io.lmin(m);
   auto fetch = [&](int ch) {
     const int buf = ch % 3;
     Coef<R>::fetch(tb, m, ch, coef + buf * 3 * LC, tid);
@@ -967,9 +1048,8 @@ syn_kernel(Tabs tb, const TI* __restrict__ a, TI* __restrict__ out,
       const int j = i / nmaps, b = i % nmaps, l = ch * LC + j;
       const int row = FOLD ? (j & 1) * 8 + (j >> 1) : j;
       TI* dst = as + (buf * LC + row) * SC + 2 * b;
-      if (l < L1)
-        cp_async<2 * sizeof(TI)>(
-            dst, a + ((static_cast<int64_t>(b) * L1 + l) * tb.M1 + m) * 2);
+      if (l < L1 && l >= lmin)
+        cp_async<2 * sizeof(TI)>(dst, a + 2 * io.alm(b, l, m));
       else
         dst[0] = dst[1] = TI(0);
     }
@@ -1013,12 +1093,7 @@ syn_kernel(Tabs tb, const TI* __restrict__ a, TI* __restrict__ out,
     __syncthreads();
   }
   cp_wait_all();
-  const int Trows = FOLD ? T : tb.Tk;
   const double sg = (m & 1) ? -1.0 : 1.0;
-  auto at = [&](int c, int row) -> TI& {
-    return out[((static_cast<int64_t>(c >> 1) * Trows + row) * tb.M1 + m)
-               * 2 + (c & 1)];
-  };
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -1026,20 +1101,22 @@ syn_kernel(Tabs tb, const TI* __restrict__ a, TI* __restrict__ out,
       const int t = ring0 + mt * 16 + g + 8 * hh;
       if (t >= tb.Tk) continue;
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int c = nt * 8 + 2 * q + h;
-          if (c >= cs) continue;
-          const double e = acc[0][mt][nt][2 * hh + h];
-          if (FOLD) {
-            const double o = acc[P - 1][mt][nt][2 * hh + h];
-            at(c, t) = static_cast<TI>(e + o);
-            if (t < T / 2) at(c, T - 1 - t) = static_cast<TI>(sg * (e - o));
-          } else {
-            at(c, t) = static_cast<TI>(e);
-          }
+      for (int nt = 0; nt < NT; ++nt) {
+        const int b = nt * 4 + q;          // columns 2 b (re), 2 b + 1 (im)
+        if (2 * b >= cs) continue;
+        const double er = acc[0][mt][nt][2 * hh];
+        const double ei = acc[0][mt][nt][2 * hh + 1];
+        if (FOLD) {
+          const double orr = acc[P - 1][mt][nt][2 * hh];
+          const double oi = acc[P - 1][mt][nt][2 * hh + 1];
+          ring_out(out, io, b, t, m, er + orr, ei + oi);
+          if (t < T / 2)
+            ring_out(out, io, b, T - 1 - t, m, sg * (er - orr),
+                     sg * (ei - oi));
+        } else {
+          ring_out(out, io, b, t, m, er, ei);
         }
+      }
     }
 }
 
@@ -1050,7 +1127,7 @@ syn_kernel(Tabs tb, const TI* __restrict__ a, TI* __restrict__ out,
 template <typename TI, typename R, bool FOLD, int NB, int RR>
 __global__ void __launch_bounds__(SYN_NW * 32)
 syn_cc_kernel(Tabs tb, const TI* __restrict__ a, TI* __restrict__ out,
-              int nmaps, int L1, int T) {
+              int nmaps, int L1, int T, Io io) {
   constexpr int P = FOLD ? 2 : 1;
   constexpr int NTH = SYN_NW * 32;
   constexpr int NA = (LC * 2 * NB + NTH - 1) / NTH;   // a values a thread
@@ -1084,13 +1161,12 @@ syn_cc_kernel(Tabs tb, const TI* __restrict__ a, TI* __restrict__ out,
 #pragma unroll
       for (int b = 0; b < NB; ++b) acc[p][r][b][0] = acc[p][r][b][1] = 0.0;
 
+  const int lmin = io.lmin(m);
   auto load_a = [&](int ch, int k) -> TI {
     const int i = tid + k * NTH;
     const int l = ch * LC + i / cs, c = i % cs;
-    return i < LC * cs && l < L1
-        ? a[((static_cast<int64_t>(c >> 1) * L1 + l) * tb.M1 + m) * 2
-            + (c & 1)]
-        : TI(0);
+    return i < LC * cs && l < L1 && l >= lmin
+        ? a[2 * io.alm(c >> 1, l, m) + (c & 1)] : TI(0);
   };
   auto store_a = [&](int buf, int k, TI v) {
     const int i = tid + k * NTH;
@@ -1142,37 +1218,31 @@ syn_cc_kernel(Tabs tb, const TI* __restrict__ a, TI* __restrict__ out,
     __syncthreads();
   }
   cp_wait_all();
-  const int Trows = FOLD ? T : tb.Tk;
   const double sg = (m & 1) ? -1.0 : 1.0;
-  auto at = [&](int c, int row) -> TI& {
-    return out[((static_cast<int64_t>(c >> 1) * Trows + row) * tb.M1 + m)
-               * 2 + (c & 1)];
-  };
 #pragma unroll
   for (int r = 0; r < RR; ++r) {
     const int t = ring0 + r * 32 + lane;
     if (t >= tb.Tk) continue;
 #pragma unroll
-    for (int b = 0; b < NB; ++b)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = 2 * b + h;
-        if (c >= cs) continue;
-        const double e = acc[0][r][b][h];
-        if (FOLD) {
-          const double o = acc[P - 1][r][b][h];
-          at(c, t) = static_cast<TI>(e + o);
-          if (t < T / 2) at(c, T - 1 - t) = static_cast<TI>(sg * (e - o));
-        } else {
-          at(c, t) = static_cast<TI>(e);
-        }
+    for (int b = 0; b < NB; ++b) {
+      if (2 * b >= cs) continue;
+      const double er = acc[0][r][b][0], ei = acc[0][r][b][1];
+      if (FOLD) {
+        const double orr = acc[P - 1][r][b][0], oi = acc[P - 1][r][b][1];
+        ring_out(out, io, b, t, m, er + orr, ei + oi);
+        if (t < T / 2)
+          ring_out(out, io, b, T - 1 - t, m, sg * (er - orr),
+                   sg * (ei - oi));
+      } else {
+        ring_out(out, io, b, t, m, er, ei);
       }
+    }
   }
 }
 
 template <typename TI, typename R, bool FOLD, int NB, int RR>
 int launch_syn_cc(const Tabs& tb, const void* a, void* out, int nmaps,
-                  int L1, int T, cudaStream_t st) {
+                  int L1, int T, const Io& io, cudaStream_t st) {
   constexpr int smem = static_cast<int>(
       sizeof(double) * 2 * LC * 2 * NB
       + sizeof(R) * (9 * LC + 2 * RR * SYN_NW * 32)
@@ -1181,7 +1251,7 @@ int launch_syn_cc(const Tabs& tb, const void* a, void* out, int nmaps,
   syn_cc_kernel<TI, R, FOLD, NB, RR><<<dim3(tb.M1, ny), SYN_NW * 32, smem,
                                        st>>>(tb, static_cast<const TI*>(a),
                                              static_cast<TI*>(out), nmaps, L1,
-                                             T);
+                                             T, io);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1192,12 +1262,12 @@ int set_smem(K kernel, int bytes) {
 }
 
 struct AnaArgs {
-  int nmaps, gmaps, L1, Tr, T, direct;
+  int nmaps, gmaps, L1, T, direct;
 };
 
 template <typename TI, typename R, bool FOLD, int NTB, int RR>
 int launch_ana(const Tabs& tb, const void* G, void* out, const AnaArgs& g,
-               cudaStream_t st) {
+               const Io& io, cudaStream_t st) {
   constexpr int S = 32 * RR + 4, PE = NTB * 128;
   constexpr int smem = static_cast<int>(
       sizeof(double) * (ANA_NW * LC * S + 2 * RR * ANA_NW * PE)
@@ -1209,8 +1279,8 @@ int launch_ana(const Tabs& tb, const void* G, void* out, const AnaArgs& g,
   const int nz = (g.nmaps + g.gmaps - 1) / g.gmaps;
   ana_kernel<TI, R, FOLD, NTB, RR><<<dim3(tb.M1, nsg, nz), ANA_NW * 32,
                                      smem, st>>>(
-      tb, static_cast<const TI*>(G), out, g.nmaps, g.gmaps, g.L1, g.Tr, g.T,
-      g.direct);
+      tb, static_cast<const TI*>(G), out, g.nmaps, g.gmaps, g.L1, g.T,
+      g.direct, io);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1231,17 +1301,17 @@ int ana_group(int nmaps, int fold) {
 
 template <typename TI, typename R, bool FOLD>
 int ana_dispatch(const Tabs& tb, const void* G, void* out, const AnaArgs& g,
-                 int rr, cudaStream_t st) {
+                 int rr, const Io& io, cudaStream_t st) {
   const int ntb = ana_tiles(g.gmaps, FOLD);
-  if (rr == 2) return launch_ana<TI, R, FOLD, 1, 2>(tb, G, out, g, st);
-  if (ntb == 1) return launch_ana<TI, R, FOLD, 1, 1>(tb, G, out, g, st);
-  if (ntb == 2) return launch_ana<TI, R, FOLD, 2, 1>(tb, G, out, g, st);
-  return launch_ana<TI, R, FOLD, 4, 1>(tb, G, out, g, st);
+  if (rr == 2) return launch_ana<TI, R, FOLD, 1, 2>(tb, G, out, g, io, st);
+  if (ntb == 1) return launch_ana<TI, R, FOLD, 1, 1>(tb, G, out, g, io, st);
+  if (ntb == 2) return launch_ana<TI, R, FOLD, 2, 1>(tb, G, out, g, io, st);
+  return launch_ana<TI, R, FOLD, 4, 1>(tb, G, out, g, io, st);
 }
 
 template <typename TI, typename R, int NT>
 int launch_ana_1p(const Tabs& tb, const void* G, void* out, int nmaps,
-                  int L1, int T, int ncl, cudaStream_t st) {
+                  int L1, int T, int ncl, const Io& io, cudaStream_t st) {
   constexpr int PE = NT * 128;
   constexpr int smem = static_cast<int>(
       sizeof(double) * (ANA1_NP * LC1 * 64 + ANA1_NW * PE + 4 * PE)
@@ -1263,29 +1333,29 @@ int launch_ana_1p(const Tabs& tb, const void* G, void* out, int nmaps,
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, tb, static_cast<const TI*>(G), static_cast<TI*>(out),
-      nmaps, L1, T, ncl);
+      nmaps, L1, T, ncl, io);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // NT column tiles of 8 for the 2 nmaps columns of a parity: 1 to 4
 template <typename TI, typename R>
 int ana_1p_dispatch(const Tabs& tb, const void* G, void* out, int nmaps,
-                    int L1, int T, int ncl, cudaStream_t st) {
+                    int L1, int T, int ncl, const Io& io, cudaStream_t st) {
   switch ((2 * nmaps + 7) / 8) {
     case 1:
-      return launch_ana_1p<TI, R, 1>(tb, G, out, nmaps, L1, T, ncl, st);
+      return launch_ana_1p<TI, R, 1>(tb, G, out, nmaps, L1, T, ncl, io, st);
     case 2:
-      return launch_ana_1p<TI, R, 2>(tb, G, out, nmaps, L1, T, ncl, st);
+      return launch_ana_1p<TI, R, 2>(tb, G, out, nmaps, L1, T, ncl, io, st);
     case 3:
-      return launch_ana_1p<TI, R, 3>(tb, G, out, nmaps, L1, T, ncl, st);
+      return launch_ana_1p<TI, R, 3>(tb, G, out, nmaps, L1, T, ncl, io, st);
     default:
-      return launch_ana_1p<TI, R, 4>(tb, G, out, nmaps, L1, T, ncl, st);
+      return launch_ana_1p<TI, R, 4>(tb, G, out, nmaps, L1, T, ncl, io, st);
   }
 }
 
 template <typename TI, typename R, bool FOLD, int NT, int RR>
 int launch_syn(const Tabs& tb, const void* a, void* out, int nmaps, int L1,
-               int T, cudaStream_t st) {
+               int T, const Io& io, cudaStream_t st) {
   constexpr int S = 32 * RR + 4;
   constexpr int SC = sizeof(TI) == 4 ? (NT == 1 ? 8 : 40)
                                      : (NT == 4 ? 36 : 20);
@@ -1297,7 +1367,7 @@ int launch_syn(const Tabs& tb, const void* a, void* out, int nmaps, int L1,
   syn_kernel<TI, R, FOLD, NT, RR><<<dim3(tb.M1, ny), SYN_NW * 32, smem,
                                     st>>>(tb, static_cast<const TI*>(a),
                                           static_cast<TI*>(out), nmaps, L1,
-                                          T);
+                                          T, io);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1306,16 +1376,16 @@ int launch_syn(const Tabs& tb, const void* a, void* out, int nmaps, int L1,
 // to 16
 template <typename TI, typename R, bool FOLD>
 int syn_dispatch(const Tabs& tb, const void* a, void* out, int nmaps, int L1,
-                 int T, cudaStream_t st) {
+                 int T, const Io& io, cudaStream_t st) {
   if (nmaps <= 1)
-    return launch_syn_cc<TI, R, FOLD, 1, 4>(tb, a, out, nmaps, L1, T, st);
+    return launch_syn_cc<TI, R, FOLD, 1, 4>(tb, a, out, nmaps, L1, T, io, st);
   if (nmaps <= 2)
-    return launch_syn_cc<TI, R, FOLD, 2, 4>(tb, a, out, nmaps, L1, T, st);
+    return launch_syn_cc<TI, R, FOLD, 2, 4>(tb, a, out, nmaps, L1, T, io, st);
   if (nmaps <= 4)
-    return launch_syn<TI, R, FOLD, 1, 2>(tb, a, out, nmaps, L1, T, st);
+    return launch_syn<TI, R, FOLD, 1, 2>(tb, a, out, nmaps, L1, T, io, st);
   if (nmaps <= 8)
-    return launch_syn<TI, R, FOLD, 2, 1>(tb, a, out, nmaps, L1, T, st);
-  return launch_syn<TI, R, FOLD, 4, 1>(tb, a, out, nmaps, L1, T, st);
+    return launch_syn<TI, R, FOLD, 2, 1>(tb, a, out, nmaps, L1, T, io, st);
+  return launch_syn<TI, R, FOLD, 4, 1>(tb, a, out, nmaps, L1, T, io, st);
 }
 
 bool bad_shape(int M1, int Lp, int Tk, int ng, int nmaps) {
@@ -1323,20 +1393,41 @@ bool bad_shape(int M1, int Lp, int Tk, int ng, int nmaps) {
       || ng != (Tk + TG - 1) / TG || nmaps < 1 || nmaps > MAXB;
 }
 
+// The launch's Io: the alm side packed (M1 = L1) or (L1, M1) matrices, the
+// ring side at map stride rmap and ring stride rrow; every stride at least
+// its block's extent
+bool make_io(Io& io, int M1, int L1, int rings, int packed, long long rmap,
+             long long rrow, const void* phase, const double* w) {
+  io.L1 = L1;
+  io.M1 = M1;
+  io.packed = packed;
+  io.amap = packed ? static_cast<int64_t>(L1) * (L1 + 1) / 2
+                   : static_cast<int64_t>(L1) * M1;
+  io.rmap = rmap;
+  io.rrow = rrow;
+  io.phase = static_cast<const double*>(phase);
+  io.w = w;
+  return !(packed && M1 != L1) && rrow >= M1
+      && rmap >= static_cast<int64_t>(rings - 1) * rrow + M1;
+}
+
 }  // namespace
 
 extern "C" {
 
 // B10a. Tables (A, B, C m-major (M1, Lp), x, s1, s0) are fp32 when fast,
-// with A - 2 in place of A and xlo the low part of x, else fp64; G is
-// the maps' (nmaps, Tr, M1, 2), Tr = T folded (the kernel rings are the
-// Tk = (T + 1) / 2 northern ones), else Tk, fp64 when f64,
-// else fp32; out, every element written: when direct, the maps' (nmaps,
-// L1, M1, 2) in G's type, else fp64 partials (nsg, nmaps, L1, M1, 2) with
-// nsg = ceil(Tk / (512 rr)) for the caller to sum in order. rr = 2 needs
-// one column tile (2 maps folded, 4 not) and Tk <= 1024; folded, more than
-// 8 maps run as two groups of blocks (ana_group). fast is ignored for fp64
-// inputs.
+// with A - 2 in place of A and xlo the low part of x, else fp64; G holds
+// the maps' Tr rings, Tr = T folded (the kernel rings are the Tk = (T + 1)
+// / 2 northern ones), else Tk, element (map b, ring t, m) (re, im) at 2 (b
+// g_map + t g_ring + m), g_ring >= M1 (the ring FFT's half spectrum in
+// place, or (Tr, M1) matrices), fp64 when f64, else fp32; phase: (M1, 2)
+// fp64 exp(-i m phi0) and w: (Tr) fp64 ring weights, each null for none;
+// out, every element written: when direct, the maps' alms in G's type,
+// healpy-packed (M1 = L1; l >= m only) or (L1, M1, 2) matrices, else
+// fp64 partials (nsg, nmaps, L1, M1, 2) with nsg = ceil(Tk / (512 rr)) for
+// the caller to sum in order. rr = 2 needs one column tile (2 maps folded,
+// 4 not) and Tk <= 1024; folded, more than 8 maps run as two groups of
+// blocks (ana_group). fast is ignored for fp64 inputs.
 int legendre_ana_launch(const void* A, const void* B, const void* C,
                         const void* x, const float* xlo, const void* s1,
                         const void* s0,
@@ -1344,72 +1435,105 @@ int legendre_ana_launch(const void* A, const void* B, const void* C,
                         const void* G, void* out, int M1, int Lp, int L1,
                         int Tk, int Tr, int T, int ng, int nmaps, int rr,
                         int direct, int fold, int fast, int f64,
-                        void* stream) {
+                        long long g_map, long long g_ring, int packed,
+                        const void* phase, const double* w, void* stream) {
+  Io io;
   if (bad_shape(M1, Lp, Tk, ng, nmaps) || L1 < 1 || L1 > Lp
       || (fold ? (Tr != T || Tk != (T + 1) / 2) : Tr != Tk)
       || (rr != 1 && rr != 2)
-      || (rr == 2 && (ana_tiles(nmaps, fold) != 1 || Tk > 1024)))
+      || (rr == 2 && (ana_tiles(nmaps, fold) != 1 || Tk > 1024))
+      || (packed && !direct)
+      || !make_io(io, M1, L1, Tr, packed, g_map, g_ring, phase, w))
     return static_cast<int>(cudaErrorInvalidValue);
   const Tabs tb{A, B, C, x, xlo, s1, s0, se, ls, bounds, M1, Lp, Tk, ng};
-  const AnaArgs g{nmaps, ana_group(nmaps, fold), L1, Tr, T, direct};
+  const AnaArgs g{nmaps, ana_group(nmaps, fold), L1, T, direct};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (f64)
-    return fold ? ana_dispatch<double, double, true>(tb, G, out, g, rr, st)
-                : ana_dispatch<double, double, false>(tb, G, out, g, rr, st);
+    return fold
+        ? ana_dispatch<double, double, true>(tb, G, out, g, rr, io, st)
+        : ana_dispatch<double, double, false>(tb, G, out, g, rr, io, st);
   if (fast)
-    return fold ? ana_dispatch<float, float, true>(tb, G, out, g, rr, st)
-                : ana_dispatch<float, float, false>(tb, G, out, g, rr, st);
-  return fold ? ana_dispatch<float, double, true>(tb, G, out, g, rr, st)
-              : ana_dispatch<float, double, false>(tb, G, out, g, rr, st);
+    return fold ? ana_dispatch<float, float, true>(tb, G, out, g, rr, io, st)
+                : ana_dispatch<float, float, false>(tb, G, out, g, rr, io,
+                                                    st);
+  return fold ? ana_dispatch<float, double, true>(tb, G, out, g, rr, io, st)
+              : ana_dispatch<float, double, false>(tb, G, out, g, rr, io,
+                                                   st);
 }
 
 // B10a in one pass on a folded grid: as legendre_ana_launch with fold = 1,
-// out always the maps' (nmaps, L1, M1, 2) in G's type, every element
-// written once; ncl = ceil(Tk / 256) blocks a cluster, at most 8.
+// out always the maps' alms in G's type, every element written once; ncl
+// = ceil(Tk / 256) blocks a cluster, at most 8.
 int legendre_ana1_launch(const void* A, const void* B, const void* C,
                          const void* x, const float* xlo, const void* s1,
                          const void* s0, const int* se, const int* ls,
                          const int* bounds, const void* G, void* out, int M1,
                          int Lp, int L1, int Tk, int T, int ng, int nmaps,
-                         int ncl, int fast, int f64, void* stream) {
+                         int ncl, int fast, int f64, long long g_map,
+                         long long g_ring, int packed, const void* phase,
+                         const double* w, void* stream) {
+  Io io;
   if (bad_shape(M1, Lp, Tk, ng, nmaps) || L1 < 1 || L1 > Lp
       || Tk != (T + 1) / 2
-      || ncl != (Tk + ANA1_RINGS - 1) / ANA1_RINGS || ncl > MAXCL)
+      || ncl != (Tk + ANA1_RINGS - 1) / ANA1_RINGS || ncl > MAXCL
+      || !make_io(io, M1, L1, T, packed, g_map, g_ring, phase, w))
     return static_cast<int>(cudaErrorInvalidValue);
   const Tabs tb{A, B, C, x, xlo, s1, s0, se, ls, bounds, M1, Lp, Tk, ng};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (f64)
-    return ana_1p_dispatch<double, double>(tb, G, out, nmaps, L1, T, ncl, st);
+    return ana_1p_dispatch<double, double>(tb, G, out, nmaps, L1, T, ncl, io,
+                                           st);
   if (fast)
-    return ana_1p_dispatch<float, float>(tb, G, out, nmaps, L1, T, ncl, st);
-  return ana_1p_dispatch<float, double>(tb, G, out, nmaps, L1, T, ncl, st);
+    return ana_1p_dispatch<float, float>(tb, G, out, nmaps, L1, T, ncl, io,
+                                         st);
+  return ana_1p_dispatch<float, double>(tb, G, out, nmaps, L1, T, ncl, io,
+                                        st);
 }
 
-// B10s. a: the maps' (nmaps, L1, M1, 2); out: the maps' (nmaps, fold ? T :
-// Tk, M1, 2); both fp64 when f64, else fp32.
+// B10s. a: the maps' alms, healpy-packed (M1 = L1) or (L1, M1, 2)
+// matrices; out: the maps' fold ? T : Tk rings, element (map b, ring t, m)
+// (re, im) at 2 (b o_map + t o_ring + m), times phase[m] ((M1, 2) fp64
+// exp(i m phi0); null for none), and with ncols > M1 zeros in the columns
+// [M1, ncols) of every ring (one memset; o_map = rings o_ring): the half
+// spectrum that the ring FFT's inverse reads. Both fp64 when f64, else
+// fp32.
 int legendre_syn_launch(const void* A, const void* B, const void* C,
                         const void* x, const float* xlo, const void* s1,
                         const void* s0,
                         const int* se, const int* ls, const int* bounds,
                         const void* a, void* out, int M1, int Lp, int L1,
                         int Tk, int T, int ng, int nmaps, int fold, int fast,
-                        int f64, void* stream) {
+                        int f64, int packed, long long o_map,
+                        long long o_ring, int ncols, const void* phase,
+                        void* stream) {
+  Io io;
+  const int rows = fold ? T : Tk;
   if (bad_shape(M1, Lp, Tk, ng, nmaps) || L1 < 1 || L1 > Lp
-      || (Tk + 127) / 128 > 65535 || (fold && Tk != (T + 1) / 2))
+      || (Tk + 127) / 128 > 65535 || (fold && Tk != (T + 1) / 2)
+      || !make_io(io, M1, L1, rows, packed, o_map, o_ring, phase, nullptr)
+      || (ncols > M1 && (ncols > o_ring || o_map != rows * o_ring)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Tabs tb{A, B, C, x, xlo, s1, s0, se, ls, bounds, M1, Lp, Tk, ng};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t el = (f64 ? 2 * sizeof(double) : 2 * sizeof(float));
+  if (ncols > M1) {
+    const cudaError_t err = cudaMemset2DAsync(
+        static_cast<char*>(out) + M1 * el, o_ring * el, 0, (ncols - M1) * el,
+        static_cast<size_t>(nmaps) * rows, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   if (f64)
     return fold
-        ? syn_dispatch<double, double, true>(tb, a, out, nmaps, L1, T, st)
-        : syn_dispatch<double, double, false>(tb, a, out, nmaps, L1, T, st);
+        ? syn_dispatch<double, double, true>(tb, a, out, nmaps, L1, T, io, st)
+        : syn_dispatch<double, double, false>(tb, a, out, nmaps, L1, T, io,
+                                              st);
   if (fast)
     return fold
-        ? syn_dispatch<float, float, true>(tb, a, out, nmaps, L1, T, st)
-        : syn_dispatch<float, float, false>(tb, a, out, nmaps, L1, T, st);
+        ? syn_dispatch<float, float, true>(tb, a, out, nmaps, L1, T, io, st)
+        : syn_dispatch<float, float, false>(tb, a, out, nmaps, L1, T, io, st);
   return fold
-      ? syn_dispatch<float, double, true>(tb, a, out, nmaps, L1, T, st)
-      : syn_dispatch<float, double, false>(tb, a, out, nmaps, L1, T, st);
+      ? syn_dispatch<float, double, true>(tb, a, out, nmaps, L1, T, io, st)
+      : syn_dispatch<float, double, false>(tb, a, out, nmaps, L1, T, io, st);
 }
 
 }  // extern "C"

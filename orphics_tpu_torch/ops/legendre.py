@@ -30,6 +30,18 @@
 For CPU tensors the wrappers run the plain versions; for CUDA tensors they
 launch the kernel or raise. There is no fallback from one to the other.
 
+Layouts. By default both transforms take and give (B, rows, M1) ring
+matrices and (B, L1, M1) alm matrices. The scalar SHT
+(:func:`~orphics_tpu_torch.ops.sht.map2alm` /
+:func:`~orphics_tpu_torch.ops.sht.alm2map` on the card) passes its
+neighbours' layouts instead, so that no pass sits between an alm, a kernel
+and cuFFT: B10a reads the ring FFT's half spectrum in place (its first M1
+columns), with the ring phase ``exp(-i m phi0)`` and the quadrature weights
+applied on load (each ring weighted before the north-south fold), and
+writes healpy-packed alms; B10s reads packed alms and writes the half
+spectrum that the inverse ring FFT reads, ``exp(i m phi0)`` applied on
+store and the columns past M1 zero. ``ring_io`` counts those launches.
+
 Table layouts (:func:`tables`): ``"full"`` (every ring; asymmetric grids),
 ``"fold"`` (spin 0 on a symmetric grid: the kernel runs the northern rings
 and contracts the even/odd north-south combinations, the plain version runs
@@ -49,6 +61,7 @@ import torch
 
 from .. import _build
 from ..utils.profiling import spanned
+from . import alm as almops
 
 __all__ = ["tables", "kernel_tables", "clear_tables", "legendre_ana",
            "legendre_ana_ref", "legendre_syn", "legendre_syn_ref"]
@@ -418,6 +431,34 @@ def clear_tables():
 
 
 # ---------------------------------------------------------------------------
+# Packing: (l, m) matrix <-> healpy triangular order
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=32)
+def _pack_tensor(lmax, device: str):
+    """The matrix index ``l (lmax + 1) + m`` of each healpy-packed alm, on
+    ``device`` (cached: a host copy per call would stall the stream)."""
+    ls, ms = almops.lm_indices(lmax)
+    idx = ls.astype(np.int64) * (lmax + 1) + ms.astype(np.int64)
+    return torch.as_tensor(idx, device=device)
+
+
+def _mat2alm(mat, lmax):
+    """(..., L+1, M+1) -> healpy-packed (..., nalm)."""
+    flat = mat.reshape(mat.shape[:-2] + (-1,))
+    return flat.index_select(-1, _pack_tensor(lmax, str(mat.device)))
+
+
+def _alm2mat(alm, lmax):
+    """healpy-packed (..., nalm) -> (..., L+1, M+1) with zeros elsewhere."""
+    n = (lmax + 1) * (lmax + 1)
+    flat = torch.zeros(alm.shape[:-1] + (n,), dtype=alm.dtype,
+                       device=alm.device)
+    flat[..., _pack_tensor(lmax, str(alm.device))] = alm
+    return flat.reshape(alm.shape[:-1] + (lmax + 1, lmax + 1))
+
+
+# ---------------------------------------------------------------------------
 # Plain versions (float64 loop over l, every ring, l0 seeds)
 # ---------------------------------------------------------------------------
 
@@ -527,26 +568,30 @@ def _kernel_lambda(tab, fast):
         yield l, torch.where((ch >= lo) & (ch < hi), w.double(), 0.0)
 
 
-def _kernel_ana(G, tab, fast=False):
+def _kernel_ana(G, tab, fast=False, dtype=None):
     """The analysis as the kernel computes it (:func:`_kernel_lambda`),
-    summed in float64: ``G`` (B, Tr, M1) complex -> (B, L1, M1) of its
-    dtype."""
+    summed in float64: ``G`` (B, Tr, M1) complex -> (B, L1, M1) of
+    ``dtype`` (default ``G``'s), the kernel's input (its fold's sums)
+    rounded to ``dtype`` first, as the kernel rounds the weighted rings of
+    a complex128 ``G``."""
     L1 = tab["lmax"] + 1
+    dtype = dtype or G.dtype
     parts = _fold_G(G, tab["T"]) if tab["layout"] == "fold" else (G, G)
-    parts = [p.to(torch.complex128) for p in parts]
+    parts = [p.to(dtype).to(torch.complex128) for p in parts]
     out = torch.zeros((G.shape[0], L1, L1), dtype=torch.complex128,
                       device=G.device)
     for l, lam in _kernel_lambda(tab, fast):
         if l < L1:
             out[:, l] = torch.einsum("mt,btm->bm", lam.to(out.dtype),
                                      parts[l % 2])
-    return out.to(G.dtype)
+    return out.to(dtype)
 
 
-def _kernel_syn(a, tab, fast=False):
+def _kernel_syn(a, tab, fast=False, phase=None):
     """The synthesis as the kernel computes it (:func:`_kernel_lambda`),
     summed in float64: ``a`` (B, L1, M1) complex -> (B, Tr, M1) of its
-    dtype."""
+    dtype, times ``phase`` (M1,) in complex128 before the rounding where
+    given."""
     L1 = tab["lmax"] + 1
     Tk = kernel_tables(tab)["Tk"]
     acc = torch.zeros((2, a.shape[0], Tk, L1), dtype=torch.complex128,
@@ -562,7 +607,7 @@ def _kernel_syn(a, tab, fast=False):
         out = _unfold_acc(acc[0] + acc[1], sg * (acc[0] - acc[1]), tab["T"])
     else:
         out = acc[0]
-    return out.to(a.dtype)
+    return _rotated(out, phase).to(a.dtype)
 
 
 def _plain_fast(x, fast):
@@ -572,12 +617,43 @@ def _plain_fast(x, fast):
     return bool(fast) and x.real.dtype != torch.float64
 
 
-def legendre_ana_ref(G, tab, fast: bool = False):
-    """Plain version of :func:`legendre_ana`: ``G`` (B, Tr, M1) complex ->
-    (B, L1, M1) of ``G``'s dtype, computed in float64 (``fast``, float32
-    inputs: the fast kernel's float32 recurrence, :func:`_kernel_ana`)."""
-    if _plain_fast(G, fast):
-        return _kernel_ana(G, tab, True)
+def _rotated(x, phase):
+    """``x`` complex128 times ``phase`` (M1,) along its last axis, or ``x``
+    where ``phase`` is None."""
+    return x if phase is None else x * phase.to(x.device, torch.complex128)
+
+
+def _rings_in(G, M1, weights, phase):
+    """The Legendre analysis's input of the ring side: the first ``M1``
+    columns of ``G``, and where ``weights`` or ``phase`` is given, ``G``
+    times the phase, then times each ring's weight, in complex128."""
+    G = G[..., :M1]
+    if weights is None and phase is None:
+        return G
+    G = _rotated(G.to(torch.complex128), phase)
+    if weights is not None:
+        G = G * weights.to(G.device, torch.float64)[:, None]
+    return G
+
+
+def legendre_ana_ref(G, tab, fast: bool = False, weights=None, phase=None,
+                     packed: bool = False):
+    """Plain version of :func:`legendre_ana`: ``G`` (B, Tr, >= M1) complex
+    (the first M1 columns read; ``weights``, ``phase``: see there) ->
+    (B, L1, M1), or with ``packed`` the healpy-packed (B, nalm), of ``G``'s
+    dtype, computed in float64 (``fast``, float32 inputs: the fast kernel's
+    float32 recurrence, :func:`_kernel_ana`)."""
+    dtype = G.dtype
+    lmax = tab["lmax"]
+    fast = _plain_fast(G, fast)
+    G = _rings_in(G, lmax + 1, weights, phase)
+    out = _kernel_ana(G, tab, True, dtype) if fast else _ana_loop(G, tab)
+    out = out.to(dtype)
+    return _mat2alm(out, lmax) if packed else out
+
+
+def _ana_loop(G, tab):
+    """The plain analysis's float64 loop: (B, L1, M1) complex128."""
     L1 = tab["lmax"] + 1
     gr = G.real.to(torch.float64)
     gi = G.imag.to(torch.float64)
@@ -587,15 +663,29 @@ def legendre_ana_ref(G, tab, fast: bool = False):
     for l, k, lam in _lambda_rows(tab, G.device):
         out_r[:, l, :k] = torch.einsum("mt,btm->bm", lam, gr[:, :, :k])
         out_i[:, l, :k] = torch.einsum("mt,btm->bm", lam, gi[:, :, :k])
-    return torch.complex(out_r, out_i).to(G.dtype)
+    return torch.complex(out_r, out_i)
 
 
-def legendre_syn_ref(a, tab, fast: bool = False):
-    """Plain version of :func:`legendre_syn`: ``a`` (B, L1, M1) complex ->
-    (B, Tr, M1) of ``a``'s dtype, computed in float64 (``fast``, float32
-    inputs: the fast kernel's float32 recurrence, :func:`_kernel_syn`)."""
+def legendre_syn_ref(a, tab, fast: bool = False, phase=None,
+                     packed: bool = False, ncols=None):
+    """Plain version of :func:`legendre_syn`: ``a`` (B, L1, M1) complex, or
+    with ``packed`` healpy-packed (B, nalm) -> (B, Tr, M1) of ``a``'s dtype
+    (``phase``, ``ncols``: see there), computed in float64 (``fast``,
+    float32 inputs: the fast kernel's float32 recurrence,
+    :func:`_kernel_syn`)."""
+    if packed:
+        a = _alm2mat(a, tab["lmax"])
     if _plain_fast(a, fast):
-        return _kernel_syn(a, tab, True)
+        out = _kernel_syn(a, tab, True, phase)
+    else:
+        out = _rotated(_syn_loop(a, tab), phase).to(a.dtype)
+    if ncols is not None and ncols > out.shape[-1]:
+        out = torch.nn.functional.pad(out, (0, ncols - out.shape[-1]))
+    return out
+
+
+def _syn_loop(a, tab):
+    """The plain synthesis's float64 loop: (B, Tr, M1) complex128."""
     ar = a.real.to(torch.float64)
     ai = a.imag.to(torch.float64)
     shape = (a.shape[0], tab["Tr"], a.shape[-1])
@@ -605,7 +695,7 @@ def legendre_syn_ref(a, tab, fast: bool = False):
         lt = lam.T[None]                                  # (1, Tr, k)
         acc_r[:, :, :k] += lt * ar[:, l, None, :k]
         acc_i[:, :, :k] += lt * ai[:, l, None, :k]
-    return torch.complex(acc_r, acc_i).to(a.dtype)
+    return torch.complex(acc_r, acc_i)
 
 
 # ---------------------------------------------------------------------------
@@ -627,13 +717,44 @@ def _kernel_args(tab, real_dtype, fast):
     return k, ptrs, int(fast), int(f64)
 
 
-def _check_in(x, tab, rows, what):
+def _check_in(x, tab, rows, what, packed=False, wide=False):
+    """``x`` is (B, rows, M1) complex, (B, rows, >= M1) where ``wide``, or
+    healpy-packed (B, nalm) where ``packed``."""
+    M1 = tab["lmax"] + 1
+    if packed:
+        n = almops.nalm(tab["lmax"])
+        if not x.is_complex() or x.ndim != 2 or x.shape[1] != n:
+            raise ValueError(f"{what}: expects (B, {n}) complex packed alms, "
+                             f"got {tuple(x.shape)} {x.dtype}")
+        return
     if not x.is_complex() or x.ndim != 3:
         raise ValueError(f"{what}: expects a (B, {rows}, M1) complex tensor")
-    M1 = tab["lmax"] + 1
-    if tuple(x.shape[1:]) != (rows, M1):
+    if x.shape[1] != rows or (x.shape[2] < M1 if wide else
+                              x.shape[2] != M1):
         raise ValueError(f"{what}: shape {tuple(x.shape)}, expected "
-                         f"(B, {rows}, {M1})")
+                         f"(B, {rows}, {M1}{' or more' if wide else ''})")
+
+
+def _io_tables(x, rows, M1, weights, phase):
+    """The ring side's tables on ``x``'s device as the kernels read them:
+    float64 weights (rows,) and the phase as (M1, 2) float64, each None
+    where not given."""
+    if weights is not None:
+        weights = weights.to(x.device, torch.float64).contiguous()
+        if tuple(weights.shape) != (rows,):
+            raise ValueError(f"weights: shape {tuple(weights.shape)}, "
+                             f"expected ({rows},)")
+    if phase is not None:
+        phase = torch.view_as_real(
+            phase.to(x.device, torch.complex128).resolve_conj().contiguous())
+        if tuple(phase.shape) != (M1, 2):
+            raise ValueError(f"phase: shape {tuple(phase.shape[:1])}, "
+                             f"expected ({M1},)")
+    return weights, phase
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 class _AnaPlan(NamedTuple):
@@ -674,94 +795,124 @@ def _ana_plan(Tk, nmaps, layout):
 
 
 @spanned("orphics.transforms.legendre_ana")
-def legendre_ana(G, tab, fast: bool = False):
+def legendre_ana(G, tab, fast: bool = False, weights=None, phase=None,
+                 packed: bool = False):
     """Legendre analysis ``out[b, l, m] = sum_t Lambda_lm(theta_t) G[b, t,
-    m]`` of ``G`` (B, Tr, M1) complex over the rings of ``tab`` (B10a;
-    ``fast``: the float32 recurrence, float32 inputs only). Returns (B,
-    L1, M1) of ``G``'s dtype."""
-    _check_in(G, tab, tab["Tr"], "legendre_ana")
+    m]`` of ``G`` (B, Tr, >= M1) complex over the rings of ``tab`` (B10a;
+    ``fast``: the float32 recurrence, float32 inputs only). The first M1
+    columns of each ring are read in place, through ``G``'s strides (the
+    ring FFT's half spectrum as it is); ``phase`` (M1,) complex and then
+    ``weights`` (Tr,) real multiply each ring in float64 before the
+    contraction (None: none). Returns (B, L1, M1), or with ``packed`` the
+    healpy-packed (B, nalm), of ``G``'s dtype."""
+    _check_in(G, tab, tab["Tr"], "legendre_ana", wide=True)
     if not G.is_cuda:
-        return legendre_ana_ref(G, tab, fast)
+        return legendre_ana_ref(G, tab, fast, weights, phase, packed)
     rdt = G.real.dtype
     k, ptrs, fast_i, f64 = _kernel_args(tab, rdt, fast)
     lib = _build.library()
     fold = tab["layout"] == "fold"
-    # (B, Tr, M1, 2): the kernel reads each m's column (and folds it)
-    Gk = torch.view_as_real(G.resolve_conj().contiguous())
-    nb, Tr, M1 = G.shape
-    L1, Tk = tab["lmax"] + 1, k["Tk"]
-    out = torch.empty((nb, L1, M1, 2), dtype=rdt, device=G.device)
+    lmax = tab["lmax"]
+    L1 = M1 = lmax + 1
+    G = G.resolve_conj()
+    if G.stride(-1) != 1:
+        G = G.contiguous()
+    nb, Tr, _ = G.shape
+    Tk = k["Tk"]
+    w, ph = _io_tables(G, Tr, M1, weights, phase)
+    g_ring = G.stride(1)
+    g_map = G.stride(0) if nb > 1 else Tr * g_ring
+    out = torch.empty((nb, almops.nalm(lmax), 2) if packed
+                      else (nb, L1, M1, 2), dtype=rdt, device=G.device)
     stream = torch.cuda.current_stream(G.device).cuda_stream
     for b0 in range(0, nb, _MAXB):
         n = min(_MAXB, nb - b0)
         plan = _ana_plan(Tk, n, tab["layout"])
-        dst = out[b0:b0 + n]
+        src, dst = G[b0:b0 + n].data_ptr(), out[b0:b0 + n]
+        # partial planes stay (L1, M1) matrices: packed after their sum
+        io = (g_map, g_ring, int(packed and not plan.partial_planes),
+              _ptr(ph), _ptr(w))
         if plan.form == "one_pass":
             err = lib.legendre_ana1_launch(
-                *ptrs, Gk[b0:b0 + n].data_ptr(), dst.data_ptr(), M1, k["Lp"],
-                L1, Tk, tab["T"], k["ng"], n, plan.blocks, fast_i, f64,
-                stream)
+                *ptrs, src, dst.data_ptr(), M1, k["Lp"], L1, Tk, tab["T"],
+                k["ng"], n, plan.blocks, fast_i, f64, *io, stream)
         else:
             part = dst if not plan.partial_planes else torch.empty(
                 (plan.blocks, n, L1, M1, 2), dtype=torch.float64,
                 device=G.device)
             err = lib.legendre_ana_launch(
-                *ptrs, Gk[b0:b0 + n].data_ptr(), part.data_ptr(), M1,
-                k["Lp"], L1, Tk, Tr, tab["T"], k["ng"], n, plan.rr,
-                int(not plan.partial_planes), int(fold), fast_i, f64, stream)
+                *ptrs, src, part.data_ptr(), M1, k["Lp"], L1, Tk, Tr,
+                tab["T"], k["ng"], n, plan.rr, int(not plan.partial_planes),
+                int(fold), fast_i, f64, *io, stream)
         _build.check(err, "legendre_ana")
         legendre_ana.launches += 1
         legendre_ana.one_pass += plan.form == "one_pass"
+        legendre_ana.ring_io += bool(packed)
         if plan.partial_planes:
-            _sum_partials(part, dst)
+            _sum_partials(part, dst, lmax if packed else None)
     return torch.view_as_complex(out)
 
 
 legendre_ana.launches = 0
 legendre_ana.partial_planes = 0
 legendre_ana.one_pass = 0
+legendre_ana.ring_io = 0
 
 
 @spanned("orphics.transforms.legendre_ana.partials")
-def _sum_partials(part, dst):
+def _sum_partials(part, dst, lmax=None):
     """B10a's cross-group sum: the fp64 partial planes ``part`` (nsg, ...)
-    of one launch added in ring order into ``dst``, counted in
-    ``legendre_ana.partial_planes``."""
+    of one launch added in ring order into ``dst``, packed where ``lmax``
+    is given, counted in ``legendre_ana.partial_planes``."""
     acc = part[0]
     for i in range(1, part.shape[0]):
         acc = acc + part[i]
+    if lmax is not None:
+        acc = torch.view_as_real(_mat2alm(torch.view_as_complex(acc), lmax))
     dst.copy_(acc)
     legendre_ana.partial_planes += part.shape[0]
 
 
 @spanned("orphics.transforms.legendre_syn")
-def legendre_syn(a, tab, fast: bool = False):
+def legendre_syn(a, tab, fast: bool = False, phase=None, packed: bool = False,
+                 ncols=None):
     """Legendre synthesis ``acc[b, t, m] = sum_l Lambda_lm(theta_t) a[b, l,
-    m]`` of ``a`` (B, L1, M1) complex onto the rings of ``tab`` (B10s;
-    ``fast`` as in :func:`legendre_ana`). Returns (B, Tr, M1) of ``a``'s
-    dtype."""
-    _check_in(a, tab, tab["lmax"] + 1, "legendre_syn")
+    m]`` of ``a`` (B, L1, M1) complex, or with ``packed`` the healpy-packed
+    (B, nalm), onto the rings of ``tab`` (B10s; ``fast`` as in
+    :func:`legendre_ana`). Returns (B, Tr, M1) of ``a``'s dtype, each ring
+    times ``phase`` (M1,) complex in float64 before the rounding (None:
+    none); with ``ncols`` (>= M1) (B, Tr, ncols), zero in the columns past
+    M1: the half spectrum that ``torch.fft.irfft`` reads."""
+    lmax = tab["lmax"]
+    L1 = M1 = lmax + 1
+    _check_in(a, tab, L1, "legendre_syn", packed=packed)
+    width = M1 if ncols is None else int(ncols)
+    if width < M1:
+        raise ValueError(f"legendre_syn: ncols {ncols} < M1 {M1}")
     if not a.is_cuda:
-        return legendre_syn_ref(a, tab, fast)
+        return legendre_syn_ref(a, tab, fast, phase, packed, ncols)
     rdt = a.real.dtype
     k, ptrs, fast_i, f64 = _kernel_args(tab, rdt, fast)
     lib = _build.library()
     fold = tab["layout"] == "fold"
-    nb, L1, M1 = a.shape
-    # (B, L1, M1, 2): the kernel reads each m's column
-    ak = torch.view_as_real(a.resolve_conj().contiguous())
-    rows = tab["T"] if fold else k["Tk"]
-    out = torch.empty((nb, rows, M1, 2), dtype=rdt, device=a.device)
+    nb = a.shape[0]
+    # the kernel reads each m's column, contiguous when packed
+    ak = a.resolve_conj().contiguous()
+    rows = tab["Tr"]
+    _, ph = _io_tables(a, rows, M1, None, phase)
+    out = torch.empty((nb, rows, width), dtype=a.dtype, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     for b0 in range(0, nb, _MAXB):
         n = min(_MAXB, nb - b0)
-        err = lib.legendre_syn_launch(*ptrs, ak[b0:b0 + n].data_ptr(),
-                                      out[b0:b0 + n].data_ptr(), M1, k["Lp"],
-                                      L1, k["Tk"], tab["T"], k["ng"], n,
-                                      int(fold), fast_i, f64, stream)
+        err = lib.legendre_syn_launch(
+            *ptrs, ak[b0:b0 + n].data_ptr(), out[b0:b0 + n].data_ptr(), M1,
+            k["Lp"], L1, k["Tk"], tab["T"], k["ng"], n, int(fold), fast_i,
+            f64, int(packed), rows * width, width, width, _ptr(ph), stream)
         _build.check(err, "legendre_syn")
         legendre_syn.launches += 1
-    return torch.view_as_complex(out)
+        legendre_syn.ring_io += bool(packed)
+    return out
 
 
 legendre_syn.launches = 0
+legendre_syn.ring_io = 0

@@ -26,6 +26,8 @@ import torch
 from ..utils.profiling import spanned
 from . import alm as almops
 from . import legendre as leg
+# packing, (l, m) matrix <-> healpy triangular order
+from .legendre import _alm2mat, _mat2alm  # noqa: F401
 
 __all__ = ["RingGeom", "gauss_legendre_rings", "clenshaw_curtis_rings",
            "map2alm", "alm2map", "map2alm_spin", "alm2map_spin",
@@ -119,43 +121,13 @@ def clenshaw_curtis_rings(ntheta: int, nphi: int = None, phi0: float = 0.0):
 
 
 # ---------------------------------------------------------------------------
-# Packing helpers: (l, m) matrix <-> healpy triangular order
-# ---------------------------------------------------------------------------
-
-@lru_cache(maxsize=32)
-def _pack_indices(lmax: int):
-    ls, ms = almops.lm_indices(lmax)
-    return ls.astype(np.int64) * (lmax + 1) + ms.astype(np.int64)
-
-
-@lru_cache(maxsize=32)
-def _pack_tensor(lmax, device: str):
-    """:func:`_pack_indices` on ``device`` (cached, as are the other small
-    tables below: a host copy per call would stall the stream)."""
-    return torch.as_tensor(_pack_indices(lmax), device=device)
-
-
-def _mat2alm(mat, lmax):
-    """(..., L+1, M+1) -> healpy-packed (..., nalm)."""
-    flat = mat.reshape(mat.shape[:-2] + (-1,))
-    return flat.index_select(-1, _pack_tensor(lmax, str(mat.device)))
-
-
-def _alm2mat(alm, lmax):
-    """healpy-packed (..., nalm) -> (..., L+1, M+1) with zeros elsewhere."""
-    n = (lmax + 1) * (lmax + 1)
-    flat = torch.zeros(alm.shape[:-1] + (n,), dtype=alm.dtype,
-                       device=alm.device)
-    flat[..., _pack_tensor(lmax, str(alm.device))] = alm
-    return flat.reshape(alm.shape[:-1] + (lmax + 1, lmax + 1))
-
-
-# ---------------------------------------------------------------------------
 # Ring FFTs
 # ---------------------------------------------------------------------------
 
 @lru_cache(maxsize=32)
 def _phase_tensor(mmax, phi0, sign, dtype, device: str):
+    """:func:`_phase` on ``device`` (cached, as are the other small tables
+    below: a host copy per call would stall the stream)."""
     m = np.arange(mmax + 1)
     return torch.as_tensor(np.exp(sign * 1j * m * phi0), dtype=dtype,
                            device=device)
@@ -166,9 +138,16 @@ def _phase(mmax, phi0, sign, dtype, device):
     return _phase_tensor(mmax, phi0, sign, dtype, str(device))
 
 
-@spanned("orphics.transforms.ring_fft")
-def _ring_analysis(maps, rings: RingGeom, mmax: int):
-    """FFT each ring: ``F[..., T, M+1] = sum_j f e^{-i m phi_j}``."""
+def _ring_phase(rings: RingGeom, mmax: int, sign: int, device):
+    """``exp(sign i m phi0)`` (m = 0..mmax) in complex128 for the kernels'
+    ring side, or None where ``phi0 = 0`` (a multiply by 1)."""
+    if rings.phi0 == 0.0:
+        return None
+    return _phase(mmax, rings.phi0, sign, torch.complex128, device)
+
+
+def _rfft_rings(maps, rings: RingGeom, mmax: int):
+    """``rfft`` of each ring, all ``nphi // 2 + 1`` frequencies."""
     nphi = rings.nphi
     if nphi < 2 * mmax + 1:
         raise ValueError(
@@ -177,8 +156,27 @@ def _ring_analysis(maps, rings: RingGeom, mmax: int):
         raise ValueError(
             f"map phi axis {maps.shape[-1]} != rings.nphi {nphi}: the "
             "quadrature normalization and sample phases would be wrong")
-    F = torch.fft.rfft(maps, dim=-1)[..., : mmax + 1]
+    return torch.fft.rfft(maps, dim=-1)
+
+
+@spanned("orphics.transforms.ring_fft")
+def _ring_fft(maps, rings: RingGeom, mmax: int):
+    """:func:`_rfft_rings` in the ring FFT's span (the half spectrum that
+    B10a reads in place)."""
+    return _rfft_rings(maps, rings, mmax)
+
+
+@spanned("orphics.transforms.ring_fft")
+def _ring_analysis(maps, rings: RingGeom, mmax: int):
+    """FFT each ring: ``F[..., T, M+1] = sum_j f e^{-i m phi_j}``."""
+    F = _rfft_rings(maps, rings, mmax)[..., : mmax + 1]
     return F * _phase(mmax, rings.phi0, -1, F.dtype, F.device)
+
+
+def _check_synthesis(rings: RingGeom, mmax: int):
+    if rings.nphi < 2 * mmax + 1:
+        raise ValueError("nphi too small for mmax (synthesis would "
+                         "alias the top m onto the Nyquist bin)")
 
 
 @spanned("orphics.transforms.ring_ifft")
@@ -187,12 +185,17 @@ def _ring_synthesis(Fm, rings: RingGeom):
     ``Fm[..., T, M+1] -> maps[..., T, nphi]``."""
     nphi = rings.nphi
     mmax = Fm.shape[-1] - 1
-    if nphi < 2 * mmax + 1:
-        raise ValueError("nphi too small for mmax (synthesis would "
-                         "alias the top m onto the Nyquist bin)")
+    _check_synthesis(rings, mmax)
     X = Fm * _phase(mmax, rings.phi0, 1, Fm.dtype, Fm.device)
     X = torch.nn.functional.pad(X, (0, nphi // 2 + 1 - (mmax + 1)))
     return torch.fft.irfft(X, n=nphi, dim=-1) * nphi
+
+
+@spanned("orphics.transforms.ring_ifft")
+def _ring_ifft(X, rings: RingGeom):
+    """The rings of the half spectrum ``X[..., T, nphi // 2 + 1]`` (its
+    phase applied): ``irfft`` unnormalized, ``sum_m X e^{i m phi_j}``."""
+    return torch.fft.irfft(X, n=rings.nphi, dim=-1, norm="forward")
 
 
 @lru_cache(maxsize=32)
@@ -263,14 +266,30 @@ def map2alm(maps, rings: RingGeom, lmax: int, fast: bool = False, *,
     option); float64 inputs and the CPU's plain version ignore it. ``ana(G,
     tab)`` replaces the Legendre analysis (default
     :func:`.legendre.legendre_ana`; ``legendre.legendre_ana_ref`` runs the
-    plain version on any device)."""
-    ana = ana or partial(leg.legendre_ana, fast=fast)
+    plain version on any device). On the card with the default, B10a reads
+    the ``rfft`` output in place, phase and weights applied on load, and
+    writes the packed alms (:func:`_analysis_rings`)."""
     maps = _real_input(torch.as_tensor(maps), "maps")
     bshape, m = _flat(maps, 2)
     tab = leg.tables(lmax, rings, (0,), 0, _layout(rings), m.device)
-    w = _weights(rings, m.dtype, m.device)
-    G = _ring_analysis(m, rings, lmax) * w[:, None]
-    return _mat2alm(ana(G, tab), lmax).reshape(bshape + (-1,))
+    if ana is None and m.is_cuda:
+        alm = _analysis_rings(m, rings, lmax, tab, fast)
+    else:
+        ana = ana or partial(leg.legendre_ana, fast=fast)
+        w = _weights(rings, m.dtype, m.device)
+        G = _ring_analysis(m, rings, lmax) * w[:, None]
+        alm = _mat2alm(ana(G, tab), lmax)
+    return alm.reshape(bshape + (-1,))
+
+
+def _analysis_rings(m, rings: RingGeom, lmax: int, tab, fast: bool):
+    """The analysis on the kernel's layouts: ``rfft`` of (B, T, nphi) maps
+    -> :func:`.legendre.legendre_ana` on the half spectrum as it is, with
+    ``exp(-i m phi0)`` and the float64 weights -> packed (B, nalm)."""
+    F = _ring_fft(m, rings, lmax)
+    return leg.legendre_ana(F, tab, fast,
+                            _weights(rings, torch.float64, m.device),
+                            _ring_phase(rings, lmax, -1, m.device), True)
 
 
 def alm2map(alm, rings: RingGeom, lmax: int = None, fast: bool = False, *,
@@ -279,15 +298,31 @@ def alm2map(alm, rings: RingGeom, lmax: int = None, fast: bool = False, *,
     ``(..., ntheta, nphi)``: the Legendre synthesis (folded on symmetric
     grids), then ring FFTs. ``fast``: see :func:`map2alm`; ``syn(a, tab)``
     replaces the Legendre synthesis (default
-    :func:`.legendre.legendre_syn`)."""
-    syn = syn or partial(leg.legendre_syn, fast=fast)
+    :func:`.legendre.legendre_syn`). On the card with the default, B10s
+    reads the packed alms and writes the half spectrum that ``irfft`` reads
+    (:func:`_synthesis_rings`)."""
     alm = torch.as_tensor(alm)
     if lmax is None:
         lmax = almops.getlmax(alm.shape[-1])
     bshape, a = _flat(alm, 1)
     tab = leg.tables(lmax, rings, (0,), 0, _layout(rings), a.device)
-    out = _ring_synthesis(syn(_alm2mat(a, lmax), tab), rings)
+    if syn is None and a.is_cuda:
+        out = _synthesis_rings(a, rings, lmax, tab, fast)
+    else:
+        syn = syn or partial(leg.legendre_syn, fast=fast)
+        out = _ring_synthesis(syn(_alm2mat(a, lmax), tab), rings)
     return out.reshape(bshape + tuple(rings.shape))
+
+
+def _synthesis_rings(a, rings: RingGeom, lmax: int, tab, fast: bool):
+    """The synthesis on the kernel's layouts: packed (B, nalm) ->
+    :func:`.legendre.legendre_syn` into the (B, T, nphi // 2 + 1) half
+    spectrum, ``exp(i m phi0)`` applied and zero past lmax -> unnormalized
+    ``irfft``."""
+    _check_synthesis(rings, lmax)
+    X = leg.legendre_syn(a, tab, fast, _ring_phase(rings, lmax, 1, a.device),
+                         True, rings.nphi // 2 + 1)
+    return _ring_ifft(X, rings)
 
 
 def map2alm_spin(qmap, umap, rings: RingGeom, lmax: int, spin: int = 2,

@@ -21,6 +21,12 @@ plain version, and the library call beside it.
     legendre_ana  B10a alone at those shapes, the curved-sky QE's 12
                   folded products and one map on its grid, with the
                   one-pass launches and partial planes a call took
+    sht_io        the curved-sky QE's 16-map synthesis and 12-map analysis
+                  (lmax 2047, 3072 x 6144 rings) on the scalar SHT's
+                  layouts, B10s from packed alms into the half spectrum
+                  and B10a from the rfft output into packed alms, beside
+                  the matrix layouts with their PyTorch passes: the
+                  kernels alone and with cuFFT
     lens          B8 ``lens_map_kernel`` at (64, 1, 512^2) with config 6's
                   deflection (a kappa GRF, D = 8), orders 5 and 3, three
                   components, and phase 14's unclipped D
@@ -320,6 +326,97 @@ def legendre_bench(reps, quick, shapes=LEGENDRE_SHAPES, ana_only=False):
         torch.cuda.empty_cache()
 
 
+def sht_io_bench(reps, quick):
+    """The curved-sky QE's scalar transforms, ``quick``: at lmax 255. Per
+    direction: the kernel on the matrix layouts and on the scalar SHT's
+    (packed alms, the half spectrum in place), with the bound of
+    :func:`b10_work`; then the whole transform without and with the
+    layouts (the matrix layouts' pack, phase, pad, scale and weight passes
+    against none), each with its cuFFT call, and the two results' gap.
+    Trees without the layouts (``legendre_syn.ring_io`` absent) time the
+    matrix layouts alone."""
+    from orphics_tpu_torch.ops import legendre as leg
+    from orphics_tpu_torch.ops import sht
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(26)
+    lmax = 255 if quick else 2047
+    rings = sht.gauss_legendre_rings(-(-3 * lmax // 2))
+    M1, T, nh = lmax + 1, rings.ntheta, rings.nphi // 2 + 1
+    tab = leg.tables(lmax, rings, (0,), 0, "fold", dev)
+    k = leg.kernel_tables(tab)
+    steps = b10_steps(tab, k)
+    layouts = hasattr(leg.legendre_syn, "ring_io")
+    cplx = lambda *s: torch.complex(*(torch.randn(s, generator=gen,
+                                                  device=dev)
+                                      for _ in range(2)))
+    # B10s: the QE's 16 syntheses
+    a = sht._mat2alm(cplx(16, M1, M1), lmax)
+    mat = sht._alm2mat(a, lmax)
+    cases = [("legendre_syn matrix layouts", mat,
+              lambda: leg.legendre_syn(mat, tab), 8 * 16 * T * M1)]
+    if layouts:
+        cases.append(("legendre_syn packed alms -> half spectrum", a,
+                      lambda: leg.legendre_syn(a, tab, False, None, True, nh),
+                      8 * 16 * T * nh))
+    for label, x, fn, out_b in cases:
+        bms, by = bound(*b10_work(x, tab, k, out_b, 16, steps, False))
+        ms = cuda_ms(fn, reps)
+        print(f"time {label} lmax {lmax} x16 fold: {ms:.4f} ms; bound "
+              f"{bms:.4f} ms ({by}) = {bms / ms:.3f} of the time")
+    old = lambda: sht._ring_synthesis(leg.legendre_syn(sht._alm2mat(
+        a, lmax), tab), rings)
+    steps_syn = [("alm2map, matrix layouts and passes", old)]
+    if layouts:
+        steps_syn.append(("alm2map, the kernel's layouts", lambda: (
+            sht._synthesis_rings(a, rings, lmax, tab, False))))
+    for label, fn in steps_syn:
+        print(f"time {label} lmax {lmax} x16 with cuFFT: "
+              f"{cuda_ms(fn, reps):.4f} ms")
+    maps = old()
+    if layouts:
+        print(f"alm2map gap, kernel's layouts vs matrix layouts: "
+              f"{rel(steps_syn[1][1](), maps):.3e} of max")
+    del a, mat
+    # B10a: the QE's 12 analyses
+    maps = maps[:12].contiguous()
+    F = torch.fft.rfft(maps, dim=-1)
+    w = sht._weights(rings, torch.float32, dev)
+    w64 = sht._weights(rings, torch.float64, dev)
+    G = (F[..., :M1] * w[:, None]).contiguous()
+    cases = [("legendre_ana matrix layouts", G,
+              lambda: leg.legendre_ana(G, tab), 8 * 12 * M1 * M1)]
+    if layouts:
+        # the kernel reads M1 of the nh columns
+        cases.append(("legendre_ana rfft output in place -> packed alms",
+                      F[..., :M1], lambda: leg.legendre_ana(
+                          F, tab, False, w64, None, True),
+                      8 * 12 * M1 * (M1 + 1) // 2))
+    for label, x, fn, out_b in cases:
+        bms, by = bound(*b10_work(x, tab, k, out_b, 12, steps, False))
+        ms = cuda_ms(fn, reps)
+        print(f"time {label} lmax {lmax} x12 fold: {ms:.4f} ms; bound "
+              f"{bms:.4f} ms ({by}) = {bms / ms:.3f} of the time")
+    old = lambda: sht._mat2alm(leg.legendre_ana(sht._ring_analysis(
+        maps, rings, lmax) * w[:, None], tab), lmax)
+    steps_ana = [("map2alm, matrix layouts and passes", old)]
+    if layouts:
+        steps_ana.append(("map2alm, the kernel's layouts", lambda: (
+            sht._analysis_rings(maps, rings, lmax, tab, False))))
+    for label, fn in steps_ana:
+        print(f"time {label} lmax {lmax} x12 with cuFFT: "
+              f"{cuda_ms(fn, reps):.4f} ms")
+    if layouts:
+        print(f"map2alm gap, kernel's layouts vs matrix layouts: "
+              f"{rel(steps_ana[1][1](), old()):.3e} of max")
+    fft_ms = cuda_ms(lambda: torch.fft.rfft(maps, dim=-1), reps)
+    ifft_ms = cuda_ms(lambda: torch.fft.irfft(F, n=rings.nphi, dim=-1),
+                      reps)
+    print(f"time rfft x12 alone: {fft_ms:.4f} ms; irfft x12 alone: "
+          f"{ifft_ms:.4f} ms")
+    leg.clear_tables()
+    torch.cuda.empty_cache()
+
+
 def lens_bench(reps, quick):
     """B8 at (64, 1, 512^2) with config 6's deflection: CUDA-event time,
     bytes bound, error against ``lens_map_ref`` and, where the tree counts
@@ -596,6 +693,7 @@ FAMILIES = {"rowpower": (rowpower_cases, ("rowpower.cu",), SHAPES, None),
                 lambda reps, quick: legendre_bench(
                     reps, quick, LEGENDRE_ANA_SHAPES, ana_only=True),
                 ("legendre.cu",), (), None),
+            "sht_io": (sht_io_bench, ("legendre.cu",), (), None),
             "lens": (lens_bench, ("lens_spline.cu",), (), None),
             "binreduce": (binreduce_bench, ("bin_reduce.cu",), (), None),
             "rowcombine": (rowcombine_cases, ("rowcombine.cu",),

@@ -637,6 +637,62 @@ def test_legendre_kernels_match_ref(cuda_device, lmax, grid, ns, ni, B,
             assert err <= TOL_LEG["fast_plain"], (fn.__name__, err)
         assert torch.equal(got, again)
         assert torch.equal(one[0], got[-1])     # a map alone = packed
+    _ring_io_matches_matrix_io(tab, B, mode, rng, cplx)
+
+
+def _ring_io_matches_matrix_io(tab, B, mode, rng, cplx):
+    """The scalar SHT's layouts against the matrix layouts on the same
+    tables: B10a reading a wider half spectrum in place and writing packed
+    alms, B10s reading packed alms and writing a half spectrum zero past
+    M1. Without phase and weights bit-equal to the matrix layouts; with
+    them (phi0 = 0.3, random ring weights, applied in float64 by the
+    kernels) within the mode's contract of the matrix layouts on the rings
+    weighted in float64 and of the plain versions on the same arguments;
+    a map alone equals it in a packed launch; each launch counted in
+    ``ring_io``."""
+    lmax, Tr = tab["lmax"], tab["Tr"]
+    M1, ncols = lmax + 1, lmax + 1 + 37
+    fast = mode == "fast"
+    tol = TOL_LEG["fast_plain" if fast else mode]
+    # against the matrix layouts, whose inputs round before the fold
+    tol_mat = TOL_LEG["f64" if mode == "f64" else "f32"]
+    c128 = torch.complex128
+    dev = tab["x"].device
+    w = torch.as_tensor(rng.uniform(0.5, 1.5, Tr), device=dev)
+    ph = torch.exp(0.3j * torch.arange(M1, device=dev,
+                                       dtype=torch.float64))
+    rel = lambda g, r: ((g - r).abs().max() / r.abs().max()).item()
+    F = cplx(B, Tr, ncols)
+    a = leg._mat2alm(cplx(B, M1, M1), lmax)
+    n = -(-B // 16)
+    before = leg.legendre_ana.ring_io, leg.legendre_syn.ring_io
+    # B10a: F in place (row stride ncols), packed out
+    got = leg.legendre_ana(F, tab, fast, None, None, True)
+    mat = leg.legendre_ana(F[..., :M1].contiguous(), tab, fast)
+    assert torch.equal(got, leg._mat2alm(mat, lmax))
+    got = leg.legendre_ana(F, tab, fast, w, ph.conj(), True)
+    one = leg.legendre_ana(F[-1:], tab, fast, w, ph.conj(), True)
+    G = (F[..., :M1].to(c128) * ph.conj() * w[:, None]).to(F.dtype)
+    assert rel(got, leg._mat2alm(leg.legendre_ana(G, tab, fast),
+                                 lmax)) <= tol_mat
+    ref = leg.legendre_ana_ref(F, tab, fast, w, ph.conj(), True)
+    assert got.shape == ref.shape and rel(got, ref) <= tol
+    assert torch.equal(one[0], got[-1])
+    # B10s: packed in, the half spectrum out
+    got = leg.legendre_syn(a, tab, fast, None, True, ncols)
+    mat = leg.legendre_syn(leg._alm2mat(a, lmax), tab, fast)
+    assert got.shape == (B, Tr, ncols) and bool((got[..., M1:] == 0).all())
+    assert torch.equal(got[..., :M1], mat)
+    got = leg.legendre_syn(a, tab, fast, ph, True, ncols)
+    one = leg.legendre_syn(a[-1:], tab, fast, ph, True, ncols)
+    assert bool((got[..., M1:] == 0).all())
+    assert rel(got[..., :M1], (mat.to(c128) * ph).to(mat.dtype)) <= tol_mat
+    ref = leg.legendre_syn_ref(a, tab, fast, ph, True, ncols)
+    assert got.shape == ref.shape and rel(got, ref) <= tol
+    assert torch.equal(one[0], got[-1])
+    torch.cuda.synchronize()
+    assert (leg.legendre_ana.ring_io, leg.legendre_syn.ring_io) == (
+        before[0] + 2 * n + 1, before[1] + 2 * n + 1)
 
 
 @pytest.mark.cuda

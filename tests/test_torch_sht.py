@@ -311,6 +311,53 @@ def test_spin2_f32_vs_pallas(jref):
     assert _rel(gq, qq) <= TOL_F32 and _rel(gu, uu) <= TOL_F32
 
 
+# ---------------- the scalar SHT's layouts (the card's path) on the CPU
+
+def _shifted(rings, phi0):
+    return tsht.RingGeom(rings.theta, rings.weights, rings.nphi, phi0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("grid", ["gl", "gl_phi0", "cc_phi0", "asym_phi0"])
+def test_scalar_layouts_vs_composition(grid, dtype):
+    """The scalar transforms' path on the card (``_analysis_rings``: B10a
+    on the rfft output in place, phase and float64 weights on load, packed
+    alms out; ``_synthesis_rings``: B10s from packed alms into the half
+    spectrum, phase on store, unnormalized irfft), run here through the
+    plain versions with the same layouts, against today's composition
+    (``_ring_analysis`` x w -> ``legendre_ana_ref`` -> ``_mat2alm``;
+    ``_alm2mat`` -> ``legendre_syn_ref`` -> ``_ring_synthesis``), which
+    the public transforms still take on the CPU (bit-equal). Folded and
+    full layouts, phi0 = 0 and not; float32 to 1e-6 of max (the phase and
+    weights in float64 instead of float32), float64 to 1e-13. The CPU runs
+    no kernel: the ``ring_io`` counters stay."""
+    lmax = 24
+    base, phi0 = grid.split("_")[0], 0.0 if grid == "gl" else 0.37
+    rings = _shifted({"gl": tsht.gauss_legendre_rings(lmax),
+                      "cc": tsht.clenshaw_curtis_rings(2 * lmax + 2),
+                      "asym": _asym(tsht, lmax)}[base], phi0)
+    layout = tsht._layout(rings)
+    assert layout == ("full" if base == "asym" else "fold")
+    tol = TOL_F64 * 1e-3 if dtype == torch.float64 else TOL_F32
+    m = torch.as_tensor(_maps(lmax, (3,) + rings.shape), dtype=dtype)
+    tab = leg.tables(lmax, rings, (0,), 0, layout)
+    before = leg.legendre_ana.ring_io, leg.legendre_syn.ring_io
+    old = tsht._mat2alm(leg.legendre_ana_ref(
+        tsht._ring_analysis(m, rings, lmax)
+        * tsht._weights(rings, dtype, "cpu")[:, None], tab), lmax)
+    assert torch.equal(tsht.map2alm(m, rings, lmax), old)
+    new = tsht._analysis_rings(m, rings, lmax, tab, False)
+    assert new.dtype == old.dtype and new.shape == old.shape
+    assert _rel(new, old) <= tol
+    old_s = tsht._ring_synthesis(leg.legendre_syn_ref(
+        tsht._alm2mat(old, lmax), tab), rings)
+    assert torch.equal(tsht.alm2map(old, rings, lmax), old_s)
+    new_s = tsht._synthesis_rings(old, rings, lmax, tab, False)
+    assert new_s.dtype == dtype and new_s.shape == (3,) + rings.shape
+    assert _rel(new_s, old_s) <= tol
+    assert (leg.legendre_ana.ring_io, leg.legendre_syn.ring_io) == before
+
+
 def test_f32_roundtrip():
     lmax = 63
     rings = tsht.gauss_legendre_rings(lmax)
