@@ -1,4 +1,4 @@
-"""Run one cell of the benchmark once, in this process, on the card.
+"""Run one cell of the benchmark once on its cards.
 
     python3 -m cmbbench.run --workload <cell> --seed <n> --seconds <s> \
         --trace <0|1>
@@ -16,6 +16,14 @@ answers against the plain reference, and print one JSON line last on
 standard output. The compared numbers and their limits are the last lines
 on standard error and the last key of that line.
 
+A cell of one card runs in this process, with no process group. A cell of
+``chips`` S > 1 runs as S rank processes, one a card, that this process
+starts and supervises (:mod:`cmbbench.launch`): each rank builds the cell
+from the same seed in one NCCL world, every rank runs the same steps, and
+rank 0's clock ends the window. Its line sums the ranks' units, attempts
+and failures, takes the largest rank's ``step_ms_p95`` and peak, and
+counts ``setup_s`` from this process's start.
+
 With ``--trace 0`` the line carries the end-to-end metrics: ``sims_per_s``
 (units over the window, from a synchronize before the first step to the
 synchronize after the last), ``step_ms_p95`` (95th percentile of the gaps
@@ -26,7 +34,8 @@ metrics, read from ``torch.profiler`` over part of the window, and
 ``breakdown``.
 
 No card, or fewer than the cell asks for: exit 2 with no result. A JAX
-module loaded in this process once the window has closed: exit 3 with no
+module loaded in this process (or in a rank's) once the window has
+closed: exit 3 with no result. A rank that fails: its exit code, no
 result.
 """
 from __future__ import annotations
@@ -54,11 +63,11 @@ GIB = float(2 ** 30)
 __all__ = ["main", "run_cell", "load_cell", "Readings"]
 
 
-def _uptime_since_start():
-    """Seconds since this process started (the kernel's boot clock), or
+def _uptime_since_start(pid="self"):
+    """Seconds since process ``pid`` started (the kernel's boot clock), or
     None where ``/proc`` does not say."""
     try:
-        with open("/proc/self/stat") as f:
+        with open(f"/proc/{pid}/stat") as f:
             fields = f.read().rsplit(")", 1)[1].split()
         with open("/proc/uptime") as f:
             up = float(f.read().split()[0])
@@ -70,10 +79,11 @@ def _uptime_since_start():
 _IMPORTED = time.perf_counter()
 
 
-def _process_start():
-    """This process's start on the ``perf_counter`` clock (the harness's
-    import where ``/proc`` does not say)."""
-    since = _uptime_since_start()
+def _process_start(pid="self"):
+    """The start of process ``pid`` (this one by default) on this process's
+    ``perf_counter`` clock (the harness's import where ``/proc`` does not
+    say)."""
+    since = _uptime_since_start(pid)
     return _IMPORTED if since is None else time.perf_counter() - since
 
 
@@ -134,7 +144,7 @@ def _launch_counts():
     """The port's per-wrapper launch counters, where they are non-zero."""
     out = {}
     for modname in ("dft", "bin_reduce", "lens", "noise_planes", "mirror",
-                    "rowpower"):
+                    "rowpower", "legendre", "qe_conv"):
         mod = sys.modules.get("orphics_tpu_torch.ops." + modname)
         if mod is None:
             continue
@@ -146,9 +156,12 @@ def _launch_counts():
 
 
 def run_cell(bench, wl, cfg, traffic, seed, seconds, trace, device,
-             log=print):
+             log=print, ranks=None):
     """Run the cell once; returns the result line's dict (``checked``
-    last)."""
+    last). With ``ranks`` (a :class:`cmbbench.launch.Ranks`) this process
+    is one rank of a multi-card run: set-up counts from the launcher's
+    start, rank 0's clock ends the window, and rank 0 returns the line of
+    all ranks (the others None)."""
     import numpy as np
     import torch
 
@@ -162,7 +175,7 @@ def run_cell(bench, wl, cfg, traffic, seed, seconds, trace, device,
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    started = _process_start()
+    started = _process_start() if ranks is None else ranks.started
     phases = [("start", time.perf_counter() - started)]
 
     def mark(what):
@@ -209,6 +222,8 @@ def run_cell(bench, wl, cfg, traffic, seed, seconds, trace, device,
         torch.cuda.reset_peak_memory_stats()
         marks = [torch.cuda.Event(enable_timing=True)]
     sync()
+    if ranks is not None:
+        ranks.barrier()
     setup_s = time.perf_counter() - started
     t0 = time.perf_counter()
     if cuda:
@@ -225,6 +240,8 @@ def run_cell(bench, wl, cfg, traffic, seed, seconds, trace, device,
             kept[i] = out
         i += 1
         now = time.perf_counter() - t0
+        if ranks is not None:
+            now = ranks.clock(now, i - first)
         if tracer is not None:
             if traced_from is None and now >= trace_from:
                 # the stretch: as many steps as take TRACE_FOR_S so far
@@ -239,6 +256,8 @@ def run_cell(bench, wl, cfg, traffic, seed, seconds, trace, device,
     if tracer is not None and tracer.prof is not None:
         tracer.stop(i - traced_from)
     sync()
+    if ranks is not None:
+        ranks.barrier()
     window_s = time.perf_counter() - t0
     nsteps = i - first
     units = nsteps * entry.units
@@ -313,6 +332,8 @@ def run_cell(bench, wl, cfg, traffic, seed, seconds, trace, device,
                                "idle_gaps": readings.trace["idle_gaps"]}
     result["checked"] = {name: {"value": worst if np.isfinite(worst)
                                 else None, "limit": limit}}
+    if ranks is not None:
+        return ranks.result(result, window_s)
     return result
 
 
@@ -334,18 +355,29 @@ def main(argv=None):
     cache = REPO / ".cmbbench_cache"
     os.environ["TRITON_CACHE_DIR"] = str(cache / "triton")
     os.environ["CUDA_CACHE_PATH"] = str(cache / "cuda")
-    import torch
     bench, wl, cfg, traffic = load_cell(args.workload)
-    torch.set_num_threads(4)
-    if not torch.cuda.is_available() or (torch.cuda.device_count()
-                                         < wl["chips"]):
-        print(f"cmbbench: {wl['name']} needs {wl['chips']} CUDA device(s); "
-              f"torch.cuda.is_available() is {torch.cuda.is_available()}",
-              file=sys.stderr)
-        return 2
-    log = lambda s: print(s, file=sys.stderr, flush=True)
-    result = run_cell(bench, wl, cfg, traffic, args.seed, args.seconds,
-                      args.trace, "cuda", log)
+    if wl["chips"] > 1:
+        # the ranks check the cards; this process imports no torch, so
+        # that they start at once
+        from .launch import launch
+        code, result = launch(bench, wl, cfg, traffic, args.seed,
+                              args.seconds, args.trace)
+        if code:
+            print(f"cmbbench: a rank of {wl['name']} exited {code}; no "
+                  "result", file=sys.stderr)
+            return code
+    else:
+        import torch
+        torch.set_num_threads(4)
+        if not torch.cuda.is_available() or (torch.cuda.device_count()
+                                             < wl["chips"]):
+            print(f"cmbbench: {wl['name']} needs {wl['chips']} CUDA "
+                  f"device(s); torch.cuda.is_available() is "
+                  f"{torch.cuda.is_available()}", file=sys.stderr)
+            return 2
+        log = lambda s: print(s, file=sys.stderr, flush=True)
+        result = run_cell(bench, wl, cfg, traffic, args.seed, args.seconds,
+                          args.trace, "cuda", log)
     bad = forbidden_modules()
     if bad:
         print(f"cmbbench: loaded in the measuring process: {bad}",

@@ -1,9 +1,10 @@
 """Small CPU versions of the benchmark's cells for its tests.
 
-The cells' grids are cut to 256^2 and their batches to a few maps; the
-program runs its plain CPU versions. Its CPU draws are another stream than
-the card's, so :func:`card_stream` makes the plain versions draw the card's
-Philox stream (the references' frozen copy), as the kernels do.
+The flat cells' grids are cut to 256^2, the curved cell to lmax 63 on 96 x
+192 rings, and their batches to a few maps; the program runs its plain CPU
+versions. Its CPU draws are another stream than the card's, so
+:func:`card_stream` makes the plain versions draw the card's Philox stream
+(the references' frozen copy), as the kernels do.
 """
 from __future__ import annotations
 
@@ -15,12 +16,20 @@ import torch
 from cmbbench.reference import streams
 from cmbbench.run import load_cell
 
-CELLS = ("tt2048.sim", "lensqe512.sim", "tt2048.cross", "lensqe512.recon")
+CELLS = ("tt2048.sim", "lensqe512.sim", "tt2048.cross", "lensqe512.recon",
+         "curvedqe2047.recon")
 _SMALL = {
     "tt2048.sim": ({"n": 256}, {"batch": 8}),
     "tt2048.cross": ({"n": 256}, {"batch": 4, "inputs": {"count": 8}}),
     "lensqe512.sim": ({"n": 256}, {"batch": 4}),
     "lensqe512.recon": ({"n": 256}, {"batch": 4, "inputs": {"count": 8}}),
+    # lmax 63 on gauss_legendre_rings(95), 2 sims a step from 4 held alms
+    "curvedqe2047.recon": (
+        {"lmax": 63, "lmin": 8,
+         "rings": {"kind": "gauss_legendre", "lmax": 95, "ntheta": 96,
+                   "nphi": 192},
+         "bins": {"start": 8, "stop": 64, "step": 8}},
+        {"batch": 2, "inputs": {"count": 4}}),
 }
 
 

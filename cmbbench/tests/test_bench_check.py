@@ -26,7 +26,13 @@ _ENTRY = {
                       "LensedQEPipeline", "step"),
     "lensqe512.recon": ("orphics_tpu_torch.models.qe", "QE",
                         "kappa_from_map"),
+    "curvedqe2047.recon": ("orphics_tpu_torch.models.curved_qe", "CurvedQE",
+                           "kappa_from_alm"),
 }
+# cells whose altered answer is the whole reconstruction rescaled: one bin
+# of a flat k-map moves a residual near zero, and alm 3 (l = 3) lies below
+# the curved cell's first bin
+_RESCALED = ("lensqe512.recon", "curvedqe2047.recon")
 
 
 def _run(name, seconds=0.5, seed=2 ** 33 + 5):
@@ -91,7 +97,7 @@ def _rescaled(fn):
 @contextlib.contextmanager
 def _broken(name, fault):
     mod, cls, meth = _ENTRY[name]
-    if fault is _altered and name == "lensqe512.recon":
+    if fault is _altered and name in _RESCALED:
         fault = _rescaled
     owner = getattr(importlib.import_module(mod), cls)
     saved = getattr(owner, meth)

@@ -29,15 +29,16 @@ def _line(s):
         and "\t" not in s
 
 
-def test_benchmark_json_contract():
-    assert set(BENCH) == {"command", "paths", "run_seconds", "configs",
+def _contract(bench, size=None):
+    """``bench`` against the contract; ``size``: the file's bytes."""
+    assert set(bench) == {"command", "paths", "run_seconds", "configs",
                           "workloads", "end_to_end", "per_layer"}
-    assert BENCH["paths"] == ["cmbbench"]
-    assert 1 <= BENCH["run_seconds"] <= 51
-    assert all(_line(w) for w in BENCH["command"])
-    assert (REPO / "BENCHMARK.json").stat().st_size <= 64 * 1024
+    assert bench["paths"] == ["cmbbench"]
+    assert 1 <= bench["run_seconds"] <= 51
+    assert all(_line(w) for w in bench["command"])
+    assert size is None or size <= 64 * 1024
     names = set()
-    for c in BENCH["configs"]:
+    for c in bench["configs"]:
         assert set(c) == {"name", "source", "file", "reduced", "why"}
         assert NAME.match(c["name"]) and _line(c["source"]) and _line(c["why"])
         assert c["file"].startswith("cmbbench/")
@@ -46,28 +47,63 @@ def test_benchmark_json_contract():
             == c["reduced"]
         names.add(c["name"])
     cells = set()
-    for w in BENCH["workloads"]:
+    for w in bench["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert NAME.match(w["name"]) and NAME.match(w["traffic"])
-        assert w["config"] in names and w["chips"] == 1 and _line(w["why"])
+        assert w["config"] in names and w["chips"] in (1, 4)
+        assert _line(w["why"])
         cells.add(w["name"])
-    assert cells == set(CELLS)
-    e2e = {m["name"] for m in BENCH["end_to_end"]}
+    assert len(cells) == len(bench["workloads"])
+    four = sum(w["chips"] == 4 for w in bench["workloads"])
+    assert four <= max(1, len(cells) // 4)
+    e2e = {m["name"] for m in bench["end_to_end"]}
     assert {"sims_per_s", "step_ms_p95", "peak_mem_gib", "setup_s"} == e2e
-    for m in BENCH["end_to_end"]:
+    for m in bench["end_to_end"]:
         assert set(m) <= {"name", "unit", "better", "bound", "source",
                           "workloads"}
         assert UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
         assert m["source"] in ("host_clock", "device_trace")
         assert 0.01 <= m["bound"] <= 0.25
-    for m in BENCH["per_layer"]:
+    for m in bench["per_layer"]:
         assert set(m) == {"name", "unit", "better", "source", "layer",
                           "moves", "workloads"}
         assert NAME.match(m["name"]) and UNIT.match(m["unit"])
         assert m["moves"] in e2e and set(m["workloads"]) <= cells
         assert _line(m["layer"])
-    assert len({m["name"] for m in BENCH["per_layer"]}) \
-        == len(BENCH["per_layer"])
+    assert len({m["name"] for m in bench["per_layer"]}) \
+        == len(bench["per_layer"])
+    return cells
+
+
+def test_benchmark_json_contract():
+    cells = _contract(BENCH, (REPO / "BENCHMARK.json").stat().st_size)
+    assert cells == set(CELLS)
+
+
+def _with_cells(chips):
+    """``BENCHMARK.json`` with one more cell of each count in ``chips``."""
+    bench = json.loads(json.dumps(BENCH))
+    for k, n in enumerate(chips):
+        bench["workloads"].append({**bench["workloads"][0],
+                                   "name": f"zz_cell{k}", "chips": n})
+    return bench
+
+
+@pytest.mark.parametrize("chips,ok", [
+    ((4,), True),           # one four-chip cell is always allowed
+    ((4, 4), False),        # 7 cells: at most one
+    ((4, 1, 1, 4), True),   # 9 cells: two
+    ((4, 1, 1, 4, 4), False),
+    ((2,), False),          # a cell takes 1 or 4 chips
+], ids=["one_of_six", "two_of_seven", "two_of_nine", "three_of_ten",
+        "two_chips"])
+def test_four_chip_cells_counted(chips, ok):
+    bench = _with_cells(chips)
+    if ok:
+        _contract(bench)
+    else:
+        with pytest.raises(AssertionError):
+            _contract(bench)
 
 
 def test_pieces_found_by_name():
