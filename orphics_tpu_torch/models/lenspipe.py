@@ -64,7 +64,9 @@ def _fphi(modl):
 class LensedQEPipeline:
     """Batched lensed-sim + TT-QE reconstruction. ``step(batch, generator)``
     returns the binned ``(cross, auto_in, auto_rec - N0)`` spectra,
-    ``(batch, 3, nbins)``, on the path ``self.impl`` names. The
+    ``(batch, 3, nbins)``, on the path ``self.impl`` names;
+    ``step_kappa`` returns the reconstruction's Fourier planes beside
+    them. The
     deterministic bodies: ``core(eta_c, eta_k, eta_n)`` (half-plane, the
     three Hermitian half-plane noise sets) and ``_pp_core(zk, zc, w,
     batch)`` (full-plane, the three pair-level noise plane sets).
@@ -201,12 +203,18 @@ class LensedQEPipeline:
                                                   + tuple(a.shape[1:]))
 
     def _pp_core(self, zk, zc, w, batch: int):
+        """:meth:`_pp_body`'s spectra alone."""
+        return self._pp_body(zk, zc, w, batch)[0]
+
+    def _pp_body(self, zk, zc, w, batch: int):
         """Full-plane pipeline body from the three pair-level complex noise
         plane sets, each a ``(P, n, n)`` (re, im) pair in the ``fft2pp``
         layout with ``P = batch // 2``: kappa spectra ``zk`` (scale
         ``csq_kk_pp``), CMB spline-coefficient spectra ``zc`` (scale
         ``csq_coeff_pp``) and observation noise ``w`` (scale
-        ``nscale_pp``). Returns ``(batch, 3, nbins)``.
+        ``nscale_pp``). Returns the ``(batch, 3, nbins)`` spectra and the
+        reconstruction's raw-fft planes ``(fkr, fki)``, ``(batch, n, n)``
+        each in the doubly-permuted layout.
 
         Per map: 0.5 mirror (kappa split), 0.5 inverse (coefficient pair),
         1 inverse (both deflection components as Re/Im: the i of the
@@ -262,7 +270,7 @@ class LensedQEPipeline:
                 .reshape(3 * batch, -1)
             sums = bin_reduce(stacked, self._idc, self._nseg)
             out = sums[:, 1:] * self._icnt
-            return out.reshape(batch, 3, out.shape[-1])
+            return out.reshape(batch, 3, out.shape[-1]), (fkr, fki)
 
     @spanned("orphics.lenspipe.draw")
     def draw_noise_pp(self, batch: int, generator: torch.Generator):
@@ -286,6 +294,11 @@ class LensedQEPipeline:
         """Deterministic pipeline body from three ``(B, ny, nx//2+1)``
         complex Hermitian noise sets (CMB coefficients, kappa, instrument
         noise) -> ``(B, 3, nbins)`` binned spectra."""
+        return self._core_body(eta_c, eta_k, eta_n)[0]
+
+    def _core_body(self, eta_c, eta_k, eta_n):
+        """:meth:`core`'s spectra and the reconstruction's raw-fft
+        half-plane ``(fk.real, fk.imag)``, ``(B, ny, nx//2+1)`` each."""
         geom = self.geom
         with span("orphics.lenspipe.deflect"):
             coeffs = F.irfft2(self.csq_coeff * eta_c, geom)  # spline coeffs
@@ -311,7 +324,7 @@ class LensedQEPipeline:
             auto_rec = (fk.conj() * fk).real * self.norm - self.n0_h[None]
             _, binned = self.binner.bin(torch.stack([cross, auto_in,
                                                      auto_rec], dim=1))
-            return binned
+            return binned, (fk.real, fk.imag)
 
     @spanned("orphics.lenspipe.draw")
     def draw_noise(self, batch: int, generator: torch.Generator):
@@ -324,10 +337,23 @@ class LensedQEPipeline:
     def step(self, batch: int, generator: torch.Generator):
         """Run ``batch`` independent sim + reconstruction pipelines on the
         path of ``self.impl`` (the full-plane path needs an even batch)."""
+        return self._run(batch, generator)[0]
+
+    @spanned("orphics.lenspipe.step")
+    def step_kappa(self, batch: int, generator: torch.Generator):
+        """:meth:`step` that also hands out the reconstruction it computes:
+        ``(spectra, (kappa_re, kappa_im))``, the raw-fft planes of each
+        sim's kappa estimate in the path's layout (full-plane: ``(batch, n,
+        n)`` doubly permuted; half-plane: the ``(batch, ny, nx//2+1)`` rfft
+        half), for a mean-field stack. The same draws and launches as
+        :meth:`step`: the spectra are bit-equal."""
+        return self._run(batch, generator)
+
+    def _run(self, batch, generator):
         if self.impl == "pallas":
-            return self._pp_core(*self.draw_noise_pp(batch, generator),
+            return self._pp_body(*self.draw_noise_pp(batch, generator),
                                  batch)
-        return self.core(*self.draw_noise(batch, generator))
+        return self._core_body(*self.draw_noise(batch, generator))
 
     def centers(self):
         return self.binner.centers

@@ -16,8 +16,10 @@ in PyTorch's idiom:
     :func:`get_mesh` returns a one-rank mesh whose collectives are the
     identity;
   * task distribution: ``fn(generator)`` per task, each task's
-    ``torch.Generator`` seeded from ``(seed, task index)``, tasks split
-    over the ``sims`` axis, one all-reduce of the sufficient statistics.
+    ``torch.Generator`` seeded from ``(seed, task index)``, or
+    ``fn(generator, count)`` per chunk of tasks on the stream of its first
+    task, tasks split over the ``sims`` axis, one all-reduce of the
+    sufficient statistics.
 
 The distributed functions of :mod:`.fourier` and :mod:`.sht` are per-rank
 bodies over a mesh axis (its ``index``, ``size`` and collectives).
@@ -40,6 +42,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
 from .._device import resolve
+from ..utils.profiling import span, spanned
 from .statistics import (SuffStats, psum_states, state_from_arrays,
                          state_to_arrays)
 
@@ -442,50 +445,108 @@ def _stacked(outs):
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
 
+@spanned("orphics.parallel.ensemble_stats")
 def ensemble_stats(fn: Callable, nsims: int, seed: int = 0,
                    mesh: Optional[Mesh] = None, chunk: int = 1,
                    do_cov: bool = True,
-                   stack_fn: Optional[Callable] = None):
-    """Run ``fn(generator) -> dict[str, 1-D tensor]`` for ``nsims``
-    independent tasks across the mesh's ``sims`` axis and return fully
-    reduced :class:`SuffStats` per label, replicated on every rank (the
-    ``Statistics.allreduce`` pattern of ``orphics/stats.py:1184``).
+                   stack_fn: Optional[Callable] = None,
+                   batched: bool = False):
+    """Run ``fn`` for ``nsims`` independent tasks across the mesh's
+    ``sims`` axis and return fully reduced :class:`SuffStats` per label,
+    replicated on every rank (the ``Statistics.allreduce`` pattern of
+    ``orphics/stats.py:1184``).
 
-    Task ``i`` gets :func:`task_generator` ``(seed, i)`` on the mesh's
+    Per task (the default): ``fn(generator) -> dict[str, 1-D tensor]``;
+    task ``i`` gets :func:`task_generator` ``(seed, i)`` on the mesh's
     device. Each rank runs its block of tasks (ranks of the other axes
     repeat their ``sims`` coordinate's block), folding ``chunk`` tasks at a
-    time into its accumulator; tasks beyond ``nsims`` carry weight 0 and
-    do not bias the statistics. One all-reduce over ``sims`` ends it.
-    ``stack_fn``: optional ``fn(generator) -> dict[str, tensor]`` of map-
-    like outputs to be stack-summed (``add_to_stack``), on a generator of
-    the same seed as ``fn``'s.
+    time into its accumulator, of ``fn``'s dtype. ``stack_fn``: optional
+    ``fn(generator) -> dict[str, tensor]`` of map-like outputs to be
+    stack-summed (``add_to_stack``), on a generator of the same seed as
+    ``fn``'s.
+
+    Batched (``batched=True``): ``fn(generator, count)`` runs ``count =
+    chunk`` tasks in one call and returns per label a ``(count, d)``
+    tensor, or a pair of that dict and a dict of ``(count, ...)`` maps to
+    be stack-summed. Chunks start at global multiples of ``chunk`` (a
+    rank's block is whole chunks), and the chunk from task ``c`` gets
+    :func:`task_generator` ``(seed, c)``, so the result does not depend on
+    the number of ranks and ``chunk=1`` draws the per-task form's streams.
+    The accumulators are float64 whatever ``fn`` returns. Nothing reads
+    the card back: the campaign is enqueued, its all-reduce last.
+
+    In both forms the tasks beyond ``nsims`` are left out of the
+    statistics; a rank whose block lies past ``nsims`` runs one task (a
+    chunk, batched) of padding, so it knows the outputs' shapes. One
+    all-reduce over ``sims`` ends both forms. Counters:
+    ``ensemble_stats.chunks`` (calls of ``fn`` a chunk, per task form: a
+    chunk of calls), ``.tasks`` (tasks that count) and ``.padded``
+    (padding tasks run), on this rank.
     """
     if mesh is None:
         mesh = get_mesh()
-    ax = mesh.axis("sims")
+    ax, dev = mesh.axis("sims"), mesh.device
     per = math.ceil(nsims / ax.size / chunk) * chunk
-    tasks, weight = _rank_tasks(nsims, ax, per)
-    dev = mesh.device
-    st, sst = None, {}
-    for c0 in range(0, len(tasks), chunk):
-        idx = tasks[c0: c0 + chunk]
-        w = None if weight else torch.zeros(len(idx), dtype=torch.float64)
-        vals = _stacked([fn(task_generator(seed, i, dev)) for i in idx])
-        if st is None:
-            st = {k: SuffStats.zeros(v[0].numel(), do_cov, v.dtype, v.device)
-                  for k, v in vals.items()}
-        st = {k: st[k].add(vals[k].reshape(len(idx), -1), w=w) for k in st}
+    if batched:
         if stack_fn is not None:
-            svals = _stacked([stack_fn(task_generator(seed, i, dev))
-                              for i in idx])
-            if not sst:
-                sst = {k: SuffStats.zeros_stack(v.shape[1:], v.dtype,
-                                                v.device)
-                       for k, v in svals.items()}
-            sst = {k: sst[k].add_stack(svals[k], w=w) for k in sst}
-    out = dict(st)
-    out.update(sst)
+            raise ValueError("a batched fn returns its stacks itself: "
+                             "give no stack_fn")
+
+        def produce(c0, count):
+            out = fn(task_generator(seed, c0, dev), count)
+            return out if isinstance(out, tuple) else (out, {})
+    else:
+        def produce(c0, count):
+            tasks = range(c0, c0 + count)
+            vals = _stacked([fn(task_generator(seed, i, dev))
+                             for i in tasks])
+            return vals, ({} if stack_fn is None else _stacked(
+                [stack_fn(task_generator(seed, i, dev)) for i in tasks]))
+    out = _rank_stats(produce, nsims, ax, per, chunk, do_cov,
+                      torch.float64 if batched else None, batched)
     return psum_states(out, ax)
+
+
+ensemble_stats.chunks = 0
+ensemble_stats.tasks = 0
+ensemble_stats.padded = 0
+
+
+def _rank_stats(produce, nsims, ax, per, chunk, do_cov, dtype, whole):
+    """This rank's accumulators: ``produce(c0, count)`` gives the
+    ``(vals, stacks)`` of tasks ``c0 .. c0 + count - 1`` for each chunk of
+    the rank's block that starts before ``nsims`` (``count`` is ``chunk``
+    where ``whole``, else the chunk's tasks below ``nsims``); the rows past
+    ``nsims`` are left out. A rank whose block lies past ``nsims`` runs
+    one chunk of padding, so it knows the outputs' shapes. The
+    accumulators are of ``dtype``, or of the outputs' own."""
+    start = ax.index * per
+    st = sst = None
+    for c0 in [c for c in range(start, start + per, chunk)
+               if c < nsims] or [start]:
+        valid = max(0, min(chunk, nsims - c0))
+        count = chunk if whole else max(valid, 1)
+        ensemble_stats.chunks += 1
+        ensemble_stats.tasks += valid
+        ensemble_stats.padded += count - valid
+        with span("orphics.parallel.tasks"):
+            vals, stacks = produce(c0, count)
+        for k, v in {**vals, **stacks}.items():
+            if v.shape[0] != count:
+                raise ValueError(f"fn(generator, {count}) returned {k!r} "
+                                 f"with {v.shape[0]} rows")
+        with span("orphics.parallel.accumulate"):
+            if st is None:
+                st = {k: SuffStats.zeros(v[0].numel(), do_cov,
+                                         dtype or v.dtype, v.device)
+                      for k, v in vals.items()}
+                sst = {k: SuffStats.zeros_stack(v.shape[1:], dtype or v.dtype,
+                                                v.device)
+                       for k, v in stacks.items()}
+            st = {k: st[k].add(vals[k].reshape(count, -1)[:valid])
+                  for k in st}
+            sst = {k: sst[k].add_stack(stacks[k][:valid]) for k in sst}
+    return {**st, **sst}
 
 
 def ensemble(fn: Callable, nsims: int, seed: int = 0,

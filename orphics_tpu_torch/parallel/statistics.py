@@ -10,7 +10,10 @@ SUM)`` of counts, sums and outer-product sums) keep their reduction shape,
 dataclass of tensors and its methods are pure: each returns a new one.
 
 Derived statistics: mean = sum x / N, cov = (sum x x^T - sum x sum x^T /
-N) / (N - ddof), as ``stats.py:1338-1394``.
+N) / (N - ddof), as ``stats.py:1338-1394``. A batch is cast to the
+accumulator's dtype as it is added, so float64 accumulators (orphics
+accumulates in float64 numpy) keep a long campaign's moments from the
+cancellation of float32 sums.
 
 The npz format of :func:`state_to_arrays` is the JAX package's
 (``{label}__{field}``), so either package reads the other's files.
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from .._device import as_tensor, resolve
+from ..utils.profiling import span
 
 __all__ = ["SuffStats", "Statistics", "Stats", "get_stats",
            "dump_stats", "load_stats", "state_to_arrays",
@@ -36,7 +40,10 @@ def psum_states(states: Dict[str, "SuffStats"], axis):
     """All-reduce every field of every label of ``states`` over a mesh axis
     (``mesh.axis("sims")``: its process group's all-reduce): the fields of
     one dtype and device are packed into one buffer, so a dict of
-    accumulators costs one collective per dtype."""
+    accumulators costs one collective per dtype. The counters
+    ``psum_states.collectives`` and ``psum_states.bytes`` count the
+    all-reduces issued and the bytes of their buffers (the identity on a
+    one-rank axis counts too)."""
     groups = {}
     for label, st in states.items():
         for field in _SUFF_FIELDS:
@@ -46,14 +53,21 @@ def psum_states(states: Dict[str, "SuffStats"], axis):
                     (label, field, v))
     new = {label: {} for label in states}
     for items in groups.values():
-        flat = axis.all_reduce(torch.cat([v.reshape(-1)
-                                          for _, _, v in items]))
+        with span("orphics.parallel.allreduce"):
+            flat = axis.all_reduce(torch.cat([v.reshape(-1)
+                                              for _, _, v in items]))
+        psum_states.collectives += 1
+        psum_states.bytes += flat.numel() * flat.element_size()
         pos = 0
         for label, field, v in items:
             new[label][field] = flat[pos: pos + v.numel()].reshape(v.shape)
             pos += v.numel()
     return {label: dataclasses.replace(st, **new[label])
             for label, st in states.items()}
+
+
+psum_states.collectives = 0
+psum_states.bytes = 0
 
 
 @dataclasses.dataclass
@@ -89,9 +103,10 @@ class SuffStats:
 
     # ---- accumulation (pure) -----------------------------------------
     def add(self, x, w=None) -> "SuffStats":
-        """Add one (d,) sample or a (B, d) batch; optional (B,) 0/1
-        weights exclude padding entries from the statistics."""
-        x = torch.atleast_2d(as_tensor(x, self.s.device))
+        """Add one (d,) sample or a (B, d) batch, cast to the accumulator's
+        dtype; optional (B,) 0/1 weights exclude padding entries from the
+        statistics."""
+        x = torch.atleast_2d(as_tensor(x, self.s.device)).to(self.s.dtype)
         if w is None:
             n_add = x.shape[0]
             xw = x
@@ -108,8 +123,9 @@ class SuffStats:
         return new
 
     def add_stack(self, arr, w=None) -> "SuffStats":
-        """Add one array (or (B, ...) batch) to the running stack sum;
-        optional (B,) 0/1 weights exclude padding entries."""
+        """Add one array (or (B, ...) batch) to the running stack sum, the
+        batch summed in one reduction in the stack's dtype; optional (B,)
+        0/1 weights exclude padding entries."""
         arr = as_tensor(arr, self.stack.device)
         if arr.ndim == self.stack.ndim:
             arr = arr[None]
@@ -119,8 +135,9 @@ class SuffStats:
             w = torch.as_tensor(w, dtype=arr.dtype, device=arr.device)
             n_add = w.sum()
             arr = arr * w.reshape((-1,) + (1,) * (arr.ndim - 1))
-        return dataclasses.replace(self, stack=self.stack + arr.sum(dim=0),
-                                   nstack=self.nstack + n_add)
+        return dataclasses.replace(
+            self, stack=self.stack + arr.sum(dim=0, dtype=self.stack.dtype),
+            nstack=self.nstack + n_add)
 
     # ---- reduction -----------------------------------------------------
     def psum(self, group) -> "SuffStats":

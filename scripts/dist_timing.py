@@ -9,11 +9,10 @@ one card:
   all-reduce of the (l, m) matrix) and ``alm2map_dist`` (one all-gather
   of the rings) at lmax 2047 on ``gauss_legendre_rings(2047)``, one map,
   on the same (1, S) mesh, beside the serial folded ``ops.sht`` transforms
-  on one card;
-* ``part: "ensemble"``: ``parallel.runtime.ensemble_stats`` of the
-  flagship step (``entry.build_qe_pipeline`` at 512^2 2') over 256 sims,
-  chunk 16, on an (S, 1) mesh, every rank on ``sims``, and its one
-  all-reduce (``psum_states`` of the reduced statistics) alone.
+  on one card.
+
+``parallel.runtime.ensemble_stats`` over four cards is the benchmark cell
+``lensqe512.ens.x4`` (``python3 -m cmbbench.run``).
 
 Run it under ``torchrun`` on a machine with S NVIDIA GPUs (S = 1 gives the
 one-card times to hold the others against):
@@ -24,11 +23,10 @@ Each rank joins the world through ``parallel.init_multihost`` (NCCL),
 draws the same inputs from seeded generators and checks each distributed
 call against the serial one (``torch.fft.fft2``, the plain bandpowers
 binned on the rank's card, the serial transforms within the dd contract
-3.2e-6 of max, the ensemble's count), then times each call by CUDA events
-after ``WARMUP`` calls: ``WINDOWS`` windows of ``REPS`` calls (one call a
-window for the ensemble), the ranks starting each window together (a
-barrier), a window's time the slowest rank's. Rank 0 prints one JSON line
-per part and size with the card's name and power limit: each time is the
+3.2e-6 of max), then times each call by CUDA events after ``WARMUP``
+calls: ``WINDOWS`` windows of ``REPS`` calls, the ranks starting each
+window together (a barrier), a window's time the slowest rank's. Rank 0
+prints one JSON line per part and size with the card's name and power limit: each time is the
 median window's milliseconds per call, with the fastest and slowest
 windows beside it (``*_range``).
 """
@@ -45,7 +43,6 @@ import torch
 import torch.distributed as dist
 
 from orphics_tpu_torch import rect_geometry
-from orphics_tpu_torch.entry import build_qe_pipeline
 from orphics_tpu_torch.models import grf, theory
 from orphics_tpu_torch.ops import alm as almops
 from orphics_tpu_torch.ops import sht
@@ -53,9 +50,7 @@ from orphics_tpu_torch.ops.windows import get_taper
 from orphics_tpu_torch.parallel import get_mesh, init_multihost
 from orphics_tpu_torch.parallel.fourier import (fft2_dist,
                                                 masked_bandpowers_dist)
-from orphics_tpu_torch.parallel.runtime import ensemble_stats
 from orphics_tpu_torch.parallel.sht import alm2map_dist, map2alm_dist
-from orphics_tpu_torch.parallel.statistics import psum_states
 
 WARMUP = 5
 WINDOWS = 7
@@ -69,10 +64,10 @@ def card_line():
                           check=True).stdout.strip().splitlines()[0]
 
 
-def timed(fn, reps=REPS, warmup=WARMUP):
+def timed(fn):
     """``(median, [fastest, slowest])`` over the windows of the slowest
     rank's mean milliseconds per call of ``fn``."""
-    for _ in range(warmup):
+    for _ in range(WARMUP):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -81,11 +76,11 @@ def timed(fn, reps=REPS, warmup=WARMUP):
         torch.cuda.synchronize()
         dist.barrier()
         start.record()
-        for _ in range(reps):
+        for _ in range(REPS):
             fn()
         stop.record()
         torch.cuda.synchronize()
-        ms = torch.tensor([start.elapsed_time(stop) / reps], device="cuda")
+        ms = torch.tensor([start.elapsed_time(stop) / REPS], device="cuda")
         dist.all_reduce(ms, op=dist.ReduceOp.MAX)
         wins.append(float(ms))
     return float(np.median(wins)), [min(wins), max(wins)]
@@ -149,7 +144,6 @@ def main():
         del m, mc, ks, kd, taper, dig_t
         torch.cuda.empty_cache()
     time_sht(mesh, dev, card, rank, world)
-    time_ensemble(dev, th, card, rank, world)
     dist.destroy_process_group()
 
 
@@ -191,43 +185,6 @@ def time_sht(mesh, dev, card, rank, world):
             "alm2map_dist_rel_err": err_m}), flush=True)
     del a, m, a_ser, a_d, m_d
     torch.cuda.empty_cache()
-
-
-def time_ensemble(dev, th, card, rank, world, nsims=256, chunk=16):
-    """``ensemble_stats`` of the flagship step over ``nsims`` sims, the
-    sims split over every rank, and its all-reduce alone."""
-    mesh = get_mesh(shape=(world, 1))
-    step = build_qe_pipeline(
-        rect_geometry(width_arcmin=512 * 2.0, px_res_arcmin=2.0), th,
-        device=dev)
-    labels = ("cross", "auto_in", "auto_rec")
-
-    def sim(g):
-        return dict(zip(labels, step.step(g)))
-
-    def run():
-        return ensemble_stats(sim, nsims, seed=18, mesh=mesh, chunk=chunk)
-
-    # a 2-sim ensemble first: its all-reduce sets up the communicator
-    ensemble_stats(sim, 2, seed=18, mesh=mesh)
-    st = run()
-    counts = {k: float(st[k].n) for k in labels}
-    if any(abs(c - nsims) > 1e-9 for c in counts.values()):
-        raise RuntimeError(f"ensemble_stats counted {counts}, not {nsims}")
-    ax = mesh.axis("sims")
-    floats = sum(v.numel() for s_ in st.values() for v in (s_.n, s_.s, s_.ss)
-                 if v is not None)
-    ms_e, rg_e = timed(run, reps=1, warmup=1)
-    ms_r, rg_r = timed(lambda: psum_states(st, ax))
-    if rank == 0:
-        print(json.dumps({
-            "part": "ensemble", "nsims": nsims, "chunk": chunk,
-            "ranks": world, "card": card, "windows": WINDOWS,
-            "ensemble_stats_ms": ms_e, "ensemble_stats_ms_range": rg_e,
-            "sims_per_s": nsims / ms_e * 1e3,
-            "all_reduce_ms": ms_r, "all_reduce_ms_range": rg_r,
-            "all_reduce_calls_per_window": REPS,
-            "values_reduced": floats}), flush=True)
 
 
 if __name__ == "__main__":

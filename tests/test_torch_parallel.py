@@ -45,6 +45,7 @@ import jax
 import jax.numpy as jnp
 import torch
 from jax.sharding import Mesh as JMesh
+from torch.profiler import ProfilerActivity, profile
 
 import orphics_tpu.parallel as jpar
 from orphics_tpu import rect_geometry as jrect
@@ -122,6 +123,38 @@ def stack44(g):
     return {"m": torch.randn((4, 4), generator=g, dtype=torch.float64)}
 
 
+def sim_b(g, count):
+    '''The batched form's task: count float32 sims in one call, and a
+    stack of their outer products.'''
+    x = torch.randn((count, 5), generator=g)
+    return ({"x": x, "y": 2.0 * x + 1.0},
+            {"m": x[:, :4, None] * x[:, None, :4]})
+
+
+def sim_b64(g, count):
+    return {"x": torch.randn((count, 4), generator=g, dtype=torch.float64)}
+
+
+BATCHED = ((64, 4), (16, 1), (11, 4), (44, 4))
+
+
+def run_batched(mesh, out):
+    '''The batched form on a mesh: its statistics, and every rank's
+    (chunks, tasks, padded) counts gathered, so that each rank holds the
+    same.'''
+    for nsims, chunk in BATCHED:
+        before = (R.ensemble_stats.chunks, R.ensemble_stats.tasks,
+                  R.ensemble_stats.padded)
+        flat(R.ensemble_stats(sim_b, nsims, seed=9, mesh=mesh, chunk=chunk,
+                              batched=True), f"bat{nsims}_{chunk}", out)
+        counts = torch.tensor([R.ensemble_stats.chunks - before[0],
+                               R.ensemble_stats.tasks - before[1],
+                               R.ensemble_stats.padded - before[2]])
+        out[f"bat{nsims}_{chunk}/counts"] = mesh.axis("sims").all_gather(
+            counts, 0).reshape(-1, 3).numpy()
+    return out
+
+
 def curved_sim(g):
     lmax = 24
     rings = sht.gauss_legendre_rings(lmax)
@@ -176,6 +209,7 @@ def run_cases(m41, m22, m14, inp, ck):
             out[f"{tag}/refused"] = np.asarray(False)
         except ValueError:
             out[f"{tag}/refused"] = np.asarray(True)
+    run_batched(m41, out)
     out.update(run_transforms(m22, m14, inp))
     return out
 
@@ -773,6 +807,152 @@ def test_checkpoint_resume_bitwise(world, tag):
 
 def test_checkpoint_refuses_other_arguments(world):
     assert bool(world[0]["ck/refused"]) and bool(world[0]["cks/refused"])
+
+
+# ---------------------------------------------------------------------------
+# the batched form: one call a chunk, float64 moments
+# ---------------------------------------------------------------------------
+
+def _serial_batched(nsims, chunk, seed=9):
+    """The batched task's statistics as a serial float64 numpy loop over
+    the chunks' streams: per label ``(n, s, ss)``, and the stack sum."""
+    rows = {"x": [], "y": [], "m": []}
+    for c0 in range(0, nsims, chunk):
+        vals, stacks = _ns["sim_b"](R.task_generator(seed, c0, "cpu"), chunk)
+        valid = min(chunk, nsims - c0)
+        for k, v in list(vals.items()) + list(stacks.items()):
+            rows[k].append(v[:valid].double().numpy())
+    out = {}
+    for label in ("x", "y"):
+        v = np.concatenate(rows[label])
+        out[label] = {"n": float(len(v)), "s": v.sum(0), "ss": v.T @ v}
+    out["m"] = np.concatenate(rows["m"]).sum(0)
+    return out
+
+
+@pytest.fixture(scope="module")
+def batched_one_rank():
+    """The batched cases on the one-rank mesh in this process."""
+    return _ns["run_batched"](_one_rank_mesh(), {})
+
+
+@pytest.mark.parametrize("nsims,chunk", _ns["BATCHED"])
+def test_batched_four_ranks_one_rank_serial(world, batched_one_rank, nsims,
+                                            chunk):
+    """The batched form on 4 ranks equals 1 rank and the serial loop over
+    the chunks' streams, within 1e-12 relative, stack included: chunks
+    start at global multiples of ``chunk``, so the ranks do not change
+    which stream a sim comes from; padding rows carry no weight."""
+    ser = _serial_batched(nsims, chunk)
+    tag = f"bat{nsims}_{chunk}"
+    for out in (world[0], batched_one_rank):
+        for label in ("x", "y"):
+            got = _suff(out, tag, label)
+            assert float(got["n"]) == nsims
+            for f in ("s", "ss"):
+                assert _rel(got[f], ser[label][f]) <= TOL_STATS, (label, f)
+        assert float(out[f"{tag}/m/nstack"]) == nsims
+        assert _rel(out[f"{tag}/m/stack"], ser["m"]) <= TOL_STATS
+    for f in ("n", "s", "ss"):
+        assert _rel(world[0][f"{tag}/x/{f}"],
+                    batched_one_rank[f"{tag}/x/{f}"]) <= TOL_STATS
+
+
+@pytest.mark.parametrize("nsims,chunk,chunks,padded", [
+    (11, 4, [1, 1, 1, 1], [0, 0, 1, 4]),
+    (44, 4, [3, 3, 3, 2], [0, 0, 0, 0]),
+    (64, 4, [4, 4, 4, 4], [0, 0, 0, 0])])
+def test_batched_counts_and_padding(world, nsims, chunk, chunks, padded):
+    """Per rank, the chunks run and the padding tasks among them: a rank
+    runs its block's chunks that start before ``nsims`` (the last rank of
+    44 sims skips a chunk of padding alone), and a rank whose block lies
+    past ``nsims`` one chunk of padding; every task counts once."""
+    counts = world[0][f"bat{nsims}_{chunk}/counts"]
+    assert list(counts[:, 0]) == chunks
+    assert list(counts[:, 2]) == padded
+    assert counts[:, 1].sum() == nsims
+    assert list(counts[:, 1] + counts[:, 2]) == [c * chunk for c in chunks]
+
+
+def test_batched_accumulators_are_float64(world, batched_one_rank):
+    """Float32 tasks, float64 moments and stacks."""
+    for out in (world[0], batched_one_rank):
+        for f in ("n", "s", "ss"):
+            assert out[f"bat64_4/x/{f}"].dtype == np.float64, f
+        for f in ("n", "stack", "nstack"):
+            assert out[f"bat64_4/m/{f}"].dtype == np.float64, f
+
+
+def test_batched_chunk_one_is_the_per_task_form():
+    """With ``chunk=1`` the batched form calls ``fn`` on the per-task
+    form's generators: its per-sim outputs are bit-equal to the per-task
+    form's, and, float64 on both sides, so are the moments within
+    float64 rounding."""
+    mesh = _one_rank_mesh()
+    per, bat = [], []
+
+    def task(g):
+        out = _ns["sim5_f32"](g)
+        per.append(out["x"])
+        return out
+
+    def batch(g, count):
+        vals, stacks = _ns["sim_b"](g, count)
+        bat.append(vals["x"][0])
+        return {"x": vals["x"]}, stacks
+
+    R.ensemble_stats(task, 12, seed=4, mesh=mesh, chunk=1)
+    R.ensemble_stats(batch, 12, seed=4, mesh=mesh, chunk=1, batched=True)
+    assert len(per) == len(bat) == 12
+    for a, b in zip(per, bat):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    one = R.ensemble_stats(_ns["sim4"], 12, seed=4, mesh=mesh)["x"]
+    many = R.ensemble_stats(_ns["sim_b64"], 12, seed=4, mesh=mesh, chunk=1,
+                            batched=True)["x"]
+    for f in ("n", "s", "ss"):
+        assert _rel(getattr(many, f).numpy(), getattr(one, f).numpy()) \
+            <= TOL_STATS, f
+
+
+def test_batched_form_refuses_misuse():
+    """A batched fn returns its stacks itself, and ``count`` rows."""
+    mesh = _one_rank_mesh()
+    with pytest.raises(ValueError, match="stack_fn"):
+        R.ensemble_stats(_ns["sim_b"], 4, mesh=mesh, chunk=2, batched=True,
+                         stack_fn=_ns["stack44"])
+    with pytest.raises(ValueError, match="rows"):
+        R.ensemble_stats(lambda g, c: {"x": torch.zeros(c + 1, 2)}, 4,
+                         mesh=mesh, chunk=2, batched=True)
+
+
+def test_ensemble_spans_and_counters(tmp_path):
+    """Under the profiler a campaign is one ``orphics.parallel.
+    ensemble_stats`` range holding a ``tasks`` and an ``accumulate`` range
+    a chunk and one ``allreduce``; the counters count its chunks, tasks,
+    padding and the all-reduce's bytes (one float64 buffer). With no
+    profiler running the statistics are bit-equal."""
+    from test_torch_spans import _tree
+    mesh = _one_rank_mesh()
+    run = lambda: R.ensemble_stats(_ns["sim_b"], 6, seed=2, mesh=mesh,
+                                   chunk=4, batched=True)
+    es, ps = R.ensemble_stats, TS.psum_states
+    before = (es.chunks, es.tasks, es.padded, ps.collectives, ps.bytes)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        traced = run()
+    after = (es.chunks, es.tasks, es.padded, ps.collectives, ps.bytes)
+    chunk = ["parallel.tasks", "parallel.accumulate"]
+    assert _tree(prof, tmp_path / "trace.json") == [
+        ("parallel.ensemble_stats", chunk + chunk + ["parallel.allreduce"])]
+    # x and y: n, 5 sums, 25 outer products; m: n, 16 sums, nstack
+    nbytes = 8 * (2 * (1 + 5 + 25) + (1 + 16 + 1))
+    assert [a - b for a, b in zip(after, before)] == [2, 6, 2, 1, nbytes]
+    plain = run()
+    for label in plain:
+        for f in ("n", "s", "ss", "stack", "nstack"):
+            a, b = getattr(plain[label], f), getattr(traced[label], f)
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert torch.equal(a, b), (label, f)
 
 
 # ---------------------------------------------------------------------------

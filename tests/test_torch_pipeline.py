@@ -30,6 +30,7 @@ from orphics_tpu.models import grf as jgrf, lenspipe as jpipe, theory as jtheory
 import orphics_tpu_torch as tp
 from orphics_tpu_torch import convert, entry
 from orphics_tpu_torch.models import lenspipe as tpipe, theory as ttheory
+from orphics_tpu_torch.ops.bin_reduce import bin_reduce
 
 torch.set_num_threads(1)
 
@@ -273,6 +274,50 @@ def test_pp_step(pp_pipes):
     assert torch.equal(out, again)
     with pytest.raises(ValueError, match="even"):
         tpp.step(3, gen)
+
+
+def _binned_raw_auto(pipe, kr, ki):
+    """``|kappa_hat|^2 norm`` of a ``step_kappa`` output binned as the
+    pipeline bins its spectra, and the pipeline's N0 binned alike."""
+    raw = (kr * kr + ki * ki) * pipe.norm
+    if pipe.impl == "pallas":
+        b = lambda x: (bin_reduce(x.reshape(x.shape[0], -1).contiguous(),
+                                  pipe._idc, pipe._nseg)[:, 1:]
+                       * pipe._icnt)
+        return b(raw), b(pipe.n0_pp[None])[0]
+    return (pipe.binner.bin(raw)[1],
+            pipe.binner.bin(pipe.n0_h[None])[1][0])
+
+
+@pytest.mark.parametrize("path", ["pallas", "xla"])
+def test_step_kappa_hands_out_the_reconstruction(pp_pipes, geoms, theories,
+                                                 path, tmp_path):
+    """``step_kappa`` on a generator seeded as ``step``'s: the same spectra
+    bit for bit, the same span tree (so the same stages and ops wrappers),
+    and reconstruction planes that, squared and binned as the pipeline
+    bins, give its ``auto_rec + N0`` within float32 rounding (1e-5 of the
+    largest bin)."""
+    from test_torch_spans import TREES, _tree
+    from torch.profiler import ProfilerActivity, profile
+    if path == "pallas":
+        pipe, batch, tree = pp_pipes[1], 2, TREES["lenspipe_pp"]
+        shape = (batch, 256, 256)
+    else:
+        pipe = tpipe.LensedQEPipeline(geoms[1], theories[1], lens_order=5,
+                                      device="cpu", **PIPE_KW)
+        batch, tree = 3, TREES["lenspipe_half"]
+        shape = (batch, 64, 33)
+    assert pipe.impl == path
+    gen = lambda: torch.Generator().manual_seed(5)
+    want = pipe.step(batch, gen())
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        got, (kr, ki) = pipe.step_kappa(batch, gen())
+    assert _tree(prof, tmp_path / "trace.json") == tree
+    assert torch.equal(got, want)
+    assert kr.shape == ki.shape == shape
+    raw, n0 = _binned_raw_auto(pipe, kr, ki)
+    ref = want[:, 2] + n0
+    assert (raw - ref).abs().max() <= 1e-5 * ref.abs().max()
 
 
 @pytest.mark.parametrize("shape,impl,want", [
